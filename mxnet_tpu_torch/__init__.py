@@ -1,0 +1,16 @@
+"""mxnet_tpu_torch — the PyTorch + CUDA port of ``mxnet_tpu`` for NVIDIA
+Hopper (H100).
+
+Module paths mirror ``mxnet_tpu`` so each counterpart is found by path.
+The port runs on the CUDA device unless a caller passes ``device="cpu"``
+(:func:`~mxnet_tpu_torch.base.resolve_device`); every TPU kernel on a
+ported path is a hand-written CUDA kernel under ``csrc/``, built with
+``nvcc`` at first use (``ops/build.py``).  The JAX package is the
+reference the port's tests hold it against; the port never imports it.
+
+Ported so far: decode serving of the TransformerLM —
+``transformer`` (config, parameter layout, the KV-cached
+``DecodeProgram``), ``serving`` (``DecodeRunner``, continuous batching,
+``ModelFleet``, the HTTP ``Server``) and the fused LayerNorm kernel
+(``ops.fused_optimizer.fused_layer_norm``).  ROADMAP.md lists the rest.
+"""

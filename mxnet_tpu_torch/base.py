@@ -1,0 +1,38 @@
+"""Base utilities of the PyTorch port: the error type and the device rule.
+
+The counterpart of ``mxnet_tpu/base.py``.  Only what the port uses is
+here: :class:`MXNetError` and :func:`resolve_device`, the one place that
+decides where an entry point runs.  The rule: an entry point runs on the
+CUDA device unless its caller asks for the CPU by name; with no CUDA
+device present, a default or CUDA request raises instead of quietly
+running on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["MXNetError", "resolve_device"]
+
+
+class MXNetError(RuntimeError):
+    """Error raised by the framework (reference: python/mxnet/base.py:83)."""
+
+
+def resolve_device(device=None):
+    """The ``torch.device`` an entry point runs on.
+
+    ``None`` means ``cuda`` (the current CUDA device).  ``"cpu"`` (or a
+    CPU ``torch.device``) is honoured as asked — the CPU tests use it.
+    A CUDA request with no CUDA device raises :class:`MXNetError`."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise MXNetError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "on the host")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise MXNetError("unsupported device %r (want cuda or cpu)"
+                         % (device,))
+    return dev

@@ -1,0 +1,32 @@
+"""mxnet_tpu_torch.serving — the port of ``mxnet_tpu.serving``.
+
+- :class:`~mxnet_tpu_torch.serving.decode.DecodeRunner` — the paged
+  KV-cache prefill/decode ladder on one device;
+- :class:`~mxnet_tpu_torch.serving.decode.DecodeBatcher` — continuous
+  batching with tokens-remaining SLO arithmetic;
+- :class:`~mxnet_tpu_torch.serving.batcher.Batcher` — the deadline-aware
+  batcher for fixed-shape runners;
+- :class:`~mxnet_tpu_torch.serving.fleet.ModelFleet` — named models,
+  packing, breakers, fallback and drain;
+- :class:`~mxnet_tpu_torch.serving.server.Server` — the HTTP front end
+  (``/decode``, ``/predict``, ``/healthz``, ``/livez``, ``/readyz``,
+  ``/stats``, ``/metrics``).
+
+The fixed-shape ``ModelRunner`` (``serving/runner.py``) needs the gluon
+and Module slices and is not ported yet.
+"""
+from __future__ import annotations
+
+from .batcher import (Batcher, ServerBusy, Draining, RequestShed,
+                      TIERS, DEFAULT_TIER, tier_rank, tier_name)
+from .fleet import ModelFleet, CircuitBreaker, BreakerOpen, UnknownModel
+from .server import Server
+from .stats import ServingStats, percentile
+from .decode import (PagePool, NoPagesFree, DecodeRunner, DecodeBatcher,
+                     DecodeStats)
+
+__all__ = ["Batcher", "ServerBusy", "Draining", "RequestShed", "TIERS",
+           "DEFAULT_TIER", "tier_rank", "tier_name", "ModelFleet",
+           "CircuitBreaker", "BreakerOpen", "UnknownModel", "Server",
+           "ServingStats", "percentile", "PagePool", "NoPagesFree",
+           "DecodeRunner", "DecodeBatcher", "DecodeStats"]
