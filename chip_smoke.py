@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mxnet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Three phases; any failure exits non-zero and prints no result line.
+Six phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together), run each kernel's wrapper on
@@ -28,6 +28,43 @@ Three phases; any failure exits non-zero and prints no result line.
 3. **CUDA vs CPU.** One prefill and 8 decode steps of the same weights on
    ``device="cpu"`` (plain versions) against the card: logits within
    atol 1e-4 (f32; matmul reduction orders differ).
+4. **Optimizer kernels.** The fused SGD, SGD+momentum and Adam kernels
+   against their plain versions at the ResNet-50 bucket size (every
+   trainable parameter, one flat f32 bucket), ragged sizes 1, 3, 127,
+   1,000,003 and a view that is not 16-byte aligned, with clipping off
+   and on, wd 0 and 1e-4, rescale_grad and inv_scale != 1, and ok = 0
+   (outputs bitwise the inputs): atol = rtol = 1e-6 (f32; only FMA
+   contraction differs).  Two runs of one input are bitwise equal.
+   Timed at the bucket size as in phase 1; the library yardsticks are
+   ``torch.optim.SGD(momentum=0.9, fused=True)`` / ``SGD(fused=True)`` /
+   ``Adam(fused=True, capturable=True)`` ``.step()`` on one flat tensor
+   of the same size — near-equivalents only (torch's momentum is
+   ``buf = mu*buf + g; w -= lr*buf``).
+5. **Train ResNet-50.** The bench's recipe (``bench.py:483-500``) through
+   the port's entry points: ``vision.resnet50_v1()`` (NCHW, 1000
+   classes), ``initialize(Xavier(), rng=RandomState(0))``,
+   ``DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", lr 0.05,
+   momentum 0.9, wd 1e-4)`` on a fixed random 256 x 3 x 224 x 224 batch
+   (halved on out-of-memory), 3 warm-up and 10 timed steps with torch's
+   default TF32 settings.  Every loss finite, the last below the first,
+   and ``fused_sgd_momentum`` launched exactly steps x buckets times.
+   Then 2 steps each of ``"sgd"`` (momentum 0) and ``"adam"`` on the same
+   net: ``fused_sgd`` and ``fused_adam`` launched 2 x buckets times.
+   ``--profile`` adds a ``torch.profiler`` window of 2 more SGD+momentum
+   steps: device time by kernel category and the device's idle share.
+6. **CUDA vs CPU training.** The same carried weights at full width,
+   batch 2 at 224 x 224, 2 SGD+momentum steps on the card (TF32 off) and
+   with ``device="cpu"``.  The first step's loss (the forward before any
+   update) within atol 1e-4 (f32; conv and BatchNorm reduction orders
+   differ).  After two steps the parameters and moving statistics cannot
+   be held to a fixed tolerance: from Xavier weights at lr 0.05 the first
+   steps are chaotic (moving the input by one ulp moves parameters by
+   ~0.2 after two steps on one CPU), so they are held to 10x the rounding
+   floor measured in the same run — a third, CPU run on the input moved
+   one ulp up.  The same two steps in float64 (``Block.cast``; the
+   update takes the unfused route, the kernels being f32) hold losses,
+   parameters and moving statistics to atol 1e-4: there the rounding
+   floor is far below it.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit from ``nvidia-smi``, and as the last line
@@ -51,10 +88,26 @@ F32_FLOPS_PER_S = 67e12
 
 LN_TOL = 1e-5
 LOGIT_TOL = 1e-4
+OPT_TOL = 1e-6
+TRAIN_TOL = 1e-4
+NOISE_FACTOR = 10
 CFG = dict(vocab_size=256, d_model=128, n_heads=8, n_layers=4, d_ff=512,
            seq_len=1024)
 PAGE_SIZE, SLOTS = 8, 8
 N_REQUESTS, MAX_NEW = 16, 32
+BATCH, WARMUP, TIMED = 256, 3, 10
+SGD_PARAMS = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# (clip_gradient, wd, rescale_grad, inv_scale, ok)
+OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
+             (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
+             (0.5, 1e-4, 0.5, 0.5, 0.0)]
+# wrapper -> (bytes moved per element, f32 operations per element, the
+# TPU kernel it replaces)
+OPT_KERNELS = {
+    "fused_sgd": (12, 5, "mxnet_tpu/ops/fused_optimizer.py:141"),
+    "fused_sgd_momentum": (20, 8, "mxnet_tpu/ops/fused_optimizer.py:151"),
+    "fused_adam": (28, 16, "mxnet_tpu/ops/fused_optimizer.py:165"),
+}
 
 
 def _time_ms(fn, iters=100, replays=10):
@@ -288,6 +341,402 @@ def phase_cpu_parity(cuda_runner, host_params):
           "%.3g (tol %g)" % (steps, worst, LOGIT_TOL))
 
 
+def _bucket_size():
+    """Trainable elements of ``resnet50_v1`` (1000 classes): the one f32
+    bucket the trainer updates (shapes resolved by one CPU forward of a
+    zero-initialized net)."""
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Zero(), ctx="cpu")
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 64, 64))
+    return sum(p.data().numel() for p in net.collect_params().values()
+               if p.grad_req != "null")
+
+
+def _opt_kernel(name, arrays, lr, case):
+    """Wrapper ``name`` on ``(w, g, m, v)``, in place."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    clip, wd, rescale, inv, ok = case
+    kw = dict(wd=wd, rescale_grad=rescale, clip_gradient=clip,
+              inv_scale=inv, ok=ok)
+    w, g, m, v = arrays
+    if name == "fused_sgd":
+        return (fo.fused_sgd(w, g, lr, **kw),)
+    if name == "fused_sgd_momentum":
+        return fo.fused_sgd_momentum(w, g, m, lr, momentum=0.9, **kw)
+    return fo.fused_adam(w, g, m, v, lr, beta1=0.9, beta2=0.999,
+                         epsilon=1e-8, **kw)
+
+
+def _opt_plain(name, arrays, scalars, case):
+    """The plain version of wrapper ``name``: new tensors."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    clip, wd, rescale, _, _ = case
+    kw = dict(wd=wd, rescale_grad=rescale, clip_gradient=clip)
+    w, g, m, v = arrays
+    if name == "fused_sgd":
+        return (fo.fused_sgd_reference(w, g, scalars, **kw),)
+    if name == "fused_sgd_momentum":
+        return fo.fused_sgd_momentum_reference(w, g, m, scalars,
+                                               momentum=0.9, **kw)
+    return fo.fused_adam_reference(w, g, m, v, scalars, beta1=0.9,
+                                   beta2=0.999, epsilon=1e-8, **kw)
+
+
+def _placed(t, offset):
+    """A copy of ``t`` starting ``offset`` floats into a fresh buffer
+    (offset 1: not 16-byte aligned)."""
+    import torch
+    base = torch.empty(t.numel() + offset, device=t.device)
+    out = base[offset:]
+    out.copy_(t)
+    return out
+
+
+def _opt_library(name, w, g):
+    """One PyTorch optimizer step of the same size (a near-equivalent
+    yardstick; the port never calls it)."""
+    import torch
+    p = torch.nn.Parameter(w.clone())
+    p.grad = g.clone()
+    if name == "fused_sgd":
+        opt = torch.optim.SGD([p], lr=0.05, weight_decay=1e-4, fused=True)
+    elif name == "fused_sgd_momentum":
+        opt = torch.optim.SGD([p], lr=0.05, momentum=0.9, weight_decay=1e-4,
+                              fused=True)
+    else:
+        opt = torch.optim.Adam([p], lr=1e-3, weight_decay=1e-4, fused=True,
+                               capturable=True)
+    return opt.step
+
+
+def phase_opt_kernels(bucket):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sizes = [(bucket, 0), (1, 0), (3, 0), (127, 0), (1000003, 0),
+             (1000003, 1)]
+    out = []
+    for name, (per_elem, ops_per_elem, replaces) in OPT_KERNELS.items():
+        lr = 1e-3 if name == "fused_adam" else 0.05
+        worst = 0.0
+        for n, offset in sizes:
+            base = [torch.randn(n, device="cuda", generator=gen)
+                    for _ in range(4)]
+            base[3] = base[3].abs()
+            base = [_placed(a, offset) for a in base]
+            for case in OPT_CASES:
+                s = torch.tensor([lr, case[3], case[4]], device="cuda")
+                want = _opt_plain(name, base, s, case)
+                runs = []
+                for _ in range(2):
+                    work = [_placed(a, offset) for a in base]
+                    runs.append(_opt_kernel(name, work, lr, case))
+                torch.cuda.synchronize()
+                slots = {"fused_sgd": (0,), "fused_sgd_momentum": (0, 2),
+                         "fused_adam": (0, 2, 3)}[name]
+                for got, again, ref, i in zip(runs[0], runs[1], want, slots):
+                    if not torch.equal(got, again):
+                        raise RuntimeError("%s n=%d: two runs differ"
+                                           % (name, n))
+                    torch.testing.assert_close(got, ref, rtol=OPT_TOL,
+                                               atol=OPT_TOL)
+                    worst = max(worst, float((got - ref).abs().max()))
+                    if case[4] == 0.0 and not torch.equal(got, base[i]):
+                        raise RuntimeError("%s n=%d: ok=0 changed the "
+                                           "state" % (name, n))
+        # timing at the bucket size, scalars already on the device
+        w, g, m, v = (torch.randn(bucket, device="cuda", generator=gen)
+                      for _ in range(4))
+        v = v.abs()
+        case = (None, 1e-4, 1.0, torch.tensor(1.0, device="cuda"),
+                torch.tensor(1.0, device="cuda"))
+        lr_t = torch.tensor(lr, device="cuda")
+        s = torch.tensor([lr, 1.0, 1.0], device="cuda")
+        fns = {"kernel": lambda: _opt_kernel(name, (w, g, m, v), lr_t, case),
+               "plain": lambda: _opt_plain(name, (w, g, m, v), s, case),
+               "library": _opt_library(name, w, g)}
+        ms, plain_ms, library_ms = (_time_ms(fns[k], iters=20, replays=5)
+                                    for k in ("kernel", "plain", "library"))
+        eager = tuple(_call_ms(fns[k], iters=20)
+                      for k in ("kernel", "plain", "library"))
+        nbytes, flops = per_elem * bucket, ops_per_elem * bucket
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print("phase 4: %s max_abs_err %.3g over sizes %s x %d cases "
+              "(tol %g), ok=0 bitwise, reruns bitwise"
+              % (name, worst, [n for n, _ in sizes], len(OPT_CASES),
+                 OPT_TOL))
+        print("phase 4: %s (%d,) device time: kernel %.5f ms, plain %.5f "
+              "ms, torch.optim fused %.5f ms; bound %.5f ms (%d bytes, %d "
+              "flops); eager call: %.5f / %.5f / %.5f ms"
+              % ((name, bucket, ms, plain_ms, library_ms, bound_ms, nbytes,
+                  flops) + eager))
+        out.append({"name": name, "route": "cuda",
+                    "source": "mxnet_tpu_torch/csrc/fused_optimizer.cu",
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "library_ms": library_ms})
+        del w, g, m, v, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def _run_steps(trainer, x, y, n):
+    import torch
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = trainer.step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite loss: %r" % losses)
+    return losses, times
+
+
+# kernel-name fragments -> category, first match wins
+PROFILE_CATEGORIES = (
+    ("fused optimizer (B1-B3)", ("sgd_mom_kernel", "sgd_kernel",
+                                 "adam_kernel")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("convolution", ("conv", "xmma", "implicit", "wgrad", "dgrad", "cudnn",
+                     "nchw", "nhwc")),
+    ("matmul", ("gemm", "cutlass")),
+    ("reduction", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_train(trainer, x, y, steps=2):
+    """Device time by kernel category over ``steps`` training steps
+    (``torch.profiler``), and the device's idle share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    trainer.step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    if not kernels:
+        print("phase 5 profile: the profiler recorded no device time; "
+              "not measured")
+        return
+    cats = {}
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, frags in PROFILE_CATEGORIES
+                    if any(f in name for f in frags)), "other")
+        cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
+    print("phase 5 profile: %d steps, wall %.2f ms, device busy %.2f ms, "
+          "idle share %.4f" % (steps, wall_us / 1e3, busy / 1e3,
+                               1 - busy / wall_us))
+    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print("phase 5 profile: %-24s %9.3f ms per step (%.4f of busy)"
+              % (cat, us / steps / 1e3, us / busy))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print("phase 5 profile: kernel %9.3f ms per step x%-5d %s"
+              % (e.self_device_time_total / steps / 1e3,
+                 e.count // steps, e.key[:110]))
+
+
+def phase_train(bucket, profile=False):
+    import gc
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    # torch's defaults: phase 2's DecodeRunner turned TF32 off for the
+    # whole process (ROADMAP.md section C), so they are set again here
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("phase 5: torch defaults cudnn.allow_tf32=%s "
+          "matmul.allow_tf32=%s cudnn.benchmark=%s"
+          % (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark))
+    rng = np.random.RandomState(0)
+    batch = BATCH
+    while True:
+        net = tr = x = y = None
+        try:
+            net = vision.resnet50_v1()
+            net.initialize(initializer.Xavier(),
+                           rng=np.random.RandomState(0))
+            tr = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                     dict(SGD_PARAMS))
+            x = torch.from_numpy(
+                rng.rand(batch, 3, 224, 224).astype(np.float32)).cuda()
+            y = torch.from_numpy(
+                (rng.rand(batch) * 1000).astype(np.int64)).cuda()
+            torch.cuda.reset_peak_memory_stats()
+            fo.reset_launch_counts()
+            losses, times = _run_steps(tr, x, y, WARMUP + TIMED)
+            counts = fo.launch_counts()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+            del net, tr, x, y
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch //= 2
+            print("phase 5: out of memory, batch halved to %d" % batch)
+    peak = torch.cuda.max_memory_allocated()
+    n_buckets = len(tr._groups)
+    got_bucket = tr._w_flat[0].numel()
+    steps = WARMUP + TIMED
+    if got_bucket != bucket or n_buckets != 1:
+        raise RuntimeError("expected one bucket of %d, got %d buckets, the "
+                           "first of %d" % (bucket, n_buckets, got_bucket))
+    if counts["fused_sgd_momentum"] != steps * n_buckets:
+        raise RuntimeError("fused_sgd_momentum launched %d times, want "
+                           "%d" % (counts["fused_sgd_momentum"],
+                                   steps * n_buckets))
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("loss did not fall on the repeated batch: %r"
+                           % losses)
+    timed = np.asarray(times[WARMUP:])
+    print("phase 5: resnet50_v1 batch %d, %d trainable params in %d "
+          "bucket(s); losses %s" % (batch, got_bucket, n_buckets,
+                                     ["%.4f" % v for v in losses]))
+    print("phase 5: %.1f images/s over %d timed steps; step p50 %.2f ms, "
+          "p99 %.2f ms; warm-up steps %s ms; peak memory %.2f GiB"
+          % (batch * TIMED / (timed.sum() / 1e3), TIMED,
+             np.percentile(timed, 50), np.percentile(timed, 99),
+             ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30))
+    print("phase 5: launches %s (fused_sgd_momentum = %d steps x %d "
+          "bucket)" % (counts, steps, n_buckets))
+    launches = {"fused_sgd_momentum": counts["fused_sgd_momentum"]}
+    if profile:
+        profile_train(tr, x, y)
+    del tr
+    gc.collect()
+    for name, params, wrapper in (
+            ("sgd", {"learning_rate": 0.05, "wd": 1e-4}, "fused_sgd"),
+            ("adam", {"learning_rate": 1e-3, "wd": 1e-4}, "fused_adam")):
+        t2 = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), name,
+                                 params)
+        fo.reset_launch_counts()
+        ls, ts = _run_steps(t2, x, y, 2)
+        c = fo.launch_counts()
+        if c[wrapper] != 2 * len(t2._groups):
+            raise RuntimeError("%s launched %d times, want %d"
+                               % (wrapper, c[wrapper], 2 * len(t2._groups)))
+        launches[wrapper] = c[wrapper]
+        print("phase 5: %r 2 steps, losses %s, step ms %s, %s launches %d"
+              % (name, ["%.4f" % v for v in ls], ["%.1f" % t for t in ts],
+                 wrapper, c[wrapper]))
+        del t2
+        gc.collect()
+    del net, x, y
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _worst_param_diff(a, b):
+    """(max |a - b| over every parameter and moving statistic, its name
+    relative to the block prefix)."""
+    from mxnet_tpu_torch.gluon.utils import relative_names
+    pa, pb = a.collect_params(), b.collect_params()
+    ra = relative_names(list(pa.keys()), a.prefix)
+    rb = relative_names(list(pb.keys()), b.prefix)
+    return max((float((pa[name].data().detach().cpu().double()
+                       - pb[rb[rel]].data().detach().cpu().double())
+                      .abs().max()), rel) for rel, name in ra.items())
+
+
+def phase_train_parity():
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), ctx="cpu",
+                   rng=np.random.RandomState(1))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224))
+    arrays = {n: p.data().detach().numpy().copy()
+              for n, p in net.collect_params().items()}
+    rng = np.random.RandomState(2)
+    x = rng.rand(2, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, 2)
+
+    def train(device, xx, dtype="float32"):
+        n = from_jax_params(vision.resnet50_v1(), arrays, device=device)
+        n.cast(dtype)
+        tr = DataParallelTrainer(n, SoftmaxCrossEntropyLoss(), "sgd",
+                                 dict(SGD_PARAMS), device=device)
+        losses = [float(tr.step(xx.astype(dtype), y)) for _ in range(2)]
+        if not np.isfinite(losses).all():
+            raise RuntimeError("non-finite loss on %s: %r" % (device,
+                                                            losses))
+        return n, losses
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu, l_cpu = train("cpu", x)
+        gpu, l_gpu = train(None, x)
+        # the rounding floor: the same CPU run on an input one ulp up
+        ulp, l_ulp = train("cpu", np.nextafter(x, np.float32(np.inf)))
+        cpu64, l_cpu64 = train("cpu", x, "float64")
+        gpu64, l_gpu64 = train(None, x, "float64")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    first = abs(l_cpu[0] - l_gpu[0])
+    d_gpu, at_gpu = _worst_param_diff(cpu, gpu)
+    d_ulp, at_ulp = _worst_param_diff(cpu, ulp)
+    d_64, at_64 = _worst_param_diff(cpu64, gpu64)
+    dl_64 = max(abs(a - b) for a, b in zip(l_cpu64, l_gpu64))
+    print("phase 6: resnet50_v1 batch 2 x 224^2, 2 SGD+momentum steps, TF32 "
+          "off; f32 losses cpu %s, cuda %s, cpu one ulp up %s"
+          % tuple(["%.6f" % v for v in ls] for ls in (l_cpu, l_gpu, l_ulp)))
+    print("phase 6: f32: first-step loss CUDA vs CPU %.3g (tol %g); after 2 "
+          "steps max |dparam| CUDA vs CPU %.3g (%s), rounding floor %.3g "
+          "(%s), allowed %g x floor"
+          % (first, TRAIN_TOL, d_gpu, at_gpu, d_ulp, at_ulp, NOISE_FACTOR))
+    print("phase 6: f64: losses cpu %s, cuda %s; max |dloss| %.3g, max "
+          "|dparam| %.3g (%s) (tol %g)"
+          % (["%.9f" % v for v in l_cpu64], ["%.9f" % v for v in l_gpu64],
+             dl_64, d_64, at_64, TRAIN_TOL))
+    if first > TRAIN_TOL:
+        raise RuntimeError("f32 first-step loss differs by %.3g > %g"
+                           % (first, TRAIN_TOL))
+    if d_gpu > max(NOISE_FACTOR * d_ulp, TRAIN_TOL):
+        raise RuntimeError("f32 parameters differ by %.3g, more than %g x "
+                           "the rounding floor %.3g"
+                           % (d_gpu, NOISE_FACTOR, d_ulp))
+    if dl_64 > TRAIN_TOL or d_64 > TRAIN_TOL:
+        raise RuntimeError("f64 CUDA vs CPU training differs: loss %.3g, "
+                           "params %.3g (tol %g)" % (dl_64, d_64, TRAIN_TOL))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -308,6 +757,15 @@ def main():
         runner, host_params, counts = phase_serve()
         kernel["launches"] = counts[kernel["name"]]
         phase_cpu_parity(runner, host_params)
+        del runner
+        bucket = _bucket_size()
+        print("phase 4: resnet50_v1 has %d trainable parameters (one "
+              "f32 bucket)" % bucket)
+        opt_kernels = phase_opt_kernels(bucket)
+        launches = phase_train(bucket, profile="--profile" in sys.argv)
+        for k in opt_kernels:
+            k["launches"] = launches[k["name"]]
+        phase_train_parity()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -317,7 +775,7 @@ def main():
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + opt_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

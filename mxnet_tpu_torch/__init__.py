@@ -12,5 +12,10 @@ Ported so far: decode serving of the TransformerLM —
 ``transformer`` (config, parameter layout, the KV-cached
 ``DecodeProgram``), ``serving`` (``DecodeRunner``, continuous batching,
 ``ModelFleet``, the HTTP ``Server``) and the fused LayerNorm kernel
-(``ops.fused_optimizer.fused_layer_norm``).  ROADMAP.md lists the rest.
+(``ops.fused_optimizer.fused_layer_norm``); and training of ResNet v1 —
+``gluon`` (blocks, parameters, layers, loss, model zoo, weight
+carry-over), ``initializer``, ``optimizer``, ``lr_scheduler``,
+``context`` and the single-device ``parallel.DataParallelTrainer``,
+whose update runs the fused SGD / SGD+momentum / Adam kernels
+(``ops.fused_optimizer``).  ROADMAP.md lists the rest.
 """

@@ -1,0 +1,7 @@
+"""Gluon layers of the port (reference: ``mxnet_tpu/gluon/nn``)."""
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic
+from .conv_layers import __all__ as _conv
+
+__all__ = list(_basic) + list(_conv)

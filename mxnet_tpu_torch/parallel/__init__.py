@@ -1,4 +1,6 @@
-"""Parallel layouts of the port (the collapsed single-device plan)."""
+"""Parallel tiers of the port: the collapsed single-device ``MeshPlan``
+and the single-device replicated ``DataParallelTrainer``."""
 from .mesh import MeshPlan
+from .trainer import DataParallelTrainer
 
-__all__ = ["MeshPlan"]
+__all__ = ["MeshPlan", "DataParallelTrainer"]

@@ -1,10 +1,12 @@
-"""mxnet_tpu_torch.ops: the fused LayerNorm against the reference's Pallas
-kernel, and the port's import hygiene.
+"""mxnet_tpu_torch.ops: the fused LayerNorm and the fused optimizer updates
+(SGD, SGD+momentum, Adam) against the reference's Pallas kernels, the
+Xavier draw, the optimizer registry, and the port's import hygiene.
 
 - On the CPU the port's wrapper runs its plain version; it is held to
   ``mxnet_tpu.ops.fused_optimizer.fused_layer_norm``, which on the CPU
   runs the Pallas kernel in interpret mode.  Tolerance 1e-5 (f32): the
-  two sum each row in another order, nothing else differs.
+  two sum each row in another order, nothing else differs.  The
+  optimizer updates are held the same way at 1e-6 (see OPT_TOL).
 - On a CUDA device (``cuda`` marker; skipped without one) the CUDA kernel
   is held to the plain version on the same inputs.
 - The port imports neither ``jax`` nor anything of ``mxnet_tpu``.
@@ -71,6 +73,30 @@ def test_device_rule_cpu_only_when_asked(monkeypatch):
             resolve_device(dev)
 
 
+def test_context_maps_to_torch_devices(monkeypatch):
+    from mxnet_tpu_torch import context
+    assert context.cpu() == context.cpu(3) == torch.device("cpu")
+    with context.use(context.cpu()):
+        assert context.current_context() == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (context.gpu, context.current_context):
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            call()
+    assert context.num_gpus() == 0
+
+
+@pytest.mark.parametrize("kind,args", [
+    ("FactorScheduler", (3, 0.5)), ("MultiFactorScheduler", ([2, 5], 0.1)),
+    ("PolyScheduler", (8,)), ("CosineScheduler", (8, 0.1, 0.01, 2))])
+def test_lr_schedulers_match_reference(kind, args):
+    from mxnet_tpu import lr_scheduler as jsched
+    from mxnet_tpu_torch import lr_scheduler as tsched
+    js, ts = getattr(jsched, kind)(*args), getattr(tsched, kind)(*args)
+    got = [ts(t) for t in range(12)]
+    assert got == [js(t) for t in range(12)]
+    assert len(set(got)) > 1
+
+
 @pytest.mark.cuda
 def test_fused_ln_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
@@ -84,6 +110,174 @@ def test_fused_ln_kernel_matches_plain_on_cuda():
         assert F.launch_counts()["fused_layer_norm"] == before + 1
         want = F.layer_norm_reference(x, s, b)
         torch.testing.assert_close(got, want, rtol=LN_TOL, atol=LN_TOL)
+
+
+# -- fused optimizer updates (B1-B3) -------------------------------------------
+# Tolerance 1e-6 absolute (f32): the port's plain version and the Pallas
+# kernel in interpret mode compute one expression in one order; only the
+# scalar constants' rounding path (python double vs traced f32) differs.
+OPT_TOL = 1e-6
+OPT_SIZES = [1, 129, 70001]
+# (clip_gradient, wd, rescale_grad, inv_scale, ok)
+OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
+             (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
+             (0.5, 1e-4, 0.5, 0.5, 0.0)]
+OPT_KINDS = ["sgd", "sgd_momentum", "adam"]
+# each kind's wrapper (its launch counter) and the operands it updates
+WRAPPER = {"sgd": "fused_sgd", "sgd_momentum": "fused_sgd_momentum",
+           "adam": "fused_adam"}
+IN_PLACE = {"sgd": (0,), "sgd_momentum": (0, 2), "adam": (0, 2, 3)}
+
+
+def _opt_inputs(p, seed, zero=False):
+    rng = np.random.RandomState(seed)
+    w, g, m = (rng.randn(p).astype(np.float32) for _ in range(3))
+    v = np.abs(rng.randn(p)).astype(np.float32)
+    if zero:
+        w, g, m, v = (np.zeros(p, np.float32) for _ in range(4))
+    return w, g, m, v
+
+
+def _run_both(kind, arrays, lr, case):
+    """(reference outputs, port outputs), each a tuple of numpy arrays."""
+    clip, wd, rescale, inv, ok = case
+    kw = dict(wd=wd, rescale_grad=rescale, clip_gradient=clip,
+              inv_scale=inv, ok=ok)
+    j = [jnp.asarray(a) for a in arrays]
+    t = [torch.from_numpy(a.copy()) for a in arrays]
+    if kind == "sgd":
+        want = (jax_fused.fused_sgd(j[0], j[1], lr, interpret=True, **kw),)
+        got = (F.fused_sgd(t[0], t[1], lr, **kw),)
+    elif kind == "sgd_momentum":
+        want = jax_fused.fused_sgd_momentum(j[0], j[1], j[2], lr,
+                                            momentum=0.9, interpret=True,
+                                            **kw)
+        got = F.fused_sgd_momentum(t[0], t[1], t[2], lr, momentum=0.9,
+                                   **kw)
+    else:
+        want = jax_fused.fused_adam(*j, lr, beta1=0.9, beta2=0.999,
+                                    epsilon=1e-8, interpret=True, **kw)
+        got = F.fused_adam(*t, lr, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                           **kw)
+    # the port updates in place: it returns the w, m, v tensors it got
+    assert all(a is t[i] for a, i in zip(got, IN_PLACE[kind]))
+    return [np.asarray(a) for a in want], [a.numpy() for a in got]
+
+
+@pytest.mark.parametrize("case", OPT_CASES,
+                         ids=["plain", "clip_wd", "rescale", "inv_scale",
+                              "skip"])
+@pytest.mark.parametrize("p", OPT_SIZES)
+@pytest.mark.parametrize("kind", OPT_KINDS)
+def test_fused_optimizer_matches_pallas_reference(kind, p, case):
+    arrays = _opt_inputs(p, seed=p % 97 + len(kind))
+    lr = 0.05 if kind != "adam" else 0.0031
+    before = F.launch_counts()[WRAPPER[kind]]
+    want, got = _run_both(kind, arrays, lr, case)
+    for a, b in zip(got, want):
+        assert a.shape == (p,) and a.dtype == np.float32
+        np.testing.assert_allclose(a, b, rtol=0, atol=OPT_TOL)
+    if case[-1] == 0.0:      # ok = 0: a bitwise no-op in both packages
+        for a, b, i in zip(got, want, IN_PLACE[kind]):
+            assert np.array_equal(a, arrays[i])
+            assert np.array_equal(b, arrays[i])
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert F.launch_counts()[WRAPPER[kind]] == before
+
+
+@pytest.mark.parametrize("kind", OPT_KINDS)
+def test_fused_optimizer_zero_state_stays_zero(kind):
+    arrays = _opt_inputs(257, seed=0, zero=True)
+    _, got = _run_both(kind, arrays, 0.1, (0.5, 1e-4, 1.0, 1.0, 1.0))
+    assert all(not a.any() for a in got)
+
+
+def test_fused_optimizer_update_resolves_mults_and_adam_rate():
+    """``fused_optimizer_update`` against the reference's, through each
+    package's own SGD / Adam: lr_mult / wd_mult of a group index and the
+    host-side bias-corrected Adam rate at t = 3."""
+    import mxnet_tpu.optimizer as jopt
+    from mxnet_tpu_torch import optimizer as topt
+    w, g, m, v = _opt_inputs(1000, seed=7)
+    for name, kw, t in (("sgd", {"momentum": 0.9, "wd": 1e-3}, 1),
+                        ("adam", {"wd": 1e-3, "clip_gradient": 0.2}, 3)):
+        jo, to = jopt.create(name, **kw), topt.create(name, **kw)
+        for o in (jo, to):
+            o.lr_mult[0], o.wd_mult[0] = 0.5, 2.0
+        js = jnp.asarray(m) if name == "sgd" else (jnp.asarray(m),
+                                                   jnp.asarray(v))
+        ts = torch.from_numpy(m.copy()) if name == "sgd" else (
+            torch.from_numpy(m.copy()), torch.from_numpy(v.copy()))
+        jw, _ = jax_fused.fused_optimizer_update(
+            jo, 0, jnp.asarray(w), jnp.asarray(g), js, jnp.float32(0.01),
+            jnp.int32(t), interpret=True)
+        tw, _ = F.fused_optimizer_update(to, 0, torch.from_numpy(w.copy()),
+                                         torch.from_numpy(g), ts, 0.01, t)
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0,
+                                   atol=OPT_TOL)
+
+
+def test_xavier_draw_bitwise_equal_to_reference():
+    import mxnet_tpu.initializer as jinit
+    from mxnet_tpu import nd
+    from mxnet_tpu_torch import initializer as tinit
+    shape = (64, 32, 3, 3)
+    np.random.seed(123)
+    ref = nd.zeros(shape)
+    jinit.Xavier()(jinit.InitDesc("conv0_weight"), ref)
+    got = np.empty(shape, np.float32)
+    tinit.Xavier()(tinit.InitDesc("conv0_weight"), got,
+                   np.random.RandomState(123))
+    assert np.array_equal(got, ref.asnumpy())
+    with pytest.raises(MXNetError, match="rng="):
+        tinit.Xavier()(tinit.InitDesc("w_weight"), got)
+
+
+def test_optimizer_registry_names_the_roadmap_item():
+    from mxnet_tpu_torch import optimizer as topt
+    assert type(topt.create("SGD", momentum=0.9)).__name__ == "SGD"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+        topt.create("nag")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        topt.create("sgd", multi_precision=True)
+    with pytest.raises(MXNetError, match="Cannot find"):
+        topt.create("no_such_optimizer")
+
+
+@pytest.mark.cuda
+def test_fused_optimizer_kernels_match_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for kind in OPT_KINDS:
+        for p in OPT_SIZES:
+            for case in OPT_CASES:
+                clip, wd, rescale, inv, ok = case
+                arrays = [torch.from_numpy(a).cuda()
+                          for a in _opt_inputs(p, seed=p)]
+                s = torch.tensor([0.01, inv, ok], device="cuda")
+                kw = dict(wd=wd, rescale_grad=rescale, clip_gradient=clip)
+                ckw = dict(kw, inv_scale=inv, ok=ok)
+                work = [a.clone() for a in arrays]
+                before = F.launch_counts()[WRAPPER[kind]]
+                if kind == "sgd":
+                    want = (F.fused_sgd_reference(*arrays[:2], s, **kw),)
+                    got = (F.fused_sgd(*work[:2], 0.01, **ckw),)
+                elif kind == "sgd_momentum":
+                    want = F.fused_sgd_momentum_reference(
+                        *arrays[:3], s, momentum=0.9, **kw)
+                    got = F.fused_sgd_momentum(*work[:3], 0.01,
+                                               momentum=0.9, **ckw)
+                else:
+                    want = F.fused_adam_reference(
+                        *arrays, s, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                        **kw)
+                    got = F.fused_adam(*work, 0.01, beta1=0.9, beta2=0.999,
+                                       epsilon=1e-8, **ckw)
+                torch.cuda.synchronize()
+                assert F.launch_counts()[WRAPPER[kind]] == before + 1
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a, b, rtol=OPT_TOL,
+                                               atol=OPT_TOL)
 
 
 # -- import hygiene ------------------------------------------------------------
