@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Six phases; any failure exits non-zero and prints no result line.
+Nine phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together), run each kernel's wrapper on
@@ -66,9 +66,37 @@ Six phases; any failure exits non-zero and prints no result line.
    parameters and moving statistics to atol 1e-4: there the rounding
    floor is far below it.
 
-Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line, the
-card's name and power limit from ``nvidia-smi``, and as the last line
-``{"ok": true, "device": {...}}``.
+7. **Flash kernels.** The forward (``flash_forward_with_lse``), ``flash_dq``
+   and ``flash_dkv`` kernels against their plain versions at the training
+   path's pairings (512 x 512 chunks at D = 16: causal over BH = 512,
+   full over BH = 256), ragged (3, 997 x 1000, 64) causal and full,
+   (2, 1 x 1, 16) and (4, 300 x 300, 128) causal: out and lse within
+   atol = rtol = 1e-5 (f32; only the summation order differs), dq/dk/dv
+   from a seeded dO within 1e-4 (they sum over T); two runs bitwise
+   equal.  Timed per layer (both pairings) with CUDA events around eager
+   calls, beside the bound and the library yardstick
+   ``scaled_dot_product_attention`` (f32; its backward through one
+   ``torch.autograd.grad`` stands for dq and dk/dv together).
+8. **Train the TransformerLM.** The configuration above through
+   ``DataParallelTrainer(TransformerLM(cfg), None, "sgd", lr 0.1,
+   momentum 0.9, mesh_plan=MeshPlan(sequence=2))``: ring attention over a
+   sequence axis of 2 (the ranks a leading dimension on the card), batches
+   of 32 x 1024 tokens cut from the bench's seeded Markov corpus, 3
+   warm-up and 10 timed steps with torch's default precision.  Every loss
+   finite, the last below the first, each flash kernel launched steps x
+   layers x 2 hops times and the LayerNorm kernel >= steps x (2 x layers
+   + 1).  ``--profile`` adds the ``torch.profiler`` breakdown.
+9. **Held on the card.** The same ``init_params(0)`` weights, 2 steps on
+   one batch of 2 x 1024 tokens three ways: ``MeshPlan(sequence=2)`` on
+   CUDA and on ``device="cpu"``, and the collapsed ``MeshPlan()`` (local
+   attention, no flash kernel) on CUDA.  Losses CUDA vs CPU within 1e-4,
+   sequence=2 vs collapsed within 2e-5 (the reference's own tolerance),
+   parameters after 2 steps within 2e-5 both ways.
+
+Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
+flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
+pairings), the card's name and power limit from ``nvidia-smi``, and as
+the last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -97,6 +125,12 @@ PAGE_SIZE, SLOTS = 8, 8
 N_REQUESTS, MAX_NEW = 16, 32
 BATCH, WARMUP, TIMED = 256, 3, 10
 SGD_PARAMS = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# slice 3: the TransformerLM's training batch and optimizer, and the
+# tolerances of phases 7 and 9
+TRAIN_LM_BATCH = 32
+LM_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-5, 1e-4
+LM_LOSS_TOL_DEVICE, LM_LOSS_TOL_SEQ, LM_PARAM_TOL = 1e-4, 2e-5, 2e-5
 # (clip_gradient, wd, rescale_grad, inv_scale, ok)
 OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
              (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
@@ -513,9 +547,19 @@ PROFILE_CATEGORIES = (
     ("pooling", ("pool",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+# the TransformerLM step runs no convolution: every GEMM is a matmul
+LM_PROFILE_CATEGORIES = (
+    ("flash attention (B5-B7)", ("flash_fwd_kernel", "flash_dq_kernel",
+                                 "flash_dkv_kernel")),
+    ("layer norm (B4)", ("ln_fwd",)),
+    ("matmul", ("gemm", "cutlass")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
 
 
-def profile_train(trainer, x, y, steps=2):
+def profile_train(trainer, x, y, steps=2, label="phase 5",
+                  categories=PROFILE_CATEGORIES):
     """Device time by kernel category over ``steps`` training steps
     (``torch.profiler``), and the device's idle share of the window."""
     import torch
@@ -535,24 +579,24 @@ def profile_train(trainer, x, y, steps=2):
                and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        print("phase 5 profile: the profiler recorded no device time; "
-              "not measured")
+        print("%s profile: the profiler recorded no device time; "
+              "not measured" % label)
         return
     cats = {}
     for e in kernels:
         name = e.key.lower()
-        cat = next((c for c, frags in PROFILE_CATEGORIES
+        cat = next((c for c, frags in categories
                     if any(f in name for f in frags)), "other")
         cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
-    print("phase 5 profile: %d steps, wall %.2f ms, device busy %.2f ms, "
-          "idle share %.4f" % (steps, wall_us / 1e3, busy / 1e3,
+    print("%s profile: %d steps, wall %.2f ms, device busy %.2f ms, "
+          "idle share %.4f" % (label, steps, wall_us / 1e3, busy / 1e3,
                                1 - busy / wall_us))
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print("phase 5 profile: %-24s %9.3f ms per step (%.4f of busy)"
-              % (cat, us / steps / 1e3, us / busy))
+        print("%s profile: %-24s %9.3f ms per step (%.4f of busy)"
+              % (label, cat, us / steps / 1e3, us / busy))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print("phase 5 profile: kernel %9.3f ms per step x%-5d %s"
-              % (e.self_device_time_total / steps / 1e3,
+        print("%s profile: kernel %9.3f ms per step x%-5d %s"
+              % (label, e.self_device_time_total / steps / 1e3,
                  e.count // steps, e.key[:110]))
 
 
@@ -565,14 +609,12 @@ def phase_train(bucket, profile=False):
     from mxnet_tpu_torch.ops import fused_optimizer as fo
     from mxnet_tpu_torch.parallel import DataParallelTrainer
 
-    # torch's defaults: phase 2's DecodeRunner turned TF32 off for the
-    # whole process (ROADMAP.md section C), so they are set again here
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("phase 5: torch defaults cudnn.allow_tf32=%s "
-          "matmul.allow_tf32=%s cudnn.benchmark=%s"
+    print("phase 5: precision flags as found: cudnn.allow_tf32=%s "
+          "matmul.allow_tf32=%s float32_matmul_precision=%s "
+          "cudnn.benchmark=%s"
           % (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision(),
              torch.backends.cudnn.benchmark))
     rng = np.random.RandomState(0)
     batch = BATCH
@@ -737,6 +779,344 @@ def phase_train_parity():
                            "params %.3g (tol %g)" % (dl_64, d_64, TRAIN_TOL))
 
 
+# -- slice 3: TransformerLM training with ring attention ----------------------
+# the path's flash pairings per layer at K = 2, batch 32, 8 heads, T = 1024:
+# (BH, Tq, Tk, D, causal) — hop 0 is the diagonal for both ranks, hop 1
+# the full pairing of rank 1 with chunk 0
+FLASH_PATH = [(2 * TRAIN_LM_BATCH * 8, 512, 512, 16, True),
+              (TRAIN_LM_BATCH * 8, 512, 512, 16, False)]
+FLASH_CHECK = FLASH_PATH + [(3, 997, 1000, 64, True),
+                            (3, 997, 1000, 64, False), (2, 1, 1, 16, True),
+                            (4, 300, 300, 128, True)]
+# wrapper -> (TPU kernel replaced, f32 operations per visible (q, k) pair
+# and head-dim element; each pair adds one expf)
+FLASH_KERNELS = {
+    "flash_forward_with_lse": ("mxnet_tpu/ops/pallas_kernels.py:62", 4),
+    "flash_dq": ("mxnet_tpu/ops/pallas_kernels.py:171", 6),
+    "flash_dkv": ("mxnet_tpu/ops/pallas_kernels.py:226", 8),
+}
+
+
+def _pairs(tq, tk, causal):
+    """The (q, k) pairs a row-block must visit: q >= k when causal."""
+    if not causal:
+        return tq * tk
+    full = min(tq, tk)
+    return full * (full + 1) // 2 + max(0, tq - tk) * tk
+
+
+def _flash_bound(name, cases):
+    """(bound ms, bound_by, flops, bytes) of kernel ``name`` over the
+    flash pairings ``cases``: each input read once, each output written
+    once; FMAs as 2 operations, one expf per visible pair."""
+    flops = nbytes = 0
+    for bh, tq, tk, d, causal in cases:
+        pairs = _pairs(tq, tk, causal)
+        flops += bh * pairs * (FLASH_KERNELS[name][1] * d + 1)
+        qside, kside = bh * tq * d, bh * tk * d
+        if name == "flash_forward_with_lse":
+            nbytes += 4 * (2 * qside + 2 * kside + bh * tq)
+        elif name == "flash_dq":
+            nbytes += 4 * (3 * qside + 2 * kside + 2 * bh * tq)
+        else:
+            nbytes += 4 * (2 * qside + 4 * kside + 2 * bh * tq)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+
+
+def _event_ms(fn, iters=20):
+    """Device time of one ``fn()`` between CUDA events over ``iters``
+    eager calls (each call is long against the host's launch cost, so the
+    queue stays ahead of the host)."""
+    import torch
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flash_inputs(case, gen):
+    import torch
+    bh, tq, tk, d, causal = case
+    q, do = (torch.randn(bh, tq, d, device="cuda", generator=gen)
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, device="cuda", generator=gen)
+            for _ in range(2))
+    return q, k, v, do, causal, d ** -0.5
+
+
+def _sdpa_backend(q, k, v, causal):
+    """The name of the attention kernel ``scaled_dot_product_attention``
+    ran for these inputs (from one profiled call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        torch.cuda.synchronize()
+    names = sorted((e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0),
+                   key=lambda e: -e.self_device_time_total)
+    return names[0].key[:90] if names else "not measured"
+
+
+def phase_flash_kernels():
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
+    for case in FLASH_CHECK:
+        q, k, v, do, causal, scale = _flash_inputs(case, gen)
+        want_o, want_lse = pk.flash_forward_with_lse_reference(
+            q, k, v, causal, scale)
+        delta = pk.flash_delta(want_o, do)
+        args = (q, k, v, do, want_lse, delta, causal, scale)
+        want_dq = pk.flash_dq_reference(*args)
+        want_dk, want_dv = pk.flash_dkv_reference(*args)
+        runs = [(pk.flash_forward_with_lse(q, k, v, causal, scale),
+                 pk.flash_dq(*args), pk.flash_dkv(*args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        flat = [torch.cat([t.flatten() for t in r[0] + (r[1],) + r[2]])
+                for r in runs]
+        if not torch.equal(flat[0], flat[1]):
+            raise RuntimeError("flash kernels %s: two runs differ"
+                               % (case,))
+        (o, lse), dq, (dk, dv) = runs[0]
+        errs = []
+        for name, got, want, tol in (
+                ("flash_forward_with_lse", o, want_o, FLASH_FWD_TOL),
+                ("flash_forward_with_lse", lse, want_lse, FLASH_FWD_TOL),
+                ("flash_dq", dq, want_dq, FLASH_BWD_TOL),
+                ("flash_dkv", dk, want_dk, FLASH_BWD_TOL),
+                ("flash_dkv", dv, want_dv, FLASH_BWD_TOL)):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            errs.append(float((got - want).abs().max()))
+            worst[name] = max(worst[name], errs[-1])
+        print("phase 7: %s out/lse/dq/dk/dv max_abs_err %s, reruns bitwise"
+              % (case, ["%.3g" % e for e in errs]))
+        del q, k, v, do, want_o, want_lse, delta, want_dq, want_dk, want_dv
+        del runs, flat, o, lse, dq, dk, dv, args
+        torch.cuda.empty_cache()
+
+    # timing at the path's shapes: one layer's pairings (hop 0 + hop 1)
+    ins = [_flash_inputs(c, gen) for c in FLASH_PATH]
+    bwd = []
+    for q, k, v, do, causal, scale in ins:
+        o, lse = pk.flash_forward_with_lse_reference(q, k, v, causal, scale)
+        bwd.append((q, k, v, do, lse, pk.flash_delta(o, do), causal, scale))
+    kernel = {
+        "flash_forward_with_lse": lambda: [pk.flash_forward_with_lse(
+            *a[:3], a[6], a[7]) for a in bwd],
+        "flash_dq": lambda: [pk.flash_dq(*a) for a in bwd],
+        "flash_dkv": lambda: [pk.flash_dkv(*a) for a in bwd]}
+    plain = {
+        "flash_forward_with_lse": lambda: [
+            pk.flash_forward_with_lse_reference(*a[:3], a[6], a[7])
+            for a in bwd],
+        "flash_dq": lambda: [pk.flash_dq_reference(*a) for a in bwd],
+        "flash_dkv": lambda: [pk.flash_dkv_reference(*a) for a in bwd]}
+    # the library yardstick: scaled_dot_product_attention on (1, BH, T, D)
+    lib_in = [tuple(t[None].clone().requires_grad_() for t in a[:3])
+              + (a[3][None], a[6]) for a in bwd]
+    backend = [_sdpa_backend(*a[:3], a[4]) for a in lib_in]
+    with torch.no_grad():
+        lib_fwd = _event_ms(lambda: [F.scaled_dot_product_attention(
+            *a[:3], is_causal=a[4]) for a in lib_in])
+    outs = [F.scaled_dot_product_attention(*a[:3], is_causal=a[4])
+            for a in lib_in]
+    lib_bwd = _event_ms(lambda: [torch.autograd.grad(
+        o, a[:3], a[3], retain_graph=True) for o, a in zip(outs, lib_in)])
+    library = {"flash_forward_with_lse": lib_fwd, "flash_dq": lib_bwd,
+               "flash_dkv": lib_bwd}
+    out = []
+    for name, (replaces, _) in FLASH_KERNELS.items():
+        ms = _event_ms(kernel[name])
+        plain_ms = _event_ms(plain[name], iters=5)
+        bound_ms, bound_by, flops, nbytes = _flash_bound(name, FLASH_PATH)
+        print("phase 7: %s per layer %s: kernel %.5f ms, plain %.5f ms, "
+              "library %.5f ms%s; bound %.5f ms (%s: %d flops, %d bytes); "
+              "%.1f %% of the bound"
+              % (name, FLASH_PATH, ms, plain_ms, library[name],
+                 " (B6+B7 together)" if name != "flash_forward_with_lse"
+                 else "", bound_ms, bound_by, flops, nbytes,
+                 100 * bound_ms / ms))
+        out.append({"name": name, "route": "cuda",
+                    "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": worst[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library[name]})
+    print("phase 7: library scaled_dot_product_attention (f32) ran %s"
+          % backend)
+    print("phase 7: tolerances out/lse %g, dq/dk/dv %g; worst %s"
+          % (FLASH_FWD_TOL, FLASH_BWD_TOL,
+             {k: "%.3g" % v for k, v in worst.items()}))
+    del ins, bwd, lib_in, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _markov_corpus(vocab, length, seed=7):
+    """The bench's seeded Markov corpus (``mxnet_tpu/transformer/
+    bench.py:31-40``): each token's successor is a fixed permutation 80 %
+    of the time, uniform otherwise."""
+    rng = np.random.RandomState(seed)
+    succ = rng.permutation(vocab)
+    out = np.empty(length, np.int32)
+    tok = 0
+    for i in range(length):
+        out[i] = tok
+        tok = int(succ[tok]) if rng.rand() < 0.8 \
+            else int(rng.randint(vocab))
+    return out
+
+
+def _lm_batches(n, batch, seed=11):
+    corpus = _markov_corpus(CFG["vocab_size"], 1 << 16)
+    rng = np.random.RandomState(seed)
+    hi = len(corpus) - CFG["seq_len"] - 1
+    out = []
+    for _ in range(n):
+        starts = rng.randint(0, hi, size=batch)
+        out.append((np.stack([corpus[s:s + CFG["seq_len"]] for s in starts]),
+                    np.stack([corpus[s + 1:s + CFG["seq_len"] + 1]
+                              for s in starts])))
+    return out
+
+
+def _lm_trainer(plan, device=None):
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
+    return DataParallelTrainer(
+        TransformerLM(TransformerLMConfig(**CFG, attention="ring")), None,
+        "sgd", dict(LM_SGD), mesh_plan=plan, device=device)
+
+
+def phase_train_lm(profile=False):
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.parallel import MeshPlan
+
+    print("phase 8: precision flags as found: matmul.allow_tf32=%s "
+          "float32_matmul_precision=%s"
+          % (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision()))
+    k_ranks = 2
+    steps = WARMUP + TIMED
+    batches = [tuple(torch.from_numpy(a).cuda() for a in b)
+               for b in _lm_batches(steps, TRAIN_LM_BATCH)]
+    tr = _lm_trainer(MeshPlan(sequence=k_ranks))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    fo.reset_launch_counts()
+    losses, times = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        loss = tr.step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    flash, ln = pk.launch_counts(), fo.launch_counts()["fused_layer_norm"]
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite loss: %r" % losses)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("loss did not fall: %r" % losses)
+    want = steps * CFG["n_layers"] * k_ranks
+    if any(flash[n] != want for n in FLASH_KERNELS):
+        raise RuntimeError("flash launches %s, want %d each (steps x layers "
+                           "x hops)" % (flash, want))
+    if ln < steps * (2 * CFG["n_layers"] + 1):
+        raise RuntimeError("fused_layer_norm launched %d times, want >= %d"
+                           % (ln, steps * (2 * CFG["n_layers"] + 1)))
+    if tr._mesh_program.attention_mode != "ring":
+        raise RuntimeError("attention mode %s"
+                           % tr._mesh_program.attention_mode)
+    timed = np.asarray(times[WARMUP:])
+    tokens = TRAIN_LM_BATCH * CFG["seq_len"]
+    print("phase 8: TransformerLM %s, MeshPlan(sequence=%d), batch %d x %d "
+          "tokens; losses %s" % (CFG, k_ranks, TRAIN_LM_BATCH, CFG["seq_len"],
+                                 ["%.4f" % v for v in losses]))
+    print("phase 8: %.1f tokens/s over %d timed steps; step p50 %.2f ms, "
+          "p99 %.2f ms; warm-up steps %s ms; peak memory %.3f GiB (%.3f "
+          "GiB of it held before the first step)"
+          % (tokens * TIMED / (timed.sum() / 1e3), TIMED,
+             np.percentile(timed, 50), np.percentile(timed, 99),
+             ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30,
+             held / 2 ** 30))
+    print("phase 8: launches %s = %d steps x %d layers x %d hops each; "
+          "fused_layer_norm %d (>= %d)" % (flash, steps, CFG["n_layers"],
+                                           k_ranks, ln,
+                                           steps * (2 * CFG["n_layers"] + 1)))
+    if profile:
+        x, y = batches[-1]
+        profile_train(tr, x, y, label="phase 8",
+                      categories=LM_PROFILE_CATEGORIES)
+    del tr, batches
+    torch.cuda.empty_cache()
+    return flash
+
+
+def phase_train_lm_parity():
+    import torch
+    from mxnet_tpu_torch.parallel import MeshPlan
+
+    (x, y), = _lm_batches(1, 2, seed=13)
+    runs = {}
+    for key, plan, device in (("seq2_cuda", MeshPlan(sequence=2), None),
+                              ("seq2_cpu", MeshPlan(sequence=2), "cpu"),
+                              ("collapsed_cuda", MeshPlan(), None)):
+        tr = _lm_trainer(plan, device)
+        losses = [float(tr.step(x, y)) for _ in range(2)]
+        if not np.isfinite(losses).all():
+            raise RuntimeError("%s: non-finite loss %r" % (key, losses))
+        runs[key] = (losses, tr.mesh_params())
+        del tr
+    torch.cuda.empty_cache()
+
+    def diff(a, b):
+        dl = max(abs(p - q) for p, q in zip(runs[a][0], runs[b][0]))
+        dp = max((float(np.abs(runs[a][1][n] - runs[b][1][n]).max()), n)
+                 for n in runs[a][1])
+        return dl, dp
+
+    (dl_dev, dp_dev), (dl_seq, dp_seq) = (diff("seq2_cuda", "seq2_cpu"),
+                                          diff("seq2_cuda", "collapsed_cuda"))
+    print("phase 9: 2 steps on batch 2 x %d, losses %s"
+          % (CFG["seq_len"], {k: ["%.7f" % v for v in r[0]]
+                              for k, r in runs.items()}))
+    print("phase 9: sequence=2 CUDA vs CPU: max |dloss| %.3g (tol %g), max "
+          "|dparam| %.3g (%s) (tol %g)" % (dl_dev, LM_LOSS_TOL_DEVICE,
+                                           dp_dev[0], dp_dev[1],
+                                           LM_PARAM_TOL))
+    print("phase 9: sequence=2 vs collapsed on the card: max |dloss| %.3g "
+          "(tol %g), max |dparam| %.3g (%s) (tol %g)"
+          % (dl_seq, LM_LOSS_TOL_SEQ, dp_seq[0], dp_seq[1], LM_PARAM_TOL))
+    if dl_dev > LM_LOSS_TOL_DEVICE or dl_seq > LM_LOSS_TOL_SEQ:
+        raise RuntimeError("losses differ: CUDA vs CPU %.3g, sequence=2 vs "
+                           "collapsed %.3g" % (dl_dev, dl_seq))
+    if dp_dev[0] > LM_PARAM_TOL or dp_seq[0] > LM_PARAM_TOL:
+        raise RuntimeError("parameters differ: CUDA vs CPU %.3g, "
+                           "sequence=2 vs collapsed %.3g"
+                           % (dp_dev[0], dp_seq[0]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -766,6 +1146,11 @@ def main():
         for k in opt_kernels:
             k["launches"] = launches[k["name"]]
         phase_train_parity()
+        flash_kernels = phase_flash_kernels()
+        flash = phase_train_lm(profile="--profile" in sys.argv)
+        for k in flash_kernels:
+            k["launches"] = flash[k["name"]]
+        phase_train_lm_parity()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -775,7 +1160,7 @@ def main():
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
-    print(json.dumps({"kernels": [kernel] + opt_kernels}))
+    print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ of that module:
 - :func:`fused_adam` → ``mxtt_fused_adam`` (``_fused_adam_kernel``,
   ``:165``);
 - :func:`fused_layer_norm` → ``csrc/fused_ln.cu`` (``_fused_ln_kernel``,
-  ``:315``), forward only.
+  ``:315``) for the forward; a ``torch.autograd.Function`` whose backward
+  is the reference's ``_ln_bwd`` (``:367-382``, XLA there) in plain torch.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain torch
 version (the ``*_reference`` function beside it, the same arithmetic in
@@ -312,7 +313,7 @@ def fused_optimizer_update(opt, index, w_flat, g_flat, state, lr, t,
 
 
 # ---------------------------------------------------------------------------
-# fused LayerNorm (forward only; the backward waits for ROADMAP A8)
+# fused LayerNorm: the kernel forward, the reference's backward
 # ---------------------------------------------------------------------------
 def layer_norm_reference(x, scale, bias, eps=1e-5):
     """The plain version: ``(x - mu) * rsqrt(var + eps) * scale + bias``
@@ -366,11 +367,49 @@ def _launch_ln(x, scale, bias, eps):
     return out
 
 
-def fused_layer_norm(x, scale, bias, eps=1e-5):
-    """LayerNorm over the last dim: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor.  Any leading shape."""
-    if x.device.type == "cuda":
-        return _launch_ln(x, scale, bias, eps)
-    if x.device.type == "cpu":
+def _ln_bwd(x, scale, g, eps):
+    """``(dx, dscale, dbias)``: the reference's ``_ln_bwd``
+    (``fused_optimizer.py:367-382``), recomputing mean and rstd from
+    ``x`` (the forward saves no statistics), ``dscale``/``dbias`` summed
+    over every leading dim."""
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = xc * rstd
+    red = tuple(range(x.dim() - 1))
+    dbias = g.sum(dim=red)
+    dscale = (g * xhat).sum(dim=red)
+    dxhat = g * scale
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx, dscale, dbias
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``_ln_core`` of the reference: the kernel (or its plain version on
+    the CPU) forward, saving ``(x, scale)`` only."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cuda":
+            return _launch_ln(x, scale, bias, eps)
         return layer_norm_reference(x, scale, bias, eps)
-    raise MXNetError("fused_layer_norm: unsupported device %s" % x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = _ln_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, dbias, None
+
+
+def fused_layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last dim, differentiable: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor, and the reference's
+    backward on either.  Any leading shape."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise MXNetError("fused_layer_norm: unsupported device %s"
+                         % x.device)
+    return _LayerNorm.apply(x, scale, bias, float(eps))

@@ -1,11 +1,23 @@
 """MeshPlan: the ``data × model × sequence × pipe`` declaration.
 
-The counterpart of ``MeshPlan`` in ``mxnet_tpu/parallel/mesh.py``, for
-the collapsed single-device plan the port runs today.  The arithmetic
-(``size``/``present``/``resolve``/``coerce``/``describe``) is the
-reference's; what a plan may hold is narrower: a ``model`` axis above 1
-needs the tensor-parallel layers over NCCL, which are not ported yet
-(ROADMAP queue A, "model-axis sharding over NCCL"), so it raises.
+The counterpart of ``MeshPlan`` in ``mxnet_tpu/parallel/mesh.py``.  The
+arithmetic (``size``/``present``/``total``/``axis_sizes``/
+``batch_axes``/``resolve``/``coerce``/``describe``) is the reference's;
+what a plan may hold, and where its ranks live, is narrower:
+
+- The port runs a plan on **one device**.  The ranks of its ``sequence``
+  axis are a leading dimension of size K of the activations — the
+  ``vmap(axis_name="sequence")`` spelling of the reference's
+  per-replica program: ``ppermute`` is ``torch.roll`` along that
+  dimension, ``pmean`` a mean over it, ``axis_index`` an ``arange``.
+  The numbers are those of the reference's plan; no O(T/K) memory per
+  card is claimed.  Spreading the ranks over cards with NCCL is
+  ROADMAP.md queue A, items 6-7.
+- ``data`` therefore resolves to 1; a plan with ``data > 1`` can be
+  declared, but :meth:`MeshPlan.on_one_device` (which the trainer calls)
+  raises, naming item 6 (distributed data parallel).
+- ``model > 1`` raises: the tensor-parallel layers over NCCL are item 7.
+- ``pipeline > 1`` raises: the 1F1B pipeline is the rest of item 8.
 """
 from __future__ import annotations
 
@@ -33,8 +45,12 @@ class MeshPlan:
         if self.model > 1:
             raise NotImplementedError(
                 "MeshPlan(model=%d): model-axis sharding over NCCL is not "
-                "ported yet (ROADMAP queue A, model-axis sharding)"
-                % self.model)
+                "ported yet (ROADMAP.md queue A, item 7)" % self.model)
+        if self.pipe > 1:
+            raise NotImplementedError(
+                "MeshPlan(pipeline=%d): the 1F1B pipeline is not ported yet "
+                "(ROADMAP.md queue A, item 8, parallel/pipeline.py)"
+                % self.pipe)
 
     @classmethod
     def coerce(cls, plan):
@@ -76,9 +92,26 @@ class MeshPlan:
         return MeshPlan(data=n_devices // ms, model=self.model,
                         sequence=self.sequence, pipeline=self.pipe)
 
+    def on_one_device(self):
+        """The plan as the port runs it: every rank on one device, so a
+        deferred ``data`` axis resolves to 1; ``data > 1`` raises."""
+        if self.size("data") > 1:
+            raise NotImplementedError(
+                "MeshPlan(data=%d): the port runs a plan's ranks on one "
+                "device; data parallelism over NCCL is ROADMAP.md queue A, "
+                "item 6" % self.data)
+        return self if self.data is not None else MeshPlan(
+            data=1, model=self.model, sequence=self.sequence,
+            pipeline=self.pipe)
+
     def size(self, axis):
         v = getattr(self, axis)
         return 1 if v is None else int(v)
+
+    @property
+    def total(self):
+        return (self.size("data") * self.model * self.sequence
+                * self.pipe)
 
     def present(self, axis):
         """True when ``axis`` survives collapse (size > 1)."""
@@ -89,6 +122,15 @@ class MeshPlan:
         degenerate plan keeps a single size-1 ``data`` axis."""
         names = tuple(a for a in self.AXES if self.present(a))
         return names or ("data",)
+
+    def axis_sizes(self):
+        """Collapsed ``{axis: size}``."""
+        return {a: self.size(a) for a in self.axis_names()}
+
+    def batch_axes(self):
+        """The axes a (batch, tokens) batch is sharded over — what the
+        gradient mean covers; ``("sequence",)`` or ``()`` in the port."""
+        return tuple(a for a in ("data", "sequence") if self.present(a))
 
     def describe(self):
         return {"data": self.size("data"), "model": self.model,

@@ -1,5 +1,5 @@
-"""DataParallelTrainer: the port of the single-device replicated tier of
-``mxnet_tpu/parallel/trainer.py``.
+"""DataParallelTrainer: the port of the single-device replicated tier and
+the mesh tier of ``mxnet_tpu/parallel/trainer.py``.
 
 One ``step(x, y)`` runs the block forward in training mode, the loss's
 ``.mean()`` backward, then ``_apply_groups``: the optimizer update of
@@ -19,8 +19,19 @@ or split per step.  The reference concatenates instead
 keeps one group per parameter and the unfused route
 (``parallel.functional.functional_optimizer_update``).
 
-The mesh, kvstore, ZeRO, multi-axis, mixed-precision, gradient
-accumulation and input-transform tiers of the reference raise
+**The mesh tier** (``mesh_plan=``, ``sequence_parallel=``, or a block
+with ``mesh_program``, as ``trainer.py:119-151``): a mesh-program block
+(``transformer.TransformerLM``) trains through the step of
+``transformer/step.py`` on ``(B, seq_len)`` token batches.  The plan's
+``sequence`` ranks run as a leading rank dimension on the one device
+(``parallel/mesh.py``), so ring attention and its flash kernels run on
+every hop with the reference's chunk shapes.  Parameters are
+``init_params()`` of the program, on the device; each has its own
+optimizer state from ``create_state`` and is updated by
+``functional_optimizer_update`` (``trainer.py:764-778``).
+
+The data-mesh, kvstore, ZeRO, model-axis, pipeline, mixed-precision,
+gradient accumulation and input-transform tiers of the reference raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch
 from ..base import MXNetError, resolve_device
 from ..ops import fused_optimizer as _fused
 from .functional import functional_optimizer_update
+from .mesh import MeshPlan
 
 __all__ = ["DataParallelTrainer"]
 
@@ -38,13 +50,21 @@ __all__ = ["DataParallelTrainer"]
 def _unported(arg, item):
     raise NotImplementedError(
         "DataParallelTrainer(%s=...) is not ported yet: ROADMAP.md queue A, "
-        "item %s; the port trains one device, replicated, in f32" % (arg,
-                                                                    item))
+        "item %s; the port trains on one device in f32" % (arg, item))
 
 
 def _as_tensor(v, device):
     t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
     return t.to(device, non_blocking=True)
+
+
+def _state_leaves(state):
+    """An optimizer state's tensors: none, one, or a tuple's."""
+    if state is None:
+        return ()
+    if isinstance(state, (tuple, list)):
+        return tuple(state)
+    return (state,)
 
 
 class DataParallelTrainer:
@@ -53,9 +73,12 @@ class DataParallelTrainer:
     Parameters
     ----------
     block : gluon.Block, initialized on ``device`` (deferred shapes are
-        resolved at the first step).
+        resolved at the first step), or a mesh-program block
+        (``transformer.TransformerLM``) for the mesh tier.
     loss : gluon.loss.Loss or callable(pred, label) -> per-sample loss.
     optimizer : str or Optimizer; ``optimizer_params`` go to ``create``.
+    mesh_plan / sequence_parallel : the mesh tier (module docstring);
+        ``model_parallel > 1`` raises (item 7).
     device : where the step runs; ``None`` means CUDA (raising without a
         card), ``"cpu"`` the host.
     """
@@ -72,11 +95,6 @@ class DataParallelTrainer:
                  "parallel)"),
                 ("kvstore", kvstore, "6 (distributed data parallel)"),
                 ("zero", zero or None, "6 (ZeRO-1)"),
-                ("mesh_plan", mesh_plan, "7 (model-axis sharding)"),
-                ("model_parallel", model_parallel, "7 (model-axis "
-                 "sharding)"),
-                ("sequence_parallel", sequence_parallel, "8 (transformer "
-                 "training)"),
                 ("grad_accum", None if grad_accum in (None, 1)
                  else grad_accum, "6 (distributed data parallel)"),
                 ("input_transform", input_transform, "3 (data pipeline)")):
@@ -85,6 +103,21 @@ class DataParallelTrainer:
         if dtype not in (None, "float32", "f32", "fp32", np.float32,
                          torch.float32):
             _unported("dtype", "5 (mixed precision)")
+        # the mesh tier (trainer.py:125-138): a plan routes a
+        # mesh-program block through transformer/step.py
+        plan = MeshPlan.coerce(mesh_plan)
+        if plan is None and (model_parallel or sequence_parallel):
+            plan = MeshPlan(model=model_parallel or 1,
+                            sequence=sequence_parallel or 1)
+        if plan is None and hasattr(block, "mesh_program"):
+            plan = MeshPlan()
+        if plan is not None and not hasattr(block, "mesh_program"):
+            raise ValueError(
+                "mesh_plan/model_parallel/sequence_parallel train a "
+                "mesh-program block (mxnet_tpu_torch.transformer."
+                "TransformerLM); %r does not implement mesh_program()"
+                % type(block).__name__)
+        self._plan = None if plan is None else plan.on_one_device()
         self._device = resolve_device(device)
         self._block = block
         self._loss = loss
@@ -191,6 +224,8 @@ class DataParallelTrainer:
         device, not synchronized)."""
         x = _as_tensor(data, self._device)
         y = _as_tensor(label, self._device)
+        if self._plan is not None:
+            return self._step_mesh_tier(x, y)
         if not self._ready:
             self._setup(x)
         self._step_count += 1
@@ -211,6 +246,91 @@ class DataParallelTrainer:
             block.train(was)
         self._apply_groups(lr, self._step_count)
         return loss.detach()
+
+    # -- the mesh tier --------------------------------------------------------
+    @property
+    def mesh_plan(self):
+        return self._plan
+
+    def _setup_mesh(self):
+        """The program, its parameters on the device and per-parameter
+        optimizer state (``trainer.py:780-866``, without ZeRO)."""
+        from ..transformer import step as _tstep
+        program = self._block.mesh_program(self._plan)
+        self._mesh_program = program
+        params = program.init_params()
+        self._mesh_param_names = list(program.param_names)
+        self._mesh_params = {
+            name: torch.tensor(params[name], device=self._device,
+                               requires_grad=True)
+            for name in self._mesh_param_names}
+        templates, leaf_counts, leaves = [], [], []
+        for i, name in enumerate(self._mesh_param_names):
+            state = self._opt.create_state_multi_precision(
+                i, self._mesh_params[name].detach())
+            templates.append(state)
+            leaf_counts.append(len(_state_leaves(state)))
+            leaves.extend(_state_leaves(state))
+        self._mesh_state_leaves = tuple(leaves)
+        opt = self._opt
+
+        def apply_update(i, w, g, state_leaves, lr, t):
+            state = templates[i]
+            if isinstance(state, (tuple, list)):
+                state = tuple(state_leaves)
+            elif state is not None:
+                state = state_leaves[0]
+            nw, ns = functional_optimizer_update(opt, i, w, g, state, lr, t)
+            return nw, _state_leaves(ns)
+
+        self._mesh_grad_fn, self._mesh_update_fn = _tstep.build_parts(
+            program, apply_update, leaf_counts)
+        self._ready = True
+
+    def _step_mesh_tier(self, x, y):
+        """One mesh-tier step: the (B, T) batch cut into the ``(K, B,
+        T/K)`` rank chunks, the grads part, then the update written back
+        into the parameters and states in place."""
+        if not self._ready:
+            self._setup_mesh()
+        seq_len = self._mesh_program.cfg.seq_len
+        if x.dim() != 2 or x.shape[1] != seq_len or y.shape != x.shape \
+                or x.dtype.is_floating_point or y.dtype.is_floating_point:
+            raise ValueError(
+                "mesh-tier batches are (batch, tokens) int32 with "
+                "tokens == cfg.seq_len (%d); got shape %r (labels %r, %s)"
+                % (seq_len, tuple(x.shape), tuple(y.shape), x.dtype))
+        k_ranks = self._plan.size("sequence")
+
+        def chunks(t):
+            return t.long().reshape(t.shape[0], k_ranks,
+                                    seq_len // k_ranks).transpose(0, 1)
+
+        self._step_count += 1
+        self._opt.num_update = self._step_count
+        lr = (self._opt.lr_scheduler(self._step_count)
+              if self._opt.lr_scheduler else self._opt.lr)
+        vals = tuple(self._mesh_params[n] for n in self._mesh_param_names)
+        grads, loss = self._mesh_grad_fn(vals, chunks(x), chunks(y))
+        new_vals, new_leaves = self._mesh_update_fn(
+            vals, self._mesh_state_leaves, grads, lr, self._step_count)
+        with torch.no_grad():
+            for w, nw in zip(vals, new_vals):
+                w.copy_(nw)
+            for leaf, nl in zip(self._mesh_state_leaves, new_leaves):
+                leaf.copy_(nl)
+        return loss
+
+    def mesh_params(self):
+        """The trained parameters, name -> float32 ndarray in
+        ``MeshProgram.param_names`` order — the layout ``init_params``
+        produces and ``DecodeRunner`` consumes (``trainer.py:1129``)."""
+        if getattr(self, "_mesh_params", None) is None:
+            raise RuntimeError(
+                "mesh_params() needs the mesh tier set up (train at "
+                "least one step with mesh_plan=...)")
+        return {name: self._mesh_params[name].detach().cpu().numpy().copy()
+                for name in self._mesh_param_names}
 
     def flush(self):
         """Block until every step dispatched to the device has run."""

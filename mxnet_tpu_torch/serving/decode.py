@@ -169,10 +169,13 @@ class DecodeRunner:
         if not isinstance(program, DecodeProgram):
             program = DecodeProgram(program)
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # the port is held to the reference in float32: no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        if torch.get_float32_matmul_precision() != "highest":
+            # the runner is held to the reference in full float32; it
+            # reads the process's setting and never changes it
+            raise MXNetError(
+                "DecodeRunner needs float32 matmuls at full precision: "
+                "torch.get_float32_matmul_precision() is %r, not 'highest'"
+                % torch.get_float32_matmul_precision())
         self.program = program
         self.page_size = program.page_size
         self.pages_per_seq = program.pages_per_seq

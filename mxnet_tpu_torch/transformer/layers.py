@@ -2,24 +2,32 @@
 for a plan with no ``model`` axis.
 
 The JAX module spells each Megatron-sharded layer per replica with its
-collectives over ``model``.  The port runs the collapsed plan only
-(``MeshPlan`` refuses ``model > 1`` until NCCL sharding lands), where
-every collective is the identity: :func:`complete_psum`,
-:func:`copy_to_model` and :func:`row_parallel_out`'s reduction pass the
-value through, and :func:`vocab_parallel_embedding` is a plain gather.
-The functions keep their names and signatures so the decode program
-reads line for line like the reference.
+collectives over ``model``.  The port collapses that axis (``MeshPlan``
+refuses ``model > 1`` until NCCL sharding lands), where every
+collective is the identity: :func:`complete_psum`, :func:`copy_to_model`
+and :func:`row_parallel_out`'s reduction pass the value through,
+:func:`vocab_parallel_embedding` is a plain gather and
+:func:`vocab_parallel_cross_entropy` a plain stable cross entropy.  The
+functions keep their names and signatures so the programs read line for
+line like the reference.
+
+The ``sequence`` axis is the leading rank dimension of the activations
+(``parallel/mesh.py``): :func:`sequence_offset` gives every rank's first
+global position at once.
 
 :func:`layer_norm` routes to ``ops.fused_optimizer.fused_layer_norm`` on
 every device — the CUDA kernel on the card, its plain version on the
-CPU.  ``vocab_parallel_cross_entropy`` is training and waits.
+CPU, the reference's backward on both.
 """
 from __future__ import annotations
+
+import torch
 
 from ..ops.fused_optimizer import fused_layer_norm
 
 __all__ = ["layer_norm", "column_parallel_dense", "row_parallel_out",
-           "copy_to_model", "complete_psum", "vocab_parallel_embedding"]
+           "copy_to_model", "complete_psum", "vocab_parallel_embedding",
+           "vocab_parallel_cross_entropy", "sequence_offset"]
 
 
 def complete_psum(x, plan, axis="model"):
@@ -58,3 +66,22 @@ def row_parallel_out(partial, plan, bias=None):
 def vocab_parallel_embedding(table_local, ids, plan):
     """Gather rows of the ``(V, d)`` table for token ids."""
     return table_local[ids]
+
+
+def sequence_offset(plan, t_local, device=None):
+    """Global position of each sequence rank's first token, ``(K,)``: the
+    axis shards tokens in order, so rank r starts at ``r * t_local`` (the
+    stacked spelling of ``axis_index("sequence") * t_local``)."""
+    return torch.arange(plan.size("sequence"), device=device) * t_local
+
+
+def vocab_parallel_cross_entropy(logits_local, labels, plan):
+    """Per-token causal-LM loss ``logsumexp(logits) - logits[label]``
+    over the full vocab (the ``model`` axis is collapsed), with the
+    reference's stable spelling: the max is stopped from the gradient
+    (its gradient cancels exactly)."""
+    m = logits_local.max(dim=-1).values.detach()
+    sumexp = torch.exp(logits_local - m[..., None]).sum(dim=-1)
+    picked = torch.gather(logits_local, -1,
+                          labels.long()[..., None])[..., 0]
+    return torch.log(sumexp) + m - picked

@@ -1,25 +1,34 @@
-"""Transformer LM configuration and parameter layout of the port.
+"""Transformer LM of the port: ``mxnet_tpu/transformer/model.py``.
 
-The counterpart of ``mxnet_tpu/transformer/model.py``:
-:class:`TransformerLMConfig`, and :class:`MeshProgram`'s parameter
-names, shapes and deterministic initializer.  ``init_params`` draws from
+:class:`TransformerLMConfig`; :class:`TransformerLM`, the config carrier
+``DataParallelTrainer(mesh_plan=...)`` trains; and :class:`MeshProgram`:
+parameter names, shapes, the deterministic initializer and the
+per-replica training loss.  ``init_params`` draws from
 ``numpy.random.RandomState`` in the reference's exact order
 (``model.py:233-281``), so the same seed gives bitwise-equal arrays in
 both packages.  :func:`from_jax_params` turns the JAX package's
 parameters (numpy arrays in ``MeshProgram`` layout — what its
 ``init_params`` or a decode checkpoint holds) into the port's tensors.
 
-The per-replica training loss (``loss_replica``) and the stacked
-pipeline layout belong to the training slice and are not ported yet.
+The per-replica program runs every rank of the plan's ``sequence`` axis
+at once, as a leading rank dimension of size K (``parallel/mesh.py``):
+:meth:`MeshProgram.loss_replica` takes ``(K, B, T/K)`` token chunks and
+returns the K per-rank losses.  Positions are global (rank r starts at
+``r * T/K``), and attention crosses ranks through ring or Ulysses
+attention (``parallel/ring_attention.py``).  The ``model`` axis is
+collapsed (item 7) and the stage-stacked ``blk_*`` pipeline layout is
+not ported (item 8): ``MeshPlan`` refuses either axis.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
+import torch.nn.functional as F
 
 from ..base import resolve_device
 
-__all__ = ["TransformerLMConfig", "MeshProgram", "from_jax_params"]
+__all__ = ["TransformerLMConfig", "TransformerLM", "MeshProgram",
+           "from_jax_params"]
 
 
 class TransformerLMConfig:
@@ -60,6 +69,41 @@ class TransformerLMConfig:
                  "seq_len", "attention", "init_seed", "microbatches")}
 
 
+class TransformerLM:
+    """The block handed to ``DataParallelTrainer(mesh_plan=...)`` — a
+    thin config carrier implementing the mesh-program protocol the
+    trainer's mesh tier consumes (``mesh_program(plan)``)."""
+
+    def __init__(self, cfg):
+        if not isinstance(cfg, TransformerLMConfig):
+            cfg = TransformerLMConfig(**cfg)
+        self.cfg = cfg
+
+    def mesh_program(self, plan):
+        return MeshProgram(self.cfg, plan)
+
+
+def _attention_mode(cfg, plan):
+    """The ring-vs-Ulysses decision rule (reference ``model.py:94-113``):
+    Ulysses needs the head count to divide by the sequence-axis size;
+    ``auto`` prefers it when legal, ring otherwise; ``local`` with the
+    axis collapsed."""
+    if not plan.present("sequence"):
+        return "local"
+    h_local = cfg.n_heads // plan.size("model")
+    divides = h_local % plan.size("sequence") == 0
+    if cfg.attention == "ulysses":
+        if not divides:
+            raise ValueError(
+                "ulysses attention needs local heads (%d) divisible by "
+                "the sequence axis (%d); use attention='ring'"
+                % (h_local, plan.size("sequence")))
+        return "ulysses"
+    if cfg.attention == "auto" and divides:
+        return "ulysses"
+    return "ring"
+
+
 # one transformer block's parameter kinds, in declaration order — the
 # order init_params draws them in (the bitwise same-seed contract)
 _LAYER_KINDS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
@@ -67,17 +111,17 @@ _LAYER_KINDS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
 
 
 class MeshProgram:
-    """One (config, plan) pair's parameter layout and initializer, for the
-    collapsed plan (no model, sequence or pipe axis)."""
+    """One (config, plan) pair's parameter layout, initializer and
+    per-replica loss, for plans with a ``sequence`` axis of any size and
+    the ``model`` and ``pipe`` axes collapsed."""
 
     def __init__(self, cfg, plan):
-        for axis in ("model", "sequence", "pipe"):
-            if plan.present(axis):
-                raise NotImplementedError(
-                    "MeshProgram: the %r axis is not ported yet "
-                    "(ROADMAP queue A)" % axis)
+        if cfg.seq_len % plan.size("sequence"):
+            raise ValueError("seq_len %d must divide by the sequence "
+                             "axis %d" % (cfg.seq_len, plan.size("sequence")))
         self.cfg = cfg
         self.plan = plan
+        self.attention_mode = _attention_mode(cfg, plan)
         d, h, e, f, v = (cfg.d_model, cfg.n_heads, cfg.head_dim,
                          cfg.d_ff, cfg.vocab_size)
         layer = [("ln1_scale", (d,)), ("ln1_bias", (d,)),
@@ -130,9 +174,96 @@ class MeshProgram:
             out[name] = self._init_leaf(rng, cfg, name, self._shapes[name])
         return out
 
+    # -- layout -----------------------------------------------------------
+    def global_shape(self, name):
+        return self._shapes[name]
+
+    def local_shape(self, name):
+        """The per-replica shape: every parameter is replicated over the
+        axes the port runs, so it is the global shape."""
+        return self._shapes[name]
+
+    def local_batch_shape(self, global_batch):
+        """``(batch, tokens)`` of one replica's chunk."""
+        return (global_batch // self.plan.size("data"),
+                self.cfg.seq_len // self.plan.size("sequence"))
+
+    # -- the per-replica forward + loss ---------------------------------------
+    def _attend(self, q, k, v):
+        from ..parallel.ring_attention import (local_attention,
+                                               ring_attention,
+                                               ulysses_attention)
+        if self.attention_mode == "ring":
+            return ring_attention(q, k, v, self.plan, causal=True)
+        if self.attention_mode == "ulysses":
+            return ulysses_attention(q, k, v, self.plan, causal=True)
+        return local_attention(q[0], k[0], v[0], causal=True)[None]
+
+    def _embed_in(self, p, x):
+        """Token + position embedding of the ``(K, b, t)`` chunks onto the
+        residual stream, each rank's positions offset by its global
+        start."""
+        from . import layers as L
+
+        plan, t_local = self.plan, x.shape[-1]
+        h = L.vocab_parallel_embedding(p["embed"], x, plan)
+        start = L.sequence_offset(plan, t_local, device=x.device)
+        pos = p["pos_embed"][start[:, None]
+                             + torch.arange(t_local, device=x.device)]
+        return h + pos[:, None].to(h.dtype)
+
+    def _block(self, lp, h):
+        """One transformer block over per-layer param leaves ``lp``."""
+        from . import layers as L
+
+        plan = self.plan
+        a = L.layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
+        a = L.copy_to_model(a, plan)
+        q = torch.einsum("...d,dhe->...he", a, lp["wq"])
+        k = torch.einsum("...d,dhe->...he", a, lp["wk"])
+        v = torch.einsum("...d,dhe->...he", a, lp["wv"])
+        o = self._attend(q, k, v)
+        o = torch.einsum("...he,hed->...d", o, lp["wo"])
+        h = h + L.row_parallel_out(o, plan)
+        m = L.layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
+        m = L.copy_to_model(m, plan)
+        f = L.column_parallel_dense(m, lp["w1"], lp["b1"])
+        # jax.nn.gelu defaults to the tanh approximation
+        f = F.gelu(f, approximate="tanh")
+        f = f @ lp["w2"]
+        return h + L.row_parallel_out(f, plan, bias=lp["b2"])
+
+    def _head_loss(self, p, h, y):
+        """Final norm + head + each rank's mean token loss, ``(K,)``."""
+        from . import layers as L
+
+        plan = self.plan
+        hf = L.layer_norm(h, p["lnf_scale"], p["lnf_bias"])
+        hf = L.copy_to_model(hf, plan)
+        logits = hf @ p["w_out"]
+        return L.vocab_parallel_cross_entropy(logits, y, plan).mean(
+            dim=(-2, -1))
+
+    def loss_replica(self, train_vals, x, y, key=None):
+        """Each sequence rank's mean causal-LM loss of its LOCAL token
+        chunk, ``(K,)``.  ``train_vals`` follow ``param_names`` order;
+        ``x``/``y`` are the ``(K, B, T/K)`` token/label chunks (labels
+        already globally shifted by the feeder).  The ring or all-to-all
+        of attention is inside; the mean over ranks (the reference's
+        ``pmean``) is the step's (``transformer/step.py``).  ``key`` is
+        unused, as in the reference (no dropout)."""
+        cfg = self.cfg
+        p = dict(zip(self.param_names, train_vals))
+        h = self._embed_in(p, x)
+        for i in range(cfg.n_layers):
+            h = self._block({kind: p["l%d_%s" % (i, kind)]
+                             for kind in _LAYER_KINDS}, h)
+        return self._head_loss(p, h, y)
+
     def describe(self):
         return {"config": self.cfg.describe(),
                 "plan": self.plan.describe(),
+                "attention_mode": self.attention_mode,
                 "n_params": len(self.param_names)}
 
 

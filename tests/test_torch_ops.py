@@ -312,6 +312,49 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert not bad, bad
 
 
+def _precision_writes(tree):
+    """Assignments to ``torch.backends.*.allow_tf32`` and calls of
+    ``torch.set_float32_matmul_precision`` in one module's AST."""
+    found = []
+    for node in ast.walk(tree):
+        targets = []
+        if isinstance(node, ast.Assign):
+            targets = node.targets
+        elif isinstance(node, (ast.AugAssign, ast.AnnAssign)):
+            targets = [node.target]
+        for t in targets:
+            for sub in ast.walk(t):
+                if isinstance(sub, ast.Attribute) \
+                        and sub.attr == "allow_tf32" \
+                        and "backends" in ast.unparse(sub.value):
+                    found.append("%d: %s" % (node.lineno, ast.unparse(sub)))
+        if isinstance(node, ast.Call) \
+                and isinstance(node.func, ast.Attribute) \
+                and node.func.attr == "set_float32_matmul_precision":
+            found.append("%d: %s" % (node.lineno, ast.unparse(node)))
+    return found
+
+
+def test_port_writes_no_process_wide_precision_flag():
+    """No module of the port changes torch's float32 precision for the
+    whole process (a runner that did so once slowed every training step
+    after it in the same process)."""
+    bad = []
+    for path in _port_files():
+        if not path.startswith(os.path.join(REPO, "mxnet_tpu_torch")):
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        bad += ["%s:%s" % (os.path.relpath(path, REPO), w)
+                for w in _precision_writes(tree)]
+    assert not bad, bad
+    # the walk sees both spellings
+    probe = ast.parse("import torch\n"
+                      "torch.backends.cudnn.allow_tf32 = False\n"
+                      "torch.set_float32_matmul_precision('high')\n")
+    assert len(_precision_writes(probe)) == 2
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pkgutil, importlib, mxnet_tpu_torch\n"

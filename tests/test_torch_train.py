@@ -184,7 +184,7 @@ def test_trainer_default_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("arg,value,item", [
     ("kvstore", "dist_sync", "item 6"), ("zero", 1, "item 6"),
-    ("mesh_plan", object(), "item 7"), ("dtype", "bf16", "item 5"),
+    ("mesh_plan", {"model": 2}, "item 7"), ("dtype", "bf16", "item 5"),
     ("grad_accum", 2, "item 6"), ("input_transform", abs, "item 3")])
 def test_unported_trainer_tiers_raise(arg, value, item):
     with pytest.raises(NotImplementedError, match=item):
