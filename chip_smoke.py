@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Nine phases; any failure exits non-zero and prints no result line.
+Twelve phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together), run each kernel's wrapper on
@@ -92,11 +92,36 @@ Nine phases; any failure exits non-zero and prints no result line.
    attention, no flash kernel) on CUDA.  Losses CUDA vs CPU within 1e-4,
    sequence=2 vs collapsed within 2e-5 (the reference's own tolerance),
    parameters after 2 steps within 2e-5 both ways.
+10. **qmm_requant (B8).** The kernel against its plain version at the 16
+    (M, K, N) shapes of one int8 ResNet-50 forward at batch 256 (each
+    bottleneck's 1x1 conv ``a``) and ragged ones (K = 70, N = 17, M = 1),
+    relu on and off: bitwise equal, and a rerun bitwise equal.  Timed
+    summed over one forward's 16 launches (CUDA events around eager
+    calls) beside its bound (bytes over 3.35 TB/s against 2MKN over 1,979
+    int8 TOP/s) and the yardstick ``torch._int_mm`` + torch epilogue.
+11. **Serve int8 ResNet-50.** ``resnet_symbol(50, num_classes=1000,
+    layout="NHWC")``, ``Module.init_params(Xavier(), rng=RandomState(0))``,
+    ``ptq_quantize_module`` over 64 seeded 224 x 224 images (naive
+    calibration) with ``MXTPU_FUSE_QCONV=1`` and ``MXTPU_PALLAS_QMM=1``
+    (33 fused / 20 unfused conv nodes), ``Module(qsym)`` at batch 256,
+    ``ModelRunner(buckets=(1, 4, 16, 64))`` behind ``ModelFleet`` and
+    ``Server``: 16 concurrent ``POST /predict`` of 1-4 images, mixed
+    tiers, every answer 200 and equal to ``forward_batch`` on the idle
+    runner, 0 recompiles.  Then ``Module.forward`` at batch 256 (the
+    bench's recipe, ``bench.py:1033-1062``): 3 warm-up and 20 timed
+    forwards, images/s, p50/p99, peak memory; ``qmm_requant`` launched 16
+    times per forward.  ``--profile`` adds the device time by category.
+12. **Held on the card.** The same quantized graph and weights for 2
+    images on the card and ``device="cpu"``: top-1 equal, probabilities
+    within 1e-5.  Calibrated ranges of a card calibration (cuDNN TF32 off
+    for it, restored after) and a CPU calibration over the same 8 images
+    within 1e-4 relative.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
-pairings), the card's name and power limit from ``nvidia-smi``, and as
-the last line ``{"ok": true, "device": {...}}``.
+pairings; ``qmm_requant``'s per forward, its 16 launches summed), the
+card's name and power limit from ``nvidia-smi``, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -109,10 +134,12 @@ import urllib.request
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense
-# f32 CUDA-core FLOP/s, for the bound of a kernel
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense f32
+# CUDA-core FLOP/s and dense int8 tensor-core operations/s, for the bound
+# of a kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+INT8_OPS_PER_S = 1.979e15
 
 LN_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -131,6 +158,13 @@ TRAIN_LM_BATCH = 32
 LM_SGD = {"learning_rate": 0.1, "momentum": 0.9}
 FLASH_FWD_TOL, FLASH_BWD_TOL = 1e-5, 1e-4
 LM_LOSS_TOL_DEVICE, LM_LOSS_TOL_SEQ, LM_PARAM_TOL = 1e-4, 2e-5, 2e-5
+# slice 4: int8 ResNet-50 serving (phases 10-12)
+QCLASSES, QBATCH, QTIMED, QCALIB, QSIDE = 1000, 256, 20, 64, 224
+QBUCKETS = (1, 4, 16, 64)
+Q_REQUESTS = 16
+QMM_RAGGED = [(130, 70, 40), (600, 520, 300), (1, 8, 8), (333, 48, 17)]
+PARITY_IMAGES, CALIB_PARITY_IMAGES = 2, 8
+PROB_TOL, RANGE_RTOL = 1e-5, 1e-4
 # (clip_gradient, wd, rescale_grad, inv_scale, ok)
 OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
              (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
@@ -1117,6 +1151,361 @@ def phase_train_lm_parity():
                            % (dp_dev[0], dp_seq[0]))
 
 
+# -- slice 4: int8 ResNet-50 serving with qmm_requant (B8) --------------------
+def _qmm_path_shapes(batch):
+    """(M, K, N) of the 16 B8 launches of one int8 ResNet-50 (NHWC)
+    forward at ``batch``: each bottleneck's conv ``a`` (the stride-2 ones
+    sliced first), 224 x 224 input."""
+    shapes = []
+    for stage, (units, width, side) in enumerate(
+            [(3, 64, 56), (4, 128, 28), (6, 256, 14), (3, 512, 7)]):
+        m = batch * side * side
+        shapes.append((m, width if stage == 0 else 2 * width, width))
+        shapes += [(m, 4 * width, width)] * (units - 1)
+    return shapes
+
+
+def _qmm_bound(shapes):
+    """(bound ms, bound_by) of B8 over ``shapes``: x, w, bias read once,
+    the int8 output written once; 2 int8 operations per multiply-add."""
+    nbytes = sum(m * k + n * k + 4 * n + m * n for m, k, n in shapes)
+    ops = sum(2 * m * k * n for m, k, n in shapes)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+
+
+def _qmm_inputs(shape, gen):
+    import torch
+    m, k, n = shape
+    x = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8,
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8,
+                      generator=gen)
+    bias = torch.randn(n, device="cuda", generator=gen) * 10
+    # codes spread over the int8 range: acc has std ~ sqrt(K) * 127**2 / 3
+    scale = 60.0 / (np.sqrt(k) * 127 * 127 / 3)
+    return x, w, bias, scale
+
+
+def phase_qmm_kernel():
+    import torch
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.ops.quantization import int8_dot
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    path = _qmm_path_shapes(QBATCH)
+    worst = 0
+    for shape in path + QMM_RAGGED:
+        for relu in (True, False):
+            x, w, bias, scale = _qmm_inputs(shape, gen)
+            got = pk.qmm_requant(x, w, bias, scale, relu=relu)
+            again = pk.qmm_requant(x, w, bias, scale, relu=relu)
+            want = pk.qmm_requant_reference(x, w, bias, scale, relu=relu)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want) or not torch.equal(got, again):
+                raise RuntimeError("qmm_requant %s relu=%s: %d codes differ "
+                                   "from the plain version, rerun equal %s"
+                                   % (shape, relu, int((got != want).sum()),
+                                      torch.equal(got, again)))
+        del x, w, got, again, want
+    print("phase 10: qmm_requant bitwise equal to its plain version and to "
+          "a rerun at the %d path shapes of batch %d and %s, relu on and "
+          "off" % (len(path), QBATCH, QMM_RAGGED))
+    times = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    for shape in path:
+        x, w, bias, scale = _qmm_inputs(shape, gen)
+        fns = {"kernel": lambda: pk.qmm_requant(x, w, bias, scale),
+               "plain": lambda: pk.qmm_requant_reference(x, w, bias, scale),
+               "library": lambda: pk._requant(int8_dot(x, w), scale, bias,
+                                              True)}
+        for key, fn in fns.items():
+            times[key] += _event_ms(fn, iters=10)
+        del x, w, fns
+        torch.cuda.empty_cache()
+    bound_ms, bound_by, nbytes, ops = _qmm_bound(path)
+    print("phase 10: one forward's 16 launches (batch %d), device time: "
+          "kernel %.5f ms, plain %.5f ms, torch._int_mm + torch epilogue "
+          "%.5f ms; bound %.5f ms (%s: %d bytes, %d int8 operations)"
+          % (QBATCH, times["kernel"], times["plain"], times["library"],
+             bound_ms, bound_by, nbytes, ops))
+    return {"name": "qmm_requant", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/qmm_requant.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:436",
+            "launches": None, "max_abs_err": worst, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": times["library"]}
+
+
+def _images(n, seed):
+    return np.random.RandomState(seed).rand(n, QSIDE, QSIDE, 3) \
+        .astype(np.float32)
+
+
+def _quantized_resnet50(ctx, calib, classes=QCLASSES, calib_batch=32):
+    """The fp32 ResNet-50 (NHWC) with Xavier weights from RandomState(0)
+    on ``ctx``, and ``ptq_quantize_module`` of it over ``calib``."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch.module import Module
+    from mxnet_tpu_torch.serving.quantize import ptq_quantize_module
+    from mxnet_tpu_torch.symbol.models import resnet_symbol
+
+    net = resnet_symbol(50, num_classes=classes, layout="NHWC")
+    mod = Module(net, context=ctx)
+    mod.bind([("data", (calib_batch, QSIDE, QSIDE, 3))],
+             [("softmax_label", (calib_batch,))], for_training=False)
+    mod.init_params(initializer.Xavier(), rng=np.random.RandomState(0))
+    arg, aux = mod.get_params()
+    it = tio.NDArrayIter(calib, np.zeros(len(calib), np.float32),
+                         calib_batch)
+    return (net, arg, aux) + ptq_quantize_module(
+        net, arg, aux, it, num_calib_examples=len(calib))
+
+
+def _int8_module(qsym, qarg, qaux, batch, ctx=None):
+    from mxnet_tpu_torch.module import Module
+    qmod = Module(qsym, context=ctx)
+    qmod.bind([("data", (batch, QSIDE, QSIDE, 3))], for_training=False)
+    qmod.set_params(qarg, qaux, allow_extra=True)
+    return qmod
+
+
+QPROFILE_CATEGORIES = (
+    ("qmm_requant (B8)", ("qmm_requant_kernel",)),
+    ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "imma", "xmma")),
+    ("im2col / layout copies", ("cat", "copy", "pad")),
+    ("reduction", ("reduce",)),
+    ("pooling", ("pool",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_forward(qmod, batch, steps=2):
+    """Device time by kernel category over ``steps`` int8 forwards, and
+    the device's idle share of the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    qmod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            qmod.forward(batch, is_train=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("phase 11 profile: the profiler recorded no device time; "
+              "not measured")
+        return
+    busy = sum(e.self_device_time_total for e in kernels)
+    cats = {}
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, frags in QPROFILE_CATEGORIES
+                    if any(f in name for f in frags)), "other")
+        cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
+    print("phase 11 profile: %d forwards, wall %.2f ms, device busy %.2f ms, "
+          "idle share %.4f" % (steps, wall_us / 1e3, busy / 1e3,
+                               1 - busy / wall_us))
+    for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print("phase 11 profile: %-28s %9.3f ms per forward (%.4f of busy)"
+              % (cat, us / steps / 1e3, us / busy))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+        print("phase 11 profile: kernel %9.3f ms per forward x%-5d %s"
+              % (e.self_device_time_total / steps / 1e3, e.count // steps,
+                 e.key[:110]))
+
+
+def phase_int8_serve(profile=False):
+    import os
+    from collections import Counter
+
+    import torch
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.serving import ModelFleet, ModelRunner, Server
+
+    os.environ["MXTPU_FUSE_QCONV"] = "1"
+    os.environ["MXTPU_PALLAS_QMM"] = "1"
+    t0 = time.monotonic()
+    net, arg, aux, qsym, qarg, qaux, report = _quantized_resnet50(
+        None, _images(QCALIB, 1))
+    ops = Counter(n.op for n in qsym._nodes() if n.op)
+    print("phase 11: resnet_symbol(50, %d classes, NHWC) quantized over %d "
+          "images in %.2f s; nodes %s; digest %s"
+          % (QCLASSES, QCALIB, time.monotonic() - t0, dict(sorted(
+              ops.items())), report["digest"][:16]))
+    for op, want in (("_contrib_quantized_conv_requant", 33),
+                     ("_contrib_quantized_conv", 20),
+                     ("_contrib_quantized_pooling", 2),
+                     ("_contrib_quantized_fully_connected", 1)):
+        if ops[op] != want:
+            raise RuntimeError("%s: %d nodes, want %d" % (op, ops[op], want))
+    qmod = _int8_module(qsym, qarg, qaux, QBATCH)
+    t0 = time.monotonic()
+    runner = ModelRunner(qmod, buckets=QBUCKETS)
+    print("phase 11: %r warmed in %.2f s" % (runner, time.monotonic() - t0))
+    rng = np.random.RandomState(2)
+    reqs = [rng.rand(1 + i % 4, QSIDE, QSIDE, 3).astype(np.float32)
+            for i in range(Q_REQUESTS)]
+    refs = [np.stack([runner.forward_batch(r[j:j + 1])[0]
+                      for j in range(len(r))]) for r in reqs]
+    fleet = ModelFleet(batch_timeout_ms=5.0)
+    fleet.register("resnet50_int8", runner)
+    srv = Server(fleet, port=0, max_body_bytes=64 << 20)
+    host, port = srv.start()
+    url = "http://%s:%d/predict" % (host, port)
+    results = [None] * Q_REQUESTS
+    tiers = ("gold", "silver", "bronze")
+
+    def fire(i):
+        results[i] = _post(url, {"data": reqs[i].tolist(),
+                                 "model": "resnet50_int8",
+                                 "tier": tiers[i % 3]})
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(Q_REQUESTS)]
+    try:
+        pk.reset_launch_counts()
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+    finally:
+        srv.drain(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a /predict request did not return")
+    bitwise = True
+    for i, ((code, body), ref) in enumerate(zip(results, refs)):
+        if code != 200:
+            raise RuntimeError("request %d: HTTP %d %r" % (i, code, body))
+        got = np.asarray(body["outputs"], np.float32)
+        bitwise = bitwise and np.array_equal(got, ref)
+        if not (np.abs(got - ref).max() <= 1e-6
+                and (got.argmax(1) == ref.argmax(1)).all()):
+            raise RuntimeError("request %d: served answer differs from "
+                               "forward_batch by %.3g" % (
+                                   i, np.abs(got - ref).max()))
+    if runner.recompiles_since_warmup() != 0:
+        raise RuntimeError("recompiles after warmup: %r"
+                           % (runner.jit_cache_keys() - runner._warm_keys))
+    served_batches = fleet.batcher("resnet50_int8").stats.batches_total
+    n_images = sum(len(r) for r in reqs)
+    print("phase 11: %d concurrent POST /predict (%d images, tiers mixed) "
+          "all 200, equal to forward_batch %s; recompiles 0; %d batches, "
+          "%.2f s wall (%.1f images/s, HTTP and JSON included)"
+          % (Q_REQUESTS, n_images, "bitwise" if bitwise else "within 1e-6",
+             served_batches, wall, n_images / wall))
+
+    # throughput: Module.forward at the bench's batch (bench.py:1033-1062)
+    batch = tio.DataBatch([tnd.array(_images(QBATCH, 3))])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(WARMUP + QTIMED):
+        t0 = time.perf_counter()
+        qmod.forward(batch, is_train=False)
+        out = qmod.get_outputs()[0]._data
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = pk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.isfinite(out).all() or tuple(out.shape) != (QBATCH,
+                                                            QCLASSES):
+        raise RuntimeError("int8 forward gave %s, finite %s"
+                           % (tuple(out.shape), bool(torch.isfinite(out)
+                                                     .all())))
+    forwards = served_batches + WARMUP + QTIMED
+    if counts["qmm_requant"] != 16 * forwards:
+        raise RuntimeError("qmm_requant launched %d times, want 16 x %d "
+                           "forwards" % (counts["qmm_requant"], forwards))
+    timed = np.asarray(times[WARMUP:])
+    print("phase 11: batch %d: %.1f images/s over %d timed forwards; p50 "
+          "%.2f ms, p99 %.2f ms; warm-up %s ms; peak memory %.2f GiB"
+          % (QBATCH, QBATCH * QTIMED / (timed.sum() / 1e3), QTIMED,
+             np.percentile(timed, 50), np.percentile(timed, 99),
+             ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30))
+    print("phase 11: launches %s (qmm_requant = 16 x %d forwards: %d served "
+          "batches + %d)" % (counts, forwards, served_batches,
+                             WARMUP + QTIMED))
+    if profile:
+        profile_forward(qmod, batch)
+    del runner, qmod, fleet, batch
+    torch.cuda.empty_cache()
+    return counts["qmm_requant"], (net, arg, aux, qsym, qarg, qaux)
+
+
+def _calib_ranges(qsym):
+    return {(n.name, k): float(v) for n in qsym._nodes()
+            for k, v in n.attrs.items()
+            if k in ("min_calib_range", "max_calib_range")}
+
+
+def phase_int8_parity(model):
+    import os
+
+    import torch
+    from mxnet_tpu_torch import io as tio
+    from mxnet_tpu_torch import ndarray as tnd
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+
+    net, arg, aux, qsym, qarg, qaux = model
+    x = _images(PARITY_IMAGES, 4)
+    probs = {}
+    for dev in ("cuda", "cpu"):
+        q_arg = {k: v.as_in_context(dev) for k, v in qarg.items()}
+        q_aux = {k: v.as_in_context(dev) for k, v in qaux.items()}
+        qmod = _int8_module(qsym, q_arg, q_aux, PARITY_IMAGES, ctx=dev)
+        qmod.forward(tio.DataBatch([tnd.array(x, ctx="cpu")]),
+                     is_train=False)
+        probs[dev] = qmod.get_outputs()[0].asnumpy()
+    dp = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    top1 = (probs["cuda"].argmax(1) == probs["cpu"].argmax(1)).all()
+    print("phase 12: int8 forward of %d images, CUDA vs CPU: top-1 %s, max "
+          "|dprob| %.3g (tol %g)" % (PARITY_IMAGES, probs["cuda"].argmax(1),
+                                     dp, PROB_TOL))
+    if not top1 or dp > PROB_TOL:
+        raise RuntimeError("int8 CUDA vs CPU: top-1 equal %s, max |dprob| "
+                           "%.3g" % (top1, dp))
+    calib = _images(CALIB_PARITY_IMAGES, 5)
+    ranges = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            it = tio.NDArrayIter(calib, np.zeros(len(calib), np.float32),
+                                 len(calib))
+            qs, _, _ = quantize_model(
+                net, {k: v.as_in_context(dev) for k, v in arg.items()},
+                {k: v.as_in_context(dev) for k, v in aux.items()},
+                calib_data=it, num_calib_examples=len(calib))
+            ranges[dev] = _calib_ranges(qs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if set(ranges["cuda"]) != set(ranges["cpu"]):
+        raise RuntimeError("the two calibrations rewrote different nodes")
+    worst = max(abs(ranges["cuda"][k] - v) / max(abs(v), 1e-30)
+                for k, v in ranges["cpu"].items() if v or ranges["cuda"][k])
+    print("phase 12: %d calibrated ranges over %d images, CUDA (TF32 off) vs "
+          "CPU: max relative difference %.3g (tol %g)"
+          % (len(ranges["cpu"]), len(calib), worst, RANGE_RTOL))
+    if worst > RANGE_RTOL:
+        raise RuntimeError("calibrated ranges differ by %.3g relative"
+                           % worst)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1151,6 +1540,11 @@ def main():
         for k in flash_kernels:
             k["launches"] = flash[k["name"]]
         phase_train_lm_parity()
+        qmm_kernel = phase_qmm_kernel()
+        qmm_kernel["launches"], model = phase_int8_serve(
+            profile="--profile" in sys.argv)
+        phase_int8_parity(model)
+        del model
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1160,7 +1554,8 @@ def main():
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
-    print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels}))
+    print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels
+                      + [qmm_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,5 +17,11 @@ Ported so far: decode serving of the TransformerLM —
 carry-over), ``initializer``, ``optimizer``, ``lr_scheduler``,
 ``context`` and the single-device ``parallel.DataParallelTrainer``,
 whose update runs the fused SGD / SGD+momentum / Adam kernels
-(``ops.fused_optimizer``).  ROADMAP.md lists the rest.
+(``ops.fused_optimizer``); training of the TransformerLM with ring
+attention (the flash kernels of ``ops.pallas_kernels``); and int8
+serving of a Symbol/Module ResNet — ``ops.registry``, ``ndarray``,
+``symbol``, ``executor``, ``module``, ``io``, ``ops.quantization``,
+``contrib.quantization``, ``serving.quantize`` and
+``serving.runner.ModelRunner``, the fused 1×1 convolutions running the
+``qmm_requant`` kernel.  ROADMAP.md lists the rest.
 """

@@ -26,7 +26,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port, by name
-KERNEL_SOURCES = ("fused_ln", "fused_optimizer", "flash_attention")
+KERNEL_SOURCES = ("fused_ln", "fused_optimizer", "flash_attention",
+                  "qmm_requant")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

@@ -1,13 +1,15 @@
-"""The neural-network operators the Gluon layers of the port call, under the
-reference's operator names: the part of ``mxnet_tpu/ops/nn.py`` (and of
-its ``reduce``/``indexing`` ops) that the ResNet training slice runs.
+"""The neural-network operators of the port, under the reference's operator
+names: the part of ``mxnet_tpu/ops/nn.py`` (and of its ``reduce`` /
+``indexing`` ops) that the ported paths run.
 
 A ``HybridBlock`` of the port receives this module as ``F`` in
-``hybrid_forward``, as a block of the reference receives ``nd``.  The
-JAX package leaves these ops to XLA; here they are PyTorch calls (cuDNN /
-cuBLAS on the card).  Layout is channels-first (``NCHW`` data, ``OIHW``
-weights); the channels-last layouts raise ``NotImplementedError``
-(ROADMAP.md queue A, item 1).
+``hybrid_forward``, as a block of the reference receives ``nd``; the
+symbolic executor reaches the same functions through the op registry
+(``ops/registry.py``).  The JAX package leaves these ops to XLA; here
+they are PyTorch calls (cuDNN / cuBLAS on the card).  Both layouts of the
+reference are taken: channels-first (``NCHW`` data, ``OIHW`` weights) and
+channels-last (``NHWC`` data, ``OHWI`` weights, ``BatchNorm(axis=3)``),
+the latter run as channels-first views of the same memory.
 
 ``BatchNorm`` follows the reference's numerics, not torch's defaults:
 the batch statistics are the biased variance in f32 (f64 for f64 data)
@@ -20,8 +22,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from .registry import register
+
 __all__ = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
-           "Activation", "Flatten", "log_softmax", "pick", "mean"]
+           "Activation", "Flatten", "SoftmaxOutput", "log_softmax", "pick",
+           "mean"]
 
 _CHANNELS_LAST = ("NWC", "NHWC", "NDHWC")
 
@@ -34,14 +39,17 @@ def _tup(v, n):
     return tuple(v)
 
 
-def _channels_first(op, layout):
-    if layout in _CHANNELS_LAST:
-        raise NotImplementedError(
-            "%s layout=%r: the port runs channels-first only so far; the "
-            "channels-last layouts are ROADMAP.md queue A, item 1" % (op,
-                                                                     layout))
+def _first(x):
+    """A channels-last tensor as its channels-first view."""
+    return x.movedim(-1, 1)
 
 
+def _last(x):
+    """A channels-first tensor as its channels-last view."""
+    return x.movedim(1, -1)
+
+
+@register("FullyConnected", arg_names=["data", "weight", "bias"])
 def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
                    flatten=True):
     """``data @ weight.T + bias``; weight is ``(num_hidden, input_dim)``,
@@ -51,12 +59,18 @@ def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
     return TF.linear(data, weight, None if no_bias else bias)
 
 
+@register("Convolution", arg_names=["data", "weight", "bias"])
 def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_filter=0, num_group=1, workspace=1024,
                 no_bias=False, cudnn_tune=None, cudnn_off=False, layout=None):
-    """Convolution with ``(num_filter, C/group, *kernel)`` weights."""
-    _channels_first("Convolution", layout)
+    """Convolution with ``(num_filter, C/group, *kernel)`` weights, or
+    ``(num_filter, *kernel, C/group)`` for the channels-last layouts."""
     nsp = len(kernel) if kernel else data.dim() - 2
+    if layout in _CHANNELS_LAST:
+        return _last(Convolution(
+            _first(data), _first(weight), bias, kernel=kernel, stride=stride,
+            dilate=dilate, pad=pad, num_filter=num_filter,
+            num_group=num_group, no_bias=no_bias))
     conv = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}[nsp]
     return conv(data, weight, None if no_bias else bias,
                 stride=_tup(stride, nsp),
@@ -64,12 +78,17 @@ def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 dilation=_tup(dilate, nsp), groups=int(num_group))
 
 
+@register("Pooling")
 def Pooling(data, kernel=(), pool_type="max", global_pool=False,
             cudnn_off=False, pooling_convention="valid", stride=(), pad=(),
             count_include_pad=True, layout=None):
     """max / avg pooling; the ``"full"`` convention rounds the output
     size up (torch's ``ceil_mode``)."""
-    _channels_first("Pooling", layout)
+    if layout in _CHANNELS_LAST:
+        return _last(Pooling(
+            _first(data), kernel=kernel, pool_type=pool_type,
+            global_pool=global_pool, pooling_convention=pooling_convention,
+            stride=stride, pad=pad, count_include_pad=count_include_pad))
     nsp = data.dim() - 2
     if global_pool:
         dims = tuple(range(2, 2 + nsp))
@@ -90,15 +109,26 @@ def Pooling(data, kernel=(), pool_type="max", global_pool=False,
     raise ValueError("unknown pool_type %r" % pool_type)
 
 
+@register("BatchNorm", arg_names=["data", "gamma", "beta"],
+          aux={3: "moving_mean", 4: "moving_var"},
+          num_outputs=lambda p: 3 if p.get("output_mean_var") else 1,
+          needs_train=True)
 def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
               momentum=0.9, fix_gamma=True, use_global_stats=False,
               output_mean_var=False, axis=1, cudnn_off=False, _train=False):
     """Batch statistics when training (and the moving stats updated in
-    place), the moving statistics otherwise."""
-    if axis % data.dim() != 1:
+    place), the moving statistics otherwise; ``axis`` is the channel
+    axis (3 for NHWC)."""
+    if output_mean_var:
         raise NotImplementedError(
-            "BatchNorm axis=%d: the port normalizes the channel axis 1 "
-            "(NCHW) only so far (ROADMAP.md queue A, item 1)" % axis)
+            "BatchNorm(output_mean_var=True) is ROADMAP.md queue A, item 1")
+    axis = axis % data.dim()
+    if axis != 1:
+        return BatchNorm(data.movedim(axis, 1), gamma, beta, moving_mean,
+                         moving_var, eps=eps, momentum=momentum,
+                         fix_gamma=fix_gamma,
+                         use_global_stats=use_global_stats, axis=1,
+                         _train=_train).movedim(1, axis)
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _train and not use_global_stats:
         out = TF.batch_norm(data, None, None, g, beta, training=True,
@@ -115,6 +145,7 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                          training=False, eps=float(eps))
 
 
+@register("Activation")
 def Activation(data, act_type="relu"):
     if act_type == "relu":
         return torch.relu(data)
@@ -129,8 +160,19 @@ def Activation(data, act_type="relu"):
     raise ValueError("unknown act_type %r" % act_type)
 
 
+@register("Flatten", aliases=("flatten",))
 def Flatten(data):
     return data.reshape(data.shape[0], -1)
+
+
+@register("SoftmaxOutput", arg_names=["data", "label"], aliases=("Softmax",))
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
+                  multi_output=False, use_ignore=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0):
+    """The forward of the reference's classification head: a softmax over
+    the last axis (axis 1 with ``multi_output``); the label only shapes
+    its backward, which the forward-only executor never runs."""
+    return torch.softmax(data, dim=1 if multi_output else -1)
 
 
 def log_softmax(data, axis=-1):

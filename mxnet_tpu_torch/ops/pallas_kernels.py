@@ -1,13 +1,19 @@
-"""Flash attention: the port of the flash part of
-``mxnet_tpu/ops/pallas_kernels.py`` (``:51-426``).
+"""The port of ``mxnet_tpu/ops/pallas_kernels.py``: flash attention
+(``:51-426``) and the int8 matmul with the requantize epilogue
+(``:429-584``).
 
-Three hand-written CUDA kernels (``csrc/flash_attention.cu``), each the
-Hopper port of a Pallas kernel of that module:
+Four hand-written CUDA kernels, each the Hopper port of a Pallas kernel
+of that module:
 
 - :func:`flash_forward_with_lse` → ``mxtt_flash_fwd`` (``_fa_kernel``,
-  ``:62``): the attention output and the per-row logsumexp;
+  ``:62``; ``csrc/flash_attention.cu``): the attention output and the
+  per-row logsumexp;
 - :func:`flash_dq` → ``mxtt_flash_dq`` (``_fa_dq_kernel``, ``:171``);
-- :func:`flash_dkv` → ``mxtt_flash_dkv`` (``_fa_dkv_kernel``, ``:226``).
+- :func:`flash_dkv` → ``mxtt_flash_dkv`` (``_fa_dkv_kernel``, ``:226``);
+- :func:`qmm_requant` → ``mxtt_qmm_requant`` (``_qmm_requant_kernel``,
+  ``:436``; ``csrc/qmm_requant.cu``), which the op
+  ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
+  runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``.
 
 :func:`flash_delta` is plain torch, as it is jnp in the reference, and
 :func:`flash_attention` over ``(B, T, H, D)`` is a
@@ -24,29 +30,37 @@ ROADMAP.md queue A, item 5).  Head dims up to 128.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain torch
 version (the ``*_reference`` function beside it, the Pallas body's
-arithmetic on whole matrices) for a CPU tensor; a CUDA tensor launches
-the kernel or raises.  Every launch adds one to ``LAUNCHES[<wrapper>]``
-(:func:`launch_counts` / :func:`reset_launch_counts`).  The op registry
-entry (``_contrib_flash_attention``) waits for the registry (item 1).
+arithmetic on whole matrices) for a CPU (or shape-only ``meta``) tensor;
+a CUDA tensor launches the kernel or raises.  Every launch adds one to
+``LAUNCHES[<wrapper>]`` (:func:`launch_counts` /
+:func:`reset_launch_counts`).  The op registry entry
+``_contrib_flash_attention`` is ROADMAP.md queue A, item 8.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import threading
 
 import torch
 
 from ..base import MXNetError
+from .nn import _CHANNELS_LAST, _tup
+from .quantization import _c, int8_conv, int8_dot
+from .registry import register
 
 __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "flash_delta", "flash_dq", "flash_dq_reference", "flash_dkv",
-           "flash_dkv_reference", "flash_attention", "launch_counts",
-           "reset_launch_counts", "LAUNCHES", "MAX_HEAD_DIM"]
+           "flash_dkv_reference", "flash_attention", "qmm_requant",
+           "qmm_requant_reference", "quantized_conv_requant",
+           "launch_counts", "reset_launch_counts", "LAUNCHES",
+           "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
+            "qmm_requant": 0}
 _count_lock = threading.Lock()
 
 
@@ -279,3 +293,156 @@ def flash_attention(query, key, value, causal=False, scale=None):
     out = _FlashCore.apply(to_bh(query, T), to_bh(key, Tk),
                            to_bh(value, Tk), bool(causal), float(scale))
     return out.reshape(B, H, T, D).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul with the requantize epilogue fused (B8)
+# ---------------------------------------------------------------------------
+def _requant(acc, scale, bias, relu):
+    """The reference's epilogue ``clip(round(relu(f32(acc) * scale +
+    bias)), -127, 127)`` -> int8, rounded twice (no FMA) and half to even;
+    ``scale`` a Python float taken as float32, ``bias`` float32."""
+    real = acc.to(torch.float32) * _c(scale, acc) + bias
+    if relu:
+        real = torch.clamp_min(real, 0.0)
+    return torch.round(real).clamp(-127, 127).to(torch.int8)
+
+
+def qmm_requant_reference(x, w, bias, out_scale, relu=True):
+    """Plain ``_qmm_requant_kernel``: the int32 sum as an exact float64
+    matmul (|acc| <= K * 127**2 < 2**53), converted to float32 as an
+    int32 would be, then :func:`_requant`."""
+    acc = x.to(torch.float64) @ w.to(torch.float64).t()
+    return _requant(acc, out_scale, bias.to(torch.float32), relu)
+
+
+def _check_qmm(x, w, bias):
+    """Validate int8 ``x`` (M, K), int8 ``w`` (N, K) and float32 ``bias``
+    (N,); True when they live on the card."""
+    if x.dtype != torch.int8 or w.dtype != torch.int8 \
+            or bias.dtype != torch.float32:
+        raise MXNetError("qmm_requant takes int8 x and w and a float32 bias, "
+                         "got %s/%s/%s" % (x.dtype, w.dtype, bias.dtype))
+    if x.dim() != 2 or w.dim() != 2 or w.shape[1] != x.shape[1] \
+            or tuple(bias.shape) != (w.shape[0],):
+        raise MXNetError("qmm_requant takes x (M, K), w (N, K), bias (N,); "
+                         "got %s/%s/%s" % (tuple(x.shape), tuple(w.shape),
+                                           tuple(bias.shape)))
+    for t in (w, bias):
+        if t.device != x.device:
+            raise MXNetError("qmm_requant: every tensor must be on %s, got "
+                             "%s" % (x.device, t.device))
+    if x.device.type in ("cpu", "meta"):
+        return False
+    if x.device.type != "cuda":
+        raise MXNetError("qmm_requant: unsupported device %s" % x.device)
+    return True
+
+
+_QMM_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p]
+
+
+def _qmm_fn():
+    from .build import load
+    fn = load("qmm_requant").mxtt_qmm_requant
+    if fn.argtypes is None:
+        # (x, ldx, w, bias, out, M, N, K, scale, relu, vec16, stream)
+        fn.argtypes = _QMM_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def qmm_requant(x, w, bias, out_scale, relu=True):
+    """int8 ``x`` (M, K) times int8 ``w`` (N, K) transposed -> int8
+    (M, N) with the requantize epilogue fused:
+    ``clip(round(relu(acc * out_scale + bias)), -127, 127)``.
+
+    ``out_scale`` folds ``s_x * s_w / s_out``; ``bias`` is float32 in the
+    output-quantized domain (already divided by ``s_out``).  ``w`` is the
+    port's ``(N, K)`` — an ``OHWI`` 1×1 weight reshaped, K contiguous —
+    where the reference takes ``(K, N)``.  ``x`` may be a view with a row
+    stride (its rows must be contiguous)."""
+    if not _check_qmm(x, w, bias):
+        return qmm_requant_reference(x, w, bias, out_scale, relu)
+    if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
+        x = x.contiguous()
+    w, bias = w.contiguous(), bias.contiguous()
+    m, k = x.shape
+    n = w.shape[0]
+    out = torch.empty((m, n), dtype=torch.int8, device=x.device)
+    vec = int(k % 16 == 0 and x.stride(0) % 16 == 0
+              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _qmm_fn()(x.data_ptr(), x.stride(0), w.data_ptr(),
+                        bias.data_ptr(), out.data_ptr(), m, n, k,
+                        float(out_scale), int(bool(relu)), vec, stream)
+    if err != 0:
+        raise MXNetError("mxtt_qmm_requant kernel launch failed: cudaError "
+                         "%d" % err)
+    _count("qmm_requant")
+    return out
+
+
+def _qcr_range(out_scale, lo, hi, like):
+    """(min, max) companion outputs so downstream quantized consumers can
+    keep reading the (data, min, max) triple ABI."""
+    if lo is None:
+        hi = float(out_scale) * 127.0
+        lo = -hi
+    return tuple(torch.full((1,), float(v), dtype=torch.float32,
+                            device=like.device) for v in (lo, hi))
+
+
+@register("_contrib_quantized_conv_requant",
+          arg_names=["data", "weight", "bias"], num_outputs=3,
+          optional_args=("bias",))
+def quantized_conv_requant(data, weight, bias=None, kernel=(), stride=(),
+                           dilate=(), pad=(), num_filter=0, num_group=1,
+                           layout=None, in_scale=1.0, w_scale=1.0,
+                           out_scale=1.0, relu=True,
+                           min_calib_range=None, max_calib_range=None):
+    """Fused int8 conv + bias + [relu] + requantize -> int8 (the target of
+    ``_fuse_conv_requant``).  Scales are real-domain: ``x_real = x_int *
+    in_scale`` etc.; output codes are ``round(real / out_scale)``.
+
+    A channels-last 1×1 convolution (strided ones sliced first) is a
+    matmul: with ``MXTPU_PALLAS_QMM=1`` it runs :func:`qmm_requant` (B8),
+    otherwise :func:`~mxnet_tpu_torch.ops.quantization.int8_dot` and the
+    same epilogue in torch.  Every other convolution takes
+    :func:`~mxnet_tpu_torch.ops.quantization.int8_conv` and that
+    epilogue.  The switch is read on every call (the reference reads it
+    when it traces the graph)."""
+    nsp = len(kernel) if kernel else data.dim() - 2
+    stride = _tup(stride, nsp) if stride else (1,) * nsp
+    pad = _tup(pad, nsp) if pad else (0,) * nsp
+    x = data.to(torch.int8)
+    w = weight.to(torch.int8)
+    scale = float(in_scale) * float(w_scale) / float(out_scale)
+    if bias is None:
+        bias_q = torch.zeros((int(num_filter),), dtype=torch.float32,
+                             device=x.device)
+    else:
+        bias_q = torch.div(bias.to(torch.float32), _c(out_scale, bias))
+    rng = _qcr_range(out_scale, min_calib_range, max_calib_range, x)
+    channels_last = layout in _CHANNELS_LAST
+    if (channels_last and all(k == 1 for k in kernel)
+            and int(num_group) == 1 and all(p == 0 for p in pad)):
+        if any(s != 1 for s in stride):
+            x = x[(slice(None),) + tuple(slice(None, None, s)
+                                         for s in stride)]
+        sp_shape = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1])
+        wf = w.reshape(w.shape[0], w.shape[-1])
+        if os.environ.get("MXTPU_PALLAS_QMM", "0") == "1":
+            out = qmm_requant(xf, wf, bias_q, scale, relu=relu)
+        else:
+            out = _requant(int8_dot(xf, wf), scale, bias_q, relu)
+        return (out.reshape(sp_shape + (w.shape[0],)),) + rng
+    acc = int8_conv(x, w, kernel, stride, dilate, pad, num_group, layout)
+    bshape = (1,) * (acc.dim() - 1) + (-1,) if channels_last \
+        else (1, -1) + (1,) * nsp
+    return (_requant(acc, scale, bias_q.reshape(bshape), relu),) + rng
