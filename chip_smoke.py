@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twelve phases; any failure exits non-zero and prints no result line.
+Fourteen phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together), run each kernel's wrapper on
@@ -116,12 +116,38 @@ Twelve phases; any failure exits non-zero and prints no result line.
     within 1e-5.  Calibrated ranges of a card calibration (cuDNN TF32 off
     for it, restored after) and a CPU calibration over the same 8 images
     within 1e-4 relative.
+13. **conv3x3_epilogue (B9).** The implicit-GEMM 3x3 kernel against its
+    plain version (float64 sums) at the conv A/B harness's four stages at
+    batch 256 (the stride-1 conv ``b`` of every ResNet-50 bottleneck:
+    56 x 56 x 64, 28 x 28 x 128, 14 x 14 x 256, 7 x 7 x 512, Cin = Cout)
+    and ragged shapes (Cin 3 with odd W, Cin 8 and 16, Cout 5, 16, 24,
+    N = 1), int8 and bf16, relu on and off, and float32 at
+    (2, 28, 28, 512) -> 128.  int8 bitwise equal; bf16 within one bf16
+    ulp (magnitudes counted no finer than 1/64 of the outputs' RMS, where
+    a bf16 ulp is finer than the float32 sums' rounding; the outputs
+    beyond one ulp at their own magnitude are counted and printed);
+    float32 within 1e-4 x max(1, max |plain|); every rerun bitwise.
+    Then one pass of the four stages per route, timed with CUDA events
+    around eager calls: kernel, plain, and the library route (int8:
+    ``int8_conv``'s im2col + ``torch._int_mm`` + the torch epilogue;
+    bf16: cuDNN's ``F.conv2d`` + the torch epilogue), beside the bound
+    (per stage the larger of bytes over 3.35 TB/s and 2 x multiply-adds
+    over 1,979 int8 TOP/s or 989 bf16 TFLOP/s).
+14. **The conv A/B harness.** ``mxnet_tpu_torch.tools.conv_ab.main(
+    ["--batch", "256", "--iters", "20"])`` on the card: 16 records (4
+    stages x int8/bf16 x library/kernel), each with ``ms``, none an
+    ``error``; ``conv3x3_epilogue`` launched 4 x (1 warm-up + 20) times
+    per route.  Prints each stage's kernel and library times.
+    ``--profile`` adds phase 13's device time by category of one pass of
+    each library route and of B9 (im2col, GEMM, epilogue).
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
-pairings; ``qmm_requant``'s per forward, its 16 launches summed), the
-card's name and power limit from ``nvidia-smi``, and as the last line
-``{"ok": true, "device": {...}}``.
+pairings; ``qmm_requant``'s per forward, its 16 launches summed;
+``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
+stages, ``launches`` from phase 14), the card's name and power limit
+from ``nvidia-smi``, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import subprocess
@@ -140,6 +166,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 INT8_OPS_PER_S = 1.979e15
+BF16_FLOPS_PER_S = 989e12
 
 LN_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -165,6 +192,16 @@ Q_REQUESTS = 16
 QMM_RAGGED = [(130, 70, 40), (600, 520, 300), (1, 8, 8), (333, 48, 17)]
 PARITY_IMAGES, CALIB_PARITY_IMAGES = 2, 8
 PROB_TOL, RANGE_RTOL = 1e-5, 1e-4
+# slice 5: conv3x3_epilogue (B9) and the conv A/B harness (phases 13-14);
+# ((N, H, W, Cin), Cout) of the ragged checks and the float32 check
+CONV_BATCH, CONV_ITERS = 256, 20
+CONV_RAGGED = [((2, 8, 8, 16), 32), ((4, 6, 6, 16), 32), ((1, 14, 14, 8), 16),
+               ((2, 6, 6, 8), 24), ((2, 9, 11, 3), 5), ((1, 7, 7, 512), 512)]
+CONV_F32 = ((2, 28, 28, 512), 128)
+CONV_F32_TOL = 1e-4
+# bf16 outputs are held to one bf16 ulp at their magnitude, counted no
+# finer than at 1/64 of the outputs' RMS (see _bf16_ulps)
+CONV_BF16_FLOOR = 2.0 ** -6
 # (clip_gradient, wd, rescale_grad, inv_scale, ok)
 OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
              (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
@@ -1284,45 +1321,53 @@ QPROFILE_CATEGORIES = (
 )
 
 
-def profile_forward(qmod, batch, steps=2):
-    """Device time by kernel category over ``steps`` int8 forwards, and
-    the device's idle share of the window."""
+def _profile_calls(label, fn, categories, per, steps=2, top=14):
+    """Device time by kernel category over ``steps`` calls of ``fn``
+    (warmed up by one call), and the device's idle share of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    qmod.forward(batch, is_train=False)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            qmod.forward(batch, is_train=False)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     if not kernels:
-        print("phase 11 profile: the profiler recorded no device time; "
-              "not measured")
+        print("%s: the profiler recorded no device time; not measured"
+              % label)
         return
     busy = sum(e.self_device_time_total for e in kernels)
     cats = {}
     for e in kernels:
         name = e.key.lower()
-        cat = next((c for c, frags in QPROFILE_CATEGORIES
+        cat = next((c for c, frags in categories
                     if any(f in name for f in frags)), "other")
         cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
-    print("phase 11 profile: %d forwards, wall %.2f ms, device busy %.2f ms, "
-          "idle share %.4f" % (steps, wall_us / 1e3, busy / 1e3,
+    print("%s: %d calls (one %s each), wall %.2f ms, device busy %.2f ms, "
+          "idle share %.4f" % (label, steps, per, wall_us / 1e3, busy / 1e3,
                                1 - busy / wall_us))
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print("phase 11 profile: %-28s %9.3f ms per forward (%.4f of busy)"
-              % (cat, us / steps / 1e3, us / busy))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
-        print("phase 11 profile: kernel %9.3f ms per forward x%-5d %s"
-              % (e.self_device_time_total / steps / 1e3, e.count // steps,
-                 e.key[:110]))
+        print("%s: %-28s %9.3f ms per %s (%.4f of busy)"
+              % (label, cat, us / steps / 1e3, per, us / busy))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print("%s: kernel %9.3f ms per %s x%-5d %s"
+              % (label, e.self_device_time_total / steps / 1e3, per,
+                 e.count // steps, e.key[:110]))
+
+
+def profile_forward(qmod, batch, steps=2):
+    """Device time by kernel category over ``steps`` int8 forwards, and
+    the device's idle share of the window."""
+    _profile_calls("phase 11 profile",
+                   lambda: qmod.forward(batch, is_train=False),
+                   QPROFILE_CATEGORIES, "forward", steps)
 
 
 def phase_int8_serve(profile=False):
@@ -1506,6 +1551,241 @@ def phase_int8_parity(model):
                            % worst)
 
 
+# -- slice 5: conv3x3_epilogue (B9) through the conv A/B harness ---------------
+def _conv_inputs(shape, cout, route, gen):
+    """Seeded ``(x, w, scale, shift)`` on the card.  int8: the harness's
+    ranges, with a scale that spreads the codes over the int8 range (acc
+    has std ~ sqrt(9 Cin) x 73.6 x 9.2); bf16 / float32: the harness's."""
+    import torch
+    c = shape[-1]
+    dev = "cuda"
+    if route == "int8":
+        x = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                          generator=gen)
+        wt = torch.randint(-16, 16, (3, 3, c, cout), dtype=torch.int8,
+                           device=dev, generator=gen)
+        spread = 60.0 / (np.sqrt(9 * c) * 73.6 * 9.2)
+        scale = (torch.rand(cout, device=dev, generator=gen) + 0.5) * spread
+        shift = torch.randn(cout, device=dev, generator=gen) * 10
+        return x, wt, scale, shift
+    dtype = torch.bfloat16 if route == "bf16" else torch.float32
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    wt = (torch.randn((3, 3, c, cout), device=dev, generator=gen)
+          * 0.05).to(dtype)
+    scale = torch.rand(cout, device=dev, generator=gen) + 0.5
+    shift = torch.randn(cout, device=dev, generator=gen)
+    return x, wt, scale, shift
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (float32): 2^(exponent - 7), normals only."""
+    import torch
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in bf16 ulps at max(|got|, |want|), magnitudes below
+    CONV_BF16_FLOOR x rms(want) taken at that floor: there a bf16 ulp is
+    finer than the rounding of the float32 sums themselves."""
+    import torch
+    g, w = got.float(), want.float()
+    floor = CONV_BF16_FLOOR * float(w.square().mean().sqrt())
+    mag = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        torch.full_like(w, floor))
+    return (g - w).abs() / _bf16_ulp(mag)
+
+
+def _conv_check(pk, shape, cout, route, relu, gen):
+    """B9 against its plain version (float64 sums) on one case: int8
+    bitwise, bf16 within one bf16 ulp (:func:`_bf16_ulps`), float32
+    within CONV_F32_TOL relative; a rerun bitwise equal.  Returns (max
+    absolute error, bf16 ulps or 0, outputs beyond one strict bf16 ulp)."""
+    import torch
+    x, w, scale, shift = _conv_inputs(shape, cout, route, gen)
+    got = pk.conv3x3_epilogue(x, w, scale, shift, relu=relu)
+    again = pk.conv3x3_epilogue(x, w, scale, shift, relu=relu)
+    want = pk.conv3x3_epilogue_reference(x, w, scale, shift, relu=relu)
+    torch.cuda.synchronize()
+    case = "conv3x3_epilogue %s -> %d %s relu=%s" % (shape, cout, route,
+                                                     relu)
+    if got.dtype != want.dtype or got.shape != want.shape \
+            or not torch.equal(got, again):
+        raise RuntimeError("%s: %s %s vs %s %s, rerun bitwise %s"
+                           % (case, got.dtype, tuple(got.shape), want.dtype,
+                              tuple(want.shape), torch.equal(got, again)))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if route == "int8":
+        if not torch.equal(got, want):
+            raise RuntimeError("%s: %d codes differ from the plain version"
+                               % (case, int((got != want).sum())))
+        return err, 0.0, 0
+    if route == "bf16":
+        ulps = float(_bf16_ulps(got, want).max())
+        strict = int((diff > _bf16_ulp(torch.maximum(
+            got.float().abs(), want.float().abs()))).sum())
+        if ulps > 1.0:
+            raise RuntimeError("%s: outputs beyond one bf16 ulp (worst %.3g "
+                               "ulps, %.3g absolute)" % (case, ulps, err))
+        return err, ulps, strict
+    tol = CONV_F32_TOL * max(1.0, float(want.abs().max()))
+    if err > tol:
+        raise RuntimeError("%s: max |diff| %.3g above %.3g"
+                           % (case, err, tol))
+    return err, 0.0, 0
+
+
+def _conv_bound(stages, batch, route):
+    """(bound ms, bound_by, bytes, operations) of one pass of B9 over the
+    harness's ``stages`` (Cin = Cout = C): x, w, scale and shift read
+    once, the output (the input's dtype) written once; 2 operations per
+    multiply-add.  Each stage is bound by the larger of its two times;
+    ``bound_by`` names the kind that bounds most of the sum."""
+    es, peak = (1, INT8_OPS_PER_S) if route == "int8" \
+        else (2, BF16_FLOPS_PER_S)
+    total = by_bytes = 0.0
+    nbytes = ops = 0
+    for h, w, c in stages:
+        m = batch * h * w
+        b = es * (2 * m * c + 9 * c * c) + 8 * c
+        o = 2 * m * 9 * c * c
+        b_ms, o_ms = b / HBM_BYTES_PER_S * 1e3, o / peak * 1e3
+        total += max(b_ms, o_ms)
+        by_bytes += b_ms if b_ms >= o_ms else 0.0
+        nbytes, ops = nbytes + b, ops + o
+    return (total, "bytes" if by_bytes > total / 2 else "operations",
+            nbytes, ops)
+
+
+CONV_PROFILE_CATEGORIES = (
+    ("conv3x3_epilogue (B9)", ("conv3x3_kernel",)),
+    ("cuDNN convolution", ("fprop", "conv", "implicit")),
+    ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "imma", "xmma")),
+    ("im2col / layout copies", ("cat", "copy", "pad")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def phase_conv_kernel(profile=False):
+    """Phase 13: B9 against its plain version, then one pass of the four
+    harness stages timed per route: kernel, plain, library.  With
+    ``profile``, the device time by category of one pass of the library
+    route and of B9."""
+    import torch
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.tools import conv_ab
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"int8": 0.0, "bf16": 0.0, "float32": 0.0}
+    ulps = strict = outputs = 0
+    stages = [((CONV_BATCH, h, w, c), c) for h, w, c in conv_ab.STAGES]
+    checks = [(r, shape, cout) for r in ("int8", "bf16")
+              for shape, cout in stages + CONV_RAGGED]
+    for route, shape, cout in checks + [("float32",) + CONV_F32]:
+        for relu in (True, False):
+            err, u, n = _conv_check(pk, shape, cout, route, relu, gen)
+            worst[route] = max(worst[route], err)
+            if route == "bf16":
+                ulps, strict = max(ulps, u), strict + n
+                outputs += int(np.prod(shape[:-1])) * cout
+        torch.cuda.empty_cache()
+    print("phase 13: conv3x3_epilogue int8 bitwise equal to its plain "
+          "version and to a rerun at the 4 harness stages of batch %d and "
+          "%s, relu on and off (worst code difference %g)"
+          % (CONV_BATCH, [(tuple(s), c) for s, c in CONV_RAGGED],
+             worst["int8"]))
+    print("phase 13: bf16 there within one bf16 ulp (floor %g x rms): worst "
+          "%.4g ulps, max |diff| %.4g; %d of %d outputs beyond one ulp at "
+          "their own magnitude; reruns bitwise"
+          % (CONV_BF16_FLOOR, ulps, worst["bf16"], strict, outputs))
+    print("phase 13: float32 at %s within %g relative: max |diff| %.4g"
+          % (CONV_F32, CONV_F32_TOL, worst["float32"]))
+    library = {"int8": conv_ab.library_int8, "bf16": conv_ab.library_bf16}
+    out = []
+    for route in ("int8", "bf16"):
+        times = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+        for shape, cout in stages:
+            x, w, scale, shift = _conv_inputs(shape, cout, route, gen)
+            fns = {"kernel": lambda: pk.conv3x3_epilogue(x, w, scale, shift),
+                   "plain": lambda: pk.conv3x3_epilogue_reference(
+                       x, w, scale, shift),
+                   "library": lambda: library[route](x, w, scale, shift)}
+            for key, fn in fns.items():
+                times[key] += _event_ms(fn, iters=2 if key == "plain"
+                                        else 10)
+            del x, w, fns
+            torch.cuda.empty_cache()
+        bound_ms, bound_by, nbytes, ops = _conv_bound(conv_ab.STAGES,
+                                                      CONV_BATCH, route)
+        print("phase 13: %s, one pass of the 4 stages (batch %d), device "
+              "time: kernel %.5f ms, plain %.5f ms, library %s %.5f ms; "
+              "bound %.5f ms (%s: %d bytes, %d operations); %.1f %% of the "
+              "bound"
+              % (route, CONV_BATCH, times["kernel"], times["plain"],
+                 "int8_conv (im2col + torch._int_mm) + torch epilogue"
+                 if route == "int8" else "F.conv2d (cuDNN, bf16 sums "
+                 "rounded before the epilogue) + torch epilogue",
+                 times["library"], bound_ms, bound_by, nbytes, ops,
+                 100 * bound_ms / times["kernel"]))
+        if profile:
+            ins = [_conv_inputs(shape, cout, route, gen)
+                   for shape, cout in stages]
+            for impl, fn in (("library", library[route]),
+                             ("kernel", pk.conv3x3_epilogue)):
+                _profile_calls("phase 13 profile %s %s" % (route, impl),
+                               lambda: [fn(*a) for a in ins],
+                               CONV_PROFILE_CATEGORIES, "pass", top=8)
+            del ins
+            torch.cuda.empty_cache()
+        out.append({"name": "conv3x3_epilogue[%s]" % route, "route": "cuda",
+                    "source": "mxnet_tpu_torch/csrc/conv3x3_epilogue.cu",
+                    "replaces": "mxnet_tpu/ops/pallas_kernels.py:596",
+                    "launches": None, "max_abs_err": worst[route],
+                    "ms": times["kernel"], "plain_ms": times["plain"],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": times["library"]})
+    return out
+
+
+def phase_conv_path():
+    """Phase 14: the conv A/B harness at batch 256 on the card; returns
+    B9's launches there by route."""
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.tools import conv_ab
+
+    argv = ["--batch", str(CONV_BATCH), "--iters", str(CONV_ITERS)]
+    pk.reset_launch_counts()
+    t0 = time.monotonic()
+    recs = conv_ab.main(argv)
+    counts = pk.launch_counts()
+    wall = time.monotonic() - t0
+    want = len(conv_ab.STAGES) * 2 * 2
+    bad = [r for r in recs if "ms" not in r]
+    if len(recs) != want or bad:
+        raise RuntimeError("conv_ab %s: %d records (want %d), without ms: %s"
+                           % (argv, len(recs), want, bad))
+    per_route = len(conv_ab.STAGES) * (1 + CONV_ITERS)
+    launches = {r: counts["conv3x3_epilogue[%s]" % r] for r in ("int8",
+                                                                "bf16")}
+    if counts["conv3x3_epilogue"] != 2 * per_route \
+            or any(v != per_route for v in launches.values()):
+        raise RuntimeError("conv3x3_epilogue launched %s times in the "
+                           "harness, want %d per route"
+                           % (counts, per_route))
+    for lib, ker in zip(recs[::2], recs[1::2]):
+        print("phase 14: %s %s: kernel %.5f ms, library %.5f ms (%.2fx), "
+              "%.1f images/s" % (tuple(ker["stage"]), ker["dtype"],
+                                 ker["ms"], lib["ms"], lib["ms"] / ker["ms"],
+                                 ker["img_per_s"]))
+    print("phase 14: conv_ab %s: %d records in %.2f s; conv3x3_epilogue "
+          "launched %d times (int8 %d, bf16 %d = 4 stages x (1 warm-up + "
+          "%d))" % (" ".join(argv), len(recs), wall,
+                    counts["conv3x3_epilogue"], launches["int8"],
+                    launches["bf16"], CONV_ITERS))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1545,6 +1825,10 @@ def main():
             profile="--profile" in sys.argv)
         phase_int8_parity(model)
         del model
+        conv_kernels = phase_conv_kernel(profile="--profile" in sys.argv)
+        launches = phase_conv_path()
+        for k in conv_kernels:
+            k["launches"] = launches[k["name"].split("[")[1][:-1]]
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1555,7 +1839,7 @@ def main():
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
     print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels
-                      + [qmm_kernel]}))
+                      + [qmm_kernel] + conv_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """The port of ``mxnet_tpu/ops/pallas_kernels.py``: flash attention
-(``:51-426``) and the int8 matmul with the requantize epilogue
-(``:429-584``).
+(``:51-426``), the int8 matmul with the requantize epilogue
+(``:429-584``) and the implicit-GEMM 3×3 convolution with a fused
+epilogue (``:587-751``).
 
-Four hand-written CUDA kernels, each the Hopper port of a Pallas kernel
+Five hand-written CUDA kernels, each the Hopper port of a Pallas kernel
 of that module:
 
 - :func:`flash_forward_with_lse` → ``mxtt_flash_fwd`` (``_fa_kernel``,
@@ -13,7 +14,13 @@ of that module:
 - :func:`qmm_requant` → ``mxtt_qmm_requant`` (``_qmm_requant_kernel``,
   ``:436``; ``csrc/qmm_requant.cu``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
-  runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``.
+  runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``;
+- :func:`conv3x3_epilogue` → ``mxtt_conv3x3_epilogue``
+  (``_conv3x3_kernel``, ``:596``; ``csrc/conv3x3_epilogue.cu``): a 3×3
+  stride-1 same-pad NHWC convolution with a per-channel affine epilogue,
+  in int8 (requantize), bf16 (folded inference BatchNorm) and float32.
+  As in the reference, its entry points are the A/B harness
+  (:mod:`mxnet_tpu_torch.tools.conv_ab`) and the tests; no op calls it.
 
 :func:`flash_delta` is plain torch, as it is jnp in the reference, and
 :func:`flash_attention` over ``(B, T, H, D)`` is a
@@ -53,14 +60,19 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "flash_delta", "flash_dq", "flash_dq_reference", "flash_dkv",
            "flash_dkv_reference", "flash_attention", "qmm_requant",
            "qmm_requant_reference", "quantized_conv_requant",
+           "conv3x3_epilogue", "conv3x3_epilogue_reference",
            "launch_counts", "reset_launch_counts", "LAUNCHES",
            "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
+# conv3x3_epilogue counts every launch under its own name and under its
+# input route's, e.g. "conv3x3_epilogue[int8]"
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-            "qmm_requant": 0}
+            "qmm_requant": 0, "conv3x3_epilogue": 0,
+            "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
+            "conv3x3_epilogue[float32]": 0}
 _count_lock = threading.Lock()
 
 
@@ -76,9 +88,10 @@ def reset_launch_counts():
             LAUNCHES[k] = 0
 
 
-def _count(name):
+def _count(*names):
     with _count_lock:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +311,20 @@ def flash_attention(query, key, value, causal=False, scale=None):
 # ---------------------------------------------------------------------------
 # int8 matmul with the requantize epilogue fused (B8)
 # ---------------------------------------------------------------------------
-def _requant(acc, scale, bias, relu):
+def _requant(acc, scale, bias, relu, out_dtype=torch.int8):
     """The reference's epilogue ``clip(round(relu(f32(acc) * scale +
     bias)), -127, 127)`` -> int8, rounded twice (no FMA) and half to even;
-    ``scale`` a Python float taken as float32, ``bias`` float32."""
-    real = acc.to(torch.float32) * _c(scale, acc) + bias
+    ``scale`` a Python float taken as float32 or a float32 tensor that
+    broadcasts against ``acc`` (per output channel), ``bias`` float32.
+    Another ``out_dtype`` is a plain cast of ``relu(f32(acc) * scale +
+    bias)``, with no rounding or clipping."""
+    if not isinstance(scale, torch.Tensor):
+        scale = _c(scale, acc)
+    real = acc.to(torch.float32) * scale + bias
     if relu:
         real = torch.clamp_min(real, 0.0)
+    if out_dtype != torch.int8:
+        return real.to(out_dtype)
     return torch.round(real).clamp(-127, 127).to(torch.int8)
 
 
@@ -446,3 +466,137 @@ def quantized_conv_requant(data, weight, bias=None, kernel=(), stride=(),
     bshape = (1,) * (acc.dim() - 1) + (-1,) if channels_last \
         else (1, -1) + (1,) * nsp
     return (_requant(acc, scale, bias_q.reshape(bshape), relu),) + rng
+
+
+# ---------------------------------------------------------------------------
+# implicit-GEMM 3x3 convolution with a fused affine epilogue (B9)
+# ---------------------------------------------------------------------------
+# input dtype -> the route's name in LAUNCHES and the kernel's type code
+_CONV_ROUTES = {torch.int8: ("int8", 0), torch.bfloat16: ("bf16", 1),
+                torch.float32: ("float32", 2)}
+# output dtype -> the kernel's type code
+_CONV_OUTS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def conv3x3_epilogue_reference(x, w, scale, shift, relu=True,
+                               out_dtype=None):
+    """Plain ``_conv3x3_kernel``: zero-pad H and W by one, the
+    ``(N·H·W, 9·Cin)`` im2col in (dy, dx, c) order, a float64 matmul by
+    ``w.reshape(9·Cin, Cout)`` (exact for int8, |acc| <= 9·Cin·127² <
+    2³¹, and for bf16 products), converted to float32, then the epilogue
+    of :func:`_requant`.  ``scale``/``shift`` are float32 ``(Cout,)``
+    tensors on ``x``'s device."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    xp = torch.nn.functional.pad(x.to(torch.float64), (0, 0, 1, 1, 1, 1))
+    col = torch.cat([xp[:, dy:dy + h, dx:dx + wd, :]
+                     for dy in range(3) for dx in range(3)], dim=-1)
+    acc = col.reshape(-1, 9 * cin) @ w.to(torch.float64).reshape(9 * cin,
+                                                                  cout)
+    del xp, col
+    return _requant(acc.reshape(n, h, wd, cout), scale, shift, relu,
+                    x.dtype if out_dtype is None else out_dtype)
+
+
+def _channel_vector(v, x, cout, what):
+    """``v`` (a numpy array, list or tensor of ``(Cout,)``) as float32 on
+    ``x``'s device."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=x.device)
+    if tuple(t.shape) != (cout,):
+        raise MXNetError("conv3x3_epilogue: %s must be (Cout,) = (%d,), got "
+                         "%s" % (what, cout, tuple(t.shape)))
+    return t.contiguous()
+
+
+def _check_conv(x, w, out_dtype):
+    """Validate NHWC ``x`` and HWIO ``w``; True when they live on the
+    card."""
+    if x.dtype not in _CONV_ROUTES or w.dtype != x.dtype:
+        raise MXNetError("conv3x3_epilogue takes int8, bfloat16 or float32 "
+                         "x and w of one dtype, got %s/%s"
+                         % (x.dtype, w.dtype))
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (
+            3, 3, x.shape[-1]):
+        raise MXNetError("conv3x3_epilogue takes x (N, H, W, Cin) and w "
+                         "(3, 3, Cin, Cout), got %s/%s"
+                         % (tuple(x.shape), tuple(w.shape)))
+    if w.device != x.device:
+        raise MXNetError("conv3x3_epilogue: w must be on %s, got %s"
+                         % (x.device, w.device))
+    if x.device.type in ("cpu", "meta"):
+        return False
+    if x.device.type != "cuda":
+        raise MXNetError("conv3x3_epilogue: unsupported device %s"
+                         % x.device)
+    if out_dtype not in _CONV_OUTS:
+        raise MXNetError("conv3x3_epilogue: the kernel writes %s, not %s"
+                         % (sorted(str(d) for d in _CONV_OUTS), out_dtype))
+    n, h, wd, cin = x.shape
+    if n * h * wd >= 2 ** 31 or 9 * cin >= 2 ** 31:
+        raise MXNetError("conv3x3_epilogue: %s exceeds the kernel's int32 "
+                         "sizes" % (tuple(x.shape),))
+    return True
+
+
+_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
+
+
+def _conv_fn():
+    from .build import load
+    fn = load("conv3x3_epilogue").mxtt_conv3x3_epilogue
+    if fn.argtypes is None:
+        # (x, w, scale, shift, out, N, H, W, Cin, Cout, in_type, out_type,
+        #  relu, vec16, stream)
+        fn.argtypes = _CONV_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3x3_epilogue(x, w, scale, shift, relu=True, out_dtype=None):
+    """3×3 stride-1 same-pad NHWC convolution with a fused affine
+    epilogue: ``out = cast(relu(conv(x, w) * scale + shift))``.
+
+    - int8 ``x``/``w``: exact int32 sums; ``scale`` folds the requantize
+      (s_x·s_w/s_out), ``shift`` the bias; the default output is int8,
+      rounded half to even and clipped to ±127.
+    - bfloat16 ``x``/``w``: float32 sums; ``scale``/``shift`` fold
+      inference BatchNorm; the default output is bfloat16.
+    - float32 ``x``/``w``: float32 sums on CUDA cores (no TF32).
+
+    Rounding and clipping happen only for an int8 output; any other
+    ``out_dtype`` is a plain cast.  ``x`` is (N, H, W, Cin), ``w`` (3, 3,
+    Cin, Cout) HWIO, ``scale``/``shift`` (Cout,) numpy arrays or tensors,
+    taken as float32 on ``x``'s device.
+
+    The reference's tile arguments (``nb``, ``th``, ``tn``), its
+    ``interpret`` switch and its VMEM budget size TPU VMEM tiles and have
+    no meaning here: the kernel's tiles are fixed and ragged shapes are
+    masked inside it, so ``x`` and ``w`` are never padded in memory.  The
+    kernel reads ``w`` as ``(Cout, 9·Cin)``, repacked on each call."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    on_card = _check_conv(x, w, out_dtype)
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    scale = _channel_vector(scale, x, cout, "scale")
+    shift = _channel_vector(shift, x, cout, "shift")
+    if not on_card:
+        return conv3x3_epilogue_reference(x, w, scale, shift, relu,
+                                          out_dtype)
+    x = x.contiguous()
+    wk = w.permute(3, 0, 1, 2).contiguous()     # (Cout, 3, 3, Cin)
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    route, in_code = _CONV_ROUTES[x.dtype]
+    vec = int(cin * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+              and wk.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _conv_fn()(x.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                         shift.data_ptr(), out.data_ptr(), n, h, wd, cin,
+                         cout, in_code, _CONV_OUTS[out_dtype],
+                         int(bool(relu)), vec, stream)
+    if err != 0:
+        raise MXNetError("mxtt_conv3x3_epilogue kernel launch failed: "
+                         "cudaError %d" % err)
+    _count("conv3x3_epilogue", "conv3x3_epilogue[%s]" % route)
+    return out
