@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--profile]
 
-Fourteen phases; any failure exits non-zero and prints no result line.
+Sixteen phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
-   process per source, started together), run each kernel's wrapper on
+   process per source, started together — the six mxgen kernels that
+   ``analysis/codegen.py`` emits among them), run each kernel's wrapper on
    the card at the shapes the serving path gives it plus ragged ones, and
    hold it against its plain torch version (LayerNorm: atol = rtol =
    1e-5, f32 — only the reduction order differs).  Time the kernel, the
@@ -140,14 +141,45 @@ Fourteen phases; any failure exits non-zero and prints no result line.
     per route.  Prints each stage's kernel and library times.
     ``--profile`` adds phase 13's device time by category of one pass of
     each library route and of B9 (im2col, GEMM, epilogue).
+15. **The mxgen kernels (B10).** The six shipped fusion chains
+    (``mxnet_tpu_torch/analysis/shipped_chains.json``) lowered to CUDA
+    C++ by ``analysis/codegen.py`` and built with one ``nvcc`` each in
+    phase 1; ``build_shipped_generated(device="cuda")`` registers and
+    proves them and ``lint_generated_kernels()`` is empty.  Each kernel
+    against its plain PyTorch twin on the card on the reference's seeded
+    inputs: floats within rtol = atol = 1e-5 (only summation orders and
+    the library's tanh/rsqrt differ), ints and bools exactly, whole-array
+    for all six and row-tiled at every ladder rung (8, 32, 128, 256) for
+    the flat-tileable ``_gen_zero1_top2``; reruns bitwise.  With
+    ``MXGEN_LOWER_EXACT = False`` (``sub`` emitted as ``add``) every chain
+    with a ``sub`` is rebuilt and must FAIL its check.  A synthetic
+    chain of 90 eqns over 48 prims of the provable set (f32, int32 and
+    bool; ``_sweep_ir``) is lowered, built and held to its twin the same
+    way, so the emitter's forms the six chains do not use run too.  The
+    autotune
+    cache is written once into a temporary file and replayed: same
+    choice, byte-identical file.  Each kernel timed as its device time
+    (CUDA graph of 200 calls), its eager call and the eager twin, beside
+    its bound (bytes over 3.35 TB/s against f32 operations over 67
+    TFLOP/s) and one tiny kernel's launch floor.  ``_gen_zero1_top2``
+    (``m' = 0.9 m + g / 8``, ``w' = w - 0.1 m'``) is SGD with momentum,
+    so ``torch._fused_sgd_`` with ``grad_scale`` 8 computes it in one
+    call: it is held to the twin at 1e-5 and timed the same way as the
+    library time (the port never calls it).
+16. **The entry point.** ``mxnet_tpu_torch.codegen_bench.main([])`` on
+    the card: its JSON line has ``codegen_numerics_ok == 1.0`` and
+    ``codegen_n_kernels == 6``, and the launch counters (zeroed just
+    before) show every ``_gen_*`` kernel launched.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
 pairings; ``qmm_requant``'s per forward, its 16 launches summed;
 ``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
-stages, ``launches`` from phase 14), the card's name and power limit
-from ``nvidia-smi``, and as the last line ``{"ok": true, "device":
-{...}}``.
+stages, ``launches`` from phase 14; the ``_gen_*`` kernels' per call,
+``launches`` from phase 16, ``library_ms`` that of ``torch._fused_sgd_``
+for ``_gen_zero1_top2`` and null for the other five, which no single
+PyTorch call computes), the card's name and power limit from
+``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -198,6 +230,9 @@ CONV_BATCH, CONV_ITERS = 256, 20
 CONV_RAGGED = [((2, 8, 8, 16), 32), ((4, 6, 6, 16), 32), ((1, 14, 14, 8), 16),
                ((2, 6, 6, 8), 24), ((2, 9, 11, 3), 5), ((1, 7, 7, 512), 512)]
 CONV_F32 = ((2, 28, 28, 512), 128)
+# slice 6: the mxgen kernels (B10) and codegen_bench (phases 15-16)
+GEN_TOL = 1e-5          # codegen.EQUIV_TOL: rtol = atol, ints/bools exact
+GEN_TIMED = 200
 CONV_F32_TOL = 1e-4
 # bf16 outputs are held to one bf16 ulp at their magnitude, counted no
 # finer than at 1/64 of the outputs' RMS (see _bf16_ulps)
@@ -260,10 +295,15 @@ def phase_kernels():
     from mxnet_tpu_torch.ops import build
     from mxnet_tpu_torch.ops import fused_optimizer as fo
 
+    from mxnet_tpu_torch.analysis import codegen as cg
+
     t0 = time.monotonic()
-    libs = build.build_all()
-    print("phase 1: built %s in %.2f s" % (sorted(libs),
-                                          time.monotonic() - t0))
+    emitted = {lk.symbol: lk.src for lk in cg.shipped_lowered()}
+    t1 = time.monotonic()
+    libs = build.build_all(build.KERNEL_SOURCES, emitted)
+    print("phase 1: lowered the 6 shipped mxgen chains to CUDA in %.2f s; "
+          "built %s in %.2f s (one nvcc each, started together)"
+          % (t1 - t0, sorted(libs), time.monotonic() - t1))
     d = CFG["d_model"]
     # the serving path's LN shapes (prefill buckets, the last-position
     # final LN, the decode slot batch) and ragged ones
@@ -1785,6 +1825,304 @@ def phase_conv_path():
                     launches["bf16"], CONV_ITERS))
     return launches
 
+def _gen_inputs(lk, dev="cuda"):
+    import torch
+    from mxnet_tpu_torch.analysis import codegen as cg
+    return [torch.as_tensor(x).to(dev)
+            for x in cg.seeded_inputs(lk.in_avals, cg.EQUIV_SEED)]
+
+
+def _gen_check(gk, xs, block_rows=None):
+    """The kernel against the twin on the card (rerun bitwise); returns
+    the max |diff| over float outputs."""
+    import torch
+    from mxnet_tpu_torch.analysis import codegen as cg
+    from mxnet_tpu_torch.ops import generated_kernels as gen
+    got = gen.generated_call(gk, *xs, block_rows=block_rows)
+    torch.cuda.synchronize()
+    ok, err = cg.compare_outputs(got, cg.reference_outputs(gk.lowered, xs),
+                                 GEN_TOL)
+    if not ok:
+        raise RuntimeError("%s (block_rows %s) differs from its twin: max "
+                           "|diff| %g" % (gk.name, block_rows, err))
+    again = gen.generated_call(gk, *xs, block_rows=block_rows)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError("%s (block_rows %s): a rerun is not bitwise "
+                           "equal" % (gk.name, block_rows))
+    return err
+
+
+def _sweep_ir():
+    """A synthetic chain over the provable set's prims and dtypes, most
+    of which the six shipped chains do not use: every value is an
+    output, so each eqn's emitted form is held against the twin."""
+    avals, lits, ops = {}, {}, []
+
+    def val(shape, dtype):
+        k = str(len(avals))
+        avals[k] = [list(shape), dtype]
+        return int(k)
+
+    def lit(v, dtype):
+        k = val((), dtype)
+        vals = ["0x%08x" % int(np.float32(v).view(np.uint32))] \
+            if dtype == "float32" else [v]
+        lits[str(k)] = {"dtype": dtype, "shape": [], "values": vals}
+        return k
+
+    def op(prim, ins, out_shape, out_dtype, **params):
+        out = val(out_shape, out_dtype)
+        ops.append({"prim": prim, "in": ins, "out": [out],
+                    "params": params})
+        return out
+
+    S, f, i32, b8 = (33, 7), "float32", "int32", "bool"
+    x, y, i, j, b = (val(S, d) for d in (f, f, i32, i32, b8))
+    q = op("add", [op("abs", [x], S, f), lit(1.0, f)], S, f)  # >= 1
+    for p in ("neg", "sign", "floor", "ceil", "copy"):
+        op(p, [x], S, f)
+    for p in ("exp", "exp2", "log", "log1p", "tanh", "sqrt", "rsqrt",
+              "logistic", "sin", "cos", "erf"):
+        op(p, [q], S, f)
+    op("is_finite", [x], S, b8)
+    for p in ("add", "sub", "mul", "div", "max", "min", "rem"):
+        op(p, [x, q], S, f)
+    op("pow", [q, y], S, f)
+    j1 = op("add", [op("abs", [j], S, i32), lit(1, i32)], S, i32)
+    for p in ("gt", "ge", "lt", "le", "eq", "ne"):
+        op(p, [x, y], S, b8)
+        op(p, [i, j], S, b8)
+    for p in ("add", "sub", "mul", "div", "rem", "max", "min", "and", "or",
+              "xor"):
+        op(p, [i, j1], S, i32)
+    for p in ("neg", "abs", "sign", "not"):
+        op(p, [i], S, i32)
+    pos = op("gt", [x, lit(0.0, f)], S, b8)
+    for p in ("and", "or", "xor"):
+        op(p, [b, pos], S, b8)
+    op("not", [b], S, b8)
+    op("convert_element_type", [x], S, i32, new_dtype=i32)
+    op("convert_element_type", [i], S, f, new_dtype=f)
+    op("convert_element_type", [b], S, f, new_dtype=f)
+    op("convert_element_type", [x], S, b8, new_dtype=b8)
+    for e in (0, 1, 2, 3, 5, -2):
+        op("integer_pow", [q], S, f, y=e)
+    op("select_n", [b, x, y], S, f)
+    k3 = op("rem", [op("abs", [i], S, i32), lit(3, i32)], S, i32)
+    op("select_n", [k3, x, y, q], S, f)
+    col = op("reduce_sum", [x], (7,), f, axes=[0])
+    op("broadcast_in_dim", [col], S, f, shape=list(S),
+       broadcast_dimensions=[1])
+    op("add", [x, op("broadcast_in_dim", [col], (1, 7), f, shape=[1, 7],
+                     broadcast_dimensions=[1])], S, f)
+    total = op("reduce_sum", [x], (), f, axes=[0, 1])
+    op("mul", [total, x], S, f)
+    op("broadcast_in_dim", [total], S, f, shape=list(S),
+       broadcast_dimensions=[])
+    op("broadcast_in_dim", [lit(2.5, f)], S, f, shape=list(S),
+       broadcast_dimensions=[])
+    op("reduce_max", [x], (33,), f, axes=[1])
+    op("reduce_min", [x], (33,), f, axes=[1])
+    op("reduce_prod", [q], (33,), f, axes=[1])
+    op("reduce_and", [b], (7,), b8, axes=[0])
+    op("reduce_or", [b], (7,), b8, axes=[0])
+    op("reduce_sum", [i], (), i32, axes=[0, 1])
+    wide = op("expand_dims", [x], (33, 1, 7), f, dimensions=[1])
+    op("squeeze", [wide], S, f, dimensions=[1])
+    return {"name": "_gen_prim_sweep", "kind": "reduction_epilogue",
+            "ext_in": [x, y, i, j, b],
+            "ext_out": [o["out"][0] for o in ops], "avals": avals,
+            "literals": lits, "ops": ops}
+
+
+def phase_gen_kernels():
+    """Phase 15: the six generated kernels (B10) against their twins on
+    the card, the mislowering seam caught, the autotune cache replayed,
+    and each kernel timed beside its twin and its bound."""
+    import os
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.analysis import codegen as cg
+    from mxnet_tpu_torch.ops import build
+    from mxnet_tpu_torch.ops import generated_kernels as gen
+
+    t0 = time.monotonic()
+    kernels = gen.build_shipped_generated(device="cuda")
+    findings = cg.lint_generated_kernels(device="cuda")
+    if len(kernels) != 6 or findings:
+        raise RuntimeError("generated kernels %s, lint %s"
+                           % ([g.name for g in kernels],
+                              [str(f) for f in findings]))
+    print("phase 15: %d generated kernels built, registered and proven "
+          "on the card in %.2f s; lint_generated_kernels() == []"
+          % (len(kernels), time.monotonic() - t0))
+    worst = {}
+    for gk in kernels:
+        lk, xs = gk.lowered, _gen_inputs(gk.lowered)
+        worst[gk.name] = _gen_check(gk, xs)
+        rungs = cg.AUTOTUNE_LADDER if cg.flat_tileable(lk) else ()
+        for br in rungs:
+            worst[gk.name] = max(worst[gk.name], _gen_check(gk, xs, br))
+        print("phase 15: %s (%s, %d eqns, %d in / %d out, %d threads, "
+              "workspace %d B %s): whole-array%s within %g of its twin, "
+              "max |diff| %.3g, reruns bitwise"
+              % (gk.name, gk.kind, gk.n_ops, len(xs), len(gk.out_avals),
+                 lk.threads, lk.ws_bytes,
+                 "shared" if lk.ws_shared else "global",
+                 " and tiled at %s" % (rungs,) if rungs else "", GEN_TOL,
+                 worst[gk.name]))
+
+    # the mislowering seam: sub emitted as add must fail the check
+    chains = {lk.name: lk.chain for lk in cg.shipped_lowered()}
+    cg.MXGEN_LOWER_EXACT = False
+    try:
+        mutants = {n: cg.lower_chain(c) for n, c in chains.items()}
+    finally:
+        cg.MXGEN_LOWER_EXACT = True
+    with_sub = sorted(n for n, c in chains.items() if "sub" in c.prims)
+    changed = sorted(n for n, lk in mutants.items()
+                     if lk.src != gen.GENERATED_KERNELS[n].src)
+    if changed != with_sub:
+        raise RuntimeError("the seam changed %s, want the chains with a "
+                           "sub %s" % (changed, with_sub))
+    sweep = cg.lower_chain(_sweep_ir())
+    if sweep.src is None:
+        raise RuntimeError("the prim sweep does not lower: %s"
+                           % [str(f) for f in sweep.findings])
+    build.build_all((), dict({mutants[n].symbol: mutants[n].src
+                              for n in with_sub},
+                             **{sweep.symbol: sweep.src}))
+    ok, err = cg.equivalence_check(sweep, "cuda")
+    if not ok:
+        raise RuntimeError("the prim sweep (%d eqns) differs from its "
+                           "twin: max |diff| %g" % (sweep.n_ops, err))
+    print("phase 15: prim sweep (%d eqns over %d prims, f32/int32/bool) "
+          "within %g of its twin, max |diff| %.3g"
+          % (sweep.n_ops, len(set(sweep.prims)), GEN_TOL, err))
+    for n in with_sub:
+        ok, err = cg.equivalence_check(mutants[n], "cuda")
+        if ok:
+            raise RuntimeError("%s lowered with sub -> add still passes "
+                               "its equivalence check" % n)
+        print("phase 15: seam %s (sub emitted as add): equivalence check "
+              "fails as it must, max |diff| %.4g" % (n, err))
+
+    # the autotune cache: measured once, then replayed byte-identically
+    tiled = [gk for gk in kernels if cg.flat_tileable(gk.lowered)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "mxgen_cache.json")
+        for gk in tiled:
+            first = cg.autotune_block_rows(gk, cache_path=cache,
+                                           device="cuda")
+            with open(cache, "rb") as f:
+                blob = f.read()
+            again = cg.autotune_block_rows(gk, cache_path=cache,
+                                           device="cuda")
+            with open(cache, "rb") as f:
+                if f.read() != blob or again != first:
+                    raise RuntimeError("%s: the autotune cache was not "
+                                       "replayed (%s then %s)"
+                                       % (gk.name, first, again))
+            print("phase 15: autotune %s: block_rows %d of %s (t_ns %s), "
+                  "replayed from the cache byte-identically"
+                  % (gk.name, first, list(cg.AUTOTUNE_LADDER),
+                     json.loads(blob)["kernels"][gk.name]["t_ns"]))
+
+    # times: the kernel's device time (CUDA graph of GEN_TIMED calls),
+    # its eager call with the host's launch cost, and the eager twin
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = _time_ms(lambda: tiny.zero_())
+    out = []
+    for gk in kernels:
+        xs = _gen_inputs(gk.lowered)
+        ms = _time_ms(lambda: gen.generated_call(gk, *xs), iters=GEN_TIMED)
+        call_ms = _event_ms(lambda: gen.generated_call(gk, *xs),
+                            iters=GEN_TIMED)
+        plain_ms = _event_ms(lambda: cg.reference_outputs(gk.lowered, xs),
+                             iters=GEN_TIMED)
+        library_ms = _gen_library_ms(gk, xs)
+        nbytes = gk.bytes_read + gk.bytes_written
+        ops = gk.flops + gk.transcendentals
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print("phase 15: %s device time %.5f ms (eager call %.5f ms), twin "
+              "%.5f ms (%d eqns eager); bound %.6f ms (%d bytes, %d "
+              "operations); one tiny kernel's launch floor %.5f ms"
+              % (gk.name, ms, call_ms, plain_ms, gk.n_ops, bound_ms, nbytes,
+                 ops, floor_ms))
+        if library_ms is not None:
+            print("phase 15: %s library time %.5f ms (torch._fused_sgd_, "
+                  "grad_scale 8, within %g of the twin)"
+                  % (gk.name, library_ms, GEN_TOL))
+        out.append({"name": gk.name, "route": "cuda",
+                    "source": "mxnet_tpu_torch/analysis/codegen.py",
+                    "replaces": "mxnet_tpu/ops/generated_kernels.py:95",
+                    "launches": None, "max_abs_err": worst[gk.name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", "library_ms": library_ms})
+    return out
+
+
+def _gen_library_ms(gk, xs):
+    """Device time of the one PyTorch call that computes a generated
+    kernel's chain, or None where there is none.  ``_gen_zero1_top2`` is
+    SGD with momentum 0.9, dampening 0, lr 0.1 and grad_scale 8 (inputs
+    m, g, w; outputs m', w'), which ``torch._fused_sgd_`` computes in
+    place; it also writes ``g / 8`` back into the gradient.  The result
+    is held to the twin first, so the time is of the same function."""
+    import torch
+    from mxnet_tpu_torch.analysis import codegen as cg
+
+    if gk.name != "_gen_zero1_top2":
+        return None
+    scale = torch.tensor(8.0, device="cuda")
+
+    def step(m, g, w):
+        torch._fused_sgd_([w], [g], [m], weight_decay=0.0, momentum=0.9,
+                          lr=0.1, dampening=0.0, nesterov=False,
+                          maximize=False, is_first_step=False,
+                          grad_scale=scale)
+        return [m, w]
+
+    ok, err = cg.compare_outputs(step(*[x.clone() for x in xs]),
+                                 cg.reference_outputs(gk.lowered, xs),
+                                 GEN_TOL)
+    if not ok:
+        raise RuntimeError("torch._fused_sgd_ differs from the twin of %s: "
+                           "max |diff| %g" % (gk.name, err))
+    state = [x.clone() for x in xs]
+    return _time_ms(lambda: step(*state), iters=GEN_TIMED)
+
+
+def phase_codegen_bench():
+    """Phase 16: ``codegen_bench.main()`` on the card; returns the
+    generated kernels' launches there."""
+    import contextlib
+    import io
+    from mxnet_tpu_torch import codegen_bench
+    from mxnet_tpu_torch.ops import generated_kernels as gen
+
+    gen.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = codegen_bench.main([])
+    counts = gen.launch_counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    rec = json.loads(line)
+    if rc != 0 or rec["codegen_numerics_ok"] != 1.0 \
+            or rec["codegen_n_kernels"] != 6:
+        raise RuntimeError("codegen_bench rc %d: %s" % (rc, line))
+    idle = sorted(n for n in gen.GENERATED_KERNELS if not counts.get(n))
+    if idle:
+        raise RuntimeError("codegen_bench launched no %s" % idle)
+    print("phase 16: codegen_bench in %.2f s: %s" % (time.monotonic() - t0,
+                                                    line))
+    print("phase 16: generated kernels launched %s" % counts)
+    return counts
+
 
 def main():
     import torch
@@ -1829,6 +2167,10 @@ def main():
         launches = phase_conv_path()
         for k in conv_kernels:
             k["launches"] = launches[k["name"].split("[")[1][:-1]]
+        gen_kernels = phase_gen_kernels()
+        launches = phase_codegen_bench()
+        for k in gen_kernels:
+            k["launches"] = launches[k["name"]]
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1839,7 +2181,7 @@ def main():
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
     print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels
-                      + [qmm_kernel] + conv_kernels}))
+                      + [qmm_kernel] + conv_kernels + gen_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,28 +14,11 @@ they are ROADMAP.md queue A, item 13.
 from __future__ import annotations
 
 from ..ops import registry as _reg
+from .findings import ERROR, WARNING, Finding
 
 __all__ = ["Finding", "ERROR", "WARNING", "lint_serving", "render_text"]
 
-ERROR = "error"
-WARNING = "warning"
-_SEVERITY = {"SRV001": ERROR, "SRV002": WARNING}
 _RESHAPE_OPS = frozenset({"Reshape", "reshape"})
-
-
-class Finding:
-    """One lint finding: ``(rule_id, severity, subject, message)``."""
-    __slots__ = ("rule_id", "severity", "subject", "message")
-
-    def __init__(self, rule_id, subject, message):
-        self.rule_id = rule_id
-        self.severity = _SEVERITY[rule_id]
-        self.subject = subject
-        self.message = message
-
-    def __str__(self):
-        return "%s %s [%s] %s" % (self.rule_id, self.severity, self.subject,
-                                  self.message)
 
 
 def render_text(findings, title="serving lint"):

@@ -75,6 +75,11 @@ class Conv2D(HybridBlock):
 
 
 class _Pooling(HybridBlock):
+    """``ceil_mode=True`` is the reference's ``pooling_convention="full"``
+    (``ops.nn.Pooling``: the shortfall padded on the high side), not
+    torch's ``ceil_mode``, whose last window may not start in the padding
+    and whose avg divides by the in-bounds part of it."""
+
     def __init__(self, pool_size, strides, padding, ceil_mode=False,
                  global_pool=False, pool_type="max", count_include_pad=None,
                  layout="NCHW", **kwargs):

@@ -78,12 +78,35 @@ def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 dilation=_tup(dilate, nsp), groups=int(num_group))
 
 
+def full_pad(sizes, kernel, stride, pad):
+    """Extra high-side padding of the ``"full"`` convention, per spatial
+    dim: the reference's output size ``ceil((n + 2p - k) / s) + 1`` (no
+    clamp) and the shortfall padded on the high side
+    (``mxnet_tpu/ops/nn.py:226-232``)."""
+    extra = []
+    for n, k, s, p in zip(sizes, kernel, stride, pad):
+        out = -(-(n + 2 * p - k) // s) + 1
+        extra.append(max(0, (out - 1) * s + k - (n + 2 * p)))
+    return extra
+
+
+def _padded(data, pad, extra, value):
+    """``data`` (N, C, *spatial) padded by ``pad`` on both sides and
+    ``extra`` more on the high side."""
+    pads = []
+    for p, e in zip(reversed(pad), reversed(extra)):
+        pads += [p, p + e]
+    return TF.pad(data, pads, value=value)
+
+
 @register("Pooling")
 def Pooling(data, kernel=(), pool_type="max", global_pool=False,
             cudnn_off=False, pooling_convention="valid", stride=(), pad=(),
             count_include_pad=True, layout=None):
-    """max / avg pooling; the ``"full"`` convention rounds the output
-    size up (torch's ``ceil_mode``)."""
+    """max / avg pooling.  The ``"full"`` convention is the reference's,
+    not torch's ``ceil_mode``: the high side is padded explicitly by the
+    shortfall, so the output size has no clamp and avg pooling with
+    ``count_include_pad`` divides by the whole window."""
     if layout in _CHANNELS_LAST:
         return _last(Pooling(
             _first(data), kernel=kernel, pool_type=pool_type,
@@ -98,14 +121,27 @@ def Pooling(data, kernel=(), pool_type="max", global_pool=False,
     kernel = _tup(kernel, nsp)
     stride = _tup(stride, nsp) if stride else (1,) * nsp
     pad = _tup(pad, nsp) if pad else (0,) * nsp
-    ceil = pooling_convention == "full"
+    extra = full_pad(data.shape[2:], kernel, stride, pad) \
+        if pooling_convention == "full" else [0] * nsp
     if pool_type == "max":
         pool = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}[nsp]
-        return pool(data, kernel, stride, pad, ceil_mode=ceil)
+        if any(extra):
+            low = float("-inf") if data.is_floating_point() \
+                else torch.iinfo(data.dtype).min
+            return pool(_padded(data, pad, extra, low), kernel, stride)
+        return pool(data, kernel, stride, pad)
     if pool_type == "avg":
         pool = {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}[nsp]
-        return pool(data, kernel, stride, pad, ceil_mode=ceil,
-                    count_include_pad=bool(count_include_pad))
+        if not any(extra):
+            return pool(data, kernel, stride, pad,
+                        count_include_pad=bool(count_include_pad))
+        summed = pool(_padded(data, pad, extra, 0.0), kernel, stride)
+        if count_include_pad:
+            return summed
+        # the window's mean over its real elements: both pools divide
+        # by the window size, so the ratio is sum / count
+        ones = torch.ones_like(data[:1, :1])
+        return summed / pool(_padded(ones, pad, extra, 0.0), kernel, stride)
     raise ValueError("unknown pool_type %r" % pool_type)
 
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from .nn import _CHANNELS_LAST, Pooling, _tup
+from .nn import _CHANNELS_LAST, Pooling, _padded, _tup, full_pad
 from .registry import register
 
 __all__ = ["quantize", "quantize_v2", "dequantize", "requantize",
@@ -295,12 +295,15 @@ def quantized_pooling(data, min_data, max_data, kernel=(), pool_type="max",
                       layout=None, cudnn_off=False):
     """Pooling on int8 tensors (reference: quantized_pooling.cc): max pool
     compares the codes (through float32, exact for int8); avg pool sums
-    exactly and rounds the mean back.  The range passes through."""
+    exactly and rounds the mean back.  The range passes through.  A
+    ``"full"`` window wholly in the padding gives the type's minimum, as
+    the reference's integer max does."""
     if pool_type == "max":
         out = Pooling(data.to(_F32), kernel=kernel, pool_type="max",
                       global_pool=global_pool,
                       pooling_convention=pooling_convention, stride=stride,
-                      pad=pad, layout=layout).to(data.dtype)
+                      pad=pad, layout=layout)
+        out = out.clamp_min(torch.iinfo(data.dtype).min).to(data.dtype)
         return out, min_data.reshape(1), max_data.reshape(1)
     x = data.to(torch.float64)
     if layout in _CHANNELS_LAST:
@@ -316,12 +319,15 @@ def quantized_pooling(data, min_data, max_data, kernel=(), pool_type="max",
                 "int8 %d-D windowed avg pooling: ROADMAP.md queue A, item 11"
                 % nsp)
         kernel = _tup(kernel, nsp)
+        stride = _tup(stride, nsp) if stride else (1,) * nsp
+        pad = _tup(pad, nsp) if pad else (0,) * nsp
+        extra = full_pad(x.shape[2:], kernel, stride, pad) \
+            if pooling_convention == "full" else [0] * nsp
         pool = TF.avg_pool2d if nsp == 2 else TF.avg_pool3d
-        # divisor 1: the window sums, exact in float64
-        acc = pool(x, kernel, _tup(stride, nsp) if stride else (1,) * nsp,
-                   _tup(pad, nsp) if pad else (0,) * nsp,
-                   ceil_mode=pooling_convention == "full",
-                   count_include_pad=True, divisor_override=1)
+        # divisor 1: the window sums (zeros padded, the reference's "full"
+        # shortfall on the high side), exact in float64
+        acc = pool(_padded(x, pad, extra, 0.0), kernel, stride,
+                   divisor_override=1)
         denom = int(np.prod(kernel))
     if layout in _CHANNELS_LAST:
         acc = acc.movedim(1, -1)

@@ -3,8 +3,8 @@
 ``serving/stats.py`` keeps its queue depth and recompile count in
 :class:`Counter` objects grouped by a :class:`Domain`, as the reference
 profiler does.  The chrome-trace recorder and the device timeline of the
-JAX package are not ported yet (ROADMAP queue A15), so a counter here is
-a thread-safe number and nothing more.
+JAX package are not ported yet (ROADMAP.md queue A, item A12), so a
+counter here is a thread-safe number and nothing more.
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ runner (``bucket_for`` + ``forward_batch``), which pads to the nearest
 bucket.  Results are split back per-request.
 
 Overload answers, in order of preference (the anti-queue-collapse
-contract, ROADMAP item 3):
+contract of ``mxnet_tpu/serving/batcher.py``):
 
 - **shed before rot**: when the *modeled* queue wait (queued position /
   ``max_batch`` x the measured-or-hinted per-batch service time) already

@@ -4,7 +4,8 @@ What the serving path needs: the process-wide :func:`registry` that the
 fleet's collector and the ``/metrics`` route read, and
 :func:`fault_event`, which ``resilience/chaos.py`` calls for every fault
 it fires.  The trace contexts, the flight recorder and the performance
-doctor of the JAX package are not ported yet (ROADMAP queue A15).
+doctor of the JAX package are not ported yet (ROADMAP.md queue A, item
+A12).
 """
 from __future__ import annotations
 

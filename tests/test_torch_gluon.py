@@ -90,6 +90,10 @@ LAYERS = {
     "conv": (lambda g: g.nn.Conv2D(6, 3, strides=2, padding=1), (2, 3, 9, 9)),
     "conv_1x1": (lambda g: g.nn.Conv2D(4, 1, use_bias=False), (2, 5, 6, 6)),
     "maxpool": (lambda g: g.nn.MaxPool2D(3, 2, 1), (2, 3, 9, 9)),
+    "maxpool_ceil": (lambda g: g.nn.MaxPool2D(2, 2, 1, ceil_mode=True),
+                     (2, 3, 7, 7)),
+    "avgpool_ceil": (lambda g: g.nn.AvgPool2D(3, 3, 1, ceil_mode=True),
+                     (2, 3, 9, 9)),
     "global_avgpool": (lambda g: g.nn.GlobalAvgPool2D(), (2, 3, 5, 7)),
 }
 
@@ -104,6 +108,33 @@ def test_layer_forward_and_grads_match_reference(name):
     pairs, aux = _both(jblock, tblock, x, train=True)
     assert not aux
     _close(pairs)
+
+
+# (n, k, s, p): the reference's "full" output size ceil((n + 2p - k)/s) + 1
+# has no clamp, so a last window may lie wholly in the padding
+POOL_GEOMETRIES = [(3, 2, 2, 1), (112, 3, 2, 1), (5, 2, 2, 0), (9, 3, 3, 1)]
+
+
+@pytest.mark.parametrize("pool_type,count_include_pad",
+                         [("max", True), ("avg", True), ("avg", False)],
+                         ids=["max", "avg_incl_pad", "avg_excl_pad"])
+@pytest.mark.parametrize("convention", ["full", "valid"])
+@pytest.mark.parametrize("geometry", POOL_GEOMETRIES,
+                         ids=["%d_%d_%d_%d" % g for g in POOL_GEOMETRIES])
+def test_pooling_convention_matches_reference(geometry, convention,
+                                              pool_type, count_include_pad):
+    from mxnet_tpu_torch.ops import nn as tnn
+    n, k, s, p = geometry
+    x = np.random.RandomState(n + k).rand(2, 3, n, n).astype(np.float32)
+    params = dict(kernel=(k, k), stride=(s, s), pad=(p, p),
+                  pool_type=pool_type, pooling_convention=convention,
+                  count_include_pad=count_include_pad)
+    want = mx.nd.Pooling(mx.nd.array(x), **params).asnumpy()
+    got = tnn.Pooling(torch.from_numpy(x), **params).numpy()
+    assert got.shape == want.shape
+    # a window wholly in the padding: -inf (max) or 0/0 (avg without the
+    # padding) on both sides
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, equal_nan=True)
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "infer"])

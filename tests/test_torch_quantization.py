@@ -242,6 +242,20 @@ OP_CASES = {
         np.abs(_rng_float((7,), 21)) * 0.01, _rng_float((7,), 22)),
         {"num_hidden": 7, "in_amax": 2.5, "relu": True}),
 }
+# the reference's "full" pooling convention (output ceil((n + 2p - k)/s)
+# + 1, the shortfall padded on the high side) and "valid", as (n, k, s, p)
+POOL_GEOMETRIES = [(3, 2, 2, 1), (112, 3, 2, 1), (5, 2, 2, 0), (9, 3, 3, 1)]
+for _i, (_n, _k, _s, _p) in enumerate(POOL_GEOMETRIES):
+    for _conv in ("full", "valid"):
+        for _pt in ("max", "avg"):
+            OP_CASES["quantized_pooling_%s_%s_%d_%d_%d_%d" % (
+                _conv, _pt, _n, _k, _s, _p)] = (
+                lambda n=_n, k=_k, s=_s, p=_p, conv=_conv, pt=_pt, i=_i: (
+                    "quantized_pooling",
+                    (_rng_int8((2, n, n, 4), 30 + i), _r(-1.0), _r(1.0)),
+                    {"kernel": (k, k), "stride": (s, s), "pad": (p, p),
+                     "pool_type": pt, "pooling_convention": conv,
+                     "layout": "NHWC"}))
 for _g, (_k, _s, _p) in CONV_GEOMETRIES.items():
     OP_CASES["quantized_conv_" + _g] = (
         lambda k=_k, s=_s, p=_p: ("quantized_conv",)
