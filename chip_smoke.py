@@ -120,25 +120,33 @@ Sixteen phases; any failure exits non-zero and prints no result line.
 13. **conv3x3_epilogue (B9).** The implicit-GEMM 3x3 kernel against its
     plain version (float64 sums) at the conv A/B harness's four stages at
     batch 256 (the stride-1 conv ``b`` of every ResNet-50 bottleneck:
-    56 x 56 x 64, 28 x 28 x 128, 14 x 14 x 256, 7 x 7 x 512, Cin = Cout)
-    and ragged shapes (Cin 3 with odd W, Cin 8 and 16, Cout 5, 16, 24,
-    N = 1), int8 and bf16, relu on and off, and float32 at
-    (2, 28, 28, 512) -> 128.  int8 bitwise equal; bf16 within one bf16
-    ulp (magnitudes counted no finer than 1/64 of the outputs' RMS, where
-    a bf16 ulp is finer than the float32 sums' rounding; the outputs
+    56 x 56 x 64, 28 x 28 x 128, 14 x 14 x 256, 7 x 7 x 512, Cin = Cout),
+    ragged shapes (Cin 3 with odd W, Cin 8 and 16, Cout 5, 16, 24,
+    N = 1) and the wgmma design's tile edges (M not a multiple of 128,
+    Cout 96 and 200, a tile over two images), int8 and bf16, relu on
+    and off, and float32 at (2, 28, 28, 512) -> 128, each on the design
+    ``conv3x3_design`` routes it to (wgmma for the stages, the edges and
+    (1, 7, 7, 512) -> 512, which must hold; mma.sync for Cin 3, int8
+    Cin 8 and float32).  int8 bitwise equal; bf16 within one bf16 ulp
+    (magnitudes counted no finer than 1/64 of the outputs' RMS, where a
+    bf16 ulp is finer than the float32 sums' rounding; the outputs
     beyond one ulp at their own magnitude are counted and printed);
     float32 within 1e-4 x max(1, max |plain|); every rerun bitwise.
-    Then one pass of the four stages per route, timed with CUDA events
-    around eager calls: kernel, plain, and the library route (int8:
-    ``int8_conv``'s im2col + ``torch._int_mm`` + the torch epilogue;
-    bf16: cuDNN's ``F.conv2d`` + the torch epilogue), beside the bound
-    (per stage the larger of bytes over 3.35 TB/s and 2 x multiply-adds
-    over 1,979 int8 TOP/s or 989 bf16 TFLOP/s).
+    Then each of the four stages per route, timed with CUDA events
+    around eager calls, and summed per pass: the kernel (the wgmma
+    design), the mma.sync design on the same inputs (through the private
+    ``_conv3x3_epilogue(..., design="mma")``), plain, and the library
+    route (int8: ``int8_conv``'s im2col + ``torch._int_mm`` + the torch
+    epilogue; bf16: cuDNN's ``F.conv2d`` + the torch epilogue), beside
+    the bound (per stage the larger of bytes over 3.35 TB/s and 2 x
+    multiply-adds over 1,979 int8 TOP/s or 989 bf16 TFLOP/s) and the
+    device time of the wrapper's weight repack (CUDA graph).
 14. **The conv A/B harness.** ``mxnet_tpu_torch.tools.conv_ab.main(
     ["--batch", "256", "--iters", "20"])`` on the card: 16 records (4
     stages x int8/bf16 x library/kernel), each with ``ms``, none an
     ``error``; ``conv3x3_epilogue`` launched 4 x (1 warm-up + 20) times
-    per route.  Prints each stage's kernel and library times.
+    per route, every launch on the wgmma design.  Prints each stage's
+    kernel and library times.
     ``--profile`` adds phase 13's device time by category of one pass of
     each library route and of B9 (im2col, GEMM, epilogue).
 15. **The mxgen kernels (B10).** The six shipped fusion chains
@@ -175,7 +183,8 @@ Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
 pairings; ``qmm_requant``'s per forward, its 16 launches summed;
 ``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
-stages, ``launches`` from phase 14; the ``_gen_*`` kernels' per call,
+stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
+``launches`` from phase 14; the ``_gen_*`` kernels' per call,
 ``launches`` from phase 16, ``library_ms`` that of ``torch._fused_sgd_``
 for ``_gen_zero1_top2`` and null for the other five, which no single
 PyTorch call computes), the card's name and power limit from
@@ -229,6 +238,10 @@ PROB_TOL, RANGE_RTOL = 1e-5, 1e-4
 CONV_BATCH, CONV_ITERS = 256, 20
 CONV_RAGGED = [((2, 8, 8, 16), 32), ((4, 6, 6, 16), 32), ((1, 14, 14, 8), 16),
                ((2, 6, 6, 8), 24), ((2, 9, 11, 3), 5), ((1, 7, 7, 512), 512)]
+# edges of the wgmma design's tiles (128 positions x 64 or 128 channels):
+# M = 189 and Cout 96, Cout 200 over two 128-wide tiles, a tile over two
+# images (M = 198, 99 positions each)
+CONV_EDGES = [((3, 7, 9, 64), 96), ((1, 5, 5, 128), 200), ((2, 9, 11, 64), 64)]
 CONV_F32 = ((2, 28, 28, 512), 128)
 # slice 6: the mxgen kernels (B10) and codegen_bench (phases 15-16)
 GEN_TOL = 1e-5          # codegen.EQUIV_TOL: rtol = atol, ints/bools exact
@@ -1639,16 +1652,23 @@ def _bf16_ulps(got, want):
 def _conv_check(pk, shape, cout, route, relu, gen):
     """B9 against its plain version (float64 sums) on one case: int8
     bitwise, bf16 within one bf16 ulp (:func:`_bf16_ulps`), float32
-    within CONV_F32_TOL relative; a rerun bitwise equal.  Returns (max
-    absolute error, bf16 ulps or 0, outputs beyond one strict bf16 ulp)."""
+    within CONV_F32_TOL relative; a rerun bitwise equal; the launch on
+    the design ``conv3x3_design`` names for the shape.  Returns (max
+    absolute error, bf16 ulps or 0, outputs beyond one strict bf16 ulp,
+    design)."""
     import torch
     x, w, scale, shift = _conv_inputs(shape, cout, route, gen)
+    design = pk.conv3x3_design(shape[-1], x.dtype, x.data_ptr() % 16 == 0)
+    before = pk.launch_counts()["conv3x3_epilogue/" + design]
     got = pk.conv3x3_epilogue(x, w, scale, shift, relu=relu)
     again = pk.conv3x3_epilogue(x, w, scale, shift, relu=relu)
     want = pk.conv3x3_epilogue_reference(x, w, scale, shift, relu=relu)
     torch.cuda.synchronize()
     case = "conv3x3_epilogue %s -> %d %s relu=%s" % (shape, cout, route,
                                                      relu)
+    if pk.launch_counts()["conv3x3_epilogue/" + design] != before + 2:
+        raise RuntimeError("%s: not launched on the %s design"
+                           % (case, design))
     if got.dtype != want.dtype or got.shape != want.shape \
             or not torch.equal(got, again):
         raise RuntimeError("%s: %s %s vs %s %s, rerun bitwise %s"
@@ -1660,7 +1680,7 @@ def _conv_check(pk, shape, cout, route, relu, gen):
         if not torch.equal(got, want):
             raise RuntimeError("%s: %d codes differ from the plain version"
                                % (case, int((got != want).sum())))
-        return err, 0.0, 0
+        return err, 0.0, 0, design
     if route == "bf16":
         ulps = float(_bf16_ulps(got, want).max())
         strict = int((diff > _bf16_ulp(torch.maximum(
@@ -1668,12 +1688,12 @@ def _conv_check(pk, shape, cout, route, relu, gen):
         if ulps > 1.0:
             raise RuntimeError("%s: outputs beyond one bf16 ulp (worst %.3g "
                                "ulps, %.3g absolute)" % (case, ulps, err))
-        return err, ulps, strict
+        return err, ulps, strict, design
     tol = CONV_F32_TOL * max(1.0, float(want.abs().max()))
     if err > tol:
         raise RuntimeError("%s: max |diff| %.3g above %.3g"
                            % (case, err, tol))
-    return err, 0.0, 0
+    return err, 0.0, 0, design
 
 
 def _conv_bound(stages, batch, route):
@@ -1699,7 +1719,7 @@ def _conv_bound(stages, batch, route):
 
 
 CONV_PROFILE_CATEGORIES = (
-    ("conv3x3_epilogue (B9)", ("conv3x3_kernel",)),
+    ("conv3x3_epilogue (B9)", ("conv3x3_kernel", "conv3x3_wgmma_kernel")),
     ("cuDNN convolution", ("fprop", "conv", "implicit")),
     ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "imma", "xmma")),
     ("im2col / layout copies", ("cat", "copy", "pad")),
@@ -1708,10 +1728,11 @@ CONV_PROFILE_CATEGORIES = (
 
 
 def phase_conv_kernel(profile=False):
-    """Phase 13: B9 against its plain version, then one pass of the four
-    harness stages timed per route: kernel, plain, library.  With
-    ``profile``, the device time by category of one pass of the library
-    route and of B9."""
+    """Phase 13: B9 against its plain version, on the design each shape is
+    routed to, then the four harness stages timed per route: the wgmma
+    design (the main path), the mma.sync design on the same inputs, plain,
+    library, bound and the weight repack.  With ``profile``, the device
+    time by category of one pass of the library route and of B9."""
     import torch
     from mxnet_tpu_torch.ops import pallas_kernels as pk
     from mxnet_tpu_torch.tools import conv_ab
@@ -1719,55 +1740,88 @@ def phase_conv_kernel(profile=False):
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = {"int8": 0.0, "bf16": 0.0, "float32": 0.0}
     ulps = strict = outputs = 0
+    designs = {}
     stages = [((CONV_BATCH, h, w, c), c) for h, w, c in conv_ab.STAGES]
     checks = [(r, shape, cout) for r in ("int8", "bf16")
-              for shape, cout in stages + CONV_RAGGED]
+              for shape, cout in stages + CONV_RAGGED + CONV_EDGES]
     for route, shape, cout in checks + [("float32",) + CONV_F32]:
         for relu in (True, False):
-            err, u, n = _conv_check(pk, shape, cout, route, relu, gen)
+            err, u, n, design = _conv_check(pk, shape, cout, route, relu,
+                                            gen)
+            designs.setdefault(design, set()).add((route, tuple(shape),
+                                                   cout))
             worst[route] = max(worst[route], err)
             if route == "bf16":
                 ulps, strict = max(ulps, u), strict + n
                 outputs += int(np.prod(shape[:-1])) * cout
         torch.cuda.empty_cache()
+    wanted = {(r, tuple(s), c) for r in ("int8", "bf16")
+              for s, c in stages + CONV_EDGES + [CONV_RAGGED[-1]]}
+    if not wanted <= designs.get("wgmma", set()):
+        raise RuntimeError("not on the wgmma design: %s"
+                           % sorted(wanted - designs.get("wgmma", set())))
     print("phase 13: conv3x3_epilogue int8 bitwise equal to its plain "
-          "version and to a rerun at the 4 harness stages of batch %d and "
-          "%s, relu on and off (worst code difference %g)"
+          "version and to a rerun at the 4 harness stages of batch %d, "
+          "%s and the tile edges %s, relu on and off (worst code "
+          "difference %g)"
           % (CONV_BATCH, [(tuple(s), c) for s, c in CONV_RAGGED],
-             worst["int8"]))
+             [(tuple(s), c) for s, c in CONV_EDGES], worst["int8"]))
     print("phase 13: bf16 there within one bf16 ulp (floor %g x rms): worst "
           "%.4g ulps, max |diff| %.4g; %d of %d outputs beyond one ulp at "
           "their own magnitude; reruns bitwise"
           % (CONV_BF16_FLOOR, ulps, worst["bf16"], strict, outputs))
     print("phase 13: float32 at %s within %g relative: max |diff| %.4g"
           % (CONV_F32, CONV_F32_TOL, worst["float32"]))
+    for design in sorted(designs):
+        print("phase 13: on the %s design: %s"
+              % (design, sorted(designs[design])))
     library = {"int8": conv_ab.library_int8, "bf16": conv_ab.library_bf16}
     out = []
     for route in ("int8", "bf16"):
-        times = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+        keys = ("kernel", "mma", "plain", "library", "repack")
+        times = dict.fromkeys(keys, 0.0)
         for shape, cout in stages:
             x, w, scale, shift = _conv_inputs(shape, cout, route, gen)
             fns = {"kernel": lambda: pk.conv3x3_epilogue(x, w, scale, shift),
+                   "mma": lambda: pk._conv3x3_epilogue(
+                       x, w, scale, shift, design="mma"),
                    "plain": lambda: pk.conv3x3_epilogue_reference(
                        x, w, scale, shift),
                    "library": lambda: library[route](x, w, scale, shift)}
-            for key, fn in fns.items():
-                times[key] += _event_ms(fn, iters=2 if key == "plain"
-                                        else 10)
+            stage = {key: _event_ms(fn, iters=2 if key == "plain" else 10)
+                     for key, fn in fns.items()}
+            # the wrapper's per-call weight repack, device time alone
+            stage["repack"] = _time_ms(
+                lambda: w.permute(3, 0, 1, 2).contiguous(), iters=20,
+                replays=5)
+            for key in keys:
+                times[key] += stage[key]
+            bound = _conv_bound([shape[1:]], CONV_BATCH, route)[0]
+            print("phase 13: %s %s -> %d: wgmma %.5f ms (%.1f %% of bound), "
+                  "mma.sync %.5f ms, plain %.5f ms, library %.5f ms, bound "
+                  "%.5f ms, repack %.5f ms"
+                  % (route, tuple(shape), cout, stage["kernel"],
+                     100 * bound / stage["kernel"], stage["mma"],
+                     stage["plain"], stage["library"], bound,
+                     stage["repack"]))
             del x, w, fns
             torch.cuda.empty_cache()
         bound_ms, bound_by, nbytes, ops = _conv_bound(conv_ab.STAGES,
                                                       CONV_BATCH, route)
         print("phase 13: %s, one pass of the 4 stages (batch %d), device "
-              "time: kernel %.5f ms, plain %.5f ms, library %s %.5f ms; "
-              "bound %.5f ms (%s: %d bytes, %d operations); %.1f %% of the "
-              "bound"
-              % (route, CONV_BATCH, times["kernel"], times["plain"],
+              "time: kernel (wgmma) %.5f ms, mma.sync design %.5f ms, plain "
+              "%.5f ms, library %s %.5f ms; bound %.5f ms (%s: %d bytes, %d "
+              "operations); %.1f %% of the bound (mma.sync %.1f %%); the "
+              "weight repack %.5f ms, %.1f %% of the kernel's time"
+              % (route, CONV_BATCH, times["kernel"], times["mma"],
+                 times["plain"],
                  "int8_conv (im2col + torch._int_mm) + torch epilogue"
                  if route == "int8" else "F.conv2d (cuDNN, bf16 sums "
                  "rounded before the epilogue) + torch epilogue",
                  times["library"], bound_ms, bound_by, nbytes, ops,
-                 100 * bound_ms / times["kernel"]))
+                 100 * bound_ms / times["kernel"],
+                 100 * bound_ms / times["mma"], times["repack"],
+                 100 * times["repack"] / times["kernel"]))
         if profile:
             ins = [_conv_inputs(shape, cout, route, gen)
                    for shape, cout in stages]
@@ -1779,7 +1833,7 @@ def phase_conv_kernel(profile=False):
             del ins
             torch.cuda.empty_cache()
         out.append({"name": "conv3x3_epilogue[%s]" % route, "route": "cuda",
-                    "source": "mxnet_tpu_torch/csrc/conv3x3_epilogue.cu",
+                    "source": "mxnet_tpu_torch/csrc/conv3x3_wgmma.cu",
                     "replaces": "mxnet_tpu/ops/pallas_kernels.py:596",
                     "launches": None, "max_abs_err": worst[route],
                     "ms": times["kernel"], "plain_ms": times["plain"],
@@ -1809,10 +1863,12 @@ def phase_conv_path():
     launches = {r: counts["conv3x3_epilogue[%s]" % r] for r in ("int8",
                                                                 "bf16")}
     if counts["conv3x3_epilogue"] != 2 * per_route \
-            or any(v != per_route for v in launches.values()):
+            or any(v != per_route for v in launches.values()) \
+            or counts["conv3x3_epilogue/wgmma"] != 2 * per_route \
+            or counts["conv3x3_epilogue/mma"] != 0:
         raise RuntimeError("conv3x3_epilogue launched %s times in the "
-                           "harness, want %d per route"
-                           % (counts, per_route))
+                           "harness, want %d per route, all on the wgmma "
+                           "design" % (counts, per_route))
     for lib, ker in zip(recs[::2], recs[1::2]):
         print("phase 14: %s %s: kernel %.5f ms, library %.5f ms (%.2fx), "
               "%.1f images/s" % (tuple(ker["stage"]), ker["dtype"],
@@ -1820,9 +1876,11 @@ def phase_conv_path():
                                  ker["img_per_s"]))
     print("phase 14: conv_ab %s: %d records in %.2f s; conv3x3_epilogue "
           "launched %d times (int8 %d, bf16 %d = 4 stages x (1 warm-up + "
-          "%d))" % (" ".join(argv), len(recs), wall,
-                    counts["conv3x3_epilogue"], launches["int8"],
-                    launches["bf16"], CONV_ITERS))
+          "%d)), %d on the wgmma design, %d on the mma.sync design"
+          % (" ".join(argv), len(recs), wall, counts["conv3x3_epilogue"],
+             launches["int8"], launches["bf16"], CONV_ITERS,
+             counts["conv3x3_epilogue/wgmma"],
+             counts["conv3x3_epilogue/mma"]))
     return launches
 
 def _gen_inputs(lk, dev="cuda"):

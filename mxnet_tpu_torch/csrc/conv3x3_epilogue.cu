@@ -2,7 +2,11 @@
 // (sm_90a).
 //
 // The port of `_conv3x3_kernel` (mxnet_tpu/ops/pallas_kernels.py:596,
-// called by `conv3x3_epilogue` at :634), kernel B9:
+// called by `conv3x3_epilogue` at :732), kernel B9, in its mma.sync
+// design.  The wrapper routes int8 and bf16 calls with Cin * itemsize %
+// 64 == 0 (every ResNet-50 3x3 among them) to the wgmma design of
+// `conv3x3_wgmma.cu`; this one takes the rest (Cin 3, int8 Cin 8-48,
+// bf16 Cin 8-24, unaligned x) and the float32 route:
 //
 //   out[p, o] = cast(relu(f32(acc[p, o]) * scale[o] + shift[o]))
 //   acc[p, o] = sum_{dy, dx, c} x[n, h + dy - 1, w + dx - 1, c] * wk[o, dy, dx, c]
@@ -33,8 +37,8 @@
 // across the Cout tiles of one position tile, walked fastest) goes
 // through L2.
 //
-// Design (simple and exact first; TMA im2col, wgmma, halo reuse in shared
-// memory and pipelining are later work): one block of 256 threads owns a
+// Design (simple and exact; the asynchronous, pipelined path is
+// `conv3x3_wgmma.cu`'s): one block of 256 threads owns a
 // 128-position x 64-channel output tile and walks the flattened K = 9*Cin
 // in steps of 64 bytes (64 int8, 32 bf16 or 16 f32 elements), staging the
 // gathered A tile and the weight tile in shared memory.  With vec16 every

@@ -110,10 +110,12 @@ class GeneratedKernel:
         return self.fn
 
 
-def register_generated(lk, device="cpu"):
-    """Register a LoweredKernel: build it when ``device`` is CUDA, enter
-    it in the registry and auto-declare its cost (the chain's fused-byte
-    split, verbatim — parity with the fusion pass is an identity).
+def register_generated(lk, device=None):
+    """Register a LoweredKernel: build it when ``device`` is CUDA (the
+    default: the card, as every entry point of the port; ``"cpu"``
+    registers without building), enter it in the registry and
+    auto-declare its cost (the chain's fused-byte split, verbatim —
+    parity with the fusion pass is an identity).
 
     The kernel arrives UNPROVEN (``equivalence_ok=False``): callers run
     the equivalence check and mark it, or GEN002 names them."""

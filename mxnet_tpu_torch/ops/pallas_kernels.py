@@ -3,8 +3,8 @@
 (``:429-584``) and the implicit-GEMM 3×3 convolution with a fused
 epilogue (``:587-751``).
 
-Five hand-written CUDA kernels, each the Hopper port of a Pallas kernel
-of that module:
+Hand-written CUDA kernels, each the Hopper port of a Pallas kernel of
+that module:
 
 - :func:`flash_forward_with_lse` → ``mxtt_flash_fwd`` (``_fa_kernel``,
   ``:62``; ``csrc/flash_attention.cu``): the attention output and the
@@ -15,12 +15,16 @@ of that module:
   ``:436``; ``csrc/qmm_requant.cu``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``;
-- :func:`conv3x3_epilogue` → ``mxtt_conv3x3_epilogue``
-  (``_conv3x3_kernel``, ``:596``; ``csrc/conv3x3_epilogue.cu``): a 3×3
+- :func:`conv3x3_epilogue` (``_conv3x3_kernel``, ``:596``): a 3×3
   stride-1 same-pad NHWC convolution with a per-channel affine epilogue,
-  in int8 (requantize), bf16 (folded inference BatchNorm) and float32.
-  As in the reference, its entry points are the A/B harness
-  (:mod:`mxnet_tpu_torch.tools.conv_ab`) and the tests; no op calls it.
+  in int8 (requantize), bf16 (folded inference BatchNorm) and float32,
+  in two designs chosen by shape (:func:`conv3x3_design`):
+  ``mxtt_conv3x3_wgmma`` (``csrc/conv3x3_wgmma.cu``: TMA, mbarriers,
+  ``wgmma``) for int8 and bf16 at ``Cin·itemsize % 64 == 0``, and
+  ``mxtt_conv3x3_epilogue`` (``csrc/conv3x3_epilogue.cu``: ``mma.sync``
+  and FFMA) for the rest.  As in the reference, its entry points are the
+  A/B harness (:mod:`mxnet_tpu_torch.tools.conv_ab`) and the tests; no
+  op calls it.
 
 :func:`flash_delta` is plain torch, as it is jnp in the reference, and
 :func:`flash_attention` over ``(B, T, H, D)`` is a
@@ -61,18 +65,21 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "flash_dkv_reference", "flash_attention", "qmm_requant",
            "qmm_requant_reference", "quantized_conv_requant",
            "conv3x3_epilogue", "conv3x3_epilogue_reference",
+           "conv3x3_design",
            "launch_counts", "reset_launch_counts", "LAUNCHES",
            "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-# conv3x3_epilogue counts every launch under its own name and under its
-# input route's, e.g. "conv3x3_epilogue[int8]"
+# conv3x3_epilogue counts every launch under its own name, under its
+# input route's (e.g. "conv3x3_epilogue[int8]") and under its design's
+# ("conv3x3_epilogue/wgmma" or "conv3x3_epilogue/mma")
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
             "qmm_requant": 0, "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
-            "conv3x3_epilogue[float32]": 0}
+            "conv3x3_epilogue[float32]": 0, "conv3x3_epilogue/wgmma": 0,
+            "conv3x3_epilogue/mma": 0}
 _count_lock = threading.Lock()
 
 
@@ -538,17 +545,39 @@ def _check_conv(x, w, out_dtype):
     return True
 
 
-_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
-    + [ctypes.c_void_p]
+# the two designs of B9: their sources and C entry points
+_CONV_DESIGNS = {"wgmma": ("conv3x3_wgmma", "mxtt_conv3x3_wgmma"),
+                 "mma": ("conv3x3_epilogue", "mxtt_conv3x3_epilogue")}
 
 
-def _conv_fn():
+def conv3x3_design(cin, dtype, aligned=True):
+    """The design a card call of :func:`conv3x3_epilogue` takes, chosen
+    by shape, dtype and alignment before any launch:
+
+    - ``"wgmma"`` (``csrc/conv3x3_wgmma.cu``: TMA im2col patch tiles,
+      TMA weight boxes, an mbarrier ring, ``wgmma``) for int8 and
+      bfloat16 when a tap's channels are whole 64-byte slices
+      (``Cin·itemsize % 64 == 0``: an im2col box carries 64 or 128
+      channel bytes, one row of the 64- or 128-byte swizzle that
+      ``wgmma`` reads, in steps of its 32-byte depth) and ``x`` is
+      16-byte aligned (``aligned``; the repacked weight always is);
+    - ``"mma"`` (``csrc/conv3x3_epilogue.cu``: synchronous staging,
+      ``mma.sync``) otherwise, among them Cin 3, int8 Cin 8-48, bfloat16
+      Cin 8-24 and every float32 call (FFMA, never TF32)."""
+    if dtype not in (torch.int8, torch.bfloat16) or not aligned:
+        return "mma"
+    return "wgmma" if cin * dtype.itemsize % 64 == 0 else "mma"
+
+
+def _conv_fn(design):
     from .build import load
-    fn = load("conv3x3_epilogue").mxtt_conv3x3_epilogue
+    source, symbol = _CONV_DESIGNS[design]
+    fn = getattr(load(source), symbol)
     if fn.argtypes is None:
         # (x, w, scale, shift, out, N, H, W, Cin, Cout, in_type, out_type,
-        #  relu, vec16, stream)
-        fn.argtypes = _CONV_ARGTYPES
+        #  relu[, vec16], stream)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (
+            8 if design == "wgmma" else 9) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -567,13 +596,23 @@ def conv3x3_epilogue(x, w, scale, shift, relu=True, out_dtype=None):
     Rounding and clipping happen only for an int8 output; any other
     ``out_dtype`` is a plain cast.  ``x`` is (N, H, W, Cin), ``w`` (3, 3,
     Cin, Cout) HWIO, ``scale``/``shift`` (Cout,) numpy arrays or tensors,
-    taken as float32 on ``x``'s device.
+    taken as float32 on ``x``'s device.  On the card the call goes to one
+    of two kernels, :func:`conv3x3_design` of its shape; both compute the
+    same function with the same roundings.
 
     The reference's tile arguments (``nb``, ``th``, ``tn``), its
     ``interpret`` switch and its VMEM budget size TPU VMEM tiles and have
-    no meaning here: the kernel's tiles are fixed and ragged shapes are
-    masked inside it, so ``x`` and ``w`` are never padded in memory.  The
-    kernel reads ``w`` as ``(Cout, 9·Cin)``, repacked on each call."""
+    no meaning here: the kernels' tiles are fixed and ragged shapes are
+    masked inside them, so ``x`` and ``w`` are never padded in memory.
+    The kernels read ``w`` as ``(Cout, 9·Cin)``, repacked on each call."""
+    return _conv3x3_epilogue(x, w, scale, shift, relu, out_dtype)
+
+
+def _conv3x3_epilogue(x, w, scale, shift, relu=True, out_dtype=None,
+                      design=None):
+    """:func:`conv3x3_epilogue`, with ``design`` ("wgmma" or "mma")
+    forced instead of chosen by shape, so both designs can be timed on
+    the same inputs; raises where the shape is not the design's."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     on_card = _check_conv(x, w, out_dtype)
     n, h, wd, cin = x.shape
@@ -584,19 +623,28 @@ def conv3x3_epilogue(x, w, scale, shift, relu=True, out_dtype=None):
         return conv3x3_epilogue_reference(x, w, scale, shift, relu,
                                           out_dtype)
     x = x.contiguous()
+    chosen = conv3x3_design(cin, x.dtype, x.data_ptr() % 16 == 0)
+    design = chosen if design is None else design
+    if design not in _CONV_DESIGNS or (design == "wgmma"
+                                       and chosen != "wgmma"):
+        raise MXNetError("conv3x3_epilogue: the %r design does not take "
+                         "%s %s" % (design, x.dtype, tuple(x.shape)))
     wk = w.permute(3, 0, 1, 2).contiguous()     # (Cout, 3, 3, Cin)
     out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
     route, in_code = _CONV_ROUTES[x.dtype]
-    vec = int(cin * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
-              and wk.data_ptr() % 16 == 0)
+    args = [x.data_ptr(), wk.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout, in_code,
+            _CONV_OUTS[out_dtype], int(bool(relu))]
+    if design == "mma":
+        args.append(int(cin * x.element_size() % 16 == 0
+                        and x.data_ptr() % 16 == 0
+                        and wk.data_ptr() % 16 == 0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _conv_fn()(x.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-                         shift.data_ptr(), out.data_ptr(), n, h, wd, cin,
-                         cout, in_code, _CONV_OUTS[out_dtype],
-                         int(bool(relu)), vec, stream)
+        err = _conv_fn(design)(*args, stream)
     if err != 0:
-        raise MXNetError("mxtt_conv3x3_epilogue kernel launch failed: "
-                         "cudaError %d" % err)
-    _count("conv3x3_epilogue", "conv3x3_epilogue[%s]" % route)
+        raise MXNetError("%s kernel launch failed: cudaError %d"
+                         % (_CONV_DESIGNS[design][1], err))
+    _count("conv3x3_epilogue", "conv3x3_epilogue[%s]" % route,
+           "conv3x3_epilogue/%s" % design)
     return out

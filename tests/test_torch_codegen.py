@@ -514,6 +514,33 @@ def test_gen002_unproven_registration_flagged():
             gk.equivalence_ok, gk.equivalence_err = False, None
 
 
+def test_register_generated_on_the_cpu_does_not_build(monkeypatch):
+    """``register_generated`` defaults to the card like every entry point;
+    ``device="cpu"`` registers the kernel (launch count, cost) without
+    building it."""
+    import inspect
+    from mxnet_tpu_torch.ops import build
+    assert inspect.signature(gen.register_generated).parameters[
+        "device"].default is None
+
+    def no_build(*a, **k):
+        raise AssertionError("register_generated(device='cpu') built")
+    monkeypatch.setattr(build, "load_source", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    lk = cg.shipped_lowered()[0]
+    # the registry and the cost table come back as they were
+    monkeypatch.setitem(gen.GENERATED_KERNELS, lk.name,
+                        gen.GENERATED_KERNELS.get(lk.name))
+    monkeypatch.setitem(KERNEL_COSTS, lk.name, KERNEL_COSTS.get(lk.name))
+    gk = gen.register_generated(lk, device="cpu")
+    assert gk.fn is None and not gk.equivalence_ok
+    assert gen.GENERATED_KERNELS[lk.name] is gk
+    assert lk.name in gen.launch_counts() and lk.name in KERNEL_COSTS
+    with pytest.raises(MXNetError, match="CUDA"):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        gen.register_generated(lk)
+
+
 def test_kernel_costs_equal_the_ir_byte_split():
     gen.build_shipped_generated(device="cpu")
     with open(cg.SHIPPED_IR, encoding="utf-8") as f:

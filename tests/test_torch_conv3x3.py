@@ -31,12 +31,21 @@ from jax import lax
 from mxnet_tpu.ops.pallas_kernels import conv3x3_epilogue as j_conv3x3
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import pallas_kernels as pk
-from mxnet_tpu_torch.tools import conv_ab
+from mxnet_tpu_torch.tools import conv_ab, conv_ablate
 
 F32_RTOL = 1e-4
 BF16_FLOOR = 2.0 ** -6
 ROUTES = ("conv3x3_epilogue", "conv3x3_epilogue[int8]",
-          "conv3x3_epilogue[bf16]", "conv3x3_epilogue[float32]")
+          "conv3x3_epilogue[bf16]", "conv3x3_epilogue[float32]",
+          "conv3x3_epilogue/wgmma", "conv3x3_epilogue/mma")
+# the conv A/B harness's four stages and CONV_RAGGED's widest shape, as
+# ((N, H, W, Cin), Cout)
+WGMMA_SHAPES = [((256, h, w, c), c) for h, w, c in conv_ab.STAGES] + [
+    ((1, 7, 7, 512), 512)]
+# the wgmma design's tile edges: M = 189 with Cout 96, Cout 200 over two
+# 128-wide tiles, a 128-position tile over two images of 99 positions
+WGMMA_EDGES = [((3, 7, 9, 64), 96), ((1, 5, 5, 128), 200),
+               ((2, 9, 11, 64), 64)]
 
 
 def _t(a):
@@ -213,27 +222,100 @@ def test_refuses_bad_operands():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
+    """Both designs against the plain version on the card: int8 bitwise,
+    bf16 within one ulp, relu on and off, each launch on the design
+    ``conv3x3_design`` names — the mma.sync design at Cin 16 and 3, the
+    wgmma design at a harness stage and across its tile edges."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     for shape, cout in [((2, 8, 8, 16), 32), ((2, 9, 11, 3), 5),
-                        ((4, 28, 28, 128), 128)]:
+                        ((4, 28, 28, 128), 128)] + WGMMA_EDGES:
         for relu in (True, False):
             x, w, scale, shift = (_t(a).cuda() for a in _int8_inputs(
                 shape, cout, 0))
-            before = pk.launch_counts()["conv3x3_epilogue[int8]"]
+            design = "conv3x3_epilogue/" + pk.conv3x3_design(
+                shape[-1], torch.int8)
+            before = pk.launch_counts()
             got = pk.conv3x3_epilogue(x, w, scale, shift, relu=relu)
             want = pk.conv3x3_epilogue_reference(x, w, scale, shift, relu)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
-            assert pk.launch_counts()["conv3x3_epilogue[int8]"] == before + 1
+            after = pk.launch_counts()
+            for key in ("conv3x3_epilogue[int8]", design):
+                assert after[key] == before[key] + 1
             xb, wb, sb, hb = (_t(a).cuda() for a in _float_inputs(
                 shape, cout, 0, 0.05))
             xb, wb = xb.to(torch.bfloat16), wb.to(torch.bfloat16)
+            design = "conv3x3_epilogue/" + pk.conv3x3_design(
+                shape[-1], torch.bfloat16)
+            before = pk.launch_counts()[design]
             got = pk.conv3x3_epilogue(xb, wb, sb, hb, relu=relu)
             want = pk.conv3x3_epilogue_reference(xb, wb, sb, hb, relu)
             ulps = _bf16_ulps(got.float().cpu().numpy(),
                               want.float().cpu().numpy())
             assert ulps.max() <= 1.0
+            assert pk.launch_counts()[design] == before + 1
+    # the two designs agree with each other on a wgmma-design shape
+    x, w, scale, shift = (_t(a).cuda() for a in _int8_inputs(
+        (3, 7, 9, 64), 96, 1))
+    assert torch.equal(
+        pk._conv3x3_epilogue(x, w, scale, shift, design="mma"),
+        pk._conv3x3_epilogue(x, w, scale, shift, design="wgmma"))
+
+
+# -- the choice of design -------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", WGMMA_SHAPES + WGMMA_EDGES)
+def test_design_wgmma_takes_the_stages_and_edges(shape, cout, dtype):
+    assert pk.conv3x3_design(shape[-1], dtype) == "wgmma"
+
+
+@pytest.mark.parametrize("cin,dtype,aligned", [
+    (3, torch.int8, True), (3, torch.bfloat16, True),   # CONV_RAGGED's Cin 3
+    (8, torch.int8, True), (16, torch.int8, True),      # int8 Cin 8, 16
+    (8, torch.bfloat16, True), (16, torch.bfloat16, True),
+    (48, torch.int8, True),                             # 48 bytes a tap
+    (64, torch.float32, True), (512, torch.float32, True),
+    (64, torch.int8, False), (256, torch.bfloat16, False)])  # unaligned x
+def test_design_mma_takes_the_rest(cin, dtype, aligned):
+    assert pk.conv3x3_design(cin, dtype, aligned) == "mma"
+
+
+def test_design_rule_is_whole_64_byte_channel_slices():
+    for cin in range(1, 1025):
+        for dtype in (torch.int8, torch.bfloat16):
+            want = "wgmma" if cin * dtype.itemsize % 64 == 0 else "mma"
+            assert pk.conv3x3_design(cin, dtype) == want, (cin, dtype)
+
+
+def test_forced_design_on_the_cpu_is_the_plain_version():
+    x, w, scale, shift = (_t(a) for a in _int8_inputs((3, 7, 9, 64), 96, 2))
+    before = _counts()
+    want = pk.conv3x3_epilogue_reference(x, w, scale, shift)
+    for design in ("wgmma", "mma"):
+        got = pk._conv3x3_epilogue(x, w, scale, shift, design=design)
+        assert torch.equal(got, want)
+    assert _counts() == before
+
+
+# -- the ablation tool ------------------------------------------------------------
+@pytest.mark.parametrize("variant", sorted(conv_ablate.CUTS))
+def test_ablation_edits_apply_to_the_kernel_source(variant):
+    """Each cut of ``tools/conv_ablate.py`` finds its text in
+    ``csrc/conv3x3_wgmma.cu`` exactly once, so the tool times the kernel
+    as it is, less that one part."""
+    from mxnet_tpu_torch.ops import build
+    with open(build.source_path("conv3x3_wgmma"), encoding="utf-8") as f:
+        src = f.read()
+    cut = conv_ablate.variant_source(variant)
+    assert (cut == src) == (variant == "full")
+    assert "mxtt_conv3x3_wgmma" in cut
+
+
+def test_ablation_needs_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA"):
+        conv_ablate.main(["--batch", "1", "--iters", "1"])
 
 
 # -- the A/B harness ------------------------------------------------------------
