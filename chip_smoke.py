@@ -93,13 +93,19 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    attention, no flash kernel) on CUDA.  Losses CUDA vs CPU within 1e-4,
    sequence=2 vs collapsed within 2e-5 (the reference's own tolerance),
    parameters after 2 steps within 2e-5 both ways.
-10. **qmm_requant (B8).** The kernel against its plain version at the 16
-    (M, K, N) shapes of one int8 ResNet-50 forward at batch 256 (each
-    bottleneck's 1x1 conv ``a``) and ragged ones (K = 70, N = 17, M = 1),
-    relu on and off: bitwise equal, and a rerun bitwise equal.  Timed
-    summed over one forward's 16 launches (CUDA events around eager
-    calls) beside its bound (bytes over 3.35 TB/s against 2MKN over 1,979
-    int8 TOP/s) and the yardstick ``torch._int_mm`` + torch epilogue.
+10. **qmm_requant (B8).** Each design against its plain version, relu on
+    and off, bitwise, and a rerun bitwise, each launch counted on its
+    design: the wgmma design (``csrc/qmm_wgmma.cu``) at the 16 (M, K, N)
+    shapes of one int8 ResNet-50 forward at batch 256 (each bottleneck's
+    1x1 conv ``a``; ``qmm_design`` must route all 16 there) and at its
+    tile edges (``QMM_EDGES``: M 1,000, 333 and 1, N 200 and 17, K 48 and
+    208, a row-strided x); the mma.sync design (``csrc/qmm_requant.cu``)
+    at ``QMM_RAGGED``, forced and as routed.  Then each of the forward's
+    four stages timed on both designs on the same inputs (CUDA graphs),
+    the kernel also in eager calls between CUDA events, beside plain, the
+    yardstick ``torch._int_mm`` + torch epilogue and the bound (bytes
+    over 3.35 TB/s against 2MKN over 1,979 int8 TOP/s), and the sum per
+    forward against ``QMM_TARGET_MS``.
 11. **Serve int8 ResNet-50.** ``resnet_symbol(50, num_classes=1000,
     layout="NHWC")``, ``Module.init_params(Xavier(), rng=RandomState(0))``,
     ``ptq_quantize_module`` over 64 seeded 224 x 224 images (naive
@@ -111,7 +117,8 @@ Sixteen phases; any failure exits non-zero and prints no result line.
     runner, 0 recompiles.  Then ``Module.forward`` at batch 256 (the
     bench's recipe, ``bench.py:1033-1062``): 3 warm-up and 20 timed
     forwards, images/s, p50/p99, peak memory; ``qmm_requant`` launched 16
-    times per forward.  ``--profile`` adds the device time by category.
+    times per forward, every launch on the wgmma design.  ``--profile``
+    adds the device time by category.
 12. **Held on the card.** The same quantized graph and weights for 2
     images on the card and ``device="cpu"``: top-1 equal, probabilities
     within 1e-5.  Calibrated ranges of a card calibration (cuDNN TF32 off
@@ -181,7 +188,8 @@ Sixteen phases; any failure exits non-zero and prints no result line.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
-pairings; ``qmm_requant``'s per forward, its 16 launches summed;
+pairings; ``qmm_requant``'s per forward, its 16 launches summed, on the
+wgmma design (``source`` ``csrc/qmm_wgmma.cu``);
 ``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
 stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
 ``launches`` from phase 14; the ``_gen_*`` kernels' per call,
@@ -231,6 +239,18 @@ QCLASSES, QBATCH, QTIMED, QCALIB, QSIDE = 1000, 256, 20, 64, 224
 QBUCKETS = (1, 4, 16, 64)
 Q_REQUESTS = 16
 QMM_RAGGED = [(130, 70, 40), (600, 520, 300), (1, 8, 8), (333, 48, 17)]
+# edges of B8's wgmma design (128 rows x 64 or 128 columns, K in
+# 64- or 128-byte steps), (M, K, N, ldx): M not a multiple of 128 (1,000,
+# 333, 1), N = 200 and 17 (ragged N tiles, byte stores), K = 48 and 208 (a
+# K tail inside a swizzle row), a row-strided x (ldx = K + 16), and a lone
+# row against a streamed weight (K = 2048)
+QMM_EDGES = [(1000, 256, 64, 256), (1, 64, 64, 64), (1000, 128, 200, 128),
+             (300, 256, 17, 256), (333, 48, 128, 48), (517, 208, 200, 208),
+             (1000, 256, 128, 272), (130, 1024, 512, 1040),
+             (1, 2048, 512, 2048)]
+# the per-forward sum B8's wgmma design is held to: half the 2.556 ms of the
+# mma.sync design measured on an H100 80GB HBM3 at 700 W (PERF.md)
+QMM_TARGET_MS = 1.28
 PARITY_IMAGES, CALIB_PARITY_IMAGES = 2, 8
 PROB_TOL, RANGE_RTOL = 1e-5, 1e-4
 # slice 5: conv3x3_epilogue (B9) and the conv A/B harness (phases 13-14);
@@ -1242,19 +1262,6 @@ def phase_train_lm_parity():
 
 
 # -- slice 4: int8 ResNet-50 serving with qmm_requant (B8) --------------------
-def _qmm_path_shapes(batch):
-    """(M, K, N) of the 16 B8 launches of one int8 ResNet-50 (NHWC)
-    forward at ``batch``: each bottleneck's conv ``a`` (the stride-2 ones
-    sliced first), 224 x 224 input."""
-    shapes = []
-    for stage, (units, width, side) in enumerate(
-            [(3, 64, 56), (4, 128, 28), (6, 256, 14), (3, 512, 7)]):
-        m = batch * side * side
-        shapes.append((m, width if stage == 0 else 2 * width, width))
-        shapes += [(m, 4 * width, width)] * (units - 1)
-    return shapes
-
-
 def _qmm_bound(shapes):
     """(bound ms, bound_by) of B8 over ``shapes``: x, w, bias read once,
     the int8 output written once; 2 int8 operations per multiply-add."""
@@ -1266,11 +1273,13 @@ def _qmm_bound(shapes):
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
 
 
-def _qmm_inputs(shape, gen):
+def _qmm_inputs(shape, gen, ldx=None):
+    """Seeded ``(x, w, bias, scale)`` on the card; ``x`` is a view of
+    row stride ``ldx`` (default K) when that is wider than K."""
     import torch
     m, k, n = shape
-    x = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8,
-                      generator=gen)
+    x = torch.randint(-127, 128, (m, ldx or k), device="cuda",
+                      dtype=torch.int8, generator=gen)[:, :k]
     w = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8,
                       generator=gen)
     bias = torch.randn(n, device="cuda", generator=gen) * 10
@@ -1279,53 +1288,116 @@ def _qmm_inputs(shape, gen):
     return x, w, bias, scale
 
 
+def _qmm_check(pk, shape, relu, gen, ldx=None, design=None):
+    """B8 on ``design`` (default: the one ``qmm_design`` names) against
+    its plain version, bitwise, and a rerun bitwise; the two launches
+    counted on that design.  Returns the design."""
+    import torch
+    x, w, bias, scale = _qmm_inputs(shape, gen, ldx)
+    chosen = pk.qmm_design(shape[1], x.stride(0), x.data_ptr() % 16 == 0)
+    design = design or chosen
+    key = "qmm_requant/" + design
+    before = pk.launch_counts()[key]
+    got = pk._qmm_requant(x, w, bias, scale, relu, design=design)
+    again = pk._qmm_requant(x, w, bias, scale, relu, design=design)
+    want = pk.qmm_requant_reference(x, w, bias, scale, relu=relu)
+    torch.cuda.synchronize()
+    if pk.launch_counts()[key] != before + 2:
+        raise RuntimeError("qmm_requant %s: not launched on the %s design"
+                           % (shape, design))
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        raise RuntimeError("qmm_requant %s ldx=%s relu=%s on the %s design: "
+                           "%d codes differ from the plain version, rerun "
+                           "equal %s" % (shape, ldx, relu, design,
+                                         int((got != want).sum()),
+                                         torch.equal(got, again)))
+    return design
+
+
 def phase_qmm_kernel():
+    """Phase 10: B8 against its plain version on the wgmma design at the
+    16 path shapes and the design's edges, on the mma.sync design at
+    QMM_RAGGED; then each stage of one forward timed on both designs
+    beside plain, library and bound."""
     import torch
     from mxnet_tpu_torch.ops import pallas_kernels as pk
     from mxnet_tpu_torch.ops.quantization import int8_dot
+    from mxnet_tpu_torch.tools import qmm_ablate
 
     gen = torch.Generator(device="cuda").manual_seed(10)
-    path = _qmm_path_shapes(QBATCH)
-    worst = 0
-    for shape in path + QMM_RAGGED:
+    stages = qmm_ablate.path_stages(QBATCH)
+    path = [shape for shapes in stages for shape in shapes]
+    designs = {}
+    for shape, ldx in [(s, None) for s in path] + [
+            (e[:3], e[3]) for e in QMM_EDGES]:
         for relu in (True, False):
-            x, w, bias, scale = _qmm_inputs(shape, gen)
-            got = pk.qmm_requant(x, w, bias, scale, relu=relu)
-            again = pk.qmm_requant(x, w, bias, scale, relu=relu)
-            want = pk.qmm_requant_reference(x, w, bias, scale, relu=relu)
-            torch.cuda.synchronize()
-            err = int((got.int() - want.int()).abs().max())
-            worst = max(worst, err)
-            if not torch.equal(got, want) or not torch.equal(got, again):
-                raise RuntimeError("qmm_requant %s relu=%s: %d codes differ "
-                                   "from the plain version, rerun equal %s"
-                                   % (shape, relu, int((got != want).sum()),
-                                      torch.equal(got, again)))
-        del x, w, got, again, want
-    print("phase 10: qmm_requant bitwise equal to its plain version and to "
-          "a rerun at the %d path shapes of batch %d and %s, relu on and "
-          "off" % (len(path), QBATCH, QMM_RAGGED))
-    times = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
-    for shape in path:
-        x, w, bias, scale = _qmm_inputs(shape, gen)
-        fns = {"kernel": lambda: pk.qmm_requant(x, w, bias, scale),
-               "plain": lambda: pk.qmm_requant_reference(x, w, bias, scale),
-               "library": lambda: pk._requant(int8_dot(x, w), scale, bias,
-                                              True)}
-        for key, fn in fns.items():
-            times[key] += _event_ms(fn, iters=10)
-        del x, w, fns
+            design = _qmm_check(pk, shape, relu, gen, ldx)
+            designs.setdefault(design, set()).add((shape, ldx))
         torch.cuda.empty_cache()
+    if set(designs) != {"wgmma"}:
+        raise RuntimeError("not on the wgmma design: %s"
+                           % sorted(designs.get("mma", ())))
+    for shape in QMM_RAGGED:
+        for relu in (True, False):
+            _qmm_check(pk, shape, relu, gen, design="mma")
+            _qmm_check(pk, shape, relu, gen)
+    print("phase 10: qmm_requant bitwise equal to its plain version and to "
+          "a rerun, relu on and off: on the wgmma design at the %d path "
+          "shapes of batch %d and the edges (M, K, N, ldx) %s; on the "
+          "mma.sync design at %s (routed there: %s)"
+          % (len(path), QBATCH, QMM_EDGES, QMM_RAGGED,
+             [s for s in QMM_RAGGED
+              if pk.qmm_design(s[1], s[1]) == "mma"]))
+    keys = ("kernel", "mma", "eager", "plain", "library")
+    times = dict.fromkeys(keys, 0.0)
+    for number, shapes in enumerate(stages, 1):
+        stage = dict.fromkeys(keys, 0.0)
+        for shape in shapes:
+            x, w, bias, scale = _qmm_inputs(shape, gen)
+            fns = {"kernel": lambda: pk.qmm_requant(x, w, bias, scale),
+                   "mma": lambda: pk._qmm_requant(x, w, bias, scale,
+                                                  design="mma"),
+                   "plain": lambda: pk.qmm_requant_reference(x, w, bias,
+                                                             scale),
+                   "library": lambda: pk._requant(int8_dot(x, w), scale,
+                                                  bias, True)}
+            # the two designs: device time (CUDA graphs); the kernel also
+            # in eager calls between CUDA events, host launch cost included
+            stage["kernel"] += _time_ms(fns["kernel"], iters=20, replays=5)
+            stage["mma"] += _time_ms(fns["mma"], iters=20, replays=5)
+            stage["eager"] += _event_ms(fns["kernel"], iters=10)
+            stage["plain"] += _event_ms(fns["plain"], iters=2)
+            stage["library"] += _event_ms(fns["library"], iters=10)
+            del x, w, fns
+            torch.cuda.empty_cache()
+        bound = _qmm_bound(shapes)
+        print("phase 10: stage %d (M %d, (K, N) %s): wgmma %.5f ms (%.1f %% "
+              "of bound), mma.sync %.5f ms (%.1f %%), wgmma no slower %s; "
+              "eager %.5f ms, plain %.5f ms, library %.5f ms, bound %.5f "
+              "ms (%s)" % (number, shapes[0][0],
+                           [s[1:] for s in shapes], stage["kernel"],
+                           100 * bound[0] / stage["kernel"], stage["mma"],
+                           100 * bound[0] / stage["mma"],
+                           stage["kernel"] <= stage["mma"], stage["eager"],
+                           stage["plain"], stage["library"], bound[0],
+                           bound[1]))
+        for key in keys:
+            times[key] += stage[key]
     bound_ms, bound_by, nbytes, ops = _qmm_bound(path)
     print("phase 10: one forward's 16 launches (batch %d), device time: "
-          "kernel %.5f ms, plain %.5f ms, torch._int_mm + torch epilogue "
-          "%.5f ms; bound %.5f ms (%s: %d bytes, %d int8 operations)"
-          % (QBATCH, times["kernel"], times["plain"], times["library"],
-             bound_ms, bound_by, nbytes, ops))
+          "kernel (wgmma) %.5f ms (%.1f %% of the bound; at most %.2f ms "
+          "%s), mma.sync design %.5f ms (%.1f %%), kernel in eager calls "
+          "%.5f ms, plain %.5f ms, torch._int_mm + torch epilogue %.5f ms; "
+          "bound %.5f ms (%s: %d bytes, %d int8 operations)"
+          % (QBATCH, times["kernel"], 100 * bound_ms / times["kernel"],
+             QMM_TARGET_MS, "met" if times["kernel"] <= QMM_TARGET_MS
+             else "MISSED", times["mma"], 100 * bound_ms / times["mma"],
+             times["eager"], times["plain"], times["library"], bound_ms,
+             bound_by, nbytes, ops))
     return {"name": "qmm_requant", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/qmm_requant.cu",
+            "source": "mxnet_tpu_torch/csrc/qmm_wgmma.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:436",
-            "launches": None, "max_abs_err": worst, "ms": times["kernel"],
+            "launches": None, "max_abs_err": 0, "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": times["library"]}
 
@@ -1365,7 +1437,7 @@ def _int8_module(qsym, qarg, qaux, batch, ctx=None):
 
 
 QPROFILE_CATEGORIES = (
-    ("qmm_requant (B8)", ("qmm_requant_kernel",)),
+    ("qmm_requant (B8)", ("qmm_requant_kernel", "qmm_wgmma_kernel")),
     ("int8 GEMM (torch._int_mm)", ("gemm", "cutlass", "imma", "xmma")),
     ("im2col / layout copies", ("cat", "copy", "pad")),
     ("reduction", ("reduce",)),
@@ -1526,18 +1598,22 @@ def phase_int8_serve(profile=False):
                            % (tuple(out.shape), bool(torch.isfinite(out)
                                                      .all())))
     forwards = served_batches + WARMUP + QTIMED
-    if counts["qmm_requant"] != 16 * forwards:
-        raise RuntimeError("qmm_requant launched %d times, want 16 x %d "
-                           "forwards" % (counts["qmm_requant"], forwards))
+    if counts["qmm_requant"] != 16 * forwards \
+            or counts["qmm_requant/wgmma"] != 16 * forwards \
+            or counts["qmm_requant/mma"] != 0:
+        raise RuntimeError("qmm_requant launched %s times, want 16 x %d "
+                           "forwards, all on the wgmma design"
+                           % ({k: v for k, v in counts.items()
+                               if k.startswith("qmm")}, forwards))
     timed = np.asarray(times[WARMUP:])
     print("phase 11: batch %d: %.1f images/s over %d timed forwards; p50 "
           "%.2f ms, p99 %.2f ms; warm-up %s ms; peak memory %.2f GiB"
           % (QBATCH, QBATCH * QTIMED / (timed.sum() / 1e3), QTIMED,
              np.percentile(timed, 50), np.percentile(timed, 99),
              ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30))
-    print("phase 11: launches %s (qmm_requant = 16 x %d forwards: %d served "
-          "batches + %d)" % (counts, forwards, served_batches,
-                             WARMUP + QTIMED))
+    print("phase 11: launches %s (qmm_requant = qmm_requant/wgmma = 16 x %d "
+          "forwards: %d served batches + %d)"
+          % (counts, forwards, served_batches, WARMUP + QTIMED))
     if profile:
         profile_forward(qmod, batch)
     del runner, qmod, fleet, batch

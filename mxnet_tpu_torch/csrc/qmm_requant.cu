@@ -1,7 +1,10 @@
 // int8 matmul with the requantize epilogue fused, for Hopper (sm_90a).
 //
 // The port of `_qmm_requant_kernel` (mxnet_tpu/ops/pallas_kernels.py:436,
-// called by `qmm_requant` at :488), kernel B8:
+// called by `qmm_requant` at :488), kernel B8, in its mma.sync design: the
+// shapes a TMA tensor map cannot describe (K or the row stride of x not a
+// multiple of 16, or unaligned operands).  Every other call, ResNet-50's
+// 1x1 convolutions among them, takes the wgmma design of qmm_wgmma.cu:
 //
 //   out[m, n] = clip(rint(relu(f32(acc[m, n]) * scale + bias[n])), -127, 127)
 //   acc[m, n] = sum_k x[m, k] * w[n, k]          (exact int32)
@@ -17,7 +20,7 @@
 // once per 64-column tile of w; tiles of x are walked fastest along N so
 // the same rows are reread from L2, not from HBM.
 //
-// Design (simple and exact first; TMA/wgmma pipelining is later work):
+// Design (simple and exact; the wgmma design pipelines the loads):
 // one block of 128 threads owns a 64 x 64 output tile and loops over K in
 // steps of 64, staging the x and w tiles in shared memory (16-byte loads
 // when K and the strides allow, byte loads otherwise; rows and columns

@@ -3,8 +3,9 @@
 Each hand-written kernel is one ``mxnet_tpu_torch/csrc/<name>.cu`` with a
 plain C interface.  :func:`load` compiles it with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``mxnet_tpu_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the source and the flags so
-an edited source never loads a stale library, and returns the
+(listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``, found through ``-I csrc``) and the flags so an
+edited source or header never loads a stale library, and returns the
 ``ctypes.CDLL``.  :func:`load_source` does the same for a source the
 program emits (the mxgen kernels of ``analysis/codegen.py``): the text is
 written into the build directory under the same hash.  :func:`build_all`
@@ -30,7 +31,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port, by name
 KERNEL_SOURCES = ("fused_ln", "fused_optimizer", "flash_attention",
-                  "qmm_requant", "conv3x3_epilogue", "conv3x3_wgmma")
+                  "qmm_requant", "qmm_wgmma", "conv3x3_epilogue",
+                  "conv3x3_wgmma")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
@@ -41,6 +43,17 @@ _libs = {}
 
 def source_path(name):
     return os.path.join(_CSRC, name + ".cu")
+
+
+def _headers():
+    """The text of every shared header (``csrc/*.cuh``), in name order:
+    part of every library's hash, since any source may include one."""
+    names = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+    data = b""
+    for n in names:
+        with open(os.path.join(_CSRC, n), "rb") as f:
+            data += n.encode() + b"\0" + f.read()
+    return data
 
 
 def _nvcc():
@@ -67,7 +80,8 @@ def _job(name, src=None):
             data = f.read()
     else:
         data = src.encode()
-    digest = hashlib.sha256(data + " ".join(_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(data + _headers()
+                            + " ".join(_FLAGS).encode()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
     if src is not None:
         path = os.path.join(BUILD_DIR, "%s-%s.cu" % (name, digest))
@@ -88,7 +102,7 @@ def _start(name, src=None):
         os.replace(tmp_src, path)
     tmp = "%s.%d.tmp" % (out, os.getpid())
     proc = subprocess.Popen(
-        [_nvcc(), *_FLAGS, "-o", tmp, path],
+        [_nvcc(), *_FLAGS, "-I", _CSRC, "-o", tmp, path],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -11,10 +11,14 @@ that module:
   per-row logsumexp;
 - :func:`flash_dq` → ``mxtt_flash_dq`` (``_fa_dq_kernel``, ``:171``);
 - :func:`flash_dkv` → ``mxtt_flash_dkv`` (``_fa_dkv_kernel``, ``:226``);
-- :func:`qmm_requant` → ``mxtt_qmm_requant`` (``_qmm_requant_kernel``,
-  ``:436``; ``csrc/qmm_requant.cu``), which the op
+- :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
-  runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``;
+  runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
+  in two designs chosen by shape (:func:`qmm_design`):
+  ``mxtt_qmm_wgmma`` (``csrc/qmm_wgmma.cu``: TMA, mbarriers, ``wgmma``)
+  where a TMA tensor map describes the operands, and
+  ``mxtt_qmm_requant`` (``csrc/qmm_requant.cu``: ``mma.sync``) for the
+  rest;
 - :func:`conv3x3_epilogue` (``_conv3x3_kernel``, ``:596``): a 3×3
   stride-1 same-pad NHWC convolution with a per-channel affine epilogue,
   in int8 (requantize), bf16 (folded inference BatchNorm) and float32,
@@ -63,7 +67,7 @@ from .registry import register
 __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "flash_delta", "flash_dq", "flash_dq_reference", "flash_dkv",
            "flash_dkv_reference", "flash_attention", "qmm_requant",
-           "qmm_requant_reference", "quantized_conv_requant",
+           "qmm_requant_reference", "qmm_design", "quantized_conv_requant",
            "conv3x3_epilogue", "conv3x3_epilogue_reference",
            "conv3x3_design",
            "launch_counts", "reset_launch_counts", "LAUNCHES",
@@ -72,11 +76,14 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-# conv3x3_epilogue counts every launch under its own name, under its
-# input route's (e.g. "conv3x3_epilogue[int8]") and under its design's
+# qmm_requant counts every launch under its own name and under its
+# design's ("qmm_requant/wgmma" or "qmm_requant/mma"); conv3x3_epilogue
+# under its own name, under its input route's (e.g.
+# "conv3x3_epilogue[int8]") and under its design's
 # ("conv3x3_epilogue/wgmma" or "conv3x3_epilogue/mma")
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-            "qmm_requant": 0, "conv3x3_epilogue": 0,
+            "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
+            "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
             "conv3x3_epilogue[float32]": 0, "conv3x3_epilogue/wgmma": 0,
             "conv3x3_epilogue/mma": 0}
@@ -366,18 +373,41 @@ def _check_qmm(x, w, bias):
     return True
 
 
-_QMM_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p]
+# the two designs of B8: their sources, C entry points and whether the
+# entry point takes the vec16 flag
+_QMM_DESIGNS = {"wgmma": ("qmm_wgmma", "mxtt_qmm_wgmma", False),
+                "mma": ("qmm_requant", "mxtt_qmm_requant", True)}
 
 
-def _qmm_fn():
+def qmm_design(k, ldx, aligned=True):
+    """The design a card call of :func:`qmm_requant` takes, chosen by
+    shape and alignment before any launch:
+
+    - ``"wgmma"`` (``csrc/qmm_wgmma.cu``: TMA boxes of x and w, an
+      mbarrier ring, ``wgmma``) where a TMA tensor map can describe the
+      operands: ``K % 16 == 0`` (w's row stride), ``ldx % 16 == 0`` (x's)
+      and 16-byte aligned ``x`` and ``w`` (``aligned``) — every 1×1
+      convolution of ResNet-50;
+    - ``"mma"`` (``csrc/qmm_requant.cu``: synchronous staging,
+      ``mma.sync``) otherwise, among them K = 70 and 520."""
+    ok = k > 0 and k % 16 == 0 and ldx % 16 == 0 and aligned
+    return "wgmma" if ok else "mma"
+
+
+def _qmm_argtypes(vec16):
+    """ctypes of (x, ldx, w, bias, out, M, N, K, scale, relu[, vec16],
+    stream)."""
+    return [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 3 + [ctypes.c_float] \
+        + [ctypes.c_int] * (2 if vec16 else 1) + [ctypes.c_void_p]
+
+
+def _qmm_fn(design):
     from .build import load
-    fn = load("qmm_requant").mxtt_qmm_requant
+    source, symbol, vec16 = _QMM_DESIGNS[design]
+    fn = getattr(load(source), symbol)
     if fn.argtypes is None:
-        # (x, ldx, w, bias, out, M, N, K, scale, relu, vec16, stream)
-        fn.argtypes = _QMM_ARGTYPES
+        fn.argtypes = _qmm_argtypes(vec16)
         fn.restype = ctypes.c_int
     return fn
 
@@ -391,7 +421,16 @@ def qmm_requant(x, w, bias, out_scale, relu=True):
     output-quantized domain (already divided by ``s_out``).  ``w`` is the
     port's ``(N, K)`` — an ``OHWI`` 1×1 weight reshaped, K contiguous —
     where the reference takes ``(K, N)``.  ``x`` may be a view with a row
-    stride (its rows must be contiguous)."""
+    stride (its rows must be contiguous).  On the card the call goes to
+    one of two kernels, :func:`qmm_design` of its shape; both compute the
+    same function with the same roundings."""
+    return _qmm_requant(x, w, bias, out_scale, relu)
+
+
+def _qmm_requant(x, w, bias, out_scale, relu=True, design=None):
+    """:func:`qmm_requant`, with ``design`` ("wgmma" or "mma") forced
+    instead of chosen by shape, so both designs can be timed on the same
+    inputs; raises where the shape is not the design's."""
     if not _check_qmm(x, w, bias):
         return qmm_requant_reference(x, w, bias, out_scale, relu)
     if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
@@ -399,18 +438,26 @@ def qmm_requant(x, w, bias, out_scale, relu=True):
     w, bias = w.contiguous(), bias.contiguous()
     m, k = x.shape
     n = w.shape[0]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    chosen = qmm_design(k, x.stride(0), aligned)
+    design = chosen if design is None else design
+    if design not in _QMM_DESIGNS or (design == "wgmma"
+                                      and chosen != "wgmma"):
+        raise MXNetError("qmm_requant: the %r design does not take x %s "
+                         "(row stride %d)" % (design, tuple(x.shape),
+                                              x.stride(0)))
     out = torch.empty((m, n), dtype=torch.int8, device=x.device)
-    vec = int(k % 16 == 0 and x.stride(0) % 16 == 0
-              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    args = [x.data_ptr(), x.stride(0), w.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), m, n, k, float(out_scale), int(bool(relu))]
+    if design == "mma":
+        args.append(int(k % 16 == 0 and x.stride(0) % 16 == 0 and aligned))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _qmm_fn()(x.data_ptr(), x.stride(0), w.data_ptr(),
-                        bias.data_ptr(), out.data_ptr(), m, n, k,
-                        float(out_scale), int(bool(relu)), vec, stream)
+        err = _qmm_fn(design)(*args, stream)
     if err != 0:
-        raise MXNetError("mxtt_qmm_requant kernel launch failed: cudaError "
-                         "%d" % err)
-    _count("qmm_requant")
+        raise MXNetError("%s kernel launch failed: cudaError %d"
+                         % (_QMM_DESIGNS[design][1], err))
+    _count("qmm_requant", "qmm_requant/" + design)
     return out
 
 

@@ -37,7 +37,7 @@ from ..ops import build
 from ..ops.pallas_kernels import _CONV_OUTS, _CONV_ROUTES
 from .conv_ab import STAGES
 
-__all__ = ["CUTS", "variant_source", "main"]
+__all__ = ["CUTS", "variant_source", "edited_source", "device_ms", "main"]
 
 _EXPECT = "        mbar_expect_tx(bar, stage);\n"
 _LOAD_A = ("        tma_load_im2col(a, &xmap, bar, c, w - 1, h - 1, n, "
@@ -72,18 +72,39 @@ CUTS = {
 }
 
 
-def variant_source(name):
-    """``csrc/conv3x3_wgmma.cu`` with the edits of variant ``name``;
-    raises if an edit's text is not in the source exactly once."""
-    with open(build.source_path("conv3x3_wgmma"), encoding="utf-8") as f:
+def edited_source(source, edits, variant):
+    """``csrc/<source>.cu`` with ``edits`` (``[(text, replacement)]``)
+    applied; raises if a text is not in the source exactly once."""
+    with open(build.source_path(source), encoding="utf-8") as f:
         src = f.read()
-    for old, new in CUTS[name]:
+    for old, new in edits:
         if src.count(old) != 1:
-            raise MXNetError("conv_ablate: %s: the text %r is in "
-                             "conv3x3_wgmma.cu %d times, want once"
-                             % (name, old[:60], src.count(old)))
+            raise MXNetError("ablation %s: the text %r is in %s.cu %d "
+                             "times, want once"
+                             % (variant, old[:60], source, src.count(old)))
         src = src.replace(old, new)
     return src
+
+
+def variant_source(name):
+    """``csrc/conv3x3_wgmma.cu`` with the edits of variant ``name``."""
+    return edited_source("conv3x3_wgmma", CUTS[name], name)
+
+
+def device_ms(fn, call, iters, dev, what):
+    """Device time of one ``fn(*call)`` of a C entry point: CUDA events
+    around ``iters`` calls after one warm-up; raises on a cudaError."""
+    err = fn(*call)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        err = err or fn(*call)
+    end.record()
+    torch.cuda.synchronize(dev)
+    if err:
+        raise MXNetError("%s: cudaError %d" % (what, err))
+    return start.elapsed_time(end) / iters
 
 
 def _fn(name):
@@ -137,18 +158,7 @@ def main(argv=None):
                     shift.data_ptr(), out.data_ptr(), args.batch, h, w, c,
                     c, _CONV_ROUTES[dt][1], _CONV_OUTS[dt], 1, stream)
             for v, fn in fns.items():
-                err = fn(*call)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(args.iters):
-                    err = err or fn(*call)
-                end.record()
-                torch.cuda.synchronize(dev)
-                if err:
-                    raise MXNetError("conv_ablate %s: cudaError %d"
-                                     % (v, err))
-                ms = start.elapsed_time(end) / args.iters
+                ms = device_ms(fn, call, args.iters, dev, "conv_ablate " + v)
                 passes[v] += ms
                 rec = {"variant": v, "dtype": dtype, "stage": [h, w, c],
                        "ms": ms, "device": torch.cuda.get_device_name(dev)}
