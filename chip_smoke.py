@@ -67,17 +67,33 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    parameters and moving statistics to atol 1e-4: there the rounding
    floor is far below it.
 
-7. **Flash kernels.** The forward (``flash_forward_with_lse``), ``flash_dq``
-   and ``flash_dkv`` kernels against their plain versions at the training
-   path's pairings (512 x 512 chunks at D = 16: causal over BH = 512,
-   full over BH = 256), ragged (3, 997 x 1000, 64) causal and full,
-   (2, 1 x 1, 16) and (4, 300 x 300, 128) causal: out and lse within
-   atol = rtol = 1e-5 (f32; only the summation order differs), dq/dk/dv
-   from a seeded dO within 1e-4 (they sum over T); two runs bitwise
-   equal.  Timed per layer (both pairings) with CUDA events around eager
-   calls, beside the bound and the library yardstick
+7. **Flash kernels.** The forward (``flash_forward_with_lse``) and both
+   designs of ``flash_dq`` and ``flash_dkv`` (the split-TF32 ``wgmma``
+   design of ``csrc/flash_bwd_wgmma.cu``, which takes D % 4 == 0 up to 32,
+   and the CUDA-core design of ``csrc/flash_attention.cu`` for every D,
+   each forced through the private ``_flash_dq`` / ``_flash_dkv``,
+   whether ``flash_design`` routes the shape there or not) against their
+   plain versions at the training path's
+   pairings (512 x 512 chunks at D = 16: causal over BH = 512, full over
+   BH = 256), ragged (3, 997 x 1000, 64) causal and full, (2, 1 x 1, 16)
+   and (4, 300 x 300, 128) causal, and the wgmma design's tile edges
+   (``FLASH_WGMMA_EDGES``: T not a multiple of the tiles, Tq != Tk both
+   ways, dk/dv blocks with no query to visit, T = 1, every D % 4 == 0 up
+   to 32): out and lse within atol = rtol = 1e-5
+   (f32; only the summation order differs), dq/dk/dv from a seeded dO
+   within 1e-4 (they sum over T; the wgmma design's three TF32 passes
+   keep it there); two runs bitwise equal; every launch counted on its
+   design.  The plain versions and the library run with matmul TF32 off
+   (the flags as found are printed and restored after).  Timed per hop
+   and per layer (both pairings) with CUDA events around eager calls,
+   the two designs of dq and dk/dv in turns (wgmma, simt, simt, wgmma)
+   against the 1.5x target, beside both bounds (the f32 CUDA-core one
+   and the split-TF32 tensor-core one), plain, and the library yardstick
    ``scaled_dot_product_attention`` (f32; its backward through one
-   ``torch.autograd.grad`` stands for dq and dk/dv together).
+   ``torch.autograd.grad`` stands for dq and dk/dv together).  The
+   choice of design by head dim: both designs timed per layer at the
+   path's pairings with D = 4, 8, ..., 32 (``FLASH_DIMS``); fails where
+   ``flash_design`` chose the slower one.
 8. **Train the TransformerLM.** The configuration above through
    ``DataParallelTrainer(TransformerLM(cfg), None, "sgd", lr 0.1,
    momentum 0.9, mesh_plan=MeshPlan(sequence=2))``: ring attention over a
@@ -85,8 +101,10 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    of 32 x 1024 tokens cut from the bench's seeded Markov corpus, 3
    warm-up and 10 timed steps with torch's default precision.  Every loss
    finite, the last below the first, each flash kernel launched steps x
-   layers x 2 hops times and the LayerNorm kernel >= steps x (2 x layers
-   + 1).  ``--profile`` adds the ``torch.profiler`` breakdown.
+   layers x 2 hops times, every ``flash_dq`` / ``flash_dkv`` launch on the
+   wgmma design, and the LayerNorm kernel >= steps x (2 x layers + 1).
+   ``--profile`` adds the ``torch.profiler`` breakdown (the flash
+   category holds B5-B7).
 9. **Held on the card.** The same ``init_params(0)`` weights, 2 steps on
    one batch of 2 x 1024 tokens three ways: ``MeshPlan(sequence=2)`` on
    CUDA and on ``device="cpu"``, and the collapsed ``MeshPlan()`` (local
@@ -188,7 +206,11 @@ Sixteen phases; any failure exits non-zero and prints no result line.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
-pairings; ``qmm_requant``'s per forward, its 16 launches summed, on the
+pairings, each row naming its ``design``; ``flash_dq``/``flash_dkv`` on
+the wgmma design (``source`` ``csrc/flash_bwd_wgmma.cu``, ``bound_ms``
+the split-TF32 tensor-core bound, ``simt_ms`` the other design's time,
+``launches_by_design``; phase 7 prints both bounds);
+``qmm_requant``'s per forward, its 16 launches summed, on the
 wgmma design (``source`` ``csrc/qmm_wgmma.cu``);
 ``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
 stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
@@ -210,12 +232,13 @@ import urllib.request
 import numpy as np
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense f32
-# CUDA-core FLOP/s and dense int8 tensor-core operations/s, for the bound
-# of a kernel
+# CUDA-core FLOP/s and dense int8, bf16 and TF32 tensor-core operations/s,
+# for the bound of a kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 INT8_OPS_PER_S = 1.979e15
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 LN_TOL = 1e-5
 LOGIT_TOL = 1e-4
@@ -694,7 +717,8 @@ PROFILE_CATEGORIES = (
 # the TransformerLM step runs no convolution: every GEMM is a matmul
 LM_PROFILE_CATEGORIES = (
     ("flash attention (B5-B7)", ("flash_fwd_kernel", "flash_dq_kernel",
-                                 "flash_dkv_kernel")),
+                                 "flash_dkv_kernel",
+                                 "flash_bwd_wgmma_kernel")),
     ("layer norm (B4)", ("ln_fwd",)),
     ("matmul", ("gemm", "cutlass")),
     ("reduction", ("reduce",)),
@@ -932,6 +956,20 @@ FLASH_PATH = [(2 * TRAIN_LM_BATCH * 8, 512, 512, 16, True),
 FLASH_CHECK = FLASH_PATH + [(3, 997, 1000, 64, True),
                             (3, 997, 1000, 64, False), (2, 1, 1, 16, True),
                             (4, 300, 300, 128, True)]
+# edges of the wgmma design of dq and dk/dv (own tiles of 128 rows,
+# streamed tiles of 64 keys or 32 queries, D % 4 == 0 up to 32): T not a
+# multiple of the tiles, Tq != Tk both ways (dk/dv blocks with no query to
+# visit), T = 1, D = 32, 12 and 8; both designs are held at each
+FLASH_WGMMA_EDGES = [(3, 997, 1000, 16, True), (3, 997, 1000, 32, False),
+                     (2, 130, 70, 16, True), (2, 70, 130, 16, True),
+                     (2, 70, 130, 32, True), (2, 70, 256, 16, True),
+                     (2, 1, 1, 32, False), (4, 1, 300, 16, False),
+                     (2, 33, 97, 12, True), (2, 200, 200, 8, True),
+                     (2, 130, 70, 4, False), (2, 97, 33, 20, True),
+                     (2, 64, 64, 24, False), (2, 200, 130, 28, True)]
+# head dims the two designs are timed at besides the path's 16 (the path's
+# pairings with D replaced): the measurement behind flash_design's choice
+FLASH_DIMS = (4, 8, 12, 20, 24, 28, 32)
 # wrapper -> (TPU kernel replaced, f32 operations per visible (q, k) pair
 # and head-dim element; each pair adds one expf)
 FLASH_KERNELS = {
@@ -939,6 +977,19 @@ FLASH_KERNELS = {
     "flash_dq": ("mxnet_tpu/ops/pallas_kernels.py:171", 6),
     "flash_dkv": ("mxnet_tpu/ops/pallas_kernels.py:226", 8),
 }
+FLASH_BWD = ("flash_dq", "flash_dkv")
+# the tensor-core bound of a split-TF32 design (csrc/flash_bwd_wgmma.cu):
+# each product in three TF32 passes at the dense TF32 rate, and the
+# non-matrix f32 operations per visible pair, counted from that source:
+# s * scale - lse (an FMA, 2), expf (1), dp - delta (1), p (dp - delta)
+# (1), and each register operand split into hi / lo (and, subtract, and:
+# 3): ds for dq, p and ds for dk/dv.  For the forward (B5, still on CUDA
+# cores) the same pattern: s * scale (2), the running max (1), expf (1),
+# the row sum (1), the split of p (3).
+TF32_PASSES = 3
+FLASH_NONMATRIX = {"flash_forward_with_lse": 8, "flash_dq": 8,
+                   "flash_dkv": 11}
+FLASH_SPEEDUP = 1.5     # the wgmma design against the CUDA-core one
 
 
 def _pairs(tq, tk, causal):
@@ -968,6 +1019,25 @@ def _flash_bound(name, cases):
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", flops, nbytes)
+
+
+def _flash_tc_bound(name, cases):
+    """(bound ms, bound_by, TF32 flops, f32 operations, bytes) of kernel
+    ``name`` on the tensor cores in split TF32 over ``cases``: the largest
+    of the bytes (as in :func:`_flash_bound`), three TF32 passes of every
+    product over 495 TFLOP/s dense, and the non-matrix f32 operations per
+    visible pair (``FLASH_NONMATRIX``) over 67 TFLOP/s."""
+    tf32 = ops = 0
+    for bh, tq, tk, d, causal in cases:
+        pairs = bh * _pairs(tq, tk, causal)
+        tf32 += pairs * FLASH_KERNELS[name][1] * d * TF32_PASSES
+        ops += pairs * FLASH_NONMATRIX[name]
+    nbytes = _flash_bound(name, cases)[3]
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(tf32 / TF32_FLOPS_PER_S,
+                               ops / F32_FLOPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, tf32, ops, nbytes
 
 
 def _event_ms(fn, iters=20):
@@ -1015,57 +1085,125 @@ def _sdpa_backend(q, k, v, causal):
     return names[0].key[:90] if names else "not measured"
 
 
+def _flash_bwd_call(name, design):
+    """A call of dq or dk/dv on its forced design, on one pairing's args."""
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    fn = pk._flash_dq if name == "flash_dq" else pk._flash_dkv
+    return lambda a: fn(*a, design=design)
+
+
+def _flash_bwd_args(cases, gen):
+    """Seeded (q, k, v, dO, lse, delta, causal, scale) of each pairing."""
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    out = []
+    for case in cases:
+        q, k, v, do, causal, scale = _flash_inputs(case, gen)
+        o, lse = pk.flash_forward_with_lse_reference(q, k, v, causal, scale)
+        out.append((q, k, v, do, lse, pk.flash_delta(o, do), causal, scale))
+    return out
+
+
+def _design_hops(bwd, name, iters=20):
+    """{design: [ms per pairing]} of dq or dk/dv on each design over the
+    pairings' args ``bwd``, timed in turns (wgmma, simt, simt, wgmma) and
+    the two times of each averaged."""
+    runs = {"wgmma": [], "simt": []}
+    for design in ("wgmma", "simt", "simt", "wgmma"):
+        call = _flash_bwd_call(name, design)
+        runs[design].append([_event_ms(lambda a=a: call(a), iters)
+                             for a in bwd])
+    return {design: [(x + y) / 2 for x, y in zip(*r)]
+            for design, r in runs.items()}
+
+
+def _flash_check(case, gen, worst):
+    """Hold the forward and each design of dq and dk/dv that takes the head
+    dim (routed to it or not) against their plain versions at one pairing; reruns bitwise, every
+    launch counted on its design.  Returns the printed errors."""
+    import torch
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    q, k, v, do, causal, scale = _flash_inputs(case, gen)
+    want_o, want_lse = pk.flash_forward_with_lse_reference(q, k, v, causal,
+                                                           scale)
+    delta = pk.flash_delta(want_o, do)
+    args = (q, k, v, do, want_lse, delta, causal, scale)
+    want = {"flash_dq": (pk.flash_dq_reference(*args),),
+            "flash_dkv": pk.flash_dkv_reference(*args)}
+    designs = ["simt"] + (["wgmma"] if pk.wgmma_takes(case[3]) else [])
+    fwd = [pk.flash_forward_with_lse(q, k, v, causal, scale)
+           for _ in range(2)]
+    errs = {}
+    for design in designs:
+        for name in FLASH_BWD:
+            before = pk.launch_counts()[name + "/" + design]
+            call = _flash_bwd_call(name, design)
+            runs = [call(args) for _ in range(2)]
+            runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+            torch.cuda.synchronize()
+            if pk.launch_counts()[name + "/" + design] != before + 2:
+                raise RuntimeError("%s %s: not launched on the %s design"
+                                   % (name, case, design))
+            for got, again, w in zip(runs[0], runs[1], want[name]):
+                if not torch.equal(got, again):
+                    raise RuntimeError("%s %s on the %s design: two runs "
+                                       "differ" % (name, case, design))
+                torch.testing.assert_close(got, w, rtol=FLASH_BWD_TOL,
+                                           atol=FLASH_BWD_TOL)
+                e = float((got - w).abs().max())
+                errs.setdefault((name, design), []).append(e)
+                worst[(name, design)] = max(worst.get((name, design), 0.0),
+                                            e)
+    torch.cuda.synchronize()
+    for a, b in zip(fwd[0], fwd[1]):
+        if not torch.equal(a, b):
+            raise RuntimeError("flash_forward_with_lse %s: two runs differ"
+                               % (case,))
+    for got, w in zip(fwd[0], (want_o, want_lse)):
+        torch.testing.assert_close(got, w, rtol=FLASH_FWD_TOL,
+                                   atol=FLASH_FWD_TOL)
+        e = float((got - w).abs().max())
+        errs.setdefault(("flash_forward_with_lse", "simt"), []).append(e)
+        worst[("flash_forward_with_lse", "simt")] = max(
+            worst.get(("flash_forward_with_lse", "simt"), 0.0), e)
+    return errs
+
+
 def phase_flash_kernels():
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import pallas_kernels as pk
 
+    # the plain versions and the library yardstick in full f32: no TF32
+    # matmuls, whatever the process had set; restored after
+    saved = torch.backends.cuda.matmul.allow_tf32
+    print("phase 7: precision flags as found: matmul.allow_tf32=%s "
+          "cudnn.allow_tf32=%s float32_matmul_precision=%s; matmul TF32 "
+          "off for this phase" % (saved, torch.backends.cudnn.allow_tf32,
+                                  torch.get_float32_matmul_precision()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _phase_flash_kernels(torch, F, pk)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _phase_flash_kernels(torch, F, pk):
     gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
-    for case in FLASH_CHECK:
-        q, k, v, do, causal, scale = _flash_inputs(case, gen)
-        want_o, want_lse = pk.flash_forward_with_lse_reference(
-            q, k, v, causal, scale)
-        delta = pk.flash_delta(want_o, do)
-        args = (q, k, v, do, want_lse, delta, causal, scale)
-        want_dq = pk.flash_dq_reference(*args)
-        want_dk, want_dv = pk.flash_dkv_reference(*args)
-        runs = [(pk.flash_forward_with_lse(q, k, v, causal, scale),
-                 pk.flash_dq(*args), pk.flash_dkv(*args)) for _ in range(2)]
-        torch.cuda.synchronize()
-        flat = [torch.cat([t.flatten() for t in r[0] + (r[1],) + r[2]])
-                for r in runs]
-        if not torch.equal(flat[0], flat[1]):
-            raise RuntimeError("flash kernels %s: two runs differ"
-                               % (case,))
-        (o, lse), dq, (dk, dv) = runs[0]
-        errs = []
-        for name, got, want, tol in (
-                ("flash_forward_with_lse", o, want_o, FLASH_FWD_TOL),
-                ("flash_forward_with_lse", lse, want_lse, FLASH_FWD_TOL),
-                ("flash_dq", dq, want_dq, FLASH_BWD_TOL),
-                ("flash_dkv", dk, want_dk, FLASH_BWD_TOL),
-                ("flash_dkv", dv, want_dv, FLASH_BWD_TOL)):
-            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-            errs.append(float((got - want).abs().max()))
-            worst[name] = max(worst[name], errs[-1])
-        print("phase 7: %s out/lse/dq/dk/dv max_abs_err %s, reruns bitwise"
-              % (case, ["%.3g" % e for e in errs]))
-        del q, k, v, do, want_o, want_lse, delta, want_dq, want_dk, want_dv
-        del runs, flat, o, lse, dq, dk, dv, args
+    worst = {}
+    for case in FLASH_CHECK + FLASH_WGMMA_EDGES:
+        errs = _flash_check(case, gen, worst)
+        print("phase 7: %s max_abs_err %s, reruns bitwise"
+              % (case, {"%s/%s" % k: ["%.3g" % e for e in v]
+                        for k, v in errs.items()}))
         torch.cuda.empty_cache()
 
-    # timing at the path's shapes: one layer's pairings (hop 0 + hop 1)
-    ins = [_flash_inputs(c, gen) for c in FLASH_PATH]
-    bwd = []
-    for q, k, v, do, causal, scale in ins:
-        o, lse = pk.flash_forward_with_lse_reference(q, k, v, causal, scale)
-        bwd.append((q, k, v, do, lse, pk.flash_delta(o, do), causal, scale))
-    kernel = {
-        "flash_forward_with_lse": lambda: [pk.flash_forward_with_lse(
-            *a[:3], a[6], a[7]) for a in bwd],
-        "flash_dq": lambda: [pk.flash_dq(*a) for a in bwd],
-        "flash_dkv": lambda: [pk.flash_dkv(*a) for a in bwd]}
+    # timing at the path's shapes: one layer's pairings (hop 0 + hop 1),
+    # both designs of dq and dk/dv on the same inputs, in turns
+    bwd = _flash_bwd_args(FLASH_PATH, gen)
+    fwd_hops = [_event_ms(lambda a=a: pk.flash_forward_with_lse(
+        *a[:3], a[6], a[7])) for a in bwd]
+    design_hops = {(name, design): per_hop for name in FLASH_BWD
+                   for design, per_hop in _design_hops(bwd, name).items()}
     plain = {
         "flash_forward_with_lse": lambda: [
             pk.flash_forward_with_lse_reference(*a[:3], a[6], a[7])
@@ -1087,30 +1225,93 @@ def phase_flash_kernels():
                "flash_dkv": lib_bwd}
     out = []
     for name, (replaces, _) in FLASH_KERNELS.items():
-        ms = _event_ms(kernel[name])
         plain_ms = _event_ms(plain[name], iters=5)
         bound_ms, bound_by, flops, nbytes = _flash_bound(name, FLASH_PATH)
-        print("phase 7: %s per layer %s: kernel %.5f ms, plain %.5f ms, "
-              "library %.5f ms%s; bound %.5f ms (%s: %d flops, %d bytes); "
-              "%.1f %% of the bound"
-              % (name, FLASH_PATH, ms, plain_ms, library[name],
-                 " (B6+B7 together)" if name != "flash_forward_with_lse"
-                 else "", bound_ms, bound_by, flops, nbytes,
+        tc_ms, tc_by, tf32, ops, _ = _flash_tc_bound(name, FLASH_PATH)
+        if name == "flash_forward_with_lse":
+            ms, per_hop = sum(fwd_hops), fwd_hops
+            print("phase 7: %s per layer %s: kernel %.5f ms (hops %s), "
+                  "plain %.5f ms, library %.5f ms; f32 CUDA-core bound "
+                  "%.5f ms (%s: %d flops, %d bytes), %.1f %% of it; "
+                  "split-TF32 tensor-core bound %.5f ms (%s: %d TF32 flops, "
+                  "%d f32 operations), %.1f %% of it"
+                  % (name, FLASH_PATH, ms, ["%.5f" % x for x in per_hop],
+                     plain_ms, library[name], bound_ms, bound_by, flops,
+                     nbytes, 100 * bound_ms / ms, tc_ms, tc_by, tf32, ops,
+                     100 * tc_ms / ms))
+            out.append({"name": name, "route": "cuda",
+                        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": replaces, "design": "simt",
+                        "launches": None,
+                        "max_abs_err": worst[(name, "simt")], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library[name]})
+            continue
+        wg_hops, simt_hops = (design_hops[(name, "wgmma")],
+                              design_hops[(name, "simt")])
+        ms, simt_ms = sum(wg_hops), sum(simt_hops)
+        speedup = simt_ms / ms
+        print("phase 7: %s per layer %s: wgmma %.5f ms (hops %s), CUDA-core "
+              "(simt) %.5f ms (hops %s): %.2fx, target %.1fx %s; plain %.5f "
+              "ms, library %.5f ms (B6+B7 together)"
+              % (name, FLASH_PATH, ms, ["%.5f" % x for x in wg_hops],
+                 simt_ms, ["%.5f" % x for x in simt_hops], speedup,
+                 FLASH_SPEEDUP, "met" if speedup >= FLASH_SPEEDUP
+                 else "missed", plain_ms, library[name]))
+        print("phase 7: %s bounds: split-TF32 tensor-core %.5f ms (%s: %d "
+              "TF32 flops, %d f32 operations, %d bytes), wgmma at %.1f %% "
+              "of it; f32 CUDA-core %.5f ms (%s: %d flops), simt at %.1f %% "
+              "of it, wgmma at %.1f %%"
+              % (name, tc_ms, tc_by, tf32, ops, nbytes, 100 * tc_ms / ms,
+                 bound_ms, bound_by, flops, 100 * bound_ms / simt_ms,
                  100 * bound_ms / ms))
         out.append({"name": name, "route": "cuda",
-                    "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-                    "replaces": replaces, "launches": None,
-                    "max_abs_err": worst[name], "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library[name]})
+                    "source": "mxnet_tpu_torch/csrc/flash_bwd_wgmma.cu",
+                    "replaces": replaces, "design": "wgmma",
+                    "launches": None,
+                    "max_abs_err": worst[(name, "wgmma")], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": tc_ms,
+                    "bound_by": tc_by, "library_ms": library[name],
+                    "simt_ms": simt_ms, "simt_max_abs_err":
+                    worst[(name, "simt")]})
     print("phase 7: library scaled_dot_product_attention (f32) ran %s"
           % backend)
     print("phase 7: tolerances out/lse %g, dq/dk/dv %g; worst %s"
           % (FLASH_FWD_TOL, FLASH_BWD_TOL,
-             {k: "%.3g" % v for k, v in worst.items()}))
-    del ins, bwd, lib_in, outs
+             {"%s/%s" % k: "%.3g" % v for k, v in worst.items()}))
+    del bwd, lib_in, outs
     torch.cuda.empty_cache()
+    _flash_dim_sweep(torch, pk, gen, design_hops)
     return out
+
+
+def _flash_dim_sweep(torch, pk, gen, design_hops):
+    """Both designs of dq and dk/dv per layer at the path's pairings with
+    each head dim of FLASH_DIMS, beside flash_design's choice there; fails
+    where the chosen design is the slower one."""
+    per_dim = {16: {key: sum(h) for key, h in design_hops.items()}}
+    for d in FLASH_DIMS:
+        bwd = _flash_bwd_args([c[:3] + (d,) + c[4:] for c in FLASH_PATH],
+                              gen)
+        per_dim[d] = {(name, design): sum(h) for name in FLASH_BWD
+                      for design, h in _design_hops(bwd, name).items()}
+        del bwd
+        torch.cuda.empty_cache()
+    wrong = []
+    for d in sorted(per_dim):
+        ms = per_dim[d]
+        chosen = {name: pk.flash_design(d, name) for name in FLASH_BWD}
+        print("phase 7: head dim %d per layer: %s" % (d, ", ".join(
+            "%s wgmma %.5f / simt %.5f ms (%.2fx), flash_design %s"
+            % (name, ms[(name, "wgmma")], ms[(name, "simt")],
+               ms[(name, "simt")] / ms[(name, "wgmma")], chosen[name])
+            for name in FLASH_BWD)))
+        wrong += ["%s at D = %d" % (name, d) for name in FLASH_BWD
+                  if ms[(name, chosen[name])] > min(ms[(name, "wgmma")],
+                                                    ms[(name, "simt")])]
+    if wrong:
+        raise RuntimeError("flash_design chose the slower design for %s"
+                           % ", ".join(wrong))
 
 
 def _markov_corpus(vocab, length, seed=7):
@@ -1186,6 +1387,11 @@ def phase_train_lm(profile=False):
     if any(flash[n] != want for n in FLASH_KERNELS):
         raise RuntimeError("flash launches %s, want %d each (steps x layers "
                            "x hops)" % (flash, want))
+    if any(flash[n + "/wgmma"] != want for n in FLASH_BWD):
+        raise RuntimeError("flash_dq / flash_dkv launches by design %s, want "
+                           "all %d on the wgmma design"
+                           % ({k: v for k, v in flash.items() if "/" in k
+                               and k.startswith("flash")}, want))
     if ln < steps * (2 * CFG["n_layers"] + 1):
         raise RuntimeError("fused_layer_norm launched %d times, want >= %d"
                            % (ln, steps * (2 * CFG["n_layers"] + 1)))
@@ -1205,9 +1411,10 @@ def phase_train_lm(profile=False):
              ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30,
              held / 2 ** 30))
     print("phase 8: launches %s = %d steps x %d layers x %d hops each; "
-          "fused_layer_norm %d (>= %d)" % (flash, steps, CFG["n_layers"],
-                                           k_ranks, ln,
-                                           steps * (2 * CFG["n_layers"] + 1)))
+          "fused_layer_norm %d (>= %d)"
+          % ({k: v for k, v in flash.items() if k.startswith("flash")},
+             steps, CFG["n_layers"], k_ranks, ln,
+             steps * (2 * CFG["n_layers"] + 1)))
     if profile:
         x, y = batches[-1]
         profile_train(tr, x, y, label="phase 8",
@@ -2291,6 +2498,9 @@ def main():
         flash = phase_train_lm(profile="--profile" in sys.argv)
         for k in flash_kernels:
             k["launches"] = flash[k["name"]]
+            if k["name"] in FLASH_BWD:
+                k["launches_by_design"] = {
+                    d: flash[k["name"] + "/" + d] for d in ("wgmma", "simt")}
         phase_train_lm_parity()
         qmm_kernel = phase_qmm_kernel()
         qmm_kernel["launches"], model = phase_int8_serve(

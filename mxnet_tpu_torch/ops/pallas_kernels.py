@@ -9,8 +9,13 @@ that module:
 - :func:`flash_forward_with_lse` → ``mxtt_flash_fwd`` (``_fa_kernel``,
   ``:62``; ``csrc/flash_attention.cu``): the attention output and the
   per-row logsumexp;
-- :func:`flash_dq` → ``mxtt_flash_dq`` (``_fa_dq_kernel``, ``:171``);
-- :func:`flash_dkv` → ``mxtt_flash_dkv`` (``_fa_dkv_kernel``, ``:226``);
+- :func:`flash_dq` (``_fa_dq_kernel``, ``:171``) and :func:`flash_dkv`
+  (``_fa_dkv_kernel``, ``:226``), in two designs chosen by head dim
+  (:func:`flash_design`): ``mxtt_flash_dq_wgmma`` /
+  ``mxtt_flash_dkv_wgmma`` (``csrc/flash_bwd_wgmma.cu``: bulk copies,
+  mbarriers, split-TF32 ``wgmma``) for ``D % 4 == 0``, ``D <= 32`` (dk/dv
+  from D = 12), and ``mxtt_flash_dq`` / ``mxtt_flash_dkv``
+  (``csrc/flash_attention.cu``: CUDA-core FMAs) for the rest;
 - :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
@@ -69,19 +74,24 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "flash_dkv_reference", "flash_attention", "qmm_requant",
            "qmm_requant_reference", "qmm_design", "quantized_conv_requant",
            "conv3x3_epilogue", "conv3x3_epilogue_reference",
-           "conv3x3_design",
+           "conv3x3_design", "flash_design", "wgmma_takes",
+           "FLASH_WGMMA_DIMS",
            "launch_counts", "reset_launch_counts", "LAUNCHES",
            "MAX_HEAD_DIM"]
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-# qmm_requant counts every launch under its own name and under its
+# flash_dq / flash_dkv count every launch under their own name and under
+# their design's ("flash_dq/wgmma" or "flash_dq/simt", the same for
+# flash_dkv); qmm_requant under its own name and under its
 # design's ("qmm_requant/wgmma" or "qmm_requant/mma"); conv3x3_epilogue
 # under its own name, under its input route's (e.g.
 # "conv3x3_epilogue[int8]") and under its design's
 # ("conv3x3_epilogue/wgmma" or "conv3x3_epilogue/mma")
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_dq/wgmma": 0, "flash_dq/simt": 0, "flash_dkv/wgmma": 0,
+            "flash_dkv/simt": 0,
             "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
             "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
@@ -182,15 +192,58 @@ _ARGTYPES = {
     # (q, k, v, do, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, stream)
     "mxtt_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
 }
+_ARGTYPES["mxtt_flash_dq_wgmma"] = _ARGTYPES["mxtt_flash_dq"]
+_ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
+
+# wrapper -> the head dims flash_design sends to the wgmma design: those
+# where chip_smoke.py's phase 7 timed it faster than the CUDA-core design at
+# the ring path's pairings (dk/dv at D = 4 and 8 is faster on CUDA cores,
+# which then do a quarter or half of D = 16's work while the wgmma design
+# pads to 16)
+FLASH_WGMMA_DIMS = {"flash_dq": frozenset(range(4, 33, 4)),
+                    "flash_dkv": frozenset(range(12, 33, 4))}
+
+# the two designs of B6 / B7: their source and the C entry point of each
+_FLASH_DESIGNS = {
+    "wgmma": ("flash_bwd_wgmma", {"flash_dq": "mxtt_flash_dq_wgmma",
+                                  "flash_dkv": "mxtt_flash_dkv_wgmma"}),
+    "simt": ("flash_attention", {"flash_dq": "mxtt_flash_dq",
+                                 "flash_dkv": "mxtt_flash_dkv"}),
+}
 
 
-def _fn(name):
+def _fn(name, source="flash_attention"):
     from .build import load
-    fn = getattr(load("flash_attention"), name)
+    fn = getattr(load(source), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def wgmma_takes(d, aligned=True):
+    """Whether ``csrc/flash_bwd_wgmma.cu`` takes head dim ``d``: ``D % 4
+    == 0`` up to 32 (a row is whole 16-byte units for the bulk copies; at
+    D = 64 the two warpgroups' accumulators and split operands outgrow the
+    registers), with 16-byte aligned q, k, v and dO (``aligned``)."""
+    return 4 <= d <= 32 and d % 4 == 0 and aligned
+
+
+def flash_design(d, wrapper, aligned=True):
+    """The design a card call of ``wrapper`` (``"flash_dq"`` or
+    ``"flash_dkv"``) takes, chosen by head dim and alignment before any
+    launch:
+
+    - ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``: bulk copies into an
+      mbarrier ring, a producer warpgroup that splits each tile into TF32
+      hi / lo copies, ``wgmma`` .tf32 in three passes) where it takes the
+      shape (:func:`wgmma_takes`) and ``d`` is in the wrapper's
+      :data:`FLASH_WGMMA_DIMS`, the head dims where it was timed faster
+      than the CUDA-core design — the ring path's D = 16 among them;
+    - ``"simt"`` (``csrc/flash_attention.cu``: CUDA-core FMAs, one thread
+      per row) otherwise, among them D = 64 and 128."""
+    ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
+    return "wgmma" if ok else "simt"
 
 
 def _check(wrapper, q, k, v, rows=()):
@@ -230,16 +283,31 @@ def _check(wrapper, q, k, v, rows=()):
     return True
 
 
-def _launch(wrapper, kernel, tensors, dims, scale, causal):
+def _launch(wrapper, kernel, tensors, dims, scale, causal,
+            source="flash_attention", counts=()):
     dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn(kernel)(*(t.data_ptr() for t in tensors), *dims,
-                          float(scale), int(bool(causal)), stream)
+        err = _fn(kernel, source)(*(t.data_ptr() for t in tensors), *dims,
+                                  float(scale), int(bool(causal)), stream)
     if err != 0:
         raise MXNetError("%s kernel launch failed: cudaError %d"
                          % (kernel, err))
-    _count(wrapper)
+    _count(wrapper, *counts)
+
+
+def _bwd_design(wrapper, tensors, d, design):
+    """``(source, C entry point, design)`` of a card call of ``wrapper``:
+    :func:`flash_design` of its head dim, or ``design`` forced (raises
+    where the shape is not the design's)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    design = flash_design(d, wrapper, aligned) if design is None else design
+    if design not in _FLASH_DESIGNS or (design == "wgmma"
+                                        and not wgmma_takes(d, aligned)):
+        raise MXNetError("%s: the %r design does not take head dim %d (or "
+                         "unaligned operands)" % (wrapper, design, d))
+    source, entries = _FLASH_DESIGNS[design]
+    return source, entries[wrapper], design
 
 
 def flash_forward_with_lse(q, k, v, causal, scale):
@@ -259,30 +327,51 @@ def flash_forward_with_lse(q, k, v, causal, scale):
 
 def flash_dq(q, k, v, do, lse, delta, causal, scale):
     """dq for one (q-chunk × k-chunk) pairing; ``lse``/``delta`` are
-    ``(BH, Tq)`` float32."""
+    ``(BH, Tq)`` float32.  On the card the call goes to one of two
+    kernels, :func:`flash_design` of its head dim; both compute the same
+    function."""
+    return _flash_dq(q, k, v, do, lse, delta, causal, scale)
+
+
+def _flash_dq(q, k, v, do, lse, delta, causal, scale, design=None):
+    """:func:`flash_dq`, with ``design`` ("wgmma" or "simt") forced
+    instead of chosen by head dim, so both designs can be timed on the
+    same inputs."""
     if not _check("flash_dq", q, k, v, (do, lse, delta)):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     bh, tq, d = q.shape
+    source, entry, design = _bwd_design("flash_dq", (q, k, v, do), d, design)
     dq = torch.empty_like(q)
-    _launch("flash_dq", "mxtt_flash_dq", (q, k, v, do, lse, delta, dq),
-            (bh, tq, k.shape[1], d), scale, causal)
+    _launch("flash_dq", entry, (q, k, v, do, lse, delta, dq),
+            (bh, tq, k.shape[1], d), scale, causal, source,
+            ("flash_dq/" + design,))
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal, scale):
     """``(dk, dv)`` for one (q-chunk × k-chunk) pairing, k-major: each
-    k row's gradient is summed over the queries by one thread."""
+    k row's gradient is summed over the queries in one block, in a fixed
+    order.  On the card the call goes to one of two kernels,
+    :func:`flash_design` of its head dim."""
+    return _flash_dkv(q, k, v, do, lse, delta, causal, scale)
+
+
+def _flash_dkv(q, k, v, do, lse, delta, causal, scale, design=None):
+    """:func:`flash_dkv`, with ``design`` ("wgmma" or "simt") forced."""
     if not _check("flash_dkv", q, k, v, (do, lse, delta)):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     bh, tq, d = q.shape
+    source, entry, design = _bwd_design("flash_dkv", (q, k, v, do), d,
+                                        design)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_dkv", "mxtt_flash_dkv", (q, k, v, do, lse, delta, dk, dv),
-            (bh, tq, k.shape[1], d), scale, causal)
+    _launch("flash_dkv", entry, (q, k, v, do, lse, delta, dk, dv),
+            (bh, tq, k.shape[1], d), scale, causal, source,
+            ("flash_dkv/" + design,))
     return dk, dv
 
 

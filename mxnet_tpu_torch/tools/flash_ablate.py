@@ -1,0 +1,162 @@
+"""What holds the wgmma design of ``flash_dq`` (B6) and ``flash_dkv`` (B7)
+back: the kernel rebuilt with one part switched off at a time and timed at
+the ring path's pairings of one TransformerLM layer.
+
+    python -m mxnet_tpu_torch.tools.flash_ablate [--iters 20]
+
+Each variant is ``csrc/flash_bwd_wgmma.cu`` with textual edits
+(:data:`CUTS`), built through ``ops.build.load_source`` as
+``tools/qmm_ablate.py`` builds B8's:
+
+- ``full``: the source as it is;
+- ``no_loads``: no bulk copies of the streamed tiles, the raw ring's
+  barriers still run;
+- ``no_split``: no split / transposed tile writes by the producer;
+- ``no_mma``: no ``wgmma``;
+- ``no_lo``: the ``lo`` terms cut (one TF32 pass per product: what the
+  f32 contract costs);
+- ``no_recompute``: no softmax recompute (``expf``, the masks, ``ds``);
+- ``no_stores``: no output stores.
+
+A variant's outputs are wrong by design (``no_lo`` only misses the 1e-4
+contract), so only its device time is printed: CUDA events around
+``--iters`` calls of each C entry point on seeded inputs, every variant
+timed once to warm the card and then twice, in turn and in reverse order,
+keeping the lesser time.  One JSON line per (variant, kernel) with the
+time of each hop and their sum per layer; :func:`main` also returns the
+records.  A time that drops when a part is cut says that part holds the
+kernel back.  The card is required.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+
+import numpy as np
+import torch
+
+from ..base import resolve_device
+from ..ops import build
+from ..ops.pallas_kernels import (_ARGTYPES, flash_delta,
+                                  flash_forward_with_lse_reference)
+from .conv_ablate import device_ms, edited_source
+
+__all__ = ["CUTS", "variant_source", "path_pairings", "main"]
+
+_COPIES = ("      mbar_expect_tx(bar, 2 * bytes);\n"
+           "      bulk_load(smem_u32(dst), sa + off, bytes, bar);\n"
+           "      bulk_load(smem_u32(dst + Z::TILE), sb + off, bytes, bar);\n")
+_SPLIT = ("      split_rows<DP, BT>(ra, valid, D, st, st + Z::TILE, tid);\n"
+          "      split_rows<DP, BT>(rb, valid, D, st + 2 * Z::TILE, "
+          "st + 3 * Z::TILE,\n                         tid);\n"
+          "      split_cols<DP, BT>(ra, valid, D, st + 4 * Z::TILE, "
+          "st + 5 * Z::TILE,\n                         tid);\n")
+_SPLIT_T = ("        split_cols<DP, BT>(rb, valid, D, st + 6 * Z::TILE, "
+            "st + 7 * Z::TILE,\n                           tid);\n")
+_XY = ("      Rs<BT>::run(x, ps == 2 ? ax.lo[kk] : ax.hi[kk], "
+       "tile_desc(b, BT, kk),\n                  acc);\n"
+       "      Rs<BT>::run(y, ps == 2 ? ay.lo[kk] : ay.hi[kk],\n"
+       "                  tile_desc(b + 2 * Z::TILE / 16, BT, kk), acc);\n")
+_RS = ("      Rs<DP>::run(acc[kk % NA], a, tile_desc(ps == 1 ? bl : bh, DP, "
+       "kk), 1);\n")
+_PASSES = "constexpr int PASSES = 3;"
+_RECOMPUTE = ("  p = valid ? expf(s * scale - lse) : 0.f;\n"
+              "  ds = valid ? p * (dp - delta) : 0.f;\n")
+_STORE = "    if (row >= rows) continue;\n"
+
+# variant -> [(text in the source, its replacement)]
+CUTS = {
+    "full": [],
+    "no_loads": [(_COPIES, "      mbar_arrive(bar);\n")],
+    "no_split": [(_SPLIT, ""), (_SPLIT_T, "")],
+    "no_mma": [(_XY, ""), (_RS, "")],
+    "no_lo": [(_PASSES, "constexpr int PASSES = 1;")],
+    "no_recompute": [(_RECOMPUTE, "  p = s;\n  ds = dp;\n")],
+    "no_stores": [(_STORE, "    if (row >= rows || rows > 0) continue;\n")],
+}
+_ENTRIES = {"flash_dq": "mxtt_flash_dq_wgmma",
+            "flash_dkv": "mxtt_flash_dkv_wgmma"}
+
+
+def variant_source(name):
+    """``csrc/flash_bwd_wgmma.cu`` with the edits of variant ``name``;
+    raises if an edit's text is not in the source exactly once."""
+    return edited_source("flash_bwd_wgmma", CUTS[name], name)
+
+
+def path_pairings(batch=32, heads=8, seq_len=1024, ranks=2, head_dim=16):
+    """``(BH, Tq, Tk, D, causal)`` of the flash pairings of one layer of the
+    ring path at ``MeshPlan(sequence=ranks)``: hop 0 is the diagonal for
+    every rank (causal), each later hop the full pairing of the ranks that
+    see an earlier chunk."""
+    t = seq_len // ranks
+    return [(ranks * batch * heads, t, t, head_dim, True)] + [
+        ((ranks - h) * batch * heads, t, t, head_dim, False)
+        for h in range(1, ranks)]
+
+
+def _fns(name):
+    lib = build.load_source("flash_ablate_" + name, variant_source(name))
+    out = {}
+    for wrapper, entry in _ENTRIES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
+        out[wrapper] = fn
+    return out
+
+
+def _inputs(case, rng, dev):
+    bh, tq, tk, d, causal = case
+    q, do = (torch.as_tensor(rng.randn(bh, tq, d), device=dev).float()
+             for _ in range(2))
+    k, v = (torch.as_tensor(rng.randn(bh, tk, d), device=dev).float()
+            for _ in range(2))
+    o, lse = flash_forward_with_lse_reference(q, k, v, causal, d ** -0.5)
+    return q, k, v, do, lse, flash_delta(o, do)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--iters", type=int, default=20)
+    args = p.parse_args(argv)
+    dev = resolve_device(None)
+    build.build_all((), {"flash_ablate_" + v: variant_source(v)
+                         for v in CUTS})
+    fns = {v: _fns(v) for v in CUTS}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = torch.cuda.get_device_name(dev)
+    rng = np.random.RandomState(0)
+    cases = path_pairings()
+    per_hop = {(v, w): [] for v in CUTS for w in _ENTRIES}
+    for case in cases:
+        bh, tq, tk, d, causal = case
+        q, k, v, do, lse, delta = _inputs(case, rng, dev)
+        outs = {"flash_dq": (torch.empty_like(q),),
+                "flash_dkv": (torch.empty_like(k), torch.empty_like(v))}
+        for wrapper in _ENTRIES:
+            call = tuple(t.data_ptr() for t in (q, k, v, do, lse, delta)
+                         + outs[wrapper]) + (bh, tq, tk, d, d ** -0.5,
+                                             int(causal), stream)
+            runs = {x: [] for x in CUTS}
+            order = list(CUTS) * 2 + list(CUTS)[::-1]
+            for i, x in enumerate(order):
+                ms = device_ms(fns[x][wrapper], call, args.iters, dev,
+                               "flash_ablate %s %s" % (x, wrapper))
+                if i >= len(CUTS):            # the first round warms up
+                    runs[x].append(ms)
+            for x in CUTS:
+                per_hop[(x, wrapper)].append(min(runs[x]))
+        del q, k, v, do, lse, delta, outs
+    records = []
+    for (x, wrapper), times in per_hop.items():
+        rec = {"variant": x, "kernel": wrapper, "pairings": cases,
+               "hop_ms": times, "layer_ms": sum(times), "device": name}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+    return records
+
+
+if __name__ == "__main__":
+    main()
