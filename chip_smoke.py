@@ -67,13 +67,15 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    parameters and moving statistics to atol 1e-4: there the rounding
    floor is far below it.
 
-7. **Flash kernels.** The forward (``flash_forward_with_lse``) and both
-   designs of ``flash_dq`` and ``flash_dkv`` (the split-TF32 ``wgmma``
-   design of ``csrc/flash_bwd_wgmma.cu``, which takes D % 4 == 0 up to 32,
-   and the CUDA-core design of ``csrc/flash_attention.cu`` for every D,
-   each forced through the private ``_flash_dq`` / ``_flash_dkv``,
-   whether ``flash_design`` routes the shape there or not) against their
-   plain versions at the training path's
+7. **Flash kernels.** Both designs of the forward
+   (``flash_forward_with_lse``), ``flash_dq`` and ``flash_dkv`` (the
+   split-TF32 ``wgmma`` design of ``csrc/flash_fwd_wgmma.cu`` and
+   ``csrc/flash_bwd_wgmma.cu``, which takes D % 4 == 0 up to 32, and the
+   CUDA-core design of ``csrc/flash_attention.cu`` for every D, each
+   forced through the private ``_flash_forward_with_lse`` /
+   ``_flash_dq`` / ``_flash_dkv``, whether ``flash_design`` routes the
+   shape there or not) against their plain versions at the training
+   path's
    pairings (512 x 512 chunks at D = 16: causal over BH = 512, full over
    BH = 256), ragged (3, 997 x 1000, 64) causal and full, (2, 1 x 1, 16)
    and (4, 300 x 300, 128) causal, and the wgmma design's tile edges
@@ -82,18 +84,18 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    to 32): out and lse within atol = rtol = 1e-5
    (f32; only the summation order differs), dq/dk/dv from a seeded dO
    within 1e-4 (they sum over T; the wgmma design's three TF32 passes
-   keep it there); two runs bitwise equal; every launch counted on its
+   keep both there); two runs bitwise equal; every launch counted on its
    design.  The plain versions and the library run with matmul TF32 off
    (the flags as found are printed and restored after).  Timed per hop
    and per layer (both pairings) with CUDA events around eager calls,
-   the two designs of dq and dk/dv in turns (wgmma, simt, simt, wgmma)
+   the two designs of each kernel in turns (wgmma, simt, simt, wgmma)
    against the 1.5x target, beside both bounds (the f32 CUDA-core one
    and the split-TF32 tensor-core one), plain, and the library yardstick
-   ``scaled_dot_product_attention`` (f32; its backward through one
-   ``torch.autograd.grad`` stands for dq and dk/dv together).  The
-   choice of design by head dim: both designs timed per layer at the
-   path's pairings with D = 4, 8, ..., 32 (``FLASH_DIMS``); fails where
-   ``flash_design`` chose the slower one.
+   ``scaled_dot_product_attention`` (f32; its forward for the forward,
+   its backward through one ``torch.autograd.grad`` for dq and dk/dv
+   together).  The choice of design by head dim: both designs of each
+   kernel timed per layer at the path's pairings with D = 4, 8, ..., 32
+   (``FLASH_DIMS``); fails where ``flash_design`` chose the slower one.
 8. **Train the TransformerLM.** The configuration above through
    ``DataParallelTrainer(TransformerLM(cfg), None, "sgd", lr 0.1,
    momentum 0.9, mesh_plan=MeshPlan(sequence=2))``: ring attention over a
@@ -101,8 +103,9 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    of 32 x 1024 tokens cut from the bench's seeded Markov corpus, 3
    warm-up and 10 timed steps with torch's default precision.  Every loss
    finite, the last below the first, each flash kernel launched steps x
-   layers x 2 hops times, every ``flash_dq`` / ``flash_dkv`` launch on the
-   wgmma design, and the LayerNorm kernel >= steps x (2 x layers + 1).
+   layers x 2 hops times, every forward, ``flash_dq`` and ``flash_dkv``
+   launch on the wgmma design, and the LayerNorm kernel >= steps x (2 x
+   layers + 1).
    ``--profile`` adds the ``torch.profiler`` breakdown (the flash
    category holds B5-B7).
 9. **Held on the card.** The same ``init_params(0)`` weights, 2 steps on
@@ -206,10 +209,10 @@ Sixteen phases; any failure exits non-zero and prints no result line.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
-pairings, each row naming its ``design``; ``flash_dq``/``flash_dkv`` on
-the wgmma design (``source`` ``csrc/flash_bwd_wgmma.cu``, ``bound_ms``
-the split-TF32 tensor-core bound, ``simt_ms`` the other design's time,
-``launches_by_design``; phase 7 prints both bounds);
+pairings, on the wgmma design (``source`` ``csrc/flash_fwd_wgmma.cu`` or
+``csrc/flash_bwd_wgmma.cu``, ``bound_ms`` the split-TF32 tensor-core
+bound, ``simt_ms`` the CUDA-core design's time, ``launches_by_design``;
+phase 7 prints both bounds);
 ``qmm_requant``'s per forward, its 16 launches summed, on the
 wgmma design (``source`` ``csrc/qmm_wgmma.cu``);
 ``conv3x3_epilogue[int8]``/``[bf16]``'s per pass of the four harness
@@ -718,6 +721,7 @@ PROFILE_CATEGORIES = (
 LM_PROFILE_CATEGORIES = (
     ("flash attention (B5-B7)", ("flash_fwd_kernel", "flash_dq_kernel",
                                  "flash_dkv_kernel",
+                                 "flash_fwd_wgmma_kernel",
                                  "flash_bwd_wgmma_kernel")),
     ("layer norm (B4)", ("ln_fwd",)),
     ("matmul", ("gemm", "cutlass")),
@@ -977,15 +981,14 @@ FLASH_KERNELS = {
     "flash_dq": ("mxnet_tpu/ops/pallas_kernels.py:171", 6),
     "flash_dkv": ("mxnet_tpu/ops/pallas_kernels.py:226", 8),
 }
-FLASH_BWD = ("flash_dq", "flash_dkv")
-# the tensor-core bound of a split-TF32 design (csrc/flash_bwd_wgmma.cu):
-# each product in three TF32 passes at the dense TF32 rate, and the
-# non-matrix f32 operations per visible pair, counted from that source:
-# s * scale - lse (an FMA, 2), expf (1), dp - delta (1), p (dp - delta)
-# (1), and each register operand split into hi / lo (and, subtract, and:
-# 3): ds for dq, p and ds for dk/dv.  For the forward (B5, still on CUDA
-# cores) the same pattern: s * scale (2), the running max (1), expf (1),
-# the row sum (1), the split of p (3).
+# the tensor-core bound of a split-TF32 design (csrc/flash_fwd_wgmma.cu,
+# csrc/flash_bwd_wgmma.cu): each product in three TF32 passes at the dense
+# TF32 rate, and the non-matrix f32 operations per visible pair, counted
+# from those sources.  Backward: s * scale - lse (an FMA, 2), expf (1), dp
+# - delta (1), p (dp - delta) (1), and each register operand split into
+# hi / lo (and, subtract, and: 3): ds for dq, p and ds for dk/dv.  Forward
+# (softmax_tile): s * scale (1), the running max (1), the exponent's FMA
+# (1), 2^x (1), the row sum (1), the split of p (3).
 TF32_PASSES = 3
 FLASH_NONMATRIX = {"flash_forward_with_lse": 8, "flash_dq": 8,
                    "flash_dkv": 11}
@@ -1085,9 +1088,13 @@ def _sdpa_backend(q, k, v, causal):
     return names[0].key[:90] if names else "not measured"
 
 
-def _flash_bwd_call(name, design):
-    """A call of dq or dk/dv on its forced design, on one pairing's args."""
+def _flash_call(name, design):
+    """A call of one flash kernel on its forced design, on one pairing's
+    args (q, k, v, dO, lse, delta, causal, scale)."""
     from mxnet_tpu_torch.ops import pallas_kernels as pk
+    if name == "flash_forward_with_lse":
+        return lambda a: pk._flash_forward_with_lse(*a[:3], a[6], a[7],
+                                                    design=design)
     fn = pk._flash_dq if name == "flash_dq" else pk._flash_dkv
     return lambda a: fn(*a, design=design)
 
@@ -1104,12 +1111,12 @@ def _flash_bwd_args(cases, gen):
 
 
 def _design_hops(bwd, name, iters=20):
-    """{design: [ms per pairing]} of dq or dk/dv on each design over the
-    pairings' args ``bwd``, timed in turns (wgmma, simt, simt, wgmma) and
-    the two times of each averaged."""
+    """{design: [ms per pairing]} of one flash kernel on each design over
+    the pairings' args ``bwd``, timed in turns (wgmma, simt, simt, wgmma)
+    and the two times of each averaged."""
     runs = {"wgmma": [], "simt": []}
     for design in ("wgmma", "simt", "simt", "wgmma"):
-        call = _flash_bwd_call(name, design)
+        call = _flash_call(name, design)
         runs[design].append([_event_ms(lambda a=a: call(a), iters)
                              for a in bwd])
     return {design: [(x + y) / 2 for x, y in zip(*r)]
@@ -1117,9 +1124,10 @@ def _design_hops(bwd, name, iters=20):
 
 
 def _flash_check(case, gen, worst):
-    """Hold the forward and each design of dq and dk/dv that takes the head
-    dim (routed to it or not) against their plain versions at one pairing; reruns bitwise, every
-    launch counted on its design.  Returns the printed errors."""
+    """Hold each design of the forward, dq and dk/dv that takes the head
+    dim (routed to it or not) against their plain versions at one pairing;
+    reruns bitwise, every launch counted on its design.  Returns the
+    printed errors."""
     import torch
     from mxnet_tpu_torch.ops import pallas_kernels as pk
     q, k, v, do, causal, scale = _flash_inputs(case, gen)
@@ -1127,16 +1135,17 @@ def _flash_check(case, gen, worst):
                                                            scale)
     delta = pk.flash_delta(want_o, do)
     args = (q, k, v, do, want_lse, delta, causal, scale)
-    want = {"flash_dq": (pk.flash_dq_reference(*args),),
+    want = {"flash_forward_with_lse": (want_o, want_lse),
+            "flash_dq": (pk.flash_dq_reference(*args),),
             "flash_dkv": pk.flash_dkv_reference(*args)}
     designs = ["simt"] + (["wgmma"] if pk.wgmma_takes(case[3]) else [])
-    fwd = [pk.flash_forward_with_lse(q, k, v, causal, scale)
-           for _ in range(2)]
     errs = {}
     for design in designs:
-        for name in FLASH_BWD:
+        for name in FLASH_KERNELS:
+            tol = FLASH_FWD_TOL if name == "flash_forward_with_lse" \
+                else FLASH_BWD_TOL
             before = pk.launch_counts()[name + "/" + design]
-            call = _flash_bwd_call(name, design)
+            call = _flash_call(name, design)
             runs = [call(args) for _ in range(2)]
             runs = [r if isinstance(r, tuple) else (r,) for r in runs]
             torch.cuda.synchronize()
@@ -1147,24 +1156,11 @@ def _flash_check(case, gen, worst):
                 if not torch.equal(got, again):
                     raise RuntimeError("%s %s on the %s design: two runs "
                                        "differ" % (name, case, design))
-                torch.testing.assert_close(got, w, rtol=FLASH_BWD_TOL,
-                                           atol=FLASH_BWD_TOL)
+                torch.testing.assert_close(got, w, rtol=tol, atol=tol)
                 e = float((got - w).abs().max())
                 errs.setdefault((name, design), []).append(e)
                 worst[(name, design)] = max(worst.get((name, design), 0.0),
                                             e)
-    torch.cuda.synchronize()
-    for a, b in zip(fwd[0], fwd[1]):
-        if not torch.equal(a, b):
-            raise RuntimeError("flash_forward_with_lse %s: two runs differ"
-                               % (case,))
-    for got, w in zip(fwd[0], (want_o, want_lse)):
-        torch.testing.assert_close(got, w, rtol=FLASH_FWD_TOL,
-                                   atol=FLASH_FWD_TOL)
-        e = float((got - w).abs().max())
-        errs.setdefault(("flash_forward_with_lse", "simt"), []).append(e)
-        worst[("flash_forward_with_lse", "simt")] = max(
-            worst.get(("flash_forward_with_lse", "simt"), 0.0), e)
     return errs
 
 
@@ -1198,11 +1194,9 @@ def _phase_flash_kernels(torch, F, pk):
         torch.cuda.empty_cache()
 
     # timing at the path's shapes: one layer's pairings (hop 0 + hop 1),
-    # both designs of dq and dk/dv on the same inputs, in turns
+    # both designs of each kernel on the same inputs, in turns
     bwd = _flash_bwd_args(FLASH_PATH, gen)
-    fwd_hops = [_event_ms(lambda a=a: pk.flash_forward_with_lse(
-        *a[:3], a[6], a[7])) for a in bwd]
-    design_hops = {(name, design): per_hop for name in FLASH_BWD
+    design_hops = {(name, design): per_hop for name in FLASH_KERNELS
                    for design, per_hop in _design_hops(bwd, name).items()}
     plain = {
         "flash_forward_with_lse": lambda: [
@@ -1228,36 +1222,19 @@ def _phase_flash_kernels(torch, F, pk):
         plain_ms = _event_ms(plain[name], iters=5)
         bound_ms, bound_by, flops, nbytes = _flash_bound(name, FLASH_PATH)
         tc_ms, tc_by, tf32, ops, _ = _flash_tc_bound(name, FLASH_PATH)
-        if name == "flash_forward_with_lse":
-            ms, per_hop = sum(fwd_hops), fwd_hops
-            print("phase 7: %s per layer %s: kernel %.5f ms (hops %s), "
-                  "plain %.5f ms, library %.5f ms; f32 CUDA-core bound "
-                  "%.5f ms (%s: %d flops, %d bytes), %.1f %% of it; "
-                  "split-TF32 tensor-core bound %.5f ms (%s: %d TF32 flops, "
-                  "%d f32 operations), %.1f %% of it"
-                  % (name, FLASH_PATH, ms, ["%.5f" % x for x in per_hop],
-                     plain_ms, library[name], bound_ms, bound_by, flops,
-                     nbytes, 100 * bound_ms / ms, tc_ms, tc_by, tf32, ops,
-                     100 * tc_ms / ms))
-            out.append({"name": name, "route": "cuda",
-                        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": replaces, "design": "simt",
-                        "launches": None,
-                        "max_abs_err": worst[(name, "simt")], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library[name]})
-            continue
         wg_hops, simt_hops = (design_hops[(name, "wgmma")],
                               design_hops[(name, "simt")])
         ms, simt_ms = sum(wg_hops), sum(simt_hops)
         speedup = simt_ms / ms
         print("phase 7: %s per layer %s: wgmma %.5f ms (hops %s), CUDA-core "
               "(simt) %.5f ms (hops %s): %.2fx, target %.1fx %s; plain %.5f "
-              "ms, library %.5f ms (B6+B7 together)"
+              "ms, library %.5f ms (%s)"
               % (name, FLASH_PATH, ms, ["%.5f" % x for x in wg_hops],
                  simt_ms, ["%.5f" % x for x in simt_hops], speedup,
                  FLASH_SPEEDUP, "met" if speedup >= FLASH_SPEEDUP
-                 else "missed", plain_ms, library[name]))
+                 else "missed", plain_ms, library[name],
+                 "its forward" if name == "flash_forward_with_lse"
+                 else "its backward: B6+B7 together"))
         print("phase 7: %s bounds: split-TF32 tensor-core %.5f ms (%s: %d "
               "TF32 flops, %d f32 operations, %d bytes), wgmma at %.1f %% "
               "of it; f32 CUDA-core %.5f ms (%s: %d flops), simt at %.1f %% "
@@ -1266,7 +1243,8 @@ def _phase_flash_kernels(torch, F, pk):
                  bound_ms, bound_by, flops, 100 * bound_ms / simt_ms,
                  100 * bound_ms / ms))
         out.append({"name": name, "route": "cuda",
-                    "source": "mxnet_tpu_torch/csrc/flash_bwd_wgmma.cu",
+                    "source": "mxnet_tpu_torch/csrc/%s.cu"
+                    % pk._FLASH_DESIGNS["wgmma"][name][0],
                     "replaces": replaces, "design": "wgmma",
                     "launches": None,
                     "max_abs_err": worst[(name, "wgmma")], "ms": ms,
@@ -1286,27 +1264,27 @@ def _phase_flash_kernels(torch, F, pk):
 
 
 def _flash_dim_sweep(torch, pk, gen, design_hops):
-    """Both designs of dq and dk/dv per layer at the path's pairings with
-    each head dim of FLASH_DIMS, beside flash_design's choice there; fails
-    where the chosen design is the slower one."""
+    """Both designs of each flash kernel per layer at the path's pairings
+    with each head dim of FLASH_DIMS, beside flash_design's choice there;
+    fails where the chosen design is the slower one."""
     per_dim = {16: {key: sum(h) for key, h in design_hops.items()}}
     for d in FLASH_DIMS:
         bwd = _flash_bwd_args([c[:3] + (d,) + c[4:] for c in FLASH_PATH],
                               gen)
-        per_dim[d] = {(name, design): sum(h) for name in FLASH_BWD
+        per_dim[d] = {(name, design): sum(h) for name in FLASH_KERNELS
                       for design, h in _design_hops(bwd, name).items()}
         del bwd
         torch.cuda.empty_cache()
     wrong = []
     for d in sorted(per_dim):
         ms = per_dim[d]
-        chosen = {name: pk.flash_design(d, name) for name in FLASH_BWD}
+        chosen = {name: pk.flash_design(d, name) for name in FLASH_KERNELS}
         print("phase 7: head dim %d per layer: %s" % (d, ", ".join(
             "%s wgmma %.5f / simt %.5f ms (%.2fx), flash_design %s"
             % (name, ms[(name, "wgmma")], ms[(name, "simt")],
                ms[(name, "simt")] / ms[(name, "wgmma")], chosen[name])
-            for name in FLASH_BWD)))
-        wrong += ["%s at D = %d" % (name, d) for name in FLASH_BWD
+            for name in FLASH_KERNELS)))
+        wrong += ["%s at D = %d" % (name, d) for name in FLASH_KERNELS
                   if ms[(name, chosen[name])] > min(ms[(name, "wgmma")],
                                                     ms[(name, "simt")])]
     if wrong:
@@ -1387,9 +1365,9 @@ def phase_train_lm(profile=False):
     if any(flash[n] != want for n in FLASH_KERNELS):
         raise RuntimeError("flash launches %s, want %d each (steps x layers "
                            "x hops)" % (flash, want))
-    if any(flash[n + "/wgmma"] != want for n in FLASH_BWD):
-        raise RuntimeError("flash_dq / flash_dkv launches by design %s, want "
-                           "all %d on the wgmma design"
+    if any(flash[n + "/wgmma"] != want for n in FLASH_KERNELS):
+        raise RuntimeError("flash launches by design %s, want all %d of "
+                           "each kernel on the wgmma design"
                            % ({k: v for k, v in flash.items() if "/" in k
                                and k.startswith("flash")}, want))
     if ln < steps * (2 * CFG["n_layers"] + 1):
@@ -2498,9 +2476,8 @@ def main():
         flash = phase_train_lm(profile="--profile" in sys.argv)
         for k in flash_kernels:
             k["launches"] = flash[k["name"]]
-            if k["name"] in FLASH_BWD:
-                k["launches_by_design"] = {
-                    d: flash[k["name"] + "/" + d] for d in ("wgmma", "simt")}
+            k["launches_by_design"] = {
+                d: flash[k["name"] + "/" + d] for d in ("wgmma", "simt")}
         phase_train_lm_parity()
         qmm_kernel = phase_qmm_kernel()
         qmm_kernel["launches"], model = phase_int8_serve(

@@ -8,10 +8,11 @@
 //   mxtt_flash_dq_wgmma  <- _fa_dq_kernel  (:171, called by flash_dq, :314)
 //   mxtt_flash_dkv_wgmma <- _fa_dkv_kernel (:226, called by flash_dkv, :345)
 //
-// flash_attention.cu keeps the CUDA-core design of both, and the forward,
-// for the head dims this one does not take or is slower at
-// (ops/pallas_kernels.py, flash_design: D % 4 == 0 up to 32 come here, dk/dv
-// from D = 12).  Both compute what the
+// flash_attention.cu keeps the CUDA-core design of both for the head dims
+// this one does not take or is slower at (ops/pallas_kernels.py,
+// flash_design: D % 4 == 0 up to 32 come here, dk/dv from D = 12); the
+// forward's own split-TF32 design is flash_fwd_wgmma.cu, and the pieces
+// both share are in flash_wgmma.cuh.  Both compute what the
 // Pallas bodies compute, with their guards:
 //   s = q.k * scale; p = exp(s - lse) where the pair (q row i, k row j) is
 //   valid, else 0 (valid: i < Tq, j < Tk, and j <= i when causal, both
@@ -91,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -99,123 +101,7 @@ constexpr int THREADS = 384;         // producer, 2 consumers
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_RAW = 8;
 constexpr int SMEM_LIMIT = 232448;   // bytes of shared memory a block may use
-constexpr uint32_t kTf32 = 0xFFFFE000u;
 constexpr int PASSES = 3;            // hi.hi, hi.lo, lo.hi
-
-// byte offset of element (row, k) of a K-major tile of R rows, 64-byte
-// swizzle, the K axis in atoms of 16 floats
-__device__ __forceinline__ uint32_t sw_off(int row, int k, int R) {
-  return (k >> 4) * R * 64 + row * 64 +
-         ((((k >> 2) & 3) ^ ((row >> 1) & 3)) << 4) + (k & 3) * 4;
-}
-
-// wgmma descriptor of k-step kk (8 floats of K) of such a tile whose
-// descriptor is `base` (sw_desc<64> of its address): the address field
-// counts 16-byte units, and no offset inside the shared memory window
-// carries out of it
-__device__ __forceinline__ uint64_t tile_desc(uint64_t base, int R, int kk) {
-  return base + (uint32_t)(((kk >> 1) * R * 64 + (kk & 1) * 32) >> 4);
-}
-
-// one arrival per warp on an mbarrier, by lane 0, predicated inside the asm
-// so the compiler sees no branch around the warpgroup's wgmmas
-__device__ __forceinline__ void warp_arrive(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(lane)
-      : "memory");
-}
-
-// mbarrier wait with the spin inside the asm, so the compiler sees no
-// data-dependent branch around the warpgroup's wgmmas
-__device__ __forceinline__ void wait_phase(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t hi_of(float x) {
-  return __float_as_uint(x) & kTf32;
-}
-__device__ __forceinline__ uint32_t lo_of(float x) {
-  return __float_as_uint(x - __uint_as_float(hi_of(x))) & kTf32;
-}
-
-__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
-  hi = make_uint4(hi_of(x.x), hi_of(x.y), hi_of(x.z), hi_of(x.w));
-  lo = make_uint4(lo_of(x.x), lo_of(x.y), lo_of(x.z), lo_of(x.w));
-}
-
-// The producer warpgroup's split of a landed tile (BT rows of D floats at
-// src; rows at and past `valid` and columns past D read as zero) into hi /
-// lo copies, K-major over D (BT rows x DP, at hi / lo).
-template <int DP, int BT>
-__device__ __forceinline__ void split_rows(const float* src, int valid,
-                                           int D, uint8_t* hi, uint8_t* lo,
-                                           int tid) {
-  constexpr int C = DP / 4;
-  for (int it = tid; it < BT * C; it += 128) {
-    const int row = it / C, k = (it % C) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < valid && k < D)
-      x = *reinterpret_cast<const float4*>(src + row * D + k);
-    uint4 h, l;
-    split4(x, h, l);
-    const uint32_t o = sw_off(row, k, BT);
-    *reinterpret_cast<uint4*>(hi + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-}
-
-// ... and transposed: DP rows (d) x BT positions, K-major over the tile's
-// rows, which are permuted within each group of 8 as [0, 2, 4, 6, 1, 3, 5,
-// 7] (the A fragments' order, see above): positions 4c .. 4c + 3 hold rows
-// 8 (c / 2) + 2 e + c % 2, e = 0..3.
-template <int DP, int BT>
-__device__ __forceinline__ void split_cols(const float* src, int valid,
-                                           int D, uint8_t* hi, uint8_t* lo,
-                                           int tid) {
-  for (int it = tid; it < DP * (BT / 4); it += 128) {
-    const int d = it % DP, c = it / DP;
-    const int r0 = 8 * (c >> 1) + (c & 1);
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + 2 * e;
-      v[e] = r < valid && d < D ? src[r * D + d] : 0.f;
-    }
-    uint4 h, l;
-    split4(make_float4(v[0], v[1], v[2], v[3]), h, l);
-    const uint32_t o = sw_off(d, 4 * c, DP);
-    *reinterpret_cast<uint4*>(hi + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-}
-
-// wgmma m64nNk8 tf32, A from registers, by N
-template <int N> struct Rs;
-template <> struct Rs<16> {
-  static __device__ __forceinline__ void run(float (&d)[8],
-      const uint32_t (&a)[4], uint64_t b, int acc) {
-    wgmma_tf32_rs_n16(d, a, b, acc);
-  }
-};
-template <> struct Rs<32> {
-  static __device__ __forceinline__ void run(float (&d)[16],
-      const uint32_t (&a)[4], uint64_t b, int acc) {
-    wgmma_tf32_rs_n32(d, a, b, acc);
-  }
-};
-template <> struct Rs<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-      const uint32_t (&a)[4], uint64_t b, int acc) {
-    wgmma_tf32_rs_n64(d, a, b, acc);
-  }
-};
 
 // bytes of one copy of a streamed tile and of a stage of the ring
 template <int DP, int BT, bool DKV> struct Sizes {
@@ -226,31 +112,6 @@ template <int DP, int BT, bool DKV> struct Sizes {
       DKV ? (8 * TILE + 2 * BT * 4 + 1023) / 1024 * 1024 : 6 * TILE;
   static constexpr int RAW = 2 * TILE;   // two raw tiles (q, dO or k, v)
 };
-
-// A thread's fragments of the warpgroup's 64 own rows of one (., D)
-// matrix, k-step by k-step over DP, split: the A operand of x or y
-template <int DP> struct Own {
-  uint32_t hi[DP / 8][4], lo[DP / 8][4];
-};
-
-// rows row0 + r (+ 8) and columns 8 kk + t (+ 4) of the (rows, D) matrix
-// src, zeros past either end
-template <int DP>
-__device__ __forceinline__ void load_own(Own<DP>& o, const float* src,
-                                         int row0, int rows, int D, int r,
-                                         int t) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 8; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = row0 + r + 8 * (j & 1), col = 8 * kk + t + 4 * (j >> 1);
-      const float x = row < rows && col < D ? src[(long long)row * D + col]
-                                            : 0.f;
-      o.hi[kk][j] = hi_of(x);
-      o.lo[kk][j] = lo_of(x);
-    }
-  }
-}
 
 // x = A_x B_x^T and y = A_y B_y^T over DP (dkv: k.q^T and v.dO^T; dq:
 // q.k^T and dO.v^T), pass by pass with x and y alternating, so that
@@ -272,26 +133,6 @@ __device__ __forceinline__ void mma_xy(float (&x)[BT / 2], float (&y)[BT / 2],
                   acc);
       Rs<BT>::run(y, ps == 2 ? ay.lo[kk] : ay.hi[kk],
                   tile_desc(b + 2 * Z::TILE / 16, BT, kk), acc);
-    }
-  }
-}
-
-// acc[kk % NA] += X[:, k-step kk] B[k-step kk] over the BT rows of a tile,
-// pass by pass: X (64 x BT) the accumulator of s or dp as p or ds, split
-// into xh / xl; B the transposed tile's hi / lo copies (DP x BT) at bh / bl
-template <int DP, int BT, int NA>
-__device__ __forceinline__ void mma_rs(float (&acc)[NA][DP / 2],
-                                       const uint32_t (&xh)[BT / 2],
-                                       const uint32_t (&xl)[BT / 2],
-                                       uint64_t bh, uint64_t bl) {
-#pragma unroll
-  for (int ps = 0; ps < PASSES; ++ps) {
-#pragma unroll
-    for (int kk = 0; kk < BT / 8; ++kk) {
-      const uint32_t(&x)[BT / 2] = ps == 2 ? xl : xh;
-      const uint32_t a[4] = {x[4 * kk], x[4 * kk + 2], x[4 * kk + 1],
-                             x[4 * kk + 3]};
-      Rs<DP>::run(acc[kk % NA], a, tile_desc(ps == 1 ? bl : bh, DP, kk), 1);
     }
   }
 }
@@ -573,11 +414,11 @@ flash_bwd_wgmma_kernel(const float* __restrict__ q,
       wgmma_fence();
       // dkv: dk += ds^T q and dv += p^T dO (B = q^T, dO^T); dq: dq += ds k
       // (B = k^T)
-      mma_rs<DP, BT, NA>(acc0, sh, sl, st + 4 * Z::TILE / 16,
-                         st + 5 * Z::TILE / 16);
+      mma_rs<PASSES, DP, BT, NA>(acc0, sh, sl, st + 4 * Z::TILE / 16,
+                                 st + 5 * Z::TILE / 16);
       if (DKV)
-        mma_rs<DP, BT, NA>(acc1, ph, pl, st + 6 * Z::TILE / 16,
-                           st + 7 * Z::TILE / 16);
+        mma_rs<PASSES, DP, BT, NA>(acc1, ph, pl, st + 6 * Z::TILE / 16,
+                                   st + 7 * Z::TILE / 16);
       if (decltype(more)::value) {
         wait_phase(smem_u32(&full[(i + 1) % S]), ((i + 1) / S) & 1);
         mma_xy<DP, BT, DKV>(x, y, ax, ay,
@@ -640,13 +481,6 @@ int launch(const float* q, const float* k, const float* v, const float* dout,
                                              out1, tq, tk, d, scale, causal,
                                              n_own, stages, raw);
   return (int)cudaGetLastError();
-}
-
-bool takes(const void* const* ptrs, int n, int d) {
-  if (d < 1 || d > 32 || d % 4 != 0) return false;
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  return true;
 }
 
 }  // namespace

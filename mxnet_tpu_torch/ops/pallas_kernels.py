@@ -6,16 +6,16 @@ epilogue (``:587-751``).
 Hand-written CUDA kernels, each the Hopper port of a Pallas kernel of
 that module:
 
-- :func:`flash_forward_with_lse` → ``mxtt_flash_fwd`` (``_fa_kernel``,
-  ``:62``; ``csrc/flash_attention.cu``): the attention output and the
-  per-row logsumexp;
-- :func:`flash_dq` (``_fa_dq_kernel``, ``:171``) and :func:`flash_dkv`
-  (``_fa_dkv_kernel``, ``:226``), in two designs chosen by head dim
-  (:func:`flash_design`): ``mxtt_flash_dq_wgmma`` /
-  ``mxtt_flash_dkv_wgmma`` (``csrc/flash_bwd_wgmma.cu``: bulk copies,
-  mbarriers, split-TF32 ``wgmma``) for ``D % 4 == 0``, ``D <= 32`` (dk/dv
-  from D = 12), and ``mxtt_flash_dq`` / ``mxtt_flash_dkv``
-  (``csrc/flash_attention.cu``: CUDA-core FMAs) for the rest;
+- :func:`flash_forward_with_lse` (``_fa_kernel``, ``:62``: the attention
+  output and the per-row logsumexp), :func:`flash_dq` (``_fa_dq_kernel``,
+  ``:171``) and :func:`flash_dkv` (``_fa_dkv_kernel``, ``:226``), each in
+  two designs chosen by head dim (:func:`flash_design`): the split-TF32
+  ``wgmma`` design (bulk copies, mbarriers; ``mxtt_flash_fwd_wgmma`` in
+  ``csrc/flash_fwd_wgmma.cu``, ``mxtt_flash_dq_wgmma`` /
+  ``mxtt_flash_dkv_wgmma`` in ``csrc/flash_bwd_wgmma.cu``) for ``D % 4
+  == 0``, ``D <= 32`` (dk/dv from D = 12), and the CUDA-core design
+  (``mxtt_flash_fwd`` / ``mxtt_flash_dq`` / ``mxtt_flash_dkv``,
+  ``csrc/flash_attention.cu``: FMAs, one thread per row) for the rest;
 - :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
@@ -82,16 +82,17 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
-# flash_dq / flash_dkv count every launch under their own name and under
+# the flash kernels count every launch under their own name and under
 # their design's ("flash_dq/wgmma" or "flash_dq/simt", the same for
-# flash_dkv); qmm_requant under its own name and under its
-# design's ("qmm_requant/wgmma" or "qmm_requant/mma"); conv3x3_epilogue
-# under its own name, under its input route's (e.g.
+# flash_forward_with_lse and flash_dkv); qmm_requant under its own name
+# and under its design's ("qmm_requant/wgmma" or "qmm_requant/mma");
+# conv3x3_epilogue under its own name, under its input route's (e.g.
 # "conv3x3_epilogue[int8]") and under its design's
 # ("conv3x3_epilogue/wgmma" or "conv3x3_epilogue/mma")
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
-            "flash_dq/wgmma": 0, "flash_dq/simt": 0, "flash_dkv/wgmma": 0,
-            "flash_dkv/simt": 0,
+            "flash_forward_with_lse/wgmma": 0,
+            "flash_forward_with_lse/simt": 0, "flash_dq/wgmma": 0,
+            "flash_dq/simt": 0, "flash_dkv/wgmma": 0, "flash_dkv/simt": 0,
             "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
             "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
@@ -192,6 +193,7 @@ _ARGTYPES = {
     # (q, k, v, do, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, stream)
     "mxtt_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
 }
+_ARGTYPES["mxtt_flash_fwd_wgmma"] = _ARGTYPES["mxtt_flash_fwd"]
 _ARGTYPES["mxtt_flash_dq_wgmma"] = _ARGTYPES["mxtt_flash_dq"]
 _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
 
@@ -199,16 +201,20 @@ _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
 # where chip_smoke.py's phase 7 timed it faster than the CUDA-core design at
 # the ring path's pairings (dk/dv at D = 4 and 8 is faster on CUDA cores,
 # which then do a quarter or half of D = 16's work while the wgmma design
-# pads to 16)
-FLASH_WGMMA_DIMS = {"flash_dq": frozenset(range(4, 33, 4)),
+# pads to 16; the forward and dq are faster on wgmma at every such D)
+FLASH_WGMMA_DIMS = {"flash_forward_with_lse": frozenset(range(4, 33, 4)),
+                    "flash_dq": frozenset(range(4, 33, 4)),
                     "flash_dkv": frozenset(range(12, 33, 4))}
 
-# the two designs of B6 / B7: their source and the C entry point of each
+# the two designs of B5-B7: design -> wrapper -> (source, C entry point)
 _FLASH_DESIGNS = {
-    "wgmma": ("flash_bwd_wgmma", {"flash_dq": "mxtt_flash_dq_wgmma",
-                                  "flash_dkv": "mxtt_flash_dkv_wgmma"}),
-    "simt": ("flash_attention", {"flash_dq": "mxtt_flash_dq",
-                                 "flash_dkv": "mxtt_flash_dkv"}),
+    "wgmma": {"flash_forward_with_lse": ("flash_fwd_wgmma",
+                                         "mxtt_flash_fwd_wgmma"),
+              "flash_dq": ("flash_bwd_wgmma", "mxtt_flash_dq_wgmma"),
+              "flash_dkv": ("flash_bwd_wgmma", "mxtt_flash_dkv_wgmma")},
+    "simt": {"flash_forward_with_lse": ("flash_attention", "mxtt_flash_fwd"),
+             "flash_dq": ("flash_attention", "mxtt_flash_dq"),
+             "flash_dkv": ("flash_attention", "mxtt_flash_dkv")},
 }
 
 
@@ -222,24 +228,26 @@ def _fn(name, source="flash_attention"):
 
 
 def wgmma_takes(d, aligned=True):
-    """Whether ``csrc/flash_bwd_wgmma.cu`` takes head dim ``d``: ``D % 4
-    == 0`` up to 32 (a row is whole 16-byte units for the bulk copies; at
-    D = 64 the two warpgroups' accumulators and split operands outgrow the
-    registers), with 16-byte aligned q, k, v and dO (``aligned``)."""
+    """Whether the wgmma design (``csrc/flash_fwd_wgmma.cu``,
+    ``csrc/flash_bwd_wgmma.cu``) takes head dim ``d``: ``D % 4 == 0`` up
+    to 32 (a row is whole 16-byte units for the bulk copies; at D = 64 the
+    two warpgroups' accumulators and split operands outgrow the
+    registers), with 16-byte aligned q, k, v (and dO) (``aligned``)."""
     return 4 <= d <= 32 and d % 4 == 0 and aligned
 
 
 def flash_design(d, wrapper, aligned=True):
-    """The design a card call of ``wrapper`` (``"flash_dq"`` or
-    ``"flash_dkv"``) takes, chosen by head dim and alignment before any
-    launch:
+    """The design a card call of ``wrapper`` (``"flash_forward_with_lse"``,
+    ``"flash_dq"`` or ``"flash_dkv"``) takes, chosen by head dim and
+    alignment before any launch:
 
-    - ``"wgmma"`` (``csrc/flash_bwd_wgmma.cu``: bulk copies into an
-      mbarrier ring, a producer warpgroup that splits each tile into TF32
-      hi / lo copies, ``wgmma`` .tf32 in three passes) where it takes the
-      shape (:func:`wgmma_takes`) and ``d`` is in the wrapper's
-      :data:`FLASH_WGMMA_DIMS`, the head dims where it was timed faster
-      than the CUDA-core design — the ring path's D = 16 among them;
+    - ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``:
+      bulk copies into an mbarrier ring, a producer warpgroup that splits
+      each tile into TF32 hi / lo copies, ``wgmma`` .tf32 in three passes)
+      where it takes the shape (:func:`wgmma_takes`) and ``d`` is in the
+      wrapper's :data:`FLASH_WGMMA_DIMS`, the head dims where it was timed
+      faster than the CUDA-core design — the ring path's D = 16 among
+      them;
     - ``"simt"`` (``csrc/flash_attention.cu``: CUDA-core FMAs, one thread
       per row) otherwise, among them D = 64 and 128."""
     ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
@@ -296,7 +304,7 @@ def _launch(wrapper, kernel, tensors, dims, scale, causal,
     _count(wrapper, *counts)
 
 
-def _bwd_design(wrapper, tensors, d, design):
+def _design_entry(wrapper, tensors, d, design):
     """``(source, C entry point, design)`` of a card call of ``wrapper``:
     :func:`flash_design` of its head dim, or ``design`` forced (raises
     where the shape is not the design's)."""
@@ -306,22 +314,33 @@ def _bwd_design(wrapper, tensors, d, design):
                                         and not wgmma_takes(d, aligned)):
         raise MXNetError("%s: the %r design does not take head dim %d (or "
                          "unaligned operands)" % (wrapper, design, d))
-    source, entries = _FLASH_DESIGNS[design]
-    return source, entries[wrapper], design
+    return _FLASH_DESIGNS[design][wrapper] + (design,)
 
 
 def flash_forward_with_lse(q, k, v, causal, scale):
     """``(out, lse)``: attention of ``(BH, Tq, D)`` queries over
     ``(BH, Tk, D)`` keys/values, with ``lse`` ``(BH, Tq)`` float32 — the
-    building block of ring attention."""
+    building block of ring attention.  On the card the call goes to one of
+    two kernels, :func:`flash_design` of its head dim; both compute the
+    same function."""
+    return _flash_forward_with_lse(q, k, v, causal, scale)
+
+
+def _flash_forward_with_lse(q, k, v, causal, scale, design=None):
+    """:func:`flash_forward_with_lse`, with ``design`` ("wgmma" or
+    "simt") forced instead of chosen by head dim, so both designs can be
+    timed on the same inputs."""
     if not _check("flash_forward_with_lse", q, k, v):
         return flash_forward_with_lse_reference(q, k, v, causal, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, tq, d = q.shape
+    source, entry, design = _design_entry("flash_forward_with_lse",
+                                          (q, k, v), d, design)
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    _launch("flash_forward_with_lse", "mxtt_flash_fwd", (q, k, v, out, lse),
-            (bh, tq, k.shape[1], d), scale, causal)
+    _launch("flash_forward_with_lse", entry, (q, k, v, out, lse),
+            (bh, tq, k.shape[1], d), scale, causal, source,
+            ("flash_forward_with_lse/" + design,))
     return out, lse
 
 
@@ -342,7 +361,8 @@ def _flash_dq(q, k, v, do, lse, delta, causal, scale, design=None):
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     bh, tq, d = q.shape
-    source, entry, design = _bwd_design("flash_dq", (q, k, v, do), d, design)
+    source, entry, design = _design_entry("flash_dq", (q, k, v, do), d,
+                                          design)
     dq = torch.empty_like(q)
     _launch("flash_dq", entry, (q, k, v, do, lse, delta, dq),
             (bh, tq, k.shape[1], d), scale, causal, source,
@@ -365,8 +385,8 @@ def _flash_dkv(q, k, v, do, lse, delta, causal, scale, design=None):
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     bh, tq, d = q.shape
-    source, entry, design = _bwd_design("flash_dkv", (q, k, v, do), d,
-                                        design)
+    source, entry, design = _design_entry("flash_dkv", (q, k, v, do), d,
+                                          design)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_dkv", entry, (q, k, v, do, lse, delta, dk, dv),

@@ -1,12 +1,13 @@
-"""What holds the wgmma design of ``flash_dq`` (B6) and ``flash_dkv`` (B7)
-back: the kernel rebuilt with one part switched off at a time and timed at
-the ring path's pairings of one TransformerLM layer.
+"""What holds the wgmma design of the flash kernels back — the forward
+(B5) and ``flash_dq`` (B6) and ``flash_dkv`` (B7): each kernel rebuilt
+with one part switched off at a time and timed at the ring path's
+pairings of one TransformerLM layer.
 
     python -m mxnet_tpu_torch.tools.flash_ablate [--iters 20]
 
-Each variant is ``csrc/flash_bwd_wgmma.cu`` with textual edits
-(:data:`CUTS`), built through ``ops.build.load_source`` as
-``tools/qmm_ablate.py`` builds B8's:
+Each variant is ``csrc/flash_fwd_wgmma.cu`` (:data:`FWD_CUTS`) or
+``csrc/flash_bwd_wgmma.cu`` (:data:`CUTS`) with textual edits, built
+through ``ops.build.load_source`` as ``tools/qmm_ablate.py`` builds B8's:
 
 - ``full``: the source as it is;
 - ``no_loads``: no bulk copies of the streamed tiles, the raw ring's
@@ -15,10 +16,13 @@ Each variant is ``csrc/flash_bwd_wgmma.cu`` with textual edits
 - ``no_mma``: no ``wgmma``;
 - ``no_lo``: the ``lo`` terms cut (one TF32 pass per product: what the
   f32 contract costs);
-- ``no_recompute``: no softmax recompute (``expf``, the masks, ``ds``);
+- ``no_softmax`` (forward): no online softmax (the scale, masks, running
+  max, ``expf``, row sums; p is the raw score);
+- ``no_recompute`` (backward): no softmax recompute (``expf``, the masks,
+  ``ds``);
 - ``no_stores``: no output stores.
 
-A variant's outputs are wrong by design (``no_lo`` only misses the 1e-4
+A variant's outputs are wrong by design (``no_lo`` only misses the
 contract), so only its device time is printed: CUDA events around
 ``--iters`` calls of each C entry point on seeded inputs, every variant
 timed once to warm the card and then twice, in turn and in reverse order,
@@ -42,7 +46,7 @@ from ..ops.pallas_kernels import (_ARGTYPES, flash_delta,
                                   flash_forward_with_lse_reference)
 from .conv_ablate import device_ms, edited_source
 
-__all__ = ["CUTS", "variant_source", "path_pairings", "main"]
+__all__ = ["CUTS", "FWD_CUTS", "variant_source", "path_pairings", "main"]
 
 _COPIES = ("      mbar_expect_tx(bar, 2 * bytes);\n"
            "      bulk_load(smem_u32(dst), sa + off, bytes, bar);\n"
@@ -58,14 +62,18 @@ _XY = ("      Rs<BT>::run(x, ps == 2 ? ax.lo[kk] : ax.hi[kk], "
        "tile_desc(b, BT, kk),\n                  acc);\n"
        "      Rs<BT>::run(y, ps == 2 ? ay.lo[kk] : ay.hi[kk],\n"
        "                  tile_desc(b + 2 * Z::TILE / 16, BT, kk), acc);\n")
-_RS = ("      Rs<DP>::run(acc[kk % NA], a, tile_desc(ps == 1 ? bl : bh, DP, "
-       "kk), 1);\n")
+_RS = ("      mma_rs<PASSES, DP, BT, NA>(acc0, sh, sl, st + 4 * Z::TILE / 16,\n"
+       "                                 st + 5 * Z::TILE / 16);\n"
+       "      if (DKV)\n"
+       "        mma_rs<PASSES, DP, BT, NA>(acc1, ph, pl, st + 6 * Z::TILE / 16,"
+       "\n                                   st + 7 * Z::TILE / 16);\n")
 _PASSES = "constexpr int PASSES = 3;"
 _RECOMPUTE = ("  p = valid ? expf(s * scale - lse) : 0.f;\n"
               "  ds = valid ? p * (dp - delta) : 0.f;\n")
 _STORE = "    if (row >= rows) continue;\n"
 
-# variant -> [(text in the source, its replacement)]
+# the backward's cuts, in csrc/flash_bwd_wgmma.cu: variant -> [(text in
+# the source, its replacement)]
 CUTS = {
     "full": [],
     "no_loads": [(_COPIES, "      mbar_arrive(bar);\n")],
@@ -75,14 +83,50 @@ CUTS = {
     "no_recompute": [(_RECOMPUTE, "  p = s;\n  ds = dp;\n")],
     "no_stores": [(_STORE, "    if (row >= rows || rows > 0) continue;\n")],
 }
-_ENTRIES = {"flash_dq": "mxtt_flash_dq_wgmma",
-            "flash_dkv": "mxtt_flash_dkv_wgmma"}
+
+# the forward's cuts, in csrc/flash_fwd_wgmma.cu
+_FWD_COPIES = ("      mbar_expect_tx(bar, 2 * bytes);\n"
+               "      bulk_load(smem_u32(dst), k + off, bytes, bar);\n"
+               "      bulk_load(smem_u32(dst + Z::TILE), v + off, bytes, "
+               "bar);\n")
+_FWD_SPLIT = ("      split_rows<DP, BT>(rk, valid, D, st, st + Z::TILE, tid);\n"
+              "      split_cols<DP, BT>(rv, valid, D, st + 2 * Z::TILE, "
+              "st + 3 * Z::TILE,\n                         tid);\n")
+_FWD_S = ("      Rs<BT>::run(s, ps == 2 ? aq.lo[kk] : aq.hi[kk], "
+          "tile_desc(b, BT, kk),\n                  ps + kk > 0);\n")
+_FWD_PV = ("      mma_rs<PASSES, DP, BT, NA>(o, ph, pl, st + 2 * Z::TILE / 16,\n"
+           "                                 st + 3 * Z::TILE / 16);\n")
+_FWD_SOFTMAX = ("      if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))\n"
+                "        softmax_tile<true>(s, m, l, corr, scale, row_lo, r, t, "
+                "c0, Tk,\n                           causal);\n"
+                "      else\n"
+                "        softmax_tile<false>(s, m, l, corr, scale, row_lo, r, t, "
+                "c0, Tk,\n                            causal);\n")
+_FWD_STORE = "    if (row >= Tq) continue;\n"
+
+FWD_CUTS = {
+    "full": [],
+    "no_loads": [(_FWD_COPIES, "      mbar_arrive(bar);\n")],
+    "no_split": [(_FWD_SPLIT, "")],
+    "no_mma": [(_FWD_S, ""), (_FWD_PV, "")],
+    "no_lo": [(_PASSES, "constexpr int PASSES = 1;")],
+    "no_softmax": [(_FWD_SOFTMAX, "      corr[0] = corr[1] = 1.f;\n")],
+    "no_stores": [(_FWD_STORE, "    if (row >= Tq || Tq > 0) continue;\n")],
+}
+
+# source -> (its cuts, {wrapper: C entry point})
+_KERNELS = {
+    "flash_fwd_wgmma": (FWD_CUTS,
+                        {"flash_forward_with_lse": "mxtt_flash_fwd_wgmma"}),
+    "flash_bwd_wgmma": (CUTS, {"flash_dq": "mxtt_flash_dq_wgmma",
+                               "flash_dkv": "mxtt_flash_dkv_wgmma"}),
+}
 
 
-def variant_source(name):
-    """``csrc/flash_bwd_wgmma.cu`` with the edits of variant ``name``;
-    raises if an edit's text is not in the source exactly once."""
-    return edited_source("flash_bwd_wgmma", CUTS[name], name)
+def variant_source(name, source="flash_bwd_wgmma"):
+    """``csrc/<source>.cu`` with the edits of its variant ``name``; raises
+    if an edit's text is not in the source exactly once."""
+    return edited_source(source, _KERNELS[source][0][name], name)
 
 
 def path_pairings(batch=32, heads=8, seq_len=1024, ranks=2, head_dim=16):
@@ -96,10 +140,17 @@ def path_pairings(batch=32, heads=8, seq_len=1024, ranks=2, head_dim=16):
         for h in range(1, ranks)]
 
 
-def _fns(name):
-    lib = build.load_source("flash_ablate_" + name, variant_source(name))
+def _sources():
+    """``{library name: source text}`` of every variant of both kernels."""
+    return {"%s_ablate_%s" % (source, x): variant_source(x, source)
+            for source, (cuts, _) in _KERNELS.items() for x in cuts}
+
+
+def _fns(source, name, text):
+    """``{wrapper: C entry point}`` of variant ``name`` of ``source``."""
+    lib = build.load_source(name, text)
     out = {}
-    for wrapper, entry in _ENTRIES.items():
+    for wrapper, entry in _KERNELS[source][1].items():
         fn = getattr(lib, entry)
         fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
@@ -122,33 +173,41 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
     dev = resolve_device(None)
-    build.build_all((), {"flash_ablate_" + v: variant_source(v)
-                         for v in CUTS})
-    fns = {v: _fns(v) for v in CUTS}
+    texts = _sources()
+    build.build_all((), texts)
+    fns = {}                          # (variant, wrapper) -> C entry point
+    for source, (cuts, _) in _KERNELS.items():
+        for x in cuts:
+            lib = "%s_ablate_%s" % (source, x)
+            for wrapper, fn in _fns(source, lib, texts[lib]).items():
+                fns[(x, wrapper)] = fn
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = torch.cuda.get_device_name(dev)
     rng = np.random.RandomState(0)
     cases = path_pairings()
-    per_hop = {(v, w): [] for v in CUTS for w in _ENTRIES}
+    per_hop = {key: [] for key in fns}
     for case in cases:
         bh, tq, tk, d, causal = case
         q, k, v, do, lse, delta = _inputs(case, rng, dev)
-        outs = {"flash_dq": (torch.empty_like(q),),
-                "flash_dkv": (torch.empty_like(k), torch.empty_like(v))}
-        for wrapper in _ENTRIES:
-            call = tuple(t.data_ptr() for t in (q, k, v, do, lse, delta)
-                         + outs[wrapper]) + (bh, tq, tk, d, d ** -0.5,
-                                             int(causal), stream)
-            runs = {x: [] for x in CUTS}
-            order = list(CUTS) * 2 + list(CUTS)[::-1]
-            for i, x in enumerate(order):
-                ms = device_ms(fns[x][wrapper], call, args.iters, dev,
-                               "flash_ablate %s %s" % (x, wrapper))
-                if i >= len(CUTS):            # the first round warms up
-                    runs[x].append(ms)
-            for x in CUTS:
-                per_hop[(x, wrapper)].append(min(runs[x]))
-        del q, k, v, do, lse, delta, outs
+        ins = {"flash_forward_with_lse": (q, k, v, torch.empty_like(q),
+                                          torch.empty_like(lse)),
+               "flash_dq": (q, k, v, do, lse, delta, torch.empty_like(q)),
+               "flash_dkv": (q, k, v, do, lse, delta, torch.empty_like(k),
+                             torch.empty_like(v))}
+        for cuts, entries in _KERNELS.values():
+            for wrapper in entries:
+                call = tuple(t.data_ptr() for t in ins[wrapper]) + (
+                    bh, tq, tk, d, d ** -0.5, int(causal), stream)
+                runs = {x: [] for x in cuts}
+                order = list(cuts) * 2 + list(cuts)[::-1]
+                for i, x in enumerate(order):
+                    ms = device_ms(fns[(x, wrapper)], call, args.iters, dev,
+                                   "flash_ablate %s %s" % (x, wrapper))
+                    if i >= len(cuts):        # the first round warms up
+                        runs[x].append(ms)
+                for x in cuts:
+                    per_hop[(x, wrapper)].append(min(runs[x]))
+        del q, k, v, do, lse, delta, ins
     records = []
     for (x, wrapper), times in per_hop.items():
         rec = {"variant": x, "kernel": wrapper, "pairings": cases,

@@ -187,7 +187,7 @@ def test_flash_design_by_head_dim():
             assert pk.flash_design(d, wrapper) == want, (wrapper, d)
             assert pk.flash_design(d, wrapper, aligned=False) == "simt"
     with pytest.raises(KeyError):
-        pk.flash_design(16, "flash_forward_with_lse")
+        pk.flash_design(16, "flash_delta")
 
 
 def test_the_ring_path_routes_to_wgmma():
@@ -203,20 +203,20 @@ def test_forced_design_is_checked_before_any_launch():
     t64 = torch.zeros(2, 8, 64)
     t16 = torch.zeros(2, 8, 16)
     with pytest.raises(MXNetError, match="wgmma"):
-        pk._bwd_design("flash_dq", (t64,), 64, "wgmma")
+        pk._design_entry("flash_dq", (t64,), 64, "wgmma")
     with pytest.raises(MXNetError, match="tensor"):
-        pk._bwd_design("flash_dkv", (t16,), 16, "tensor")
-    assert pk._bwd_design("flash_dq", (t16,), 16, None) == (
+        pk._design_entry("flash_dkv", (t16,), 16, "tensor")
+    assert pk._design_entry("flash_dq", (t16,), 16, None) == (
         "flash_bwd_wgmma", "mxtt_flash_dq_wgmma", "wgmma")
-    assert pk._bwd_design("flash_dkv", (t64,), 64, None) == (
+    assert pk._design_entry("flash_dkv", (t64,), 64, None) == (
         "flash_attention", "mxtt_flash_dkv", "simt")
-    assert pk._bwd_design("flash_dkv", (t16,), 16, "simt")[2] == "simt"
+    assert pk._design_entry("flash_dkv", (t16,), 16, "simt")[2] == "simt"
     # dk/dv at D = 8 is routed to the CUDA-core design, yet the wgmma one
     # takes it when forced (phase 7 times both there)
     t8 = torch.zeros(2, 8, 8)
-    assert pk._bwd_design("flash_dkv", (t8,), 8, None)[2] == "simt"
-    assert pk._bwd_design("flash_dkv", (t8,), 8, "wgmma")[2] == "wgmma"
-    assert pk._bwd_design("flash_dq", (t8,), 8, None)[2] == "wgmma"
+    assert pk._design_entry("flash_dkv", (t8,), 8, None)[2] == "simt"
+    assert pk._design_entry("flash_dkv", (t8,), 8, "wgmma")[2] == "wgmma"
+    assert pk._design_entry("flash_dq", (t8,), 8, None)[2] == "wgmma"
 
 
 @pytest.mark.parametrize("design", [None, "wgmma", "simt"])
