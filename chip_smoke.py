@@ -15,7 +15,10 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    (``torch.nn.functional.layer_norm``, a yardstick the port never calls)
    on the device (CUDA graphs between CUDA events), beside the least time
    the card could take, and their eager call times with the host's
-   launch cost.
+   launch cost.  Then B4 at the decode step's shapes (the slot batch
+   (8, 1, 128), (1, 8, 128), (1, 1, 128)) beside ``F.layer_norm`` and one
+   tiny kernel's launch floor, timed the same way in this phase, and
+   whether the slot batch is within 1.5x that floor (launch cost).
 2. **Serve.** The TransformerLM at the widest configuration the repo
    documents (vocab 256, d_model 128, 8 heads, 4 layers, d_ff 512,
    seq_len 1024; random weights from ``init_params(0)``), page size 8, 8
@@ -96,6 +99,15 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    together).  The choice of design by head dim: both designs of each
    kernel timed per layer at the path's pairings with D = 4, 8, ..., 32
    (``FLASH_DIMS``); fails where ``flash_design`` chose the slower one.
+   Head dims above 128 (``FLASH_WIDE``: D = 160 and 256 on the 192- and
+   256-wide builds, D = 320 on the wide kernels in chunks of 256; causal
+   and not, ragged, Tq != Tk both ways) held to plain the same way and
+   timed at (32, 512 x 512) causal beside the f32 bound; the launch shape
+   the built source reports (``mxtt_flash_simt_shape``) equal to
+   ``simt_launch_shape`` at every D of the phase.  A forward and a dq
+   with q of more than 2^31 elements (1,048,580 x 128 x 16, causal), on
+   the design ``flash_design`` picks and on the CUDA-core one, held to
+   plain on the first and last four heads.
 8. **Train the TransformerLM.** The configuration above through
    ``DataParallelTrainer(TransformerLM(cfg), None, "sgd", lr 0.1,
    momentum 0.9, mesh_plan=MeshPlan(sequence=2))``: ring attention over a
@@ -191,10 +203,19 @@ Sixteen phases; any failure exits non-zero and prints no result line.
     with a ``sub`` is rebuilt and must FAIL its check.  A synthetic
     chain of 90 eqns over 48 prims of the provable set (f32, int32 and
     bool; ``_sweep_ir``) is lowered, built and held to its twin the same
-    way, so the emitter's forms the six chains do not use run too.  The
+    way, so the emitter's forms the six chains do not use run too; a
+    synthetic chain for the row plan (``_rows_sweep_ir``: a sum across
+    rows read back by every row, so two phases and two exchanges; every
+    reduction across rows, one keeping a row axis; 40 columns) too, at
+    every cluster size.  The
     autotune
     cache is written once into a temporary file and replayed: same
-    choice, byte-identical file.  Each kernel timed as its device time
+    choice, byte-identical file.  Each row-plan kernel also emitted at
+    every cluster size (1, 2, 4, 8) and on the group plan it replaced,
+    each held to the twin (reruns bitwise) and timed in turns (CUDA
+    graphs, the lesser of two rounds) beside the launch floor; fails when
+    a cluster size is more than 10 % faster than the one
+    ``codegen.ROW_CLUSTER`` pins.  Each kernel timed as its device time
     (CUDA graph of 200 calls), its eager call and the eager twin, beside
     its bound (bytes over 3.35 TB/s against f32 operations over 67
     TFLOP/s) and one tiny kernel's launch floor.  ``_gen_zero1_top2``
@@ -220,7 +241,9 @@ stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
 ``launches`` from phase 14; the ``_gen_*`` kernels' per call,
 ``launches`` from phase 16, ``library_ms`` that of ``torch._fused_sgd_``
 for ``_gen_zero1_top2`` and null for the other five, which no single
-PyTorch call computes), the card's name and power limit from
+PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
+the row plan's time at each cluster size and the group plan's), the
+card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -244,6 +267,9 @@ BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 
 LN_TOL = 1e-5
+# a time of B4 within LN_FLOOR_FACTOR of one tiny kernel's launch floor
+# is launch cost
+LN_FLOOR_FACTOR = 1.5
 LOGIT_TOL = 1e-4
 OPT_TOL = 1e-6
 TRAIN_TOL = 1e-4
@@ -251,6 +277,10 @@ NOISE_FACTOR = 10
 CFG = dict(vocab_size=256, d_model=128, n_heads=8, n_layers=4, d_ff=512,
            seq_len=1024)
 PAGE_SIZE, SLOTS = 8, 8
+# B4's decode-step shapes: the slot batch, a prefill bucket of 8, one
+# position
+LN_DECODE_SHAPES = [(SLOTS, 1, CFG["d_model"]), (1, 8, CFG["d_model"]),
+                    (1, 1, CFG["d_model"])]
 N_REQUESTS, MAX_NEW = 16, 32
 BATCH, WARMUP, TIMED = 256, 3, 10
 SGD_PARAMS = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
@@ -292,6 +322,7 @@ CONV_F32 = ((2, 28, 28, 512), 128)
 # slice 6: the mxgen kernels (B10) and codegen_bench (phases 15-16)
 GEN_TOL = 1e-5          # codegen.EQUIV_TOL: rtol = atol, ints/bools exact
 GEN_TIMED = 200
+GEN_CLUSTER_SLACK = 0.10    # another cluster size may be this much faster
 CONV_F32_TOL = 1e-4
 # bf16 outputs are held to one bf16 ulp at their magnitude, counted no
 # finer than at 1/64 of the outputs' RMS (see _bf16_ulps)
@@ -405,6 +436,7 @@ def phase_kernels():
           "%d flops)"
           % (rows, width, ms, plain_ms, library_ms, bound_ms, nbytes,
              flops))
+    _ln_decode_times(torch, F, fo, gen, width)
     return {"name": "fused_layer_norm", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/fused_ln.cu",
             "replaces": "mxnet_tpu/ops/fused_optimizer.py:315",
@@ -412,6 +444,35 @@ def phase_kernels():
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms}
+
+
+def _ln_decode_times(torch, F, fo, gen, width):
+    """B4 at the decode step's shapes (the slot batch, one request's
+    prefill bucket of 8, one position), each beside F.layer_norm and the
+    launch floor of one tiny kernel, all timed in this phase; says whether
+    the slot batch is within LN_FLOOR_FACTOR of the floor."""
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = _time_ms(lambda: tiny.zero_())
+    slot_ratio = None
+    for shape in LN_DECODE_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen)
+        s = torch.randn(width, device="cuda", generator=gen)
+        b = torch.randn(width, device="cuda", generator=gen)
+        ms = _time_ms(lambda: fo.fused_layer_norm(x, s, b))
+        lib = _time_ms(lambda: F.layer_norm(x, (width,), s, b, 1e-5))
+        ratio = ms / floor_ms
+        if shape == LN_DECODE_SHAPES[0]:
+            slot_ratio = ratio
+        print("phase 1: fused_layer_norm %s device time: kernel %.5f ms "
+              "(%.2fx the launch floor), F.layer_norm %.5f ms; one tiny "
+              "kernel's launch floor %.5f ms"
+              % (shape, ms, ratio, lib, floor_ms))
+    print("phase 1: fused_layer_norm at the slot batch %s is %.2fx the "
+          "launch floor: %s" % (LN_DECODE_SHAPES[0], slot_ratio,
+                                "launch cost (within %.1fx)" % LN_FLOOR_FACTOR
+                                if slot_ratio <= LN_FLOOR_FACTOR else
+                                "more than %.1fx: not launch cost alone"
+                                % LN_FLOOR_FACTOR))
 
 
 def _post(url, payload):
@@ -960,6 +1021,17 @@ FLASH_PATH = [(2 * TRAIN_LM_BATCH * 8, 512, 512, 16, True),
 FLASH_CHECK = FLASH_PATH + [(3, 997, 1000, 64, True),
                             (3, 997, 1000, 64, False), (2, 1, 1, 16, True),
                             (4, 300, 300, 128, True)]
+# head dims above 128 on the CUDA-core design (the 192- and 256-wide
+# builds, and D = 320 in chunks of 256): causal and not, ragged T, Tq !=
+# Tk both ways
+FLASH_WIDE = [(3, 197, 203, 160, True), (2, 130, 61, 160, False),
+              (3, 130, 130, 256, True), (2, 61, 130, 256, False),
+              (2, 77, 150, 320, True), (3, 150, 77, 320, False)]
+FLASH_WIDE_TIMED = (32, 512, 512, True)     # (BH, Tq, Tk, causal)
+# a q of more than 2^31 elements (forward and dq, both designs, held to
+# plain on the first and last FLASH_BIG_SLICES heads): (T, D)
+FLASH_BIG = (128, 16)
+FLASH_BIG_SLICES = 4
 # edges of the wgmma design of dq and dk/dv (own tiles of 128 rows,
 # streamed tiles of 64 keys or 32 queries, D % 4 == 0 up to 32): T not a
 # multiple of the tiles, Tq != Tk both ways (dk/dv blocks with no query to
@@ -1186,7 +1258,14 @@ def phase_flash_kernels():
 def _phase_flash_kernels(torch, F, pk):
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = {}
-    for case in FLASH_CHECK + FLASH_WGMMA_EDGES:
+    for d in sorted({c[3] for c in FLASH_CHECK + FLASH_WGMMA_EDGES
+                     + FLASH_WIDE} | set(FLASH_DIMS)):
+        if pk._simt_shape_built(d) != pk.simt_launch_shape(d)[:4]:
+            raise RuntimeError("head dim %d: csrc/flash_attention.cu "
+                               "launches %s, simt_launch_shape says %s"
+                               % (d, pk._simt_shape_built(d),
+                                  pk.simt_launch_shape(d)))
+    for case in FLASH_CHECK + FLASH_WGMMA_EDGES + FLASH_WIDE:
         errs = _flash_check(case, gen, worst)
         print("phase 7: %s max_abs_err %s, reruns bitwise"
               % (case, {"%s/%s" % k: ["%.3g" % e for e in v]
@@ -1260,7 +1339,70 @@ def _phase_flash_kernels(torch, F, pk):
     del bwd, lib_in, outs
     torch.cuda.empty_cache()
     _flash_dim_sweep(torch, pk, gen, design_hops)
+    _flash_wide_times(pk, gen)
+    _flash_past_int32(torch, pk, gen)
     return out
+
+
+def _flash_wide_times(pk, gen):
+    """The CUDA-core design at the head dims above 128 (FLASH_WIDE's),
+    timed at FLASH_WIDE_TIMED beside its f32 bound."""
+    bh, tq, tk, causal = FLASH_WIDE_TIMED
+    for d in sorted({c[3] for c in FLASH_WIDE}):
+        case = (bh, tq, tk, d, causal)
+        (args,) = _flash_bwd_args([case], gen)
+        times = {name: _event_ms(lambda: _flash_call(name, "simt")(args))
+                 for name in FLASH_KERNELS}
+        print("phase 7: head dim %d on the CUDA-core design %s (shape %s): "
+              "%s" % (d, case, pk.simt_launch_shape(d), ", ".join(
+                  "%s %.5f ms (f32 bound %.5f ms)"
+                  % (name, ms, _flash_bound(name, [case])[0])
+                  for name, ms in times.items())))
+        del args
+
+
+def _flash_past_int32(torch, pk, gen):
+    """A forward and a dq with q of more than 2^31 elements, on the
+    design flash_design picks and on the CUDA-core one, held to plain on
+    the first and last FLASH_BIG_SLICES heads (the kernels index in 64
+    bits; nothing refuses the size)."""
+    t, d = FLASH_BIG
+    bh = 2 ** 31 // (t * d) + FLASH_BIG_SLICES
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen)
+               for _ in range(3))
+    do, scale = v, d ** -0.5
+    ends = list(range(FLASH_BIG_SLICES)) + list(range(bh - FLASH_BIG_SLICES,
+                                                      bh))
+    errs = {}
+    for design in (pk.flash_design(d, "flash_forward_with_lse"), "simt"):
+        o, lse = pk._flash_forward_with_lse(q, k, v, True, scale,
+                                            design=design)
+        delta = torch.empty_like(lse)
+        for b0 in range(0, bh, 65536):
+            delta[b0:b0 + 65536] = pk.flash_delta(o[b0:b0 + 65536],
+                                                  do[b0:b0 + 65536])
+        dq = pk._flash_dq(q, k, v, do, lse, delta, True, scale,
+                          design=design)
+        torch.cuda.synchronize()
+        sl = torch.tensor(ends, device="cuda")
+        want_o, want_lse = pk.flash_forward_with_lse_reference(
+            q[sl], k[sl], v[sl], True, scale)
+        want_dq = pk.flash_dq_reference(q[sl], k[sl], v[sl], do[sl],
+                                        lse[sl], delta[sl], True, scale)
+        for got, want, tol in ((o[sl], want_o, FLASH_FWD_TOL),
+                               (lse[sl], want_lse, FLASH_FWD_TOL),
+                               (dq[sl], want_dq, FLASH_BWD_TOL)):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            errs[design] = max(errs.get(design, 0.0),
+                               float((got - want).abs().max()))
+        del o, lse, delta, dq
+        torch.cuda.empty_cache()
+    print("phase 7: q of %d elements (%d x %d x %d, past 2^31): forward "
+          "and dq on %s held to plain on heads %s, max_abs_err %s"
+          % (bh * t * d, bh, t, d, sorted(errs), ends,
+             {k: "%.3g" % e for k, e in errs.items()}))
+    del q, k, v, do
+    torch.cuda.empty_cache()
 
 
 def _flash_dim_sweep(torch, pk, gen, design_hops):
@@ -2254,6 +2396,56 @@ def _sweep_ir():
             "literals": lits, "ops": ops}
 
 
+def _rows_sweep_ir():
+    """A synthetic chain for the row plan over rows (3, 4) of 40 columns
+    (a ragged second lane group): a column mean read back by every row
+    (a second phase), sums across rows in the second phase too (a second
+    exchange), reductions across rows of every kind (sum, max, min, prod,
+    and, or; f32, int32, bool), one keeping a row axis, one of a (…, 1)
+    value and one to a scalar read back by the rows; every value the
+    kernel must write is an output."""
+    avals, lits, ops = {}, {}, []
+
+    def val(shape, dtype):
+        k = str(len(avals))
+        avals[k] = [list(shape), dtype]
+        return int(k)
+
+    def op(prim, ins, out_shape, out_dtype="float32", **params):
+        out = val(out_shape, out_dtype)
+        ops.append({"prim": prim, "in": ins, "out": [out],
+                    "params": params})
+        return out
+
+    R, C, f = (3, 4), 40, "float32"
+    S, S1 = R + (C,), R + (1,)
+    x, g, i, b, t = (val(S, f), val((C,), f), val(S, "int32"),
+                     val(S, "bool"), val(S1, f))
+    inv = val((), f)
+    lits[str(inv)] = {"dtype": f, "shape": [], "values": ["0x3daaaaab"]}
+    col = op("reduce_sum", [x], (C,), axes=[0, 1])
+    mean = op("mul", [col, inv], (C,))
+    cen = op("sub", [x, op("broadcast_in_dim", [mean], (1, 1, C),
+                           shape=[1, 1, C], broadcast_dimensions=[2])], S)
+    y = op("mul", [cen, op("broadcast_in_dim", [g], (1, 1, C),
+                           shape=[1, 1, C], broadcast_dimensions=[2])], S)
+    tot = op("reduce_sum", [t], (), axes=[0, 1, 2])
+    z = op("mul", [y, op("broadcast_in_dim", [tot], S, shape=list(S),
+                         broadcast_dimensions=[])], S)
+    outs = [col, y, z, tot,
+            op("reduce_max", [y], R, axes=[2]),
+            op("reduce_sum", [y], (C,), axes=[0, 1]),
+            op("reduce_max", [z], (), axes=[0, 1, 2]),
+            op("reduce_min", [x], (4, C), axes=[0]),
+            op("reduce_prod", [t], (), axes=[0, 1, 2]),
+            op("reduce_sum", [i], (C,), "int32", axes=[0, 1]),
+            op("reduce_and", [b], (C,), "bool", axes=[0, 1]),
+            op("reduce_or", [b], (), "bool", axes=[0, 1, 2])]
+    return {"name": "_gen_rows_sweep", "kind": "normalization",
+            "ext_in": [x, g, i, b, t], "ext_out": outs, "avals": avals,
+            "literals": lits, "ops": ops}
+
+
 def phase_gen_kernels():
     """Phase 15: the six generated kernels (B10) against their twins on
     the card, the mislowering seam caught, the autotune cache replayed,
@@ -2282,12 +2474,13 @@ def phase_gen_kernels():
         rungs = cg.AUTOTUNE_LADDER if cg.flat_tileable(lk) else ()
         for br in rungs:
             worst[gk.name] = max(worst[gk.name], _gen_check(gk, xs, br))
-        print("phase 15: %s (%s, %d eqns, %d in / %d out, %d threads, "
-              "workspace %d B %s): whole-array%s within %g of its twin, "
-              "max |diff| %.3g, reruns bitwise"
+        print("phase 15: %s (%s, %d eqns, %d in / %d out; plan %s, "
+              "cluster %d, %d threads, %d B shared, workspace %d B %s): "
+              "whole-array%s within %g of its twin, max |diff| %.3g, "
+              "reruns bitwise"
               % (gk.name, gk.kind, gk.n_ops, len(xs), len(gk.out_avals),
-                 lk.threads, lk.ws_bytes,
-                 "shared" if lk.ws_shared else "global",
+                 lk.plan, lk.cluster, lk.threads, lk.layout.smem_bytes,
+                 lk.ws_bytes, "shared" if lk.ws_shared else "global",
                  " and tiled at %s" % (rungs,) if rungs else "", GEN_TOL,
                  worst[gk.name]))
 
@@ -2318,6 +2511,20 @@ def phase_gen_kernels():
     print("phase 15: prim sweep (%d eqns over %d prims, f32/int32/bool) "
           "within %g of its twin, max |diff| %.3g"
           % (sweep.n_ops, len(set(sweep.prims)), GEN_TOL, err))
+    rows_sweep = {c: cg.lower_chain(_rows_sweep_ir(),
+                                    "_gen_rows_sweep_c%d" % c, cluster=c)
+                  for c in cg._ROW_CLUSTERS}
+    build.build_all((), {lk.symbol: lk.src for lk in rows_sweep.values()})
+    for c, lk in rows_sweep.items():
+        ok, err = cg.equivalence_check(lk, "cuda")
+        if not ok:
+            raise RuntimeError("the row sweep at cluster %d differs from "
+                               "its twin: max |diff| %g" % (c, err))
+    print("phase 15: row sweep (%d eqns, %d phases, %d exchanges, ragged "
+          "columns, f32/int32/bool reductions across rows) on the row "
+          "plan at clusters %s within %g of its twin"
+          % (lk.n_ops, lk.layout.n_phases, lk.layout.exchanges,
+             sorted(rows_sweep), GEN_TOL))
     for n in with_sub:
         ok, err = cg.equivalence_check(mutants[n], "cuda")
         if ok:
@@ -2347,10 +2554,14 @@ def phase_gen_kernels():
                   % (gk.name, first, list(cg.AUTOTUNE_LADDER),
                      json.loads(blob)["kernels"][gk.name]["t_ns"]))
 
-    # times: the kernel's device time (CUDA graph of GEN_TIMED calls),
-    # its eager call with the host's launch cost, and the eager twin
+    # the row plan at each cluster size and the group plan, held to the
+    # twin and timed in turns: ROW_CLUSTER must pin the fastest size
     tiny = torch.zeros(1, device="cuda")
     floor_ms = _time_ms(lambda: tiny.zero_())
+    by_plan = _gen_plan_times(kernels, worst, floor_ms)
+
+    # times: the kernel's device time (CUDA graph of GEN_TIMED calls),
+    # its eager call with the host's launch cost, and the eager twin
     out = []
     for gk in kernels:
         xs = _gen_inputs(gk.lowered)
@@ -2380,7 +2591,73 @@ def phase_gen_kernels():
                     "launches": None, "max_abs_err": worst[gk.name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", "library_ms": library_ms})
+                    else "operations", "library_ms": library_ms,
+                    "plan": gk.lowered.plan, "cluster": gk.lowered.cluster,
+                    "plan_ms": by_plan.get(gk.name)})
+    return out
+
+
+def _gen_plan_times(kernels, worst, floor_ms):
+    """Each row-plan kernel emitted at every cluster size it takes and on
+    the group plan (the design the row plan replaced), all built at once,
+    each held to the twin (reruns bitwise) and timed in turns (CUDA
+    graphs; a warm round, then two rounds in turn and in reverse, the
+    lesser time).  Fails when a cluster size is more than GEN_CLUSTER_SLACK
+    faster than the one codegen.ROW_CLUSTER pins.  Returns {kernel name:
+    {variant: ms}}."""
+    from mxnet_tpu_torch.analysis import codegen as cg
+    from mxnet_tpu_torch.ops import build
+    from mxnet_tpu_torch.ops import generated_kernels as gen
+
+    variants = {}
+    for gk in kernels:
+        lk = gk.lowered
+        if lk.plan != "rows":
+            continue
+        vs = {"groups": cg.lower_chain(lk.chain, lk.name + "_groups",
+                                       plan="groups")}
+        for c in cg._ROW_CLUSTERS:
+            if lk.layout.fits(c) is None:
+                vs["c%d" % c] = cg.lower_chain(
+                    lk.chain, "%s_c%d" % (lk.name, c), plan="rows",
+                    cluster=c)
+        variants[gk.name] = vs
+    build.build_all((), {v.symbol: v.src for vs in variants.values()
+                         for v in vs.values()})
+    out, slow = {}, []
+    for name, vs in variants.items():
+        xs = _gen_inputs(vs["groups"])
+        gks = {k: gen.GeneratedKernel(v) for k, v in vs.items()}
+        for k, g in gks.items():
+            worst[name] = max(worst[name], _gen_check(g, xs))
+        keys = list(gks)
+        runs = {k: [] for k in keys}
+        for i, k in enumerate(keys * 2 + keys[::-1]):
+            ms = _time_ms(lambda g=gks[k]: gen.generated_call(g, *xs),
+                          iters=GEN_TIMED)
+            if i >= len(keys):
+                runs[k].append(ms)
+        times = {k: min(r) for k, r in runs.items()}
+        pinned = "c%d" % next(g.lowered.cluster for g in kernels
+                              if g.name == name)
+        best = min((k for k in times if k != "groups"), key=times.get)
+        print("phase 15: %s on the row plan, cluster %s pinned: %.5f ms; "
+              "per cluster size %s; the group plan %.5f ms (%.1fx the "
+              "pinned); launch floor %.5f ms; every variant within %g of "
+              "the twin, reruns bitwise"
+              % (name, pinned[1:], times[pinned], {
+                  int(k[1:]): round(t, 5) for k, t in times.items()
+                  if k != "groups"}, times["groups"],
+                 times["groups"] / times[pinned], floor_ms, GEN_TOL))
+        if times[pinned] > (1 + GEN_CLUSTER_SLACK) * times[best]:
+            slow.append("%s: cluster %s %.5f ms, %s %.5f ms"
+                        % (name, pinned[1:], times[pinned], best[1:],
+                           times[best]))
+        out[name] = times
+    if slow:
+        raise RuntimeError("codegen.ROW_CLUSTER pins a cluster size more "
+                           "than %d %% slower than another: %s"
+                           % (100 * GEN_CLUSTER_SLACK, "; ".join(slow)))
     return out
 
 

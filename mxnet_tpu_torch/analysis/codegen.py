@@ -28,15 +28,29 @@ compares at 1e-5.  The ``MXGEN_LOWER_EXACT`` seam flips ``sub`` to
 ``add`` in the EMITTED text only, so a mislowering shows as a failed
 check on the card.
 
-The emitted whole-array kernel is one thread block (the reference's one
-grid step): the chain's eqns are cut into groups of one iteration shape,
-each group a block-strided loop over its flat output index with the
-group's values in registers, and a ``__syncthreads()`` between groups.
-A value read by a later group lives in an external output buffer or in
-a workspace (shared memory when it fits, else a global scratch buffer
-the wrapper allocates).  Reductions loop in a fixed order with no
-atomics, so reruns are bitwise equal.  Flat-tileable chains also get a
-row-tiled kernel, one thread block per ``(block_rows, 128)`` tile.
+The emitted whole-array kernel is one launch (the reference's one grid
+step), on one of two plans chosen from the chain's shapes when it is
+lowered:
+
+- the **row plan** (:class:`_RowPlan`), where the chain is rows of its
+  widest value: a thread-block cluster of up to 8 CTAs owns the rows in
+  blocks, each warp whole rows, each lane columns; row values stay in
+  registers, reductions along a row are fixed ``__shfl_xor_sync`` trees,
+  and each reduction across rows is summed per warp, per CTA through
+  shared memory and over the cluster through distributed shared memory
+  in rank order — a barrier only where an op reads such a sum.  The
+  cluster size of each shipped chain is pinned by measurement
+  (:data:`ROW_CLUSTER`);
+- the **group plan** (:class:`_Plan`) for the rest (a 1-D chain, shapes
+  the row rule does not take): one thread block, the eqns cut into
+  groups of one iteration shape, each a block-strided loop over its flat
+  output index, a ``__syncthreads()`` between groups, and a value read
+  by a later group in an external output or a workspace (shared memory
+  when it fits, else a global scratch buffer the wrapper allocates).
+
+Reductions run in a fixed order with no atomics, so reruns are bitwise
+equal.  Flat-tileable chains also get a row-tiled kernel, one thread
+block per ``(block_rows, 128)`` tile.
 """
 from __future__ import annotations
 
@@ -109,6 +123,18 @@ _DTYPES = {"float32": (torch.float32, "float"), "int32": (torch.int32, "int"),
 _MAX_THREADS = 1024
 _TILED_THREADS = 256
 _SMEM_BYTES = 49152     # a block's shared memory without the opt-in
+
+# the row plan's cluster sizes (the portable ones), and the size each
+# shipped chain runs at: the fastest in chip_smoke.py's phase 15, which
+# times every size and fails when another is more than 10 % faster
+_ROW_CLUSTERS = (1, 2, 4, 8)
+ROW_CLUSTER = {
+    "_gen_tp_transformer_top1": 8,
+    "_gen_tp_transformer_top2": 4,
+    "_gen_tp_transformer_top3": 4,
+    "_gen_zero1_top1": 8,
+    "_gen_zero1_top3": 4,
+}
 
 
 def _torch_dtype(name):
@@ -568,6 +594,8 @@ class _Plan:
     """How a chain runs in one thread block: its eqns cut into groups of
     one iteration shape, which values need memory, and where."""
 
+    name = "groups"
+
     def __init__(self, chain):
         self.chain = chain
         av = chain.avals
@@ -615,6 +643,216 @@ class _Plan:
         self.ws_shared = top <= _SMEM_BYTES
         widest = max([_numel(s) for s, _ in self.groups] or [1])
         self.threads = min(_MAX_THREADS, max(32, -(-widest // 32) * 32))
+        self.cluster = 1
+        self.smem_bytes = self.ws_bytes if self.ws_shared else 0
+
+
+class _NoFit(Exception):
+    """The chain does not fit the row plan; it keeps the group plan."""
+
+
+def _step(prim, dtype):
+    return lambda acc, x: _reduce_step(prim, acc, x, dtype)
+
+
+class _RowPlan:
+    """How a chain runs on the row plan: rows owned by warps, spread over
+    a thread-block cluster.
+
+    The row axes are all axes but the last of the chain's widest value
+    (the first by id among the widest), the columns its last axis.  A
+    value is *full* (row axes, then the columns), *row* (row axes, then
+    nothing or 1: one value per row) or *cross* (anything else: column
+    vectors, scalars, ...).  A cluster of ``cluster`` CTAs owns the rows
+    in contiguous blocks; each warp of a CTA owns whole rows (rows
+    ``lo + warp + k * warps``); lanes stride over the columns.  Full and
+    row values live in registers; a reduction over the last axis is a
+    shuffle tree inside the warp; a cross value that is not a reduction
+    over rows is read element by element where it is used (inputs,
+    literals and what every thread can compute from them); a reduction
+    over rows is summed per warp in registers, per CTA over the warps
+    through shared memory, and over the cluster in rank order through
+    distributed shared memory (an *exchange*).
+
+    ``phase`` of each row-local op and reduction input is the number of
+    exchanges before it: an op waits only for the reductions over rows
+    it reads.  ``levels`` counts the dataflow's row crossings (a
+    reduction over rows, or a row-local op reading a cross value an op
+    made): the chain's shape, which the phases refine.
+
+    Raises :class:`_NoFit` for a chain outside these rules."""
+
+    name = "rows"
+
+    def __init__(self, chain, cluster=None):
+        av, lits = chain.avals, chain.literals
+        self.chain = chain
+        made = {op.outs[0]: op for op in chain.ops}
+        ids = sorted(set(chain.ext_in) | set(made))
+        widest = max(ids, key=lambda i: (_numel(av[i].shape), -i))
+        shape = av[widest].shape
+        if len(shape) < 2:
+            raise _NoFit("a 1-D chain has no row axes")
+        self.row_shape, self.cols = tuple(shape[:-1]), int(shape[-1])
+        self.n_rows = _numel(self.row_shape)
+        nr = len(self.row_shape)
+        self.cls = {}
+        for i in ids:
+            s = av[i].shape
+            if s[:nr] != self.row_shape:
+                self.cls[i] = "cross"
+            elif len(s) == nr or (len(s) == nr + 1 and s[-1] == 1):
+                self.cls[i] = "row"
+            elif len(s) == nr + 1 and s[-1] == self.cols:
+                self.cls[i] = "full"
+            else:
+                raise _NoFit("value %d of shape %r is neither a row value "
+                             "nor a cross-row one" % (i, s))
+        self.made = made
+        self.reduced = {}       # value -> (op, kept-row extent K, columns C')
+        self.ex = {}            # value -> exchanges before it exists
+        self.phase = {}         # row-local op / reduction -> its phase
+        for op in chain.ops:
+            out = op.outs[0]
+            ins = [i for i in op.ins if i not in lits]
+            ex = max([self.ex.get(i, 0) for i in ins] or [0])
+            kinds = [self.cls[i] for i in ins]
+            if op.prim in _REDUCES and self._reduces_rows(op):
+                x = op.ins[0]
+                if x in lits or self.cls[x] == "cross":
+                    raise _NoFit("eqn %r reduces a cross-row value" % out)
+                axes = sorted(_dims(op.params, "axes"))
+                row_axes = [a for a in axes if a < nr]
+                if row_axes != list(range(len(row_axes))):
+                    raise _NoFit("eqn %r keeps a leading row axis" % out)
+                kept = _numel(self.row_shape[len(row_axes):])
+                cp = self.cols if (self.cls[x] == "full"
+                                   and nr not in axes) else 1
+                self.reduced[out] = (op, kept, cp)
+                self.phase[out] = ex
+                self.ex[out] = ex + 1
+                continue
+            self.ex[out] = ex
+            if self.cls[out] == "cross":
+                if "full" in kinds or "row" in kinds:
+                    raise _NoFit("eqn %r makes a cross-row value from a "
+                                 "row value" % out)
+                if op.prim in _REDUCES and _dims(op.params, "axes"):
+                    raise _NoFit("eqn %r reduces a cross-row value" % out)
+                continue
+            self._check_row_op(op)
+            self.phase[out] = ex
+        self.n_phases = max(self.phase.values(), default=0) + 1
+        self.exchanges = len({self.phase[v] for v in self.reduced})
+        self.read_later = {v for v in self.reduced
+                           if any(v in o.ins for o in chain.ops)}
+        # row-local values read in a later phase than their own
+        self.carried = set()
+        for op in chain.ops:
+            p = self.phase.get(op.outs[0])
+            if p is None or op.outs[0] in self.reduced:
+                continue
+            for i in op.ins:
+                if self.cls.get(i) in ("full", "row") and i in self.phase \
+                        and self.phase[i] < p:
+                    self.carried.add(i)
+        self.levels = self._levels()
+        self._place(cluster)
+
+    def _reduces_rows(self, op):
+        return any(a < len(self.row_shape)
+                   for a in _dims(op.params, "axes"))
+
+    def _check_row_op(self, op):
+        """A row-local op reads row values of its own row only."""
+        av, nr = self.chain.avals, len(self.row_shape)
+        p, out = op.prim, op.outs[0]
+        rowed = [i for i in op.ins if self.cls.get(i) in ("full", "row")]
+        if p in _REDUCES:
+            axes = _dims(op.params, "axes")
+            if axes and (tuple(axes) != (nr,) or self.cls[out] != "row"):
+                raise _NoFit("eqn %r reduces a row otherwise than over "
+                             "its last axis" % out)
+        elif p == "broadcast_in_dim":
+            bd = _dims(op.params, "broadcast_dimensions")
+            if rowed and tuple(bd[:nr]) != tuple(range(nr)):
+                raise _NoFit("eqn %r broadcasts a row value across rows"
+                             % out)
+        elif p in ("squeeze", "expand_dims"):
+            if not rowed or tuple(_dims(op.params, "dimensions")) != (nr,):
+                raise _NoFit("eqn %r reshapes a value into rows" % out)
+        elif p not in _POINTWISE:
+            raise _NoFit("eqn %r: %s on row values" % (out, p))
+        for i in rowed:
+            if self.cls[out] == "row" and self.cls[i] == "full" \
+                    and p not in _REDUCES:
+                raise _NoFit("eqn %r reads a full row into a row value"
+                             % out)
+            if p in _POINTWISE and len(av[i].shape) != len(av[out].shape):
+                raise _NoFit("eqn %r mixes ranks" % out)
+
+    def _levels(self):
+        lits, lvl = self.chain.literals, {}
+        for op in self.chain.ops:
+            out, level = op.outs[0], 0
+            for i in op.ins:
+                if i in lits:
+                    continue
+                crosses = (self.cls[i] != "cross"
+                           and self.cls[out] == "cross") or (
+                    self.cls[i] == "cross" and i in self.made
+                    and self.cls[out] != "cross")
+                level = max(level, lvl.get(i, 0) + crosses)
+            lvl[out] = level
+        return max(lvl.values()) + 1 if lvl else 1
+
+    def _split(self, cluster):
+        """(rows per CTA, warps per CTA, rows per warp) at ``cluster``."""
+        per_cta = -(-self.n_rows // cluster)
+        warps = min(32, per_cta)
+        return per_cta, warps, -(-per_cta // warps)
+
+    def fits(self, cluster):
+        """Why ``cluster`` CTAs cannot own these rows, or None."""
+        if cluster not in _ROW_CLUSTERS or cluster > self.n_rows:
+            return "cluster %r is not one of %s at %d rows" % (
+                cluster, _ROW_CLUSTERS, self.n_rows)
+        _, warps, per_warp = self._split(cluster)
+        for v, (_, kept, _) in self.reduced.items():
+            if kept > 1 and per_warp > 1 and warps % kept:
+                return ("reduction %d keeps %d row slots, which %d warps "
+                        "of %d rows do not own whole" % (v, kept, warps,
+                                                         per_warp))
+        return None
+
+    def _place(self, cluster):
+        if cluster is None:
+            fitting = [c for c in _ROW_CLUSTERS if self.fits(c) is None]
+            if not fitting:
+                raise _NoFit("no cluster size owns whole row slots")
+            cluster = next((c for c in fitting
+                            if -(-self.n_rows // c) <= 32), fitting[-1])
+        why = self.fits(cluster)
+        if why:
+            raise _NoFit(why)
+        self.cluster = cluster
+        self.rows_per_cta, self.warps, self.rows_per_warp = \
+            self._split(cluster)
+        self.threads = 32 * self.warps
+        self.cpl = -(-self.cols // 32)
+        av = self.chain.avals
+        self.offset, top = {}, 0
+        for v, (op, kept, cp) in self.reduced.items():
+            size = av[v].dtype.itemsize
+            regions = [("pw", self.warps * cp * size),
+                       ("pc", kept * cp * size)]
+            if v in self.read_later:
+                regions.append(("rf", kept * cp * size))
+            for tag, nbytes in regions:
+                self.offset[(tag, v)] = top
+                top += -(-nbytes // 16) * 16
+        self.smem_bytes = top
+        self.ws_bytes, self.ws_shared = 0, True
 
 
 def _tileable_ir(chain):
@@ -633,6 +871,55 @@ def _tileable_ir(chain):
         | {"convert_element_type"}
     return all(op.prim in allowed and chain.avals[op.outs[0]].shape == shape
                for op in chain.ops)
+
+
+def _pow2_reciprocal(chain, i):
+    """``1 / c`` when value ``i`` is a float32 literal ``c = ±2^k`` whose
+    reciprocal is a normal float32: dividing by ``c`` and multiplying by
+    ``1 / c`` then round the same real number, so they agree bitwise
+    (zeros, infinities and NaNs included)."""
+    if i not in chain.literals:
+        return None
+    c = np.float32(np.asarray(chain.literals[i]).reshape(()))
+    if not np.isfinite(c) or c == 0 or abs(np.frexp(c)[0]) != 0.5:
+        return None
+    r = np.float32(1) / c
+    return r if abs(r) >= np.finfo(np.float32).tiny else None
+
+
+def _pointwise_rhs(chain, op, operand):
+    """RHS of a pointwise eqn; ``operand(i, as_dtype)`` is the expression
+    of operand ``i`` (``as_dtype``: the dtype a literal beside it takes)."""
+    av = chain.avals
+    p, dtype = op.prim, av[op.outs[0]].dtype
+    if p in _ELEMENTWISE_BINOPS:
+        dt = [av[i].dtype for i in op.ins if i not in chain.literals]
+        dt = dt[0] if dt else av[op.ins[0]].dtype
+        a, b = (operand(i, dt) for i in op.ins)
+        recip = _pow2_reciprocal(chain, op.ins[1]) \
+            if p == "div" and dt == np.float32 else None
+        if recip is not None:   # x / 2^k == x * 2^-k, bitwise
+            return _emit_binop("mul", a, _c_literal(recip, dt), dt)
+        return _emit_binop(p, a, b, dt)
+    if p in _ELEMENTWISE_UNOPS:
+        return _emit_unop(p, operand(op.ins[0]), av[op.ins[0]].dtype)
+    if p in _IDENTITY:
+        return operand(op.ins[0])
+    if p == "integer_pow":
+        return _emit_integer_pow(operand(op.ins[0]), int(op.params["y"]),
+                                 dtype)
+    if p == "convert_element_type":
+        return _emit_convert(operand(op.ins[0]), av[op.ins[0]].dtype, dtype)
+    if p == "select_n":
+        args = [operand(i) for i in op.ins]
+        pred, cases = args[0], args[1:]
+        if av[op.ins[0]].dtype == np.bool_:
+            return "(%s ? %s : %s)" % (pred, cases[1], cases[0])
+        rhs = cases[-1]
+        for k in range(len(cases) - 2, -1, -1):
+            rhs = "(%s == %d ? %s : %s)" % (pred, k, cases[k], rhs)
+        return rhs
+    raise _Unsupported(p)
 
 
 class _Body:
@@ -682,31 +969,9 @@ class _Body:
         out = op.outs[0]
         shape, dtype = av[out].shape, av[out].dtype
         p = op.prim
-        if p in _ELEMENTWISE_BINOPS:
-            dt = [av[i].dtype for i in op.ins if i not in c.literals]
-            dt = dt[0] if dt else av[op.ins[0]].dtype
-            a, b = (self.operand(i, shape, dt) for i in op.ins)
-            rhs = _emit_binop(p, a, b, dt)
-        elif p in _ELEMENTWISE_UNOPS:
-            rhs = _emit_unop(p, self.operand(op.ins[0], shape),
-                             av[op.ins[0]].dtype)
-        elif p in _IDENTITY:
-            rhs = self.operand(op.ins[0], shape)
-        elif p == "integer_pow":
-            rhs = _emit_integer_pow(self.operand(op.ins[0], shape),
-                                    int(op.params["y"]), dtype)
-        elif p == "convert_element_type":
-            rhs = _emit_convert(self.operand(op.ins[0], shape),
-                                av[op.ins[0]].dtype, dtype)
-        elif p == "select_n":
-            args = [self.operand(i, shape) for i in op.ins]
-            pred, cases = args[0], args[1:]
-            if av[op.ins[0]].dtype == np.bool_:
-                rhs = "(%s ? %s : %s)" % (pred, cases[1], cases[0])
-            else:
-                rhs = cases[-1]
-                for k in range(len(cases) - 2, -1, -1):
-                    rhs = "(%s == %d ? %s : %s)" % (pred, k, cases[k], rhs)
+        if p in _POINTWISE:
+            rhs = _pointwise_rhs(c, op, lambda i, dt=None:
+                                 self.operand(i, shape, dt))
         elif p == "broadcast_in_dim":
             i = op.ins[0]
             if i in c.literals:
@@ -761,6 +1026,424 @@ class _Body:
         return acc
 
 
+_ROW_CUTS = frozenset({"exchange", "shuffles", "loads"})
+
+
+class _RowBody:
+    """Emits the row plan's kernel: per phase, each warp's loop over its
+    rows, then the exchange of the reductions over rows.
+
+    ``cuts`` (measurement only, :mod:`mxnet_tpu_torch.tools.
+    codegen_ablate`; the outputs are then wrong by design) leaves a part
+    out: ``"exchange"`` the cluster barrier and the reads of the other
+    CTAs' partials, ``"shuffles"`` the shuffle trees, ``"loads"`` the
+    loads of the full inputs (each replaced by its row and column)."""
+
+    def __init__(self, chain, plan, cuts=()):
+        self.chain, self.plan, self.cuts = chain, plan, frozenset(cuts)
+        self.lines = []
+
+    # -- expressions -------------------------------------------------------
+    def cross(self, i, idx, as_dtype=None):
+        """Expression of element ``idx`` (a C expression of the flat index
+        into ``i``'s shape) of cross-row value ``i``."""
+        c, pl = self.chain, self.plan
+        if i in c.literals:
+            return _c_literal(c.literals[i], as_dtype if as_dtype is not None
+                              else c.avals[i].dtype)
+        if i in c.ext_in:
+            return "in%d[%s]" % (c.ext_in.index(i), idx)
+        if i in pl.reduced:
+            return "rf%d[%s]" % (i, idx)
+        op, shape = pl.made[i], c.avals[i].shape
+        p = op.prim
+        if p == "broadcast_in_dim":
+            j = op.ins[0]
+            return self.cross(j, _index_map(
+                shape, c.avals[j].shape,
+                _dims(op.params, "broadcast_dimensions"), "(%s)" % idx))
+        if p in ("squeeze", "expand_dims") or p in _REDUCES:
+            return self.cross(op.ins[0], idx)   # (a reduction of no axes)
+
+        def operand(j, dt=None):
+            s = c.avals[j].shape
+            return self.cross(j, _index_map(shape, s, tuple(range(len(s))),
+                                            "(%s)" % idx), dt)
+        return "(%s)" % _pointwise_rhs(c, op, operand)
+
+    def value(self, i, out, as_dtype=None, bdims=None):
+        """Expression of operand ``i`` inside the row body of the op
+        making ``out`` (``[j]``: the lane's column slot); a cross-row
+        operand is read at the element of ``i`` that the output element
+        sees (``bdims``: a broadcast's dimensions, else equal ranks)."""
+        c, pl = self.chain, self.plan
+        kind = pl.cls.get(i)
+        if kind == "full":
+            return "v%d[j]" % i
+        if kind == "row":
+            return "v%d" % i
+        s = c.avals[i].shape
+        o = "(row * %d + col)" % pl.cols if pl.cls[out] == "full" else "row"
+        return self.cross(i, _index_map(
+            c.avals[out].shape, s,
+            tuple(range(len(s))) if bdims is None else bdims, o), as_dtype)
+
+    # -- statements --------------------------------------------------------
+    def full(self, pad, name, dtype, rhs, store=None):
+        """A full value: one register per column slot of the lane."""
+        pl = self.plan
+        guard = "if (col < %d) " % pl.cols if pl.cols % 32 else ""
+        self.lines += [
+            "%s%s %s[%d];" % (pad, _ctype(dtype), name, pl.cpl),
+            "%s#pragma unroll" % pad,
+            "%sfor (int j = 0; j < %d; ++j) {" % (pad, pl.cpl),
+            "%s  const int col = lane + 32 * j;" % pad,
+            "%s  %s{" % (pad, guard),
+            "%s    %s[j] = %s;" % (pad, name, rhs)]
+        if store:
+            self.lines.append("%s    %s = %s[j];" % (pad, store, name))
+        self.lines += ["%s  }" % pad, "%s}" % pad]
+
+    def tree(self, pad, prim, dtype, acc, src):
+        """``acc`` = the reduction of full value ``src`` over the row: the
+        lane's columns in order, then a fixed ``__shfl_xor_sync`` tree
+        (every lane ends with the same value)."""
+        pl = self.plan
+        guard = "if (lane + 32 * j < %d) " % pl.cols if pl.cols % 32 else ""
+        step = _step(prim, dtype)
+        self.lines += [
+            "%s%s %s = %s;" % (pad, _ctype(dtype), acc,
+                               _REDUCE_INIT[prim](dtype)),
+            "%s#pragma unroll" % pad,
+            "%sfor (int j = 0; j < %d; ++j) %s%s = %s;"
+            % (pad, pl.cpl, guard, acc, step(acc, "%s[j]" % src))]
+        if "shuffles" in self.cuts:
+            return
+        # each lane shuffles before it combines: a bool's || or && would
+        # skip the shuffle on some lanes, which every lane must reach
+        cast = "(int)" if dtype == np.bool_ else ""
+        back = "(bool)" if dtype == np.bool_ else ""
+        for m in (16, 8, 4, 2, 1):
+            self.lines.append(
+                "%s{ const %s o = %s__shfl_xor_sync(0xffffffffu, %s%s, %d); "
+                "%s = %s; }" % (pad, _ctype(dtype), back, cast, acc, m, acc,
+                                step(acc, "o")))
+
+    def row_op(self, op, pad):
+        c, pl, av = self.chain, self.plan, self.chain.avals
+        out, p = op.outs[0], op.prim
+        dtype = av[out].dtype
+        store = None
+        if out in c.ext_out:
+            store = "out%d[row * %d + col]" % (c.ext_out.index(out), pl.cols)
+        if p in _REDUCES and _dims(op.params, "axes"):
+            x = op.ins[0]
+            if pl.cls[x] == "full":
+                self.tree(pad, p, dtype, "t%d" % out, "v%d" % x)
+                rhs = "t%d" % out
+            else:
+                rhs = "v%d" % x         # over a size-1 last axis
+        elif p in _REDUCES or p in ("squeeze", "expand_dims"):
+            rhs = self.value(op.ins[0], out)
+        elif p == "broadcast_in_dim":
+            rhs = self.value(op.ins[0], out, bdims=_dims(
+                op.params, "broadcast_dimensions"))
+        else:
+            rhs = _pointwise_rhs(c, op, lambda i, dt=None:
+                                 self.value(i, out, dt))
+        if pl.cls[out] == "full":
+            self.full(pad, "v%d" % out, dtype, rhs, store)
+        else:
+            self.lines.append("%sconst %s v%d = %s;" % (pad, _ctype(dtype),
+                                                       out, rhs))
+            if out in c.ext_out:
+                self.lines.append("%sif (lane == 0) out%d[row] = v%d;"
+                                  % (pad, c.ext_out.index(out), out))
+        if out in pl.carried:
+            if pl.cls[out] == "full":
+                self.lines.append("%sfor (int j = 0; j < %d; ++j) x%d[k][j] "
+                                  "= v%d[j];" % (pad, pl.cpl, out, out))
+            else:
+                self.lines.append("%sx%d[k] = v%d;" % (pad, out, out))
+
+    def contribute(self, v, pad):
+        """Adds this row's part of reduction-over-rows ``v`` to the warp's
+        accumulator ``a<v>``."""
+        pl, av = self.plan, self.chain.avals
+        op, _, cp = pl.reduced[v]
+        x, dtype = op.ins[0], av[v].dtype
+        step = _step(op.prim, dtype)
+        if cp > 1:                      # per column: the lane's slots
+            self.lines.append("%sfor (int j = 0; j < %d; ++j) a%d[j] = %s;"
+                              % (pad, pl.cpl, v,
+                                 step("a%d[j]" % v, "v%d[j]" % x)))
+            return
+        part = "v%d" % x                # per row: one value
+        if pl.cls[x] == "full":
+            part = "t%d" % v
+            self.tree(pad, op.prim, dtype, part, "v%d" % x)
+        self.lines.append("%sa%d[0] = %s;" % (pad, v, step("a%d[0]" % v,
+                                                           part)))
+
+    def load(self, i, pad):
+        """A row-local input of the row, into registers."""
+        c, pl = self.chain, self.plan
+        k, dtype = c.ext_in.index(i), c.avals[i].dtype
+        if pl.cls[i] == "full":
+            src = "in%d[row * %d + col]" % (k, pl.cols)
+            if "loads" in self.cuts:
+                src = "(%s)(row + col)" % _ctype(dtype)
+            self.full(pad, "v%d" % i, dtype, src)
+        else:
+            self.lines.append("%sconst %s v%d = in%d[row];"
+                              % (pad, _ctype(dtype), i, k))
+
+    def phase(self, p):
+        """Phase ``p``: each warp's rows, then the exchange of the
+        reductions over rows whose inputs it makes."""
+        c, pl, av = self.chain, self.plan, self.chain.avals
+        L = self.lines
+        ops = [op for op in c.ops if pl.phase.get(op.outs[0]) == p]
+        reds = [op.outs[0] for op in ops if op.outs[0] in pl.reduced]
+        L.append("  // phase %d: %d eqn(s) over the rows%s"
+                 % (p, len(ops), ", then %d reduction(s) over rows"
+                    % len(reds) if reds else ""))
+        for v in reds:
+            _, _, cp = pl.reduced[v]
+            n = pl.cpl if cp > 1 else 1
+            init = _REDUCE_INIT[pl.reduced[v][0].prim](av[v].dtype)
+            L.append("  %s a%d[%d] = {%s};" % (_ctype(av[v].dtype), v, n,
+                                               ", ".join([init] * n)))
+        used = {i for op in ops for i in op.ins}
+        loads = [i for i in c.ext_in if i in used and pl.cls[i] != "cross"]
+        reload = sorted(i for i in pl.carried if i in used
+                        and pl.phase[i] < p)
+        unroll = "#pragma unroll" if pl.carried else "#pragma unroll 1"
+        L += ["  %s" % unroll,
+              "  for (int k = 0; k < %d; ++k) {" % pl.rows_per_warp,
+              "    const int row = lo + warp + k * %d;" % pl.warps,
+              "    if (row < hi) {"]
+        pad = " " * 6
+        for i in loads:
+            self.load(i, pad)
+        for i in reload:
+            dt = _ctype(av[i].dtype)
+            if pl.cls[i] == "full":
+                L.append("%s%s v%d[%d];" % (pad, dt, i, pl.cpl))
+                L.append("%sfor (int j = 0; j < %d; ++j) v%d[j] = x%d[k][j];"
+                         % (pad, pl.cpl, i, i))
+            else:
+                L.append("%sconst %s v%d = x%d[k];" % (pad, dt, i, i))
+        for op in ops:
+            if op.outs[0] in pl.reduced:
+                self.contribute(op.outs[0], pad)
+            else:
+                self.row_op(op, pad)
+        L += ["    }", "  }"]
+        if reds:
+            self.exchange(reds, p == pl.n_phases - 1)
+
+    def exchange(self, reds, last):
+        """Warp partials -> CTA partials (in warp order) -> the cluster's
+        sum (in rank order, every CTA alike); a value no later phase reads
+        has its output slots split over the ranks.  Each step is one loop
+        over every reduction's slots, each reduction on warps of its own."""
+        c, pl, av = self.chain, self.plan, self.chain.avals
+        L, cs, nt = self.lines, pl.cluster, pl.threads
+        for v in reds:
+            _, _, cp = pl.reduced[v]
+            if cp > 1:
+                g = "if (lane + 32 * j < %d) " % pl.cols if pl.cols % 32 \
+                    else ""
+                L.append("  for (int j = 0; j < %d; ++j) %spw%d[warp * %d + "
+                         "lane + 32 * j] = a%d[j];" % (pl.cpl, g, v, cp, v))
+            else:
+                L.append("  if (lane == 0) pw%d[warp] = a%d[0];" % (v, v))
+        L.append("  __syncthreads();")
+
+        def combine(v):
+            op, kept, cp = pl.reduced[v]
+            dt = av[v].dtype
+            step = _step(op.prim, dt)
+            out = ["%s a = %s;" % (_ctype(dt), _REDUCE_INIT[op.prim](dt))]
+            if kept > 1:
+                out.append("const int c = s %% %d;" % cp)
+                out.append("for (int w = ((s / %d - lo) %% %d + %d) %% %d; "
+                           "w < %d; w += %d) a = %s;"
+                           % (cp, kept, kept, kept, pl.warps, kept,
+                              step("a", "pw%d[w * %d + c]" % (v, cp))))
+            else:
+                out.append("for (int w = 0; w < %d; ++w) a = %s;"
+                           % (pl.warps, step("a", "pw%d[w * %d + s]"
+                                             % (v, cp))))
+            out.append("pc%d[s] = a;" % v)
+            return out
+
+        self.segments([(v, pl.reduced[v][1] * pl.reduced[v][2], "i",
+                        combine(v)) for v in reds])
+        remote = cs > 1 and "exchange" not in self.cuts
+        L.append("  cluster.sync();" if remote else "  __syncthreads();")
+
+        def final(v):
+            op, _, _ = pl.reduced[v]
+            dt = av[v].dtype
+            step = _step(op.prim, dt)
+            if remote:
+                out = ["%s a = cluster.map_shared_rank(pc%d, 0)[s];"
+                       % (_ctype(dt), v), "#pragma unroll",
+                       "for (int q = 1; q < %d; ++q) a = %s;"
+                       % (cs, step("a", "cluster.map_shared_rank(pc%d, q)[s]"
+                                   % v))]
+            else:
+                out = ["const %s a = pc%d[s];" % (_ctype(dt), v)]
+            if v in pl.read_later:
+                out.append("rf%d[s] = a;" % v)
+            if v in c.ext_out:
+                guard = "if (s %% %d == rank) " % cs \
+                    if v in pl.read_later and cs > 1 else ""
+                out.append("%sout%d[s] = a;" % (guard, c.ext_out.index(v)))
+            return out
+
+        segs = []
+        for v in reds:
+            n = pl.reduced[v][1] * pl.reduced[v][2]
+            if v in pl.read_later:
+                segs.append((v, n, "i", final(v)))
+            else:      # this rank's slots: rank, rank + cs, ...
+                segs.append((v, -(-n // cs), "rank + %d * i" % cs,
+                             ["if (s >= %d) continue;" % n] + final(v)
+                             if n % cs else final(v)))
+        self.segments(segs)
+        if not last:
+            L.append("  __syncthreads();")
+
+    def segments(self, segs):
+        """One loop of the CTA's threads over the slots of several
+        reductions, each reduction's range 32-aligned (a warp works on one
+        reduction): ``segs`` holds (value, indices, the slot ``s`` of
+        index ``i``, the statements for slot ``s``)."""
+        L, nt = self.lines, self.plan.threads
+        total = sum(-(-n // 32) * 32 for _, n, _, _ in segs)
+        L.append("  for (int e = threadIdx.x; e < %d; e += %d) {"
+                 % (total, nt))
+        base = 0
+        for k, (v, n, slot, body) in enumerate(segs):
+            span = -(-n // 32) * 32
+            L.append("    %sif (e < %d) {" % ("} else " if k else "",
+                                             base + span))
+            L.append("      const int i = e - %d;" % base)
+            if span != n:
+                L.append("      if (i >= %d) continue;" % n)
+            L.append("      const int s = %s;" % slot)
+            L += ["      " + ln for ln in body]
+            base += span
+        L += ["    }", "  }"]
+
+    def cross_outputs(self, p):
+        """Cross-row outputs that are not reductions over rows, written
+        by the cluster's threads together once they can be computed."""
+        c, pl = self.chain, self.plan
+        for v in c.ext_out:
+            if pl.cls.get(v) != "cross" or v in pl.reduced \
+                    or pl.ex.get(v, 0) != p:
+                continue
+            n = max(1, _numel(c.avals[v].shape))
+            self.lines.append(
+                "  for (int e = rank * %d + threadIdx.x; e < %d; e += %d) "
+                "out%d[e] = %s;" % (pl.threads, n, pl.cluster * pl.threads,
+                                    c.ext_out.index(v), self.cross(v, "e")))
+
+
+def _emit_rows(chain, name, plan, cuts=()):
+    """The row plan's CUDA text: one kernel over a cluster of
+    ``plan.cluster`` CTAs, and its ``<symbol>_whole`` launcher."""
+    if set(cuts) - _ROW_CUTS:
+        raise ValueError("unknown cuts %s" % sorted(set(cuts) - _ROW_CUTS))
+    sym = symbol_of(name)
+    pl, av = plan, chain.avals
+    ins, outs = _params(chain)
+    b = _RowBody(chain, plan, cuts)
+    L = b.lines
+    L += ["// mxgen: %s chain of %d eqns (tape %s, rank %d) - %d B fused vs "
+          "%d B unfused." % (chain.kind, len(chain.ops), chain.tag,
+                             chain.rank, chain.fused_bytes,
+                             chain.unfused_bytes),
+          "// Emitted by mxnet_tpu_torch/analysis/codegen.py; the Hopper "
+          "counterpart of the",
+          "// Pallas body mxnet_tpu/analysis/codegen.py lower_chain emits "
+          "for generated_call.",
+          "// Plan: rows.  %d rows %r x %d columns over a cluster of %d "
+          "CTA(s): %d rows" % (pl.n_rows, pl.row_shape, pl.cols, pl.cluster,
+                               pl.rows_per_cta),
+          "// per CTA, %d warps of %d row(s) each, %d column(s) per lane; "
+          "%d levels, %d phase(s)," % (pl.warps, pl.rows_per_warp, pl.cpl,
+                                       pl.levels, pl.n_phases),
+          "// %d exchange(s) of reductions over rows, %d B of shared "
+          "memory, no workspace." % (pl.exchanges, pl.smem_bytes)]
+    if cuts:
+        L.append("// Ablation (wrong outputs by design): cut %s."
+                 % ", ".join(sorted(cuts)))
+    L += ["#include <cooperative_groups.h>", _PRELUDE.rstrip("\n"), ""]
+    L.append("__global__ void __launch_bounds__(%d) %s_k(%s)"
+             % (pl.threads, sym, ", ".join(ins + outs)))
+    L.append("{")
+    if pl.smem_bytes:
+        L.append("  extern __shared__ __align__(16) unsigned char smem[];")
+    for (tag, v), off in sorted(pl.offset.items(), key=lambda kv: kv[1]):
+        L.append("  %s* const %s%d = (%s*)(smem + %d);"
+                 % (_ctype(av[v].dtype), tag, v, _ctype(av[v].dtype), off))
+    L += ["  cooperative_groups::cluster_group cluster = "
+          "cooperative_groups::this_cluster();",
+          "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;",
+          "  const int rank = (int)cluster.block_rank();",
+          "  const int lo = rank * %d, hi = min(lo + %d, %d);"
+          % (pl.rows_per_cta, pl.rows_per_cta, pl.n_rows)]
+    L.append("  (void)lane; (void)hi;")
+    for i in sorted(pl.carried):
+        if pl.cls[i] == "full":
+            L.append("  %s x%d[%d][%d];" % (_ctype(av[i].dtype), i,
+                                            pl.rows_per_warp, pl.cpl))
+        else:
+            L.append("  %s x%d[%d];" % (_ctype(av[i].dtype), i,
+                                        pl.rows_per_warp))
+    for p in range(pl.n_phases):
+        b.cross_outputs(p)
+        b.phase(p)
+    if pl.exchanges and pl.cluster > 1 and "exchange" not in cuts:
+        L.append("  cluster.sync();   // no CTA leaves while another reads "
+                 "its shared memory")
+    L.append("}")
+    opt_in = pl.smem_bytes > _SMEM_BYTES
+    L += ["", "extern \"C\" int %s_whole(void* const* ins, void* const* "
+          "outs, void* ws_g, void* stream) {" % sym,
+          "  (void)ws_g;"]
+    if opt_in:
+        L += ["  static bool opted = false;",
+              "  if (!opted) {",
+              "    const cudaError_t e = cudaFuncSetAttribute(%s_k, "
+              "cudaFuncAttributeMaxDynamicSharedMemorySize, %d);"
+              % (sym, pl.smem_bytes),
+              "    if (e != cudaSuccess) return (int)e;",
+              "    opted = true;",
+              "  }"]
+    L += ["  cudaLaunchConfig_t cfg = {};",
+          "  cfg.gridDim = dim3(%d);" % pl.cluster,
+          "  cfg.blockDim = dim3(%d);" % pl.threads,
+          "  cfg.dynamicSmemBytes = %d;" % pl.smem_bytes,
+          "  cfg.stream = (cudaStream_t)stream;",
+          "  cudaLaunchAttribute attr[1];",
+          "  attr[0].id = cudaLaunchAttributeClusterDimension;",
+          "  attr[0].val.clusterDim.x = %d;" % pl.cluster,
+          "  attr[0].val.clusterDim.y = 1;",
+          "  attr[0].val.clusterDim.z = 1;",
+          "  cfg.attrs = attr;",
+          "  cfg.numAttrs = 1;",
+          "  const cudaError_t e = cudaLaunchKernelEx(&cfg, %s_k, %s);"
+          % (sym, ", ".join(_casts(chain))),
+          "  return (int)(e != cudaSuccess ? e : cudaGetLastError());", "}"]
+    return "\n".join(L) + "\n"
+
+
 def symbol_of(name):
     """The C symbol prefix of a generated kernel's launchers."""
     return "mxgen_" + name.strip("_")
@@ -782,7 +1465,9 @@ def _casts(chain):
     return ins + outs
 
 
-def _emit_cuda(chain, name, plan, tileable):
+def _emit_cuda(chain, name, plan, tileable, why=None):
+    """The group plan's CUDA text (``why``: what keeps the chain off the
+    row plan)."""
     sym = symbol_of(name)
     ins, outs = _params(chain)
     lines = ["// mxgen: %s chain of %d eqns (tape %s, rank %d) - %d B fused "
@@ -793,8 +1478,9 @@ def _emit_cuda(chain, name, plan, tileable):
              "Hopper counterpart of the",
              "// Pallas body mxnet_tpu/analysis/codegen.py lower_chain "
              "emits for generated_call.",
-             "// Bound by launch latency at these sizes: one block, %d "
-             "threads, %d groups," % (plan.threads, len(plan.groups)),
+             "// Plan: groups%s.  One block, %d threads, %d groups,"
+             % (" (%s)" % why if why else "", plan.threads,
+                len(plan.groups)),
              "// workspace %d B in %s memory."
              % (plan.ws_bytes, "shared" if plan.ws_shared else "global"),
              _PRELUDE.rstrip("\n"), ""]
@@ -864,7 +1550,7 @@ class LoweredKernel:
                  "scale", "unfused_bytes", "fused_bytes", "bytes_saved",
                  "bytes_read", "bytes_written", "flops", "transcendentals",
                  "findings", "chain", "symbol", "threads", "ws_bytes",
-                 "ws_shared", "tileable")
+                 "ws_shared", "tileable", "plan", "cluster", "layout")
 
     def as_plan(self):
         return {
@@ -880,16 +1566,28 @@ class LoweredKernel:
             "fused_bytes": int(self.fused_bytes),
             "bytes_saved": int(self.bytes_saved),
             "lowerable": self.src is not None,
+            "plan": self.plan,
+            "cluster": self.cluster,
             "findings": [f.rule_id for f in self.findings],
             "src": self.src,
         }
 
 
-def lower_chain(ir, name=None):
+def lower_chain(ir, name=None, plan=None, cluster=None, cuts=()):
     """Lower one chain of the IR (a :class:`Chain` or its JSON dict) into
     a :class:`LoweredKernel`.  The emitted text is deterministic in the
     chain: ops in tape order, externals in the IR's order, literals
-    inlined exactly; ``()`` externals ride as ``(1,)`` buffers."""
+    inlined exactly; ``()`` externals ride as ``(1,)`` buffers.
+
+    The plan is chosen here, from the chain's shapes alone, and recorded
+    (``plan``, ``cluster``, the header comment, :meth:`as_plan`): the row
+    plan (:class:`_RowPlan`) where the chain fits it, at the cluster size
+    :data:`ROW_CLUSTER` pins for its name (else the smallest that gives a
+    CTA at most 32 rows); the group plan (:class:`_Plan`) otherwise.
+    ``plan`` ("rows" / "groups") and ``cluster`` (the row plan at that
+    size) force a choice, raising where the chain does not fit it, and
+    ``cuts`` leaves parts of a row-plan kernel out (measurement only:
+    ``tools/codegen_ablate.py``)."""
     chain = Chain.from_json(ir)
     lk = LoweredKernel()
     lk.name = name or chain.name
@@ -909,6 +1607,7 @@ def lower_chain(ir, name=None):
     lk.findings = []
     lk.src, lk.threads, lk.ws_bytes, lk.ws_shared = None, 0, 0, True
     lk.tileable = False
+    lk.plan, lk.cluster, lk.layout = None, None, None
     for k, op in enumerate(chain.ops):
         if op.prim not in LOWERABLE:
             lk.findings.append(Finding(
@@ -930,10 +1629,24 @@ def lower_chain(ir, name=None):
                 "stays a hand-written-kernel candidate" % (k, op.prim)))
     if lk.findings:
         return lk
+    if plan not in (None, "rows", "groups"):
+        raise ValueError("plan %r: 'rows' or 'groups'" % (plan,))
     try:
-        plan = _Plan(chain)
-        lk.tileable = _tileable_ir(chain)
-        lk.src = _emit_cuda(chain, lk.name, plan, lk.tileable)
+        layout, why = None, None
+        if plan != "groups":
+            try:
+                layout = _RowPlan(chain, cluster or ROW_CLUSTER.get(lk.name))
+            except _NoFit as e:
+                if plan == "rows" or cluster is not None:
+                    raise ValueError("%s does not fit the row plan: %s"
+                                     % (lk.name, e))
+                why = "no row plan: %s" % (e,)
+        if layout is not None:
+            lk.src = _emit_rows(chain, lk.name, layout, cuts)
+        else:
+            layout = _Plan(chain)
+            lk.tileable = _tileable_ir(chain)
+            lk.src = _emit_cuda(chain, lk.name, layout, lk.tileable, why)
     except _Unsupported as e:
         lk.findings.append(Finding(
             "GEN001", lk.name,
@@ -941,8 +1654,10 @@ def lower_chain(ir, name=None):
             "hand-written-kernel candidate" % (e,)))
         lk.tileable = False
         return lk
-    lk.threads, lk.ws_bytes, lk.ws_shared = (plan.threads, plan.ws_bytes,
-                                             plan.ws_shared)
+    lk.threads, lk.ws_bytes, lk.ws_shared = (layout.threads,
+                                             layout.ws_bytes,
+                                             layout.ws_shared)
+    lk.plan, lk.cluster, lk.layout = layout.name, layout.cluster, layout
     return lk
 
 

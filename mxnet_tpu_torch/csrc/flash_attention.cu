@@ -38,14 +38,31 @@
 // on 3*T*D + T*D floats, ~170 flops per byte moved, far above the ~20
 // flops/byte where f32 CUDA cores stop waiting on HBM.  The design keeps
 // the work on CUDA-core FMAs (a simple first kernel: no tensor cores,
-// no TMA): G threads own one row (G = 1 up to D = 32, 2 at 64, 4 at 128),
-// holding their D/G slice of q (forward, dq) or k and v (dkv) and the
-// accumulators in registers; the other operand's tiles (32 rows) sit in
-// shared memory, where every lane of a warp reads the same row, a
-// broadcast.  A row's partial dot products meet through G-lane shuffles.
-// Causal blocks skip the K tiles (Q tiles for dkv) that lie wholly on the
-// masked side of the diagonal.  D is padded to 8, 16, 32, 64 or 128 with
-// zeros (exact: 0 * 0 adds nothing); D > 128 is refused.
+// no TMA): G threads own one row (G = 1 up to D = 32, 2 at 64, 4 at 128,
+// 8 above), each holding D/G of its columns (every G-th float4 of the
+// row, so that the G lanes read consecutive ones: no bank conflict) of
+// q (forward, dq) or k and v (dkv) and the accumulators in registers;
+// the other operand's tiles (32 rows, 16 above D = 128) sit in shared
+// memory, where the row groups of a warp read the same row, a
+// broadcast.  A row's partial dot products meet through G-lane
+// shuffles.  Causal blocks skip the K tiles (Q tiles for
+// dkv) that lie wholly on the masked side of the diagonal.  D is padded
+// to 8, 16, 32, 64, 128, 192 or 256 with zeros (exact: 0 * 0 adds
+// nothing).
+//
+// Any head dim above 256 runs the wide kernels: D in chunks of 256, the
+// registers holding one chunk of a row.  The scores (and dp) are summed
+// over the chunks; the output (dq, dk / dv) is made one chunk per pass
+// over the keys (queries), each pass recomputing the scores.  The
+// forward's first pass takes the running max and the sum of exponentials
+// alone; each later pass sums exp(s - m) v over one chunk and divides by
+// the same denominator, as the Pallas body does at the end.
+//
+// Sizes: every row offset is 64-bit ((bh * T + i) * D), and the blocks
+// walk a flat 64-bit index of (bh, tile) pairs, so no product of BH, T
+// and D is bounded by int.  mxtt_flash_simt_shape reports the padded
+// width, lanes per row, tile rows and chunks chosen for a head dim
+// (ops/pallas_kernels.py simt_launch_shape is the same table).
 //
 // expf / logf stay IEEE: no --use_fast_math.  Built by
 // mxnet_tpu_torch/ops/build.py with
@@ -60,8 +77,8 @@ namespace {
 constexpr float kNegInf = -1e30f;      // _NEG_INF of the Pallas kernels
 constexpr float kHalfNegInf = -5e29f;  // _NEG_INF / 2
 constexpr int kThreads = 128;
-constexpr int kTile = 32;              // rows per shared-memory tile
-constexpr int kMaxD = 128;
+constexpr int kWide = 256;             // the chunk of D above 256
+constexpr int kMaxGrid = 1 << 20;      // blocks launched; each walks more
 
 // sum over the G lanes that own one row (G divides 32, groups aligned)
 template <int G>
@@ -72,27 +89,33 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// rows row0 .. row0 + kTile - 1 of a (rows, D) matrix into dst[kTile][DP],
-// zeros past the matrix's last row and past column D
-template <int DP>
+// rows row0 .. row0 + TR - 1, columns d0 .. d0 + DP - 1 of a (rows, D)
+// matrix into dst[TR][DP], zeros past the matrix's last row and column
+template <int DP, int TR>
 __device__ __forceinline__ void load_tile(float (*dst)[DP],
                                           const float* __restrict__ src,
-                                          int row0, int rows, int D) {
-  for (int e = threadIdx.x; e < kTile * DP; e += kThreads) {
+                                          int row0, int rows, int D,
+                                          int d0 = 0) {
+  for (int e = threadIdx.x; e < TR * DP; e += kThreads) {
     const int r = e / DP, c = e % DP;
     const int row = row0 + r;
-    dst[r][c] = (row < rows && c < D) ? src[(long)row * D + c] : 0.f;
+    dst[r][c] = (row < rows && d0 + c < D)
+                    ? src[(long long)row * D + d0 + c] : 0.f;
   }
 }
 
-template <int DG>
+// A row's D columns are float4 units; lane `sub` of the row's G lanes holds
+// units sub, sub + G, sub + 2G, ... (DG / 4 of them), so the G lanes of a
+// row read consecutive units of a shared-memory row: no bank conflict.
+template <int DG, int G>
 __device__ __forceinline__ float dot_slice(const float* a,
-                                           const float* __restrict__ b) {
+                                           const float* __restrict__ b,
+                                           int sub) {
   const float4* b4 = reinterpret_cast<const float4*>(b);
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < DG / 4; ++i) {
-    const float4 x = b4[i];
+    const float4 x = b4[i * G + sub];
     s = fmaf(a[4 * i], x.x, s);
     s = fmaf(a[4 * i + 1], x.y, s);
     s = fmaf(a[4 * i + 2], x.z, s);
@@ -101,13 +124,14 @@ __device__ __forceinline__ float dot_slice(const float* a,
   return s;
 }
 
-template <int DG>
+template <int DG, int G>
 __device__ __forceinline__ void axpy_slice(float* acc, float p,
-                                           const float* __restrict__ b) {
+                                           const float* __restrict__ b,
+                                           int sub) {
   const float4* b4 = reinterpret_cast<const float4*>(b);
 #pragma unroll
   for (int i = 0; i < DG / 4; ++i) {
-    const float4 x = b4[i];
+    const float4 x = b4[i * G + sub];
     acc[4 * i] = fmaf(p, x.x, acc[4 * i]);
     acc[4 * i + 1] = fmaf(p, x.y, acc[4 * i + 1]);
     acc[4 * i + 2] = fmaf(p, x.z, acc[4 * i + 2]);
@@ -115,257 +139,564 @@ __device__ __forceinline__ void axpy_slice(float* acc, float p,
   }
 }
 
-template <int DG>
+// register d of lane sub holds column ((d / 4) G + sub) 4 + d % 4
+template <int G>
+__device__ __forceinline__ int col_of(int d, int sub) {
+  return ((d / 4) * G + sub) * 4 + d % 4;
+}
+
+template <int DG, int G>
 __device__ __forceinline__ void load_row(float* dst,
                                          const float* __restrict__ row,
-                                         bool valid, int c0, int D) {
+                                         bool valid, int sub, int D) {
 #pragma unroll
-  for (int d = 0; d < DG; ++d)
-    dst[d] = (valid && c0 + d < D) ? row[c0 + d] : 0.f;
+  for (int d = 0; d < DG; ++d) {
+    const int c = col_of<G>(d, sub);
+    dst[d] = (valid && c < D) ? row[c] : 0.f;
+  }
+}
+
+template <int DG, int G>
+__device__ __forceinline__ void store_row(float* __restrict__ row,
+                                          const float* acc, float mul,
+                                          bool divide, int sub, int D) {
+#pragma unroll
+  for (int d = 0; d < DG; ++d) {
+    const int c = col_of<G>(d, sub);
+    if (c < D) row[c] = divide ? acc[d] / mul : acc[d] * mul;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // forward: one block per (bh, q-tile of kThreads / G rows)
 // ---------------------------------------------------------------------------
-template <int DP, int G>
+template <int DP, int G, int TR>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Tq, int Tk, int D, float scale,
-                 int causal) {
+                 int causal, long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
   constexpr int BQ = kThreads / G;
-  __shared__ __align__(16) float ks[kTile][DP];
-  __shared__ __align__(16) float vs[kTile][DP];
-  const long bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  __shared__ __align__(16) float ks[TR][DP];
+  __shared__ __align__(16) float vs[TR][DP];
   const int sub = threadIdx.x % G;
-  const int c0 = sub * DG;
-  const int qi = q0 + threadIdx.x / G;
-  const bool qvalid = qi < Tq;
-  float qr[DG], acc[DG];
-  load_row<DG>(qr, q + (bh * Tq + qi) * D, qvalid, c0, D);
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int q0 = static_cast<int>(b / n_bh) * BQ;
+    const int qi = q0 + threadIdx.x / G;
+    const bool qvalid = qi < Tq;
+    float qr[DG], acc[DG];
+    load_row<DG, G>(qr, q + (bh * Tq + qi) * D, qvalid, sub, D);
 #pragma unroll
-  for (int d = 0; d < DG; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-  const float* kb = k + bh * Tk * D;
-  const float* vb = v + bh * Tk * D;
-  // causal: keys past the block's last row are masked for every row
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<DP>(ks, kb, k0, Tk, D);
-    load_tile<DP>(vs, vb, k0, Tk, D);
-    __syncthreads();
-    float s[kTile];
-    float mt = kNegInf;
+    for (int d = 0; d < DG; ++d) acc[d] = 0.f;
+    float m = kNegInf, l = 0.f;
+    const float* kb = k + bh * Tk * D;
+    const float* vb = v + bh * Tk * D;
+    // causal: keys past the block's last row are masked for every row
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+    for (int k0 = 0; k0 < k_end; k0 += TR) {
+      __syncthreads();
+      load_tile<DP, TR>(ks, kb, k0, Tk, D);
+      load_tile<DP, TR>(vs, vb, k0, Tk, D);
+      __syncthreads();
+      float s[TR];
+      float mt = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float dot = group_sum<G>(dot_slice<DG>(qr, &ks[j][c0])) * scale;
-      const int kj = k0 + j;
-      const bool valid = kj < Tk && (!causal || qi >= kj);
-      s[j] = valid ? dot : kNegInf;
-      mt = fmaxf(mt, s[j]);
+      for (int j = 0; j < TR; ++j) {
+        const float dot =
+            group_sum<G>(dot_slice<DG, G>(qr, ks[j], sub)) * scale;
+        const int kj = k0 + j;
+        const bool valid = kj < Tk && (!causal || qi >= kj);
+        s[j] = valid ? dot : kNegInf;
+        mt = fmaxf(mt, s[j]);
+      }
+      const float m_new = fmaxf(m, mt);
+      const float m_safe = m_new <= kHalfNegInf ? 0.f : m_new;
+      const float corr = m <= kHalfNegInf ? 0.f : expf(m - m_safe);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        s[j] = s[j] <= kHalfNegInf ? 0.f : expf(s[j] - m_safe);
+        psum += s[j];
+      }
+      l = l * corr + psum;
+#pragma unroll
+      for (int d = 0; d < DG; ++d) acc[d] *= corr;
+#pragma unroll
+      for (int j = 0; j < TR; ++j) axpy_slice<DG, G>(acc, s[j], vs[j], sub);
+      m = m_new;
     }
-    const float m_new = fmaxf(m, mt);
-    const float m_safe = m_new <= kHalfNegInf ? 0.f : m_new;
-    const float corr = m <= kHalfNegInf ? 0.f : expf(m - m_safe);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      s[j] = s[j] <= kHalfNegInf ? 0.f : expf(s[j] - m_safe);
-      psum += s[j];
+    if (qvalid) {
+      const float denom = fmaxf(l, 1e-30f);
+      store_row<DG, G>(o + (bh * Tq + qi) * D, acc, denom, true, sub, D);
+      if (sub == 0) lse[bh * Tq + qi] = m + logf(denom);
     }
-    l = l * corr + psum;
-#pragma unroll
-    for (int d = 0; d < DG; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) axpy_slice<DG>(acc, s[j], &vs[j][c0]);
-    m = m_new;
   }
-  if (!qvalid) return;
-  const float denom = fmaxf(l, 1e-30f);
-  float* orow = o + (bh * Tq + qi) * D;
-#pragma unroll
-  for (int d = 0; d < DG; ++d)
-    if (c0 + d < D) orow[c0 + d] = acc[d] / denom;
-  if (sub == 0) lse[bh * Tq + qi] = m + logf(denom);
 }
 
 // ---------------------------------------------------------------------------
 // dq: one block per (bh, q-tile), a loop over K tiles
 // ---------------------------------------------------------------------------
-template <int DP, int G>
+template <int DP, int G, int TR>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq,
-                int Tq, int Tk, int D, float scale, int causal) {
+                int Tq, int Tk, int D, float scale, int causal,
+                long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
   constexpr int BQ = kThreads / G;
-  __shared__ __align__(16) float ks[kTile][DP];
-  __shared__ __align__(16) float vs[kTile][DP];
-  const long bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  __shared__ __align__(16) float ks[TR][DP];
+  __shared__ __align__(16) float vs[TR][DP];
   const int sub = threadIdx.x % G;
-  const int c0 = sub * DG;
-  const int qi = q0 + threadIdx.x / G;
-  const bool qvalid = qi < Tq;
-  float qr[DG], dor[DG], acc[DG];
-  load_row<DG>(qr, q + (bh * Tq + qi) * D, qvalid, c0, D);
-  load_row<DG>(dor, dout + (bh * Tq + qi) * D, qvalid, c0, D);
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int q0 = static_cast<int>(b / n_bh) * BQ;
+    const int qi = q0 + threadIdx.x / G;
+    const bool qvalid = qi < Tq;
+    float qr[DG], dor[DG], acc[DG];
+    load_row<DG, G>(qr, q + (bh * Tq + qi) * D, qvalid, sub, D);
+    load_row<DG, G>(dor, dout + (bh * Tq + qi) * D, qvalid, sub, D);
 #pragma unroll
-  for (int d = 0; d < DG; ++d) acc[d] = 0.f;
-  const float lse_i = qvalid ? lse[bh * Tq + qi] : 0.f;
-  const float delta_i = qvalid ? delta[bh * Tq + qi] : 0.f;
-  const float* kb = k + bh * Tk * D;
-  const float* vb = v + bh * Tk * D;
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<DP>(ks, kb, k0, Tk, D);
-    load_tile<DP>(vs, vb, k0, Tk, D);
-    __syncthreads();
+    for (int d = 0; d < DG; ++d) acc[d] = 0.f;
+    const float lse_i = qvalid ? lse[bh * Tq + qi] : 0.f;
+    const float delta_i = qvalid ? delta[bh * Tq + qi] : 0.f;
+    const float* kb = k + bh * Tk * D;
+    const float* vb = v + bh * Tk * D;
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+    for (int k0 = 0; k0 < k_end; k0 += TR) {
+      __syncthreads();
+      load_tile<DP, TR>(ks, kb, k0, Tk, D);
+      load_tile<DP, TR>(vs, vb, k0, Tk, D);
+      __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      const float s = group_sum<G>(dot_slice<DG>(qr, &ks[j][c0])) * scale;
-      const float dp = group_sum<G>(dot_slice<DG>(dor, &vs[j][c0]));
-      const int kj = k0 + j;
-      const bool valid = qvalid && kj < Tk && (!causal || qi >= kj);
-      const float p = valid ? expf(s - lse_i) : 0.f;
-      const float ds = valid ? p * (dp - delta_i) : 0.f;
-      axpy_slice<DG>(acc, ds, &ks[j][c0]);
+      for (int j = 0; j < TR; ++j) {
+        const float s =
+            group_sum<G>(dot_slice<DG, G>(qr, ks[j], sub)) * scale;
+        const float dp = group_sum<G>(dot_slice<DG, G>(dor, vs[j], sub));
+        const int kj = k0 + j;
+        const bool valid = qvalid && kj < Tk && (!causal || qi >= kj);
+        const float p = valid ? expf(s - lse_i) : 0.f;
+        const float ds = valid ? p * (dp - delta_i) : 0.f;
+        axpy_slice<DG, G>(acc, ds, ks[j], sub);
+      }
     }
+    if (qvalid)
+      store_row<DG, G>(dq + (bh * Tq + qi) * D, acc, scale, false, sub, D);
   }
-  if (!qvalid) return;
-  float* row = dq + (bh * Tq + qi) * D;
-#pragma unroll
-  for (int d = 0; d < DG; ++d)
-    if (c0 + d < D) row[c0 + d] = acc[d] * scale;
 }
 
 // ---------------------------------------------------------------------------
 // dk, dv: one block per (bh, k-tile), a loop over Q tiles (k-major)
 // ---------------------------------------------------------------------------
-template <int DP, int G>
+template <int DP, int G, int TR>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dk,
                  float* __restrict__ dv, int Tq, int Tk, int D, float scale,
-                 int causal) {
+                 int causal, long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
   constexpr int BK = kThreads / G;
-  __shared__ __align__(16) float qs[kTile][DP];
-  __shared__ __align__(16) float dos[kTile][DP];
-  __shared__ float lses[kTile];
-  __shared__ float dels[kTile];
-  const long bh = blockIdx.x;
-  const int k0 = blockIdx.y * BK;
+  __shared__ __align__(16) float qs[TR][DP];
+  __shared__ __align__(16) float dos[TR][DP];
+  __shared__ float lses[TR];
+  __shared__ float dels[TR];
   const int sub = threadIdx.x % G;
-  const int c0 = sub * DG;
-  const int kj = k0 + threadIdx.x / G;
-  const bool kvalid = kj < Tk;
-  float kr[DG], vr[DG], dka[DG], dva[DG];
-  load_row<DG>(kr, k + (bh * Tk + kj) * D, kvalid, c0, D);
-  load_row<DG>(vr, v + (bh * Tk + kj) * D, kvalid, c0, D);
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int k0 = static_cast<int>(b / n_bh) * BK;
+    const int kj = k0 + threadIdx.x / G;
+    const bool kvalid = kj < Tk;
+    float kr[DG], vr[DG], dka[DG], dva[DG];
+    load_row<DG, G>(kr, k + (bh * Tk + kj) * D, kvalid, sub, D);
+    load_row<DG, G>(vr, v + (bh * Tk + kj) * D, kvalid, sub, D);
 #pragma unroll
-  for (int d = 0; d < DG; ++d) dka[d] = dva[d] = 0.f;
-  const float* qb = q + bh * Tq * D;
-  const float* db = dout + bh * Tq * D;
-  // causal: queries before the block's first key see none of its keys
-  const int q_begin = causal ? min(k0, Tq) : 0;
-  for (int qt = q_begin; qt < Tq; qt += kTile) {
-    __syncthreads();
-    load_tile<DP>(qs, qb, qt, Tq, D);
-    load_tile<DP>(dos, db, qt, Tq, D);
-    if (threadIdx.x < kTile) {
-      const int row = qt + threadIdx.x;
-      lses[threadIdx.x] = row < Tq ? lse[bh * Tq + row] : 0.f;
-      dels[threadIdx.x] = row < Tq ? delta[bh * Tq + row] : 0.f;
-    }
-    __syncthreads();
+    for (int d = 0; d < DG; ++d) dka[d] = dva[d] = 0.f;
+    const float* qb = q + bh * Tq * D;
+    const float* db = dout + bh * Tq * D;
+    // causal: queries before the block's first key see none of its keys
+    const int q_begin = causal ? min(k0, Tq) : 0;
+    for (int qt = q_begin; qt < Tq; qt += TR) {
+      __syncthreads();
+      load_tile<DP, TR>(qs, qb, qt, Tq, D);
+      load_tile<DP, TR>(dos, db, qt, Tq, D);
+      if (threadIdx.x < TR) {
+        const int row = qt + threadIdx.x;
+        lses[threadIdx.x] = row < Tq ? lse[bh * Tq + row] : 0.f;
+        dels[threadIdx.x] = row < Tq ? delta[bh * Tq + row] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < kTile; ++i) {
-      const float s = group_sum<G>(dot_slice<DG>(kr, &qs[i][c0])) * scale;
-      const float dp = group_sum<G>(dot_slice<DG>(vr, &dos[i][c0]));
-      const int qi = qt + i;
-      const bool valid = kvalid && qi < Tq && (!causal || qi >= kj);
-      const float p = valid ? expf(s - lses[i]) : 0.f;
-      const float ds = valid ? p * (dp - dels[i]) : 0.f;
-      axpy_slice<DG>(dva, p, &dos[i][c0]);
-      axpy_slice<DG>(dka, ds, &qs[i][c0]);
+      for (int i = 0; i < TR; ++i) {
+        const float s =
+            group_sum<G>(dot_slice<DG, G>(kr, qs[i], sub)) * scale;
+        const float dp = group_sum<G>(dot_slice<DG, G>(vr, dos[i], sub));
+        const int qi = qt + i;
+        const bool valid = kvalid && qi < Tq && (!causal || qi >= kj);
+        const float p = valid ? expf(s - lses[i]) : 0.f;
+        const float ds = valid ? p * (dp - dels[i]) : 0.f;
+        axpy_slice<DG, G>(dva, p, dos[i], sub);
+        axpy_slice<DG, G>(dka, ds, qs[i], sub);
+      }
+    }
+    if (kvalid) {
+      store_row<DG, G>(dk + (bh * Tk + kj) * D, dka, scale, false, sub, D);
+      store_row<DG, G>(dv + (bh * Tk + kj) * D, dva, 1.f, false, sub, D);
     }
   }
-  if (!kvalid) return;
-  float* dkrow = dk + (bh * Tk + kj) * D;
-  float* dvrow = dv + (bh * Tk + kj) * D;
+}
+
+// ---------------------------------------------------------------------------
+// the wide kernels (D > 256): D in chunks of DC, one chunk of a row in
+// registers; scores summed over the chunks, outputs one chunk per pass
+// ---------------------------------------------------------------------------
+
+// s[j] (+)= the chunks' q.k (or dO.v) of row x against rows r0 .. r0 +
+// TR - 1 of y, chunk by chunk through tile; x's chunk is reloaded per
+// chunk.  Syncs inside: every thread of the block calls it.
+template <int DC, int G, int TR>
+__device__ __forceinline__ void chunk_dots(float* s, float (*tile)[DC],
+                                           const float* __restrict__ x,
+                                           bool xvalid,
+                                           const float* __restrict__ y,
+                                           int r0, int rows, int D, int sub) {
+  constexpr int DG = DC / G;
 #pragma unroll
-  for (int d = 0; d < DG; ++d) {
-    if (c0 + d < D) {
-      dkrow[c0 + d] = dka[d] * scale;
-      dvrow[c0 + d] = dva[d];
+  for (int j = 0; j < TR; ++j) s[j] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    float xr[DG];
+    load_row<DG, G>(xr, x + d0, xvalid, sub, D - d0);
+    __syncthreads();
+    load_tile<DC, TR>(tile, y, r0, rows, D, d0);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TR; ++j)
+      s[j] += group_sum<G>(dot_slice<DG, G>(xr, tile[j], sub));
+  }
+}
+
+template <int DC, int G, int TR>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int Tk, int D,
+                      float scale, int causal, long long n_bh,
+                      long long n_blocks) {
+  constexpr int DG = DC / G;
+  constexpr int BQ = kThreads / G;
+  __shared__ __align__(16) float ts[TR][DC];
+  const int sub = threadIdx.x % G;
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int q0 = static_cast<int>(b / n_bh) * BQ;
+    const int qi = q0 + threadIdx.x / G;
+    const bool qvalid = qi < Tq;
+    const float* qrow = q + (bh * Tq + qi) * D;
+    const float* kb = k + bh * Tk * D;
+    const float* vb = v + bh * Tk * D;
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+    // pass 0: the running max and the sum of exponentials
+    float m = kNegInf, l = 0.f;
+    for (int k0 = 0; k0 < k_end; k0 += TR) {
+      float s[TR];
+      chunk_dots<DC, G, TR>(s, ts, qrow, qvalid, kb, k0, Tk, D, sub);
+      float mt = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        const int kj = k0 + j;
+        const bool valid = kj < Tk && (!causal || qi >= kj);
+        s[j] = valid ? s[j] * scale : kNegInf;
+        mt = fmaxf(mt, s[j]);
+      }
+      const float m_new = fmaxf(m, mt);
+      const float m_safe = m_new <= kHalfNegInf ? 0.f : m_new;
+      const float corr = m <= kHalfNegInf ? 0.f : expf(m - m_safe);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TR; ++j)
+        psum += s[j] <= kHalfNegInf ? 0.f : expf(s[j] - m_safe);
+      l = l * corr + psum;
+      m = m_new;
+    }
+    const float m_safe = m <= kHalfNegInf ? 0.f : m;
+    const float denom = fmaxf(l, 1e-30f);
+    // one pass per chunk of the output
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      float acc[DG];
+#pragma unroll
+      for (int d = 0; d < DG; ++d) acc[d] = 0.f;
+      for (int k0 = 0; k0 < k_end; k0 += TR) {
+        float s[TR];
+        chunk_dots<DC, G, TR>(s, ts, qrow, qvalid, kb, k0, Tk, D, sub);
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          const int kj = k0 + j;
+          const bool valid = kj < Tk && (!causal || qi >= kj);
+          const float sj = valid ? s[j] * scale : kNegInf;
+          s[j] = sj <= kHalfNegInf ? 0.f : expf(sj - m_safe);
+        }
+        __syncthreads();
+        load_tile<DC, TR>(ts, vb, k0, Tk, D, d0);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < TR; ++j) axpy_slice<DG, G>(acc, s[j], ts[j], sub);
+      }
+      if (qvalid)
+        store_row<DG, G>(o + (bh * Tq + qi) * D + d0, acc, denom, true, sub,
+                      D - d0);
+    }
+    if (qvalid && sub == 0) lse[bh * Tq + qi] = m + logf(denom);
+  }
+}
+
+template <int DC, int G, int TR>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int Tq, int Tk, int D, float scale, int causal,
+                     long long n_bh, long long n_blocks) {
+  constexpr int DG = DC / G;
+  constexpr int BQ = kThreads / G;
+  __shared__ __align__(16) float ts[TR][DC];
+  const int sub = threadIdx.x % G;
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int q0 = static_cast<int>(b / n_bh) * BQ;
+    const int qi = q0 + threadIdx.x / G;
+    const bool qvalid = qi < Tq;
+    const float* qrow = q + (bh * Tq + qi) * D;
+    const float* dorow = dout + (bh * Tq + qi) * D;
+    const float lse_i = qvalid ? lse[bh * Tq + qi] : 0.f;
+    const float delta_i = qvalid ? delta[bh * Tq + qi] : 0.f;
+    const float* kb = k + bh * Tk * D;
+    const float* vb = v + bh * Tk * D;
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      float acc[DG];
+#pragma unroll
+      for (int d = 0; d < DG; ++d) acc[d] = 0.f;
+      for (int k0 = 0; k0 < k_end; k0 += TR) {
+        float s[TR], dp[TR];
+        chunk_dots<DC, G, TR>(s, ts, qrow, qvalid, kb, k0, Tk, D, sub);
+        chunk_dots<DC, G, TR>(dp, ts, dorow, qvalid, vb, k0, Tk, D, sub);
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          const int kj = k0 + j;
+          const bool valid = qvalid && kj < Tk && (!causal || qi >= kj);
+          const float p = valid ? expf(s[j] * scale - lse_i) : 0.f;
+          s[j] = valid ? p * (dp[j] - delta_i) : 0.f;
+        }
+        __syncthreads();
+        load_tile<DC, TR>(ts, kb, k0, Tk, D, d0);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < TR; ++j) axpy_slice<DG, G>(acc, s[j], ts[j], sub);
+      }
+      if (qvalid)
+        store_row<DG, G>(dq + (bh * Tq + qi) * D + d0, acc, scale, false, sub,
+                      D - d0);
     }
   }
 }
 
-// the padded width DP and the lanes per row G for a head dim D
-template <template <int, int> class Launch, typename... Args>
-int dispatch(int D, Args... args) {
-  if (D <= 8) return Launch<8, 1>::run(args...);
-  if (D <= 16) return Launch<16, 1>::run(args...);
-  if (D <= 32) return Launch<32, 1>::run(args...);
-  if (D <= 64) return Launch<64, 2>::run(args...);
-  return Launch<128, 4>::run(args...);
+template <int DC, int G, int TR>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int Tq,
+                      int Tk, int D, float scale, int causal,
+                      long long n_bh, long long n_blocks) {
+  constexpr int DG = DC / G;
+  constexpr int BK = kThreads / G;
+  __shared__ __align__(16) float ts[TR][DC];
+  __shared__ float lses[TR];
+  __shared__ float dels[TR];
+  const int sub = threadIdx.x % G;
+  for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    const long long bh = b % n_bh;
+    const int k0 = static_cast<int>(b / n_bh) * BK;
+    const int kj = k0 + threadIdx.x / G;
+    const bool kvalid = kj < Tk;
+    const float* krow = k + (bh * Tk + kj) * D;
+    const float* vrow = v + (bh * Tk + kj) * D;
+    const float* qb = q + bh * Tq * D;
+    const float* db = dout + bh * Tq * D;
+    const int q_begin = causal ? min(k0, Tq) : 0;
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      float dka[DG], dva[DG];
+#pragma unroll
+      for (int d = 0; d < DG; ++d) dka[d] = dva[d] = 0.f;
+      for (int qt = q_begin; qt < Tq; qt += TR) {
+        float s[TR], dp[TR];
+        __syncthreads();
+        if (threadIdx.x < TR) {
+          const int row = qt + threadIdx.x;
+          lses[threadIdx.x] = row < Tq ? lse[bh * Tq + row] : 0.f;
+          dels[threadIdx.x] = row < Tq ? delta[bh * Tq + row] : 0.f;
+        }
+        chunk_dots<DC, G, TR>(s, ts, krow, kvalid, qb, qt, Tq, D, sub);
+        chunk_dots<DC, G, TR>(dp, ts, vrow, kvalid, db, qt, Tq, D, sub);
+        float p[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int qi = qt + i;
+          const bool valid = kvalid && qi < Tq && (!causal || qi >= kj);
+          p[i] = valid ? expf(s[i] * scale - lses[i]) : 0.f;
+          s[i] = valid ? p[i] * (dp[i] - dels[i]) : 0.f;
+        }
+        __syncthreads();
+        load_tile<DC, TR>(ts, db, qt, Tq, D, d0);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < TR; ++i) axpy_slice<DG, G>(dva, p[i], ts[i], sub);
+        __syncthreads();
+        load_tile<DC, TR>(ts, qb, qt, Tq, D, d0);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < TR; ++i) axpy_slice<DG, G>(dka, s[i], ts[i], sub);
+      }
+      if (kvalid) {
+        store_row<DG, G>(dk + (bh * Tk + kj) * D + d0, dka, scale, false, sub,
+                      D - d0);
+        store_row<DG, G>(dv + (bh * Tk + kj) * D + d0, dva, 1.f, false, sub,
+                      D - d0);
+      }
+    }
+  }
 }
 
-template <int DP, int G>
+// the launch shape of a head dim D: {padded width (the chunk above 256),
+// lanes per row G, tile rows, chunks}
+struct Shape {
+  int dp, g, tr, chunks;
+};
+
+Shape shape_of(int D) {
+  if (D <= 8) return {8, 1, 32, 1};
+  if (D <= 16) return {16, 1, 32, 1};
+  if (D <= 32) return {32, 1, 32, 1};
+  if (D <= 64) return {64, 2, 32, 1};
+  if (D <= 128) return {128, 4, 32, 1};
+  if (D <= 192) return {192, 8, 16, 1};
+  if (D <= 256) return {256, 8, 16, 1};
+  return {kWide, 8, 16, (D + kWide - 1) / kWide};
+}
+
+// the padded width DP, lanes per row G and tile rows TR for a head dim D;
+// Launch<..., true> is the wide kernels' (D > 256)
+template <template <int, int, int, bool> class Launch, typename... Args>
+int dispatch(int D, Args... args) {
+  if (D <= 8) return Launch<8, 1, 32, false>::run(args...);
+  if (D <= 16) return Launch<16, 1, 32, false>::run(args...);
+  if (D <= 32) return Launch<32, 1, 32, false>::run(args...);
+  if (D <= 64) return Launch<64, 2, 32, false>::run(args...);
+  if (D <= 128) return Launch<128, 4, 32, false>::run(args...);
+  if (D <= 192) return Launch<192, 8, 16, false>::run(args...);
+  if (D <= 256) return Launch<256, 8, 16, false>::run(args...);
+  return Launch<kWide, 8, 16, true>::run(args...);
+}
+
+// (heads, blocks in all, blocks launched) for T rows of bh heads; block b
+// is head b % bh of tile b / bh (the order of a (bh, tiles) grid)
+struct Grid {
+  long long bh, blocks;
+  unsigned launched;
+};
+
+Grid grid_of(long long bh, long long t, int rows_per_block) {
+  Grid g;
+  g.bh = bh;
+  g.blocks = (t + rows_per_block - 1) / rows_per_block * bh;
+  g.launched = static_cast<unsigned>(g.blocks < kMaxGrid ? g.blocks
+                                                         : kMaxGrid);
+  return g;
+}
+
+template <int DP, int G, int TR, bool WIDE>
 struct Fwd {
   static int run(const float* q, const float* k, const float* v, float* o,
                  float* lse, int bh, int tq, int tk, int d, float scale,
                  int causal, cudaStream_t st) {
-    const dim3 grid(bh, (tq + kThreads / G - 1) / (kThreads / G));
-    flash_fwd_kernel<DP, G><<<grid, kThreads, 0, st>>>(q, k, v, o, lse, tq,
-                                                       tk, d, scale, causal);
+    const Grid g = grid_of(bh, tq, kThreads / G);
+    if constexpr (WIDE)
+      flash_fwd_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, o, lse, tq, tk, d, scale, causal, g.bh, g.blocks);
+    else
+      flash_fwd_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, o, lse, tq, tk, d, scale, causal, g.bh, g.blocks);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int DP, int G>
+template <int DP, int G, int TR, bool WIDE>
 struct Dq {
   static int run(const float* q, const float* k, const float* v,
                  const float* dout, const float* lse, const float* delta,
                  float* dq, int bh, int tq, int tk, int d, float scale,
                  int causal, cudaStream_t st) {
-    const dim3 grid(bh, (tq + kThreads / G - 1) / (kThreads / G));
-    flash_dq_kernel<DP, G><<<grid, kThreads, 0, st>>>(
-        q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal);
+    const Grid g = grid_of(bh, tq, kThreads / G);
+    if constexpr (WIDE)
+      flash_dq_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal, g.bh,
+          g.blocks);
+    else
+      flash_dq_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal, g.bh,
+          g.blocks);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int DP, int G>
+template <int DP, int G, int TR, bool WIDE>
 struct Dkv {
   static int run(const float* q, const float* k, const float* v,
                  const float* dout, const float* lse, const float* delta,
                  float* dk, float* dv, int bh, int tq, int tk, int d,
                  float scale, int causal, cudaStream_t st) {
-    const dim3 grid(bh, (tk + kThreads / G - 1) / (kThreads / G));
-    flash_dkv_kernel<DP, G><<<grid, kThreads, 0, st>>>(
-        q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal);
+    const Grid g = grid_of(bh, tk, kThreads / G);
+    if constexpr (WIDE)
+      flash_dkv_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal,
+          g.bh, g.blocks);
+    else
+      flash_dkv_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+          q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal,
+          g.bh, g.blocks);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 }  // namespace
 
+// out[4] = {padded width (the chunk above 256), lanes per row, tile rows,
+// chunks} of head dim d; returns cudaErrorInvalidValue for d < 1.
+extern "C" int mxtt_flash_simt_shape(int d, int* out) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = shape_of(d);
+  out[0] = s.dp;
+  out[1] = s.g;
+  out[2] = s.tr;
+  out[3] = s.chunks;
+  return 0;
+}
+
 // q, o: (bh, tq, d); k, v: (bh, tk, d); lse: (bh, tq); contiguous f32.
 extern "C" int mxtt_flash_fwd(const float* q, const float* k, const float* v,
                               float* o, float* lse, int bh, int tq, int tk,
                               int d, float scale, int causal, void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || tq <= 0) return 0;
   return dispatch<Fwd>(d, q, k, v, o, lse, bh, tq, tk, d, scale, causal,
                        static_cast<cudaStream_t>(stream));
@@ -377,7 +708,7 @@ extern "C" int mxtt_flash_dq(const float* q, const float* k, const float* v,
                              const float* delta, float* dq, int bh, int tq,
                              int tk, int d, float scale, int causal,
                              void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || tq <= 0) return 0;
   return dispatch<Dq>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
                       scale, causal, static_cast<cudaStream_t>(stream));
@@ -389,7 +720,7 @@ extern "C" int mxtt_flash_dkv(const float* q, const float* k, const float* v,
                               const float* delta, float* dk, float* dv,
                               int bh, int tq, int tk, int d, float scale,
                               int causal, void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || tk <= 0) return 0;
   return dispatch<Dkv>(d, q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
                        scale, causal, static_cast<cudaStream_t>(stream));

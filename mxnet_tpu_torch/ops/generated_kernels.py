@@ -9,8 +9,10 @@ records the :class:`GeneratedKernel` and auto-declares its
 
 Execution mirrors the reference's two paths:
 
-- :func:`generated_call` — whole arrays, one thread block (the Pallas
-  call's one grid step); ``()`` externals ride as ``(1,)`` buffers;
+- :func:`generated_call` — whole arrays, one launch (the Pallas call's
+  one grid step): a thread-block cluster on the row plan, one block on
+  the group plan (``analysis/codegen.py``); ``()`` externals ride as
+  ``(1,)`` buffers;
 - :func:`_tiled_call` — flat-tileable chains only: inputs flattened and
   zero-padded to ``grid * block_rows * 128``, one block per
   ``(block_rows, 128)`` tile, outputs sliced back.
@@ -183,8 +185,8 @@ def generated_call(gk, *arrays, block_rows=None):
     """Run a generated kernel over its external inputs, returning the
     chain's external outputs (in lowered order).
 
-    Default: whole arrays, one thread block — valid for every lowered
-    body.  ``block_rows`` (or the kernel's autotuned choice) row-tiles a
+    Default: whole arrays, one launch — valid for every lowered body.
+    ``block_rows`` (or the kernel's autotuned choice) row-tiles a
     flat-tileable kernel over ``(block_rows, 128)`` tiles."""
     xs, dev = _inputs(gk, arrays)
     block_rows = block_rows or gk.block_rows

@@ -46,7 +46,9 @@ Layout: ``q``/``k``/``v`` are ``(BH, T, D)`` (what ``_to_bhtd`` gives),
 ``(BH, 8, T)`` sublane broadcast is a TPU tile artifact and is dropped.
 ``Tq`` and ``Tk`` may differ; in causal mode both are aligned at
 position 0.  Float32 only: another dtype raises (mixed precision is
-ROADMAP.md queue A, item 5).  Head dims up to 128.
+ROADMAP.md queue A, item 5).  Any head dim and any size: the CUDA-core
+design takes D above 256 in chunks of 256 (:func:`simt_launch_shape`)
+and indexes in 64 bits.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain torch
 version (the ``*_reference`` function beside it, the Pallas body's
@@ -76,11 +78,10 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "conv3x3_epilogue", "conv3x3_epilogue_reference",
            "conv3x3_design", "flash_design", "wgmma_takes",
            "FLASH_WGMMA_DIMS",
-           "launch_counts", "reset_launch_counts", "LAUNCHES",
-           "MAX_HEAD_DIM"]
+           "simt_launch_shape", "launch_counts", "reset_launch_counts",
+           "LAUNCHES"]
 
 _NEG_INF = -1e30
-MAX_HEAD_DIM = 128
 
 # the flash kernels count every launch under their own name and under
 # their design's ("flash_dq/wgmma" or "flash_dq/simt", the same for
@@ -193,6 +194,7 @@ _ARGTYPES = {
     # (q, k, v, do, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, stream)
     "mxtt_flash_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
 }
+_ARGTYPES["mxtt_flash_simt_shape"] = [_I, _P]
 _ARGTYPES["mxtt_flash_fwd_wgmma"] = _ARGTYPES["mxtt_flash_fwd"]
 _ARGTYPES["mxtt_flash_dq_wgmma"] = _ARGTYPES["mxtt_flash_dq"]
 _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
@@ -248,10 +250,45 @@ def flash_design(d, wrapper, aligned=True):
       wrapper's :data:`FLASH_WGMMA_DIMS`, the head dims where it was timed
       faster than the CUDA-core design — the ring path's D = 16 among
       them;
-    - ``"simt"`` (``csrc/flash_attention.cu``: CUDA-core FMAs, one thread
-      per row) otherwise, among them D = 64 and 128."""
+    - ``"simt"`` (``csrc/flash_attention.cu``: CUDA-core FMAs, ``G``
+      lanes per row, :func:`simt_launch_shape`) otherwise, among them D =
+      64 and 128 and every D above 32."""
     ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
     return "wgmma" if ok else "simt"
+
+
+# the CUDA-core design's launch shape by head dim (csrc/flash_attention.cu
+# shape_of, which mxtt_flash_simt_shape reports): (largest D, padded width,
+# lanes per row, rows per shared-memory tile)
+_SIMT_SHAPES = ((8, 8, 1, 32), (16, 16, 1, 32), (32, 32, 1, 32),
+                (64, 64, 2, 32), (128, 128, 4, 32), (192, 192, 8, 16),
+                (256, 256, 8, 16))
+_SIMT_THREADS = 128
+_SIMT_WIDE = 256
+
+
+def simt_launch_shape(d):
+    """``(padded width, lanes per row, tile rows, chunks, rows per
+    block)`` of the CUDA-core design (``csrc/flash_attention.cu``) at head
+    dim ``d``: up to 256 one chunk, D padded to the next of 8, 16, 32, 64,
+    128, 192, 256 and ``G`` lanes holding a row's ``width / G`` columns;
+    above 256 the wide kernels, ``ceil(d / 256)`` chunks of 256, 8 lanes
+    a row.  Rows per block are ``128 / G``."""
+    if d < 1:
+        raise ValueError("head dim %d" % d)
+    for top, width, lanes, tile in _SIMT_SHAPES:
+        if d <= top:
+            return width, lanes, tile, 1, _SIMT_THREADS // lanes
+    return _SIMT_WIDE, 8, 16, -(-d // _SIMT_WIDE), _SIMT_THREADS // 8
+
+
+def _simt_shape_built(d):
+    """What the built ``csrc/flash_attention.cu`` reports for head dim
+    ``d`` (``mxtt_flash_simt_shape``): ``simt_launch_shape(d)[:4]``."""
+    out = (ctypes.c_int * 4)()
+    if _fn("mxtt_flash_simt_shape")(int(d), out) != 0:
+        raise MXNetError("mxtt_flash_simt_shape refused head dim %d" % d)
+    return tuple(out)
 
 
 def _check(wrapper, q, k, v, rows=()):
@@ -282,12 +319,9 @@ def _check(wrapper, q, k, v, rows=()):
         raise MXNetError("%s: unsupported device %s" % (wrapper, q.device))
     if q.device.type != "cuda":
         return False
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise MXNetError("%s: head dim %d outside the kernel's 1..%d"
-                         % (wrapper, d, MAX_HEAD_DIM))
-    if bh * max(tq, k.shape[1]) * d >= 2 ** 31:
-        raise MXNetError("%s: %s exceeds the kernel's int32 sizes"
-                         % (wrapper, tuple(q.shape)))
+    if d < 1 or max(bh, tq, k.shape[1], d) >= 2 ** 31:
+        raise MXNetError("%s: %s / %s: every extent must fit a C int"
+                         % (wrapper, tuple(q.shape), tuple(k.shape)))
     return True
 
 

@@ -190,6 +190,25 @@ def test_flash_design_by_head_dim():
         pk.flash_design(16, "flash_delta")
 
 
+# (BH, T, D, causal) above D = 128 on the CUDA-core design; ragged
+WIDE = [(2, 37, 160, True), (2, 45, 160, False), (2, 40, 256, True),
+        (2, 29, 256, False)]
+
+
+@pytest.mark.parametrize("case", WIDE, ids=str)
+def test_plain_backward_at_wide_head_dims_matches_the_reference(case):
+    """The port's CPU dq, dk and dv (the plain versions the card's
+    kernels are held to) against the reference's Pallas kernels in
+    interpret mode at head dims above 128."""
+    bh, t, d, causal = case
+    ins, scale, want = _case(bh, t, d, causal, seed=d + t)
+    args = tuple(torch.tensor(np.asarray(x)) for x in ins)
+    got = (pk.flash_dq(*args, causal, scale),) + pk.flash_dkv(
+        *args, causal, scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=TOL, atol=TOL)
+
+
 def test_the_ring_path_routes_to_wgmma():
     for bh, tq, tk, d, causal in flash_ablate.path_pairings():
         assert pk.flash_design(d, "flash_dq") == "wgmma"

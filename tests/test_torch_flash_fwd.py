@@ -189,6 +189,62 @@ def test_flash_design_for_the_forward_by_head_dim():
     assert pk.FLASH_WGMMA_DIMS[FWD] == frozenset(range(4, 33, 4))
 
 
+# (BH, Tq, Tk, D, causal) above D = 128: the CUDA-core design's 192- and
+# 256-wide builds and its wide kernels (D in chunks of 256); ragged
+WIDE = [(2, 37, 45, 160, True), (2, 45, 37, 160, False),
+        (2, 40, 40, 256, True), (2, 29, 51, 256, False)]
+
+
+def test_wide_head_dims_go_to_the_cuda_core_design():
+    """Every D above 32 runs the CUDA-core design; its launch shape
+    (``simt_launch_shape``, the table ``csrc/flash_attention.cu``'s
+    ``shape_of`` holds) pads D to 8, 16, 32, 64, 128, 192 or 256 with 1,
+    2, 4 or 8 lanes a row (each lane a multiple of 4 floats: the float4
+    reads), and above 256 takes chunks of 256 on 8 lanes; two tiles of
+    a block fit the 48 KB of static shared memory."""
+    widths = (8, 16, 32, 64, 128, 192, 256)
+    for d in range(1, 700):
+        for wrapper in (FWD, "flash_dq", "flash_dkv"):
+            if d > 32:
+                assert pk.flash_design(d, wrapper) == "simt", (wrapper, d)
+        width, lanes, tile, chunks, rows = pk.simt_launch_shape(d)
+        assert rows * lanes == 128 and width % (4 * lanes) == 0
+        assert 2 * tile * width * 4 <= 48 * 1024
+        if d <= 256:
+            assert chunks == 1 and width == min(w for w in widths if w >= d)
+        else:
+            assert (width, lanes, chunks) == (256, 8, -(-d // 256))
+    assert pk.simt_launch_shape(160) == (192, 8, 16, 1, 16)
+    assert pk.simt_launch_shape(320) == (256, 8, 16, 2, 16)
+    assert pk.simt_launch_shape(128)[:3] == (128, 4, 32)
+    with pytest.raises(ValueError):
+        pk.simt_launch_shape(0)
+    assert "MAX_HEAD_DIM" not in pk.__all__
+    assert not hasattr(pk, "MAX_HEAD_DIM")
+
+
+def test_the_cuda_core_source_has_the_wide_design():
+    src = _source("flash_attention")
+    for text in ("Launch<192, 8, 16, false>", "Launch<256, 8, 16, false>",
+                 "Launch<kWide, 8, 16, true>", "flash_fwd_wide_kernel",
+                 "flash_dq_wide_kernel", "flash_dkv_wide_kernel",
+                 "mxtt_flash_simt_shape", "long long bh", "b % n_bh"):
+        assert text in src, text
+    assert "kMaxD" not in src and "d > kMaxD" not in src
+
+
+@pytest.mark.parametrize("case", WIDE, ids=str)
+def test_plain_forward_at_wide_head_dims_matches_the_reference(case):
+    """The port's CPU forward (the plain version the card's kernels are
+    held to) against the reference's Pallas kernel in interpret mode."""
+    bh, tq, tk, d, causal = case
+    ins, scale, want = _case(bh, tq, tk, d, causal, seed=d + tq)
+    got = pk.flash_forward_with_lse(*map(torch.from_numpy, ins), causal,
+                                    scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
 def test_the_ring_path_routes_the_forward_to_wgmma():
     pairings = flash_ablate.path_pairings()
     assert [(c[0], c[3]) for c in pairings] == [(512, 16), (256, 16)]
