@@ -10,15 +10,19 @@ Sixteen phases; any failure exits non-zero and prints no result line.
    ``analysis/codegen.py`` emits among them), run each kernel's wrapper on
    the card at the shapes the serving path gives it plus ragged ones, and
    hold it against its plain torch version (LayerNorm: atol = rtol =
-   1e-5, f32 — only the reduction order differs).  Time the kernel, the
-   plain version and one PyTorch library call of the same function
+   1e-5, f32 — only the reduction order differs; reruns bitwise).  Time
+   the plain version on the device (CUDA graphs between CUDA events) and
+   the eager calls with the host's launch cost.  Then B4 at the decode
+   step's shapes (the slot batch (8, 1, 128), (1, 8, 128), (1, 1, 128))
+   and the prefill's (1024, 128), in turns (CUDA graphs, a warm round,
+   then two rounds in turn and in reverse, the lesser time) with the
+   design it replaced (``_fused_layer_norm_parts(..., ())``, held to
+   plain first), one PyTorch library call of the same function
    (``torch.nn.functional.layer_norm``, a yardstick the port never calls)
-   on the device (CUDA graphs between CUDA events), beside the least time
-   the card could take, and their eager call times with the host's
-   launch cost.  Then B4 at the decode step's shapes (the slot batch
-   (8, 1, 128), (1, 8, 128), (1, 1, 128)) beside ``F.layer_norm`` and one
-   tiny kernel's launch floor, timed the same way in this phase, and
-   whether the slot batch is within 1.5x that floor (launch cost).
+   and one tiny kernel's launch floor, beside the least time the card
+   could take (bytes) and the aims (1.25x the floor at the decode shapes,
+   1.40x at the prefill's; a miss is printed, not failed).  Fails where
+   the replaced design is more than 10 % faster than B4.
 2. **Serve.** The TransformerLM at the widest configuration the repo
    documents (vocab 256, d_model 128, 8 heads, 4 layers, d_ff 512,
    seq_len 1024; random weights from ``init_params(0)``), page size 8, 8
@@ -211,11 +215,16 @@ Sixteen phases; any failure exits non-zero and prints no result line.
     autotune
     cache is written once into a temporary file and replayed: same
     choice, byte-identical file.  Each row-plan kernel also emitted at
-    every cluster size (1, 2, 4, 8) and on the group plan it replaced,
-    each held to the twin (reruns bitwise) and timed in turns (CUDA
+    every cluster size (1, 2, 4, 8), each flat-plan kernel
+    (``_gen_zero1_top2``) at every size of ``codegen._FLAT_SIZES``
+    (threads a block x elements a thread), and both on the group plan
+    they replaced, each held to the twin (reruns bitwise; the flat
+    plan's outputs bitwise the group plan's) and timed in turns (CUDA
     graphs, the lesser of two rounds) beside the launch floor; fails when
-    a cluster size is more than 10 % faster than the one
-    ``codegen.ROW_CLUSTER`` pins.  Each kernel timed as its device time
+    a cluster size or flat size is more than 10 % faster than the one
+    ``codegen.ROW_CLUSTER`` or ``FLAT_THREADS`` / ``FLAT_PER_THREAD``
+    pins, or the group plan than the flat plan.  Each kernel timed as its
+    device time
     (CUDA graph of 200 calls), its eager call and the eager twin, beside
     its bound (bytes over 3.35 TB/s against f32 operations over 67
     TFLOP/s) and one tiny kernel's launch floor.  ``_gen_zero1_top2``
@@ -228,7 +237,8 @@ Sixteen phases; any failure exits non-zero and prints no result line.
     ``codegen_n_kernels == 6``, and the launch counters (zeroed just
     before) show every ``_gen_*`` kernel launched.
 
-Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (the
+Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
+at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
 flash kernels' ``ms``/``plain_ms``/``bound_ms`` are per layer, both
 pairings, on the wgmma design (``source`` ``csrc/flash_fwd_wgmma.cu`` or
 ``csrc/flash_bwd_wgmma.cu``, ``bound_ms`` the split-TF32 tensor-core
@@ -242,7 +252,8 @@ stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
 ``launches`` from phase 16, ``library_ms`` that of ``torch._fused_sgd_``
 for ``_gen_zero1_top2`` and null for the other five, which no single
 PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
-the row plan's time at each cluster size and the group plan's), the
+the row plan's time at each cluster size or the flat plan's at each
+size, and the group plan's), the
 card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -267,9 +278,12 @@ BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 
 LN_TOL = 1e-5
-# a time of B4 within LN_FLOOR_FACTOR of one tiny kernel's launch floor
-# is launch cost
-LN_FLOOR_FACTOR = 1.5
+# B4's aims, against one tiny kernel's launch floor timed in the same
+# phase: at the decode step's shapes and at the prefill's (1024, 128)
+LN_AIM_DECODE, LN_AIM_PREFILL = 1.25, 1.40
+# the design B4 replaced may be this much faster than B4 before phase 1
+# fails
+LN_PREV_SLACK = 0.10
 LOGIT_TOL = 1e-4
 OPT_TOL = 1e-6
 TRAIN_TOL = 1e-4
@@ -406,14 +420,19 @@ def phase_kernels():
         s = torch.randn(shape[-1], device="cuda", generator=gen)
         b = torch.randn(shape[-1], device="cuda", generator=gen)
         got = fo.fused_layer_norm(x, s, b)
+        again = fo.fused_layer_norm(x, s, b)
         torch.cuda.synchronize()
         want = fo.layer_norm_reference(x, s, b)
         err = float((got - want).abs().max())
         worst = max(worst, err)
         torch.testing.assert_close(got, want, rtol=LN_TOL, atol=LN_TOL)
-        print("phase 1: fused_layer_norm %s max_abs_err %.3g"
-              % (tuple(shape), err))
-    # timing at the prefill shape (the largest the path gives it)
+        if not torch.equal(got, again):
+            raise RuntimeError("fused_layer_norm %s: a rerun is not "
+                               "bitwise equal" % (shape,))
+        print("phase 1: fused_layer_norm %s max_abs_err %.3g, reruns "
+              "bitwise" % (tuple(shape), err))
+    # the prefill shape (the largest the path gives it): plain, and the
+    # eager calls with the host's launch cost
     rows, width = 1024, d
     x = torch.randn(rows, width, device="cuda", generator=gen)
     s = torch.randn(width, device="cuda", generator=gen)
@@ -421,58 +440,81 @@ def phase_kernels():
     fns = {"kernel": lambda: fo.fused_layer_norm(x, s, b),
            "plain": lambda: fo.layer_norm_reference(x, s, b),
            "library": lambda: F.layer_norm(x, (width,), s, b, 1e-5)}
-    ms, plain_ms, library_ms = (_time_ms(fns[k])
-                                for k in ("kernel", "plain", "library"))
+    plain_ms = _time_ms(fns["plain"])
     print("phase 1: eager call incl. host launch: kernel %.5f ms, plain "
           "%.5f ms, F.layer_norm %.5f ms"
           % tuple(_call_ms(fns[k]) for k in ("kernel", "plain", "library")))
-    nbytes = 4 * (2 * rows * width + 2 * width)
-    flops = 8 * rows * width
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    times, bounds = _ln_times(torch, F, fo, gen,
+                              LN_DECODE_SHAPES + [(rows, width)])
+    t = times[(rows, width)]
+    bytes_ms, ops_ms = bounds[(rows, width)]
     print("phase 1: fused_layer_norm (%d, %d) device time: kernel %.5f ms, "
-          "plain %.5f ms, F.layer_norm %.5f ms; bound %.6f ms (%d bytes, "
-          "%d flops)"
-          % (rows, width, ms, plain_ms, library_ms, bound_ms, nbytes,
-             flops))
-    _ln_decode_times(torch, F, fo, gen, width)
+          "plain %.5f ms, F.layer_norm %.5f ms, the design it replaced "
+          "%.5f ms; bound %.6f ms"
+          % (rows, width, t["kernel"], plain_ms, t["library"],
+             t["previous"], max(bytes_ms, ops_ms)))
     return {"name": "fused_layer_norm", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/fused_ln.cu",
             "replaces": "mxnet_tpu/ops/fused_optimizer.py:315",
-            "launches": None, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "launches": None, "max_abs_err": worst, "ms": t["kernel"],
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": t["library"], "prev_ms": t["previous"]}
 
 
-def _ln_decode_times(torch, F, fo, gen, width):
+def _ln_times(torch, F, fo, gen, shapes):
     """B4 at the decode step's shapes (the slot batch, one request's
-    prefill bucket of 8, one position), each beside F.layer_norm and the
-    launch floor of one tiny kernel, all timed in this phase; says whether
-    the slot batch is within LN_FLOOR_FACTOR of the floor."""
+    prefill bucket of 8, one position) and the prefill's, in turns with
+    the design it replaced (held to plain first), ``F.layer_norm`` and
+    one tiny kernel's launch floor: CUDA graphs, a warm round, then two
+    rounds in turn and in reverse, the lesser time.  Prints each beside
+    the bound and the aims; fails where the replaced design is more than
+    LN_PREV_SLACK faster.  Returns ``({shape: {variant: ms}}, {shape:
+    (bytes ms, operations ms)})``."""
     tiny = torch.zeros(1, device="cuda")
-    floor_ms = _time_ms(lambda: tiny.zero_())
-    slot_ratio = None
-    for shape in LN_DECODE_SHAPES:
+    times, bounds, slow = {}, {}, []
+    for shape in shapes:
+        width = shape[-1]
         x = torch.randn(shape, device="cuda", generator=gen)
         s = torch.randn(width, device="cuda", generator=gen)
         b = torch.randn(width, device="cuda", generator=gen)
-        ms = _time_ms(lambda: fo.fused_layer_norm(x, s, b))
-        lib = _time_ms(lambda: F.layer_norm(x, (width,), s, b, 1e-5))
-        ratio = ms / floor_ms
-        if shape == LN_DECODE_SHAPES[0]:
-            slot_ratio = ratio
+        torch.testing.assert_close(
+            fo._fused_layer_norm_parts(x, s, b, ()),
+            fo.layer_norm_reference(x, s, b), rtol=LN_TOL, atol=LN_TOL)
+        calls = {"kernel": lambda: fo.fused_layer_norm(x, s, b),
+                 "previous": lambda: fo._fused_layer_norm_parts(x, s, b,
+                                                                ()),
+                 "library": lambda: F.layer_norm(x, (width,), s, b, 1e-5),
+                 "floor": tiny.zero_}
+        keys = list(calls)
+        runs = {k: [] for k in keys}
+        for i, k in enumerate(keys * 2 + keys[::-1]):
+            ms = _time_ms(calls[k])
+            if i >= len(keys):          # the first round warms up
+                runs[k].append(ms)
+        t = times[shape] = {k: min(r) for k, r in runs.items()}
+        rows = x.numel() // width
+        nbytes = 4 * (2 * rows * width + 2 * width)
+        bounds[shape] = (nbytes / HBM_BYTES_PER_S * 1e3,
+                         8 * rows * width / F32_FLOPS_PER_S * 1e3)
+        aim = LN_AIM_DECODE if shape in LN_DECODE_SHAPES else LN_AIM_PREFILL
+        ratio = t["kernel"] / t["floor"]
         print("phase 1: fused_layer_norm %s device time: kernel %.5f ms "
-              "(%.2fx the launch floor), F.layer_norm %.5f ms; one tiny "
-              "kernel's launch floor %.5f ms"
-              % (shape, ms, ratio, lib, floor_ms))
-    print("phase 1: fused_layer_norm at the slot batch %s is %.2fx the "
-          "launch floor: %s" % (LN_DECODE_SHAPES[0], slot_ratio,
-                                "launch cost (within %.1fx)" % LN_FLOOR_FACTOR
-                                if slot_ratio <= LN_FLOOR_FACTOR else
-                                "more than %.1fx: not launch cost alone"
-                                % LN_FLOOR_FACTOR))
+              "(%.2fx the launch floor: aim <= %.2fx %s), the design it "
+              "replaced %.5f ms (%.2fx), F.layer_norm %.5f ms; launch "
+              "floor %.5f ms; bound %.7f ms (%d bytes)"
+              % (shape, t["kernel"], ratio, aim,
+                 "met" if ratio <= aim else "missed", t["previous"],
+                 t["previous"] / t["floor"], t["library"], t["floor"],
+                 max(bounds[shape]), nbytes))
+        if t["kernel"] > (1 + LN_PREV_SLACK) * t["previous"]:
+            slow.append("%s: %.5f ms against %.5f ms"
+                        % (shape, t["kernel"], t["previous"]))
+    if slow:
+        raise RuntimeError("fused_layer_norm is more than %d %% slower than "
+                           "the design it replaced: %s"
+                           % (100 * LN_PREV_SLACK, "; ".join(slow)))
+    return times, bounds
 
 
 def _post(url, payload):
@@ -2554,8 +2596,9 @@ def phase_gen_kernels():
                   % (gk.name, first, list(cg.AUTOTUNE_LADDER),
                      json.loads(blob)["kernels"][gk.name]["t_ns"]))
 
-    # the row plan at each cluster size and the group plan, held to the
-    # twin and timed in turns: ROW_CLUSTER must pin the fastest size
+    # the row plan at each cluster size, the flat plan at each size and
+    # the group plan, held to the twin and timed in turns: codegen must
+    # pin the fastest size, and the flat plan beat the group plan
     tiny = torch.zeros(1, device="cuda")
     floor_ms = _time_ms(lambda: tiny.zero_())
     by_plan = _gen_plan_times(kernels, worst, floor_ms)
@@ -2598,29 +2641,42 @@ def phase_gen_kernels():
 
 
 def _gen_plan_times(kernels, worst, floor_ms):
-    """Each row-plan kernel emitted at every cluster size it takes and on
-    the group plan (the design the row plan replaced), all built at once,
-    each held to the twin (reruns bitwise) and timed in turns (CUDA
-    graphs; a warm round, then two rounds in turn and in reverse, the
-    lesser time).  Fails when a cluster size is more than GEN_CLUSTER_SLACK
-    faster than the one codegen.ROW_CLUSTER pins.  Returns {kernel name:
+    """Each row-plan kernel emitted at every cluster size it takes, and
+    each flat-plan kernel at every size of ``codegen._FLAT_SIZES``
+    (threads a block x elements a thread), and both on the group plan
+    (the design they replaced), all built at once, each held to the twin
+    (reruns bitwise; a flat kernel's outputs also bitwise the group
+    plan's) and timed in turns (CUDA graphs; a warm round, then two
+    rounds in turn and in reverse, the lesser time).  Fails when another
+    size is more than GEN_CLUSTER_SLACK faster than the one
+    codegen.ROW_CLUSTER or codegen.FLAT_THREADS / FLAT_PER_THREAD pins,
+    or the group plan than the flat plan.  Returns {kernel name:
     {variant: ms}}."""
+    import torch
     from mxnet_tpu_torch.analysis import codegen as cg
     from mxnet_tpu_torch.ops import build
     from mxnet_tpu_torch.ops import generated_kernels as gen
 
-    variants = {}
+    variants, pinned = {}, {}
     for gk in kernels:
         lk = gk.lowered
-        if lk.plan != "rows":
+        if lk.plan not in ("rows", "flat"):
             continue
         vs = {"groups": cg.lower_chain(lk.chain, lk.name + "_groups",
                                        plan="groups")}
-        for c in cg._ROW_CLUSTERS:
-            if lk.layout.fits(c) is None:
-                vs["c%d" % c] = cg.lower_chain(
-                    lk.chain, "%s_c%d" % (lk.name, c), plan="rows",
-                    cluster=c)
+        if lk.plan == "rows":
+            for c in cg._ROW_CLUSTERS:
+                if lk.layout.fits(c) is None:
+                    vs["c%d" % c] = cg.lower_chain(
+                        lk.chain, "%s_c%d" % (lk.name, c), plan="rows",
+                        cluster=c)
+            pinned[gk.name] = "c%d" % lk.cluster
+        else:
+            for t, e in cg._FLAT_SIZES:
+                vs["t%d_e%d" % (t, e)] = cg.lower_chain(
+                    lk.chain, "%s_t%d_e%d" % (lk.name, t, e), flat=(t, e))
+            pinned[gk.name] = "t%d_e%d" % (lk.threads,
+                                           lk.layout.per_thread)
         variants[gk.name] = vs
     build.build_all((), {v.symbol: v.src for vs in variants.values()
                          for v in vs.values()})
@@ -2630,6 +2686,14 @@ def _gen_plan_times(kernels, worst, floor_ms):
         gks = {k: gen.GeneratedKernel(v) for k, v in vs.items()}
         for k, g in gks.items():
             worst[name] = max(worst[name], _gen_check(g, xs))
+        flat = pinned[name].startswith("t")
+        if flat:
+            want = gen.generated_call(gks["groups"], *xs)
+            for k, g in gks.items():
+                got = gen.generated_call(g, *xs)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError("%s on the flat plan at %s is not "
+                                       "bitwise the group plan" % (name, k))
         keys = list(gks)
         runs = {k: [] for k in keys}
         for i, k in enumerate(keys * 2 + keys[::-1]):
@@ -2638,25 +2702,27 @@ def _gen_plan_times(kernels, worst, floor_ms):
             if i >= len(keys):
                 runs[k].append(ms)
         times = {k: min(r) for k, r in runs.items()}
-        pinned = "c%d" % next(g.lowered.cluster for g in kernels
-                              if g.name == name)
+        pin = pinned[name]
         best = min((k for k in times if k != "groups"), key=times.get)
-        print("phase 15: %s on the row plan, cluster %s pinned: %.5f ms; "
-              "per cluster size %s; the group plan %.5f ms (%.1fx the "
-              "pinned); launch floor %.5f ms; every variant within %g of "
-              "the twin, reruns bitwise"
-              % (name, pinned[1:], times[pinned], {
-                  int(k[1:]): round(t, 5) for k, t in times.items()
-                  if k != "groups"}, times["groups"],
-                 times["groups"] / times[pinned], floor_ms, GEN_TOL))
-        if times[pinned] > (1 + GEN_CLUSTER_SLACK) * times[best]:
-            slow.append("%s: cluster %s %.5f ms, %s %.5f ms"
-                        % (name, pinned[1:], times[pinned], best[1:],
-                           times[best]))
+        sizes = {k: round(t, 5) for k, t in times.items() if k != "groups"}
+        print("phase 15: %s on the %s plan, %s pinned: %.5f ms; per size "
+              "%s; the group plan %.5f ms (%.2fx the pinned); launch floor "
+              "%.5f ms; every variant within %g of the twin, reruns "
+              "bitwise%s"
+              % (name, "flat" if flat else "row", pin, times[pin], sizes,
+                 times["groups"], times["groups"] / times[pin], floor_ms,
+                 GEN_TOL, ", outputs bitwise the group plan's"
+                 if flat else ""))
+        if times[pin] > (1 + GEN_CLUSTER_SLACK) * times[best]:
+            slow.append("%s: %s %.5f ms, %s %.5f ms"
+                        % (name, pin, times[pin], best, times[best]))
+        if flat and times[pin] > (1 + GEN_CLUSTER_SLACK) * times["groups"]:
+            slow.append("%s: the flat plan %.5f ms, the group plan %.5f ms"
+                        % (name, times[pin], times["groups"]))
         out[name] = times
     if slow:
-        raise RuntimeError("codegen.ROW_CLUSTER pins a cluster size more "
-                           "than %d %% slower than another: %s"
+        raise RuntimeError("codegen pins a plan or size more than %d %% "
+                           "slower than another: %s"
                            % (100 * GEN_CLUSTER_SLACK, "; ".join(slow)))
     return out
 

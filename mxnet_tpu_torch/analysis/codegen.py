@@ -29,7 +29,7 @@ compares at 1e-5.  The ``MXGEN_LOWER_EXACT`` seam flips ``sub`` to
 check on the card.
 
 The emitted whole-array kernel is one launch (the reference's one grid
-step), on one of two plans chosen from the chain's shapes when it is
+step), on one of three plans chosen from the chain's shapes when it is
 lowered:
 
 - the **row plan** (:class:`_RowPlan`), where the chain is rows of its
@@ -41,8 +41,16 @@ lowered:
   in rank order — a barrier only where an op reads such a sum.  The
   cluster size of each shipped chain is pinned by measurement
   (:data:`ROW_CLUSTER`);
-- the **group plan** (:class:`_Plan`) for the rest (a 1-D chain, shapes
-  the row rule does not take): one thread block, the eqns cut into
+- the **flat plan** (:class:`_FlatPlan`) for a chain off the row plan
+  whose eqns are one group of pointwise eqns (a 1-D elementwise chain):
+  a grid over the card, each thread a few consecutive elements, 16-byte
+  accesses where the operands are aligned, the tail masked; no barrier
+  and no workspace.  Its size is pinned by measurement
+  (:data:`FLAT_THREADS`, :data:`FLAT_PER_THREAD`), and it evaluates the
+  group plan's per-element body, so its outputs are bitwise the group
+  plan's;
+- the **group plan** (:class:`_Plan`) for the rest (shapes neither rule
+  takes): one thread block, the eqns cut into
   groups of one iteration shape, each a block-strided loop over its flat
   output index, a ``__syncthreads()`` between groups, and a value read
   by a later group in an external output or a workspace (shared memory
@@ -135,6 +143,13 @@ ROW_CLUSTER = {
     "_gen_zero1_top1": 8,
     "_gen_zero1_top3": 4,
 }
+
+# the flat plan's launch: threads a block and consecutive elements a
+# thread, the fastest of the sizes chip_smoke.py's phase 15 and
+# tools/codegen_ablate.py time at _gen_zero1_top2's 9,458 elements
+_FLAT_SIZES = tuple((t, e) for t in (64, 128, 256, 512) for e in (4, 8))
+FLAT_THREADS = 256
+FLAT_PER_THREAD = 4
 
 
 def _torch_dtype(name):
@@ -648,7 +663,57 @@ class _Plan:
 
 
 class _NoFit(Exception):
-    """The chain does not fit the row plan; it keeps the group plan."""
+    """The chain does not fit the row or the flat plan; it keeps the
+    group plan."""
+
+
+class _FlatPlan:
+    """How a one-group pointwise chain runs as a grid over the card: no
+    block-wide state, so no barrier and no workspace; each thread takes
+    ``per_thread`` consecutive elements of the flat output index, with
+    16-byte accesses where the operands allow, and the tail masked.
+
+    It takes the chains whose group plan (``groups``) is one group of
+    pointwise eqns with no workspace, every operand of the group's shape
+    or a single element.  Raises :class:`_NoFit` for the rest."""
+
+    name = "flat"
+
+    def __init__(self, chain, groups, threads=None, per_thread=None):
+        self.chain, self.groups = chain, groups.groups
+        if len(self.groups) != 1:
+            raise _NoFit("%d groups" % len(self.groups))
+        shape, ops = self.groups[0]
+        av = chain.avals
+        for op in ops:
+            if op.prim not in _POINTWISE:
+                raise _NoFit("%s is not pointwise" % op.prim)
+            for i in op.ins:
+                if i not in chain.literals and av[i].shape != shape \
+                        and _numel(av[i].shape) != 1:
+                    raise _NoFit("operand %r of %s broadcasts"
+                                 % (av[i].shape, op.prim))
+        self.n = _numel(shape)
+        self.threads = threads or FLAT_THREADS
+        self.per_thread = per_thread or FLAT_PER_THREAD
+        if self.threads % 32 or not 32 <= self.threads <= _MAX_THREADS \
+                or self.per_thread % 4 or self.per_thread <= 0:
+            raise ValueError("flat plan at %d threads x %d elements: "
+                             "threads a multiple of 32 up to %d, "
+                             "elements a multiple of 4"
+                             % (self.threads, self.per_thread, _MAX_THREADS))
+        if self.n >= 2 ** 30:
+            raise _NoFit("%d elements past the kernel's int index" % self.n)
+        span = self.threads * self.per_thread
+        self.grid = max(1, -(-self.n // span))
+        # externals of the group's shape (the rest are single elements)
+        self.full = [i for i in chain.ext_in + chain.ext_out
+                     if av[i].shape == shape]
+        # float4 / int4 runs where every such external is 4 bytes wide
+        self.vector = all(av[i].dtype.itemsize == 4 for i in self.full)
+        self.offset = {}
+        self.ws_bytes, self.ws_shared, self.smem_bytes = 0, True, 0
+        self.cluster = 1
 
 
 def _step(prim, dtype):
@@ -990,8 +1055,8 @@ class _Body:
                           % (self.pad, _ctype(dtype), out, rhs))
         self.local.add(out)
         if out in c.ext_out:
-            self.lines.append("%sout%d[%s] = v%d;"
-                              % (self.pad, c.ext_out.index(out), self.o, out))
+            self.lines.append("%s%s[%s] = v%d;"
+                              % (self.pad, self.memory(out), self.o, out))
         elif out in self.plan.offset:
             self.lines.append("%s%s[%s] = v%d;"
                               % (self.pad, self.memory(out), self.o, out))
@@ -1024,6 +1089,23 @@ class _Body:
                                             _reduce_step(op.prim, acc, x,
                                                          dtype)))
         return acc
+
+
+class _FlatBody(_Body):
+    """The flat plan's body for one element ``j`` of a thread's run of
+    16-byte accesses: the externals of the group's shape sit in the
+    thread's registers (``x<k>`` inputs, ``y<k>`` outputs), loaded and
+    stored around the run; single elements are read from memory."""
+
+    def __init__(self, chain, plan, lines, indent):
+        super().__init__(chain, plan, lines, indent, o="j")
+
+    def memory(self, i):
+        c = self.chain
+        if i in self.plan.full:
+            return ("x%d" % c.ext_in.index(i) if i in c.ext_in
+                    else "y%d" % c.ext_out.index(i))
+        return super().memory(i)
 
 
 _ROW_CUTS = frozenset({"exchange", "shuffles", "loads"})
@@ -1364,14 +1446,7 @@ def _emit_rows(chain, name, plan, cuts=()):
     ins, outs = _params(chain)
     b = _RowBody(chain, plan, cuts)
     L = b.lines
-    L += ["// mxgen: %s chain of %d eqns (tape %s, rank %d) - %d B fused vs "
-          "%d B unfused." % (chain.kind, len(chain.ops), chain.tag,
-                             chain.rank, chain.fused_bytes,
-                             chain.unfused_bytes),
-          "// Emitted by mxnet_tpu_torch/analysis/codegen.py; the Hopper "
-          "counterpart of the",
-          "// Pallas body mxnet_tpu/analysis/codegen.py lower_chain emits "
-          "for generated_call.",
+    L += _header(chain) + [
           "// Plan: rows.  %d rows %r x %d columns over a cluster of %d "
           "CTA(s): %d rows" % (pl.n_rows, pl.row_shape, pl.cols, pl.cluster,
                                pl.rows_per_cta),
@@ -1465,25 +1540,54 @@ def _casts(chain):
     return ins + outs
 
 
+def _header(chain):
+    return ["// mxgen: %s chain of %d eqns (tape %s, rank %d) - %d B fused "
+            "vs %d B unfused." % (chain.kind, len(chain.ops), chain.tag,
+                                 chain.rank, chain.fused_bytes,
+                                 chain.unfused_bytes),
+            "// Emitted by mxnet_tpu_torch/analysis/codegen.py; the "
+            "Hopper counterpart of the",
+            "// Pallas body mxnet_tpu/analysis/codegen.py lower_chain "
+            "emits for generated_call."]
+
+
+def _emit_tiled(chain, sym, plan):
+    """The row-tiled kernel (flat-tileable chains): one block per
+    ``(block_rows, 128)`` tile of the zero-padded flat arrays."""
+    ins, outs = _params(chain)
+    lines = ["", "// the row-tiled path: one block per (block_rows, "
+             "%d) tile of the zero-padded flat arrays" % TILE_COLS,
+             "__global__ void __launch_bounds__(%d) %s_tiled_k(%s, "
+             "int tile)" % (_TILED_THREADS, sym, ", ".join(ins + outs)),
+             "{",
+             "  const int first = blockIdx.x * tile;",
+             "  for (int t = threadIdx.x; t < tile; t += %d) {"
+             % _TILED_THREADS,
+             "    const int o = first + t;"]
+    body = _Body(chain, plan, lines, 4)
+    for op in chain.ops:
+        body.emit(op)
+    lines += ["  }", "}", "",
+              "extern \"C\" int %s_tiled(void* const* ins, void* const* "
+              "outs, int grid, int block_rows, void* stream) {" % sym,
+              "  %s_tiled_k<<<grid, %d, 0, (cudaStream_t)stream>>>(%s, "
+              "block_rows * %d);" % (sym, _TILED_THREADS,
+                                     ", ".join(_casts(chain)), TILE_COLS),
+              "  return (int)cudaGetLastError();", "}"]
+    return lines
+
+
 def _emit_cuda(chain, name, plan, tileable, why=None):
     """The group plan's CUDA text (``why``: what keeps the chain off the
     row plan)."""
     sym = symbol_of(name)
     ins, outs = _params(chain)
-    lines = ["// mxgen: %s chain of %d eqns (tape %s, rank %d) - %d B fused "
-             "vs %d B unfused." % (chain.kind, len(chain.ops), chain.tag,
-                                  chain.rank, chain.fused_bytes,
-                                  chain.unfused_bytes),
-             "// Emitted by mxnet_tpu_torch/analysis/codegen.py; the "
-             "Hopper counterpart of the",
-             "// Pallas body mxnet_tpu/analysis/codegen.py lower_chain "
-             "emits for generated_call.",
-             "// Plan: groups%s.  One block, %d threads, %d groups,"
-             % (" (%s)" % why if why else "", plan.threads,
-                len(plan.groups)),
-             "// workspace %d B in %s memory."
-             % (plan.ws_bytes, "shared" if plan.ws_shared else "global"),
-             _PRELUDE.rstrip("\n"), ""]
+    lines = _header(chain) + [
+        "// Plan: groups%s.  One block, %d threads, %d groups,"
+        % (" (%s)" % why if why else "", plan.threads, len(plan.groups)),
+        "// workspace %d B in %s memory."
+        % (plan.ws_bytes, "shared" if plan.ws_shared else "global"),
+        _PRELUDE.rstrip("\n"), ""]
     lines.append("__global__ void __launch_bounds__(%d) %s_k(%s)"
                  % (plan.threads, sym, ", ".join(
                      ins + outs + ["unsigned char* __restrict__ ws_g"])))
@@ -1513,26 +1617,87 @@ def _emit_cuda(chain, name, plan, tileable, why=None):
               % (sym, plan.threads, smem, ", ".join(_casts(chain))),
               "  return (int)cudaGetLastError();", "}"]
     if tileable:
-        lines += ["", "// the row-tiled path: one block per (block_rows, "
-                  "%d) tile of the zero-padded flat arrays" % TILE_COLS,
-                  "__global__ void __launch_bounds__(%d) %s_tiled_k(%s, "
-                  "int tile)" % (_TILED_THREADS, sym,
-                                 ", ".join(ins + outs)),
-                  "{",
-                  "  const int first = blockIdx.x * tile;",
-                  "  for (int t = threadIdx.x; t < tile; t += %d) {"
-                  % _TILED_THREADS,
-                  "    const int o = first + t;"]
-        body = _Body(chain, plan, lines, 4)
-        for op in chain.ops:
+        lines += _emit_tiled(chain, sym, plan)
+    return "\n".join(lines) + "\n"
+
+
+def _emit_flat(chain, name, plan, tileable, why=None):
+    """The flat plan's CUDA text: a grid of ``plan.grid`` blocks; thread
+    ``t`` of block ``b`` takes elements ``(b * threads + t) * per_thread``
+    onward.  A whole run with every operand 16-byte aligned moves as
+    float4 / int4 (``vec``, decided by the launcher from the pointers);
+    the tail and unaligned operands go element by element.  Both evaluate
+    the group plan's per-element arithmetic, so the outputs are bitwise
+    the group plan's."""
+    sym = symbol_of(name)
+    av, pl = chain.avals, plan
+    ins, outs = _params(chain)
+    (shape, ops), = pl.groups
+    e = pl.per_thread
+    lines = _header(chain) + [
+        "// Plan: flat%s.  A grid of %d blocks of %d threads over %d "
+        "elements," % (" (%s)" % why if why else "", pl.grid, pl.threads,
+                       pl.n),
+        "// %d consecutive elements a thread, %s; no barrier, no "
+        "workspace." % (e, "16-byte accesses where the operands are "
+                        "aligned" if pl.vector else "element by element"),
+        _PRELUDE.rstrip("\n"), ""]
+    lines.append("__global__ void __launch_bounds__(%d) %s_k(%s)"
+                 % (pl.threads, sym, ", ".join(ins + outs + ["int vec"])))
+    lines.append("{")
+    lines.append("  const int first = (blockIdx.x * %d + threadIdx.x) * %d;"
+                 % (pl.threads, e))
+    lines.append("  if (first >= %d) return;" % pl.n)
+    if pl.vector:
+        lines.append("  if (vec && first + %d <= %d) {" % (e, pl.n))
+        vec4 = {np.dtype(np.float32): "float4", np.dtype(np.int32): "int4"}
+        for k, i in enumerate(chain.ext_in):
+            if i not in pl.full:
+                continue
+            ct, vt = _ctype(av[i].dtype), vec4[np.dtype(av[i].dtype)]
+            lines.append("    %s x%d[%d];" % (ct, k, e))
+            for q in range(0, e, 4):
+                lines.append(
+                    "    { const %s t = *reinterpret_cast<const %s*>(in%d + "
+                    "first + %d); x%d[%d] = t.x; x%d[%d] = t.y; x%d[%d] = "
+                    "t.z; x%d[%d] = t.w; }"
+                    % (vt, vt, k, q, k, q, k, q + 1, k, q + 2, k, q + 3))
+        for k, i in enumerate(chain.ext_out):
+            lines.append("    %s y%d[%d];" % (_ctype(av[i].dtype), k, e))
+        lines.append("#pragma unroll")
+        lines.append("    for (int j = 0; j < %d; ++j) {" % e)
+        body = _FlatBody(chain, pl, lines, 6)
+        for op in ops:
             body.emit(op)
-        lines += ["  }", "}", "",
-                  "extern \"C\" int %s_tiled(void* const* ins, void* const* "
-                  "outs, int grid, int block_rows, void* stream) {" % sym,
-                  "  %s_tiled_k<<<grid, %d, 0, (cudaStream_t)stream>>>(%s, "
-                  "block_rows * %d);" % (sym, _TILED_THREADS,
-                                         ", ".join(_casts(chain)), TILE_COLS),
-                  "  return (int)cudaGetLastError();", "}"]
+        lines.append("    }")
+        for k, i in enumerate(chain.ext_out):
+            vt = vec4[np.dtype(av[i].dtype)]
+            for q in range(0, e, 4):
+                lines.append(
+                    "    *reinterpret_cast<%s*>(out%d + first + %d) = "
+                    "make_%s(y%d[%d], y%d[%d], y%d[%d], y%d[%d]);"
+                    % (vt, k, q, vt, k, q, k, q + 1, k, q + 2, k, q + 3))
+        lines.append("    return;")
+        lines.append("  }")
+    lines.append("  for (int o = first; o < first + %d && o < %d; ++o) {"
+                 % (e, pl.n))
+    body = _Body(chain, pl, lines, 4)
+    for op in ops:
+        body.emit(op)
+    lines.append("  }")
+    lines.append("}")
+    full = [("ins[%d]" % chain.ext_in.index(i)) if i in chain.ext_in
+            else ("outs[%d]" % chain.ext_out.index(i)) for i in pl.full]
+    aligned = " && ".join("((size_t)%s & 15) == 0" % p for p in full) \
+        if pl.vector and full else "0"
+    lines += ["", "extern \"C\" int %s_whole(void* const* ins, void* const* "
+              "outs, void* ws_g, void* stream) {" % sym,
+              "  const int vec = %s;" % aligned,
+              "  %s_k<<<%d, %d, 0, (cudaStream_t)stream>>>(%s, vec);"
+              % (sym, pl.grid, pl.threads, ", ".join(_casts(chain))),
+              "  return (int)cudaGetLastError();", "}"]
+    if tileable:
+        lines += _emit_tiled(chain, sym, pl)
     return "\n".join(lines) + "\n"
 
 
@@ -1573,7 +1738,8 @@ class LoweredKernel:
         }
 
 
-def lower_chain(ir, name=None, plan=None, cluster=None, cuts=()):
+def lower_chain(ir, name=None, plan=None, cluster=None, cuts=(),
+                flat=None):
     """Lower one chain of the IR (a :class:`Chain` or its JSON dict) into
     a :class:`LoweredKernel`.  The emitted text is deterministic in the
     chain: ops in tape order, externals in the IR's order, literals
@@ -1583,10 +1749,14 @@ def lower_chain(ir, name=None, plan=None, cluster=None, cuts=()):
     (``plan``, ``cluster``, the header comment, :meth:`as_plan`): the row
     plan (:class:`_RowPlan`) where the chain fits it, at the cluster size
     :data:`ROW_CLUSTER` pins for its name (else the smallest that gives a
-    CTA at most 32 rows); the group plan (:class:`_Plan`) otherwise.
-    ``plan`` ("rows" / "groups") and ``cluster`` (the row plan at that
-    size) force a choice, raising where the chain does not fit it, and
-    ``cuts`` leaves parts of a row-plan kernel out (measurement only:
+    CTA at most 32 rows); else the flat plan (:class:`_FlatPlan`) where
+    the group plan would be one group of pointwise eqns, at
+    :data:`FLAT_THREADS` x :data:`FLAT_PER_THREAD`; the group plan
+    (:class:`_Plan`) otherwise.  ``plan`` ("rows" / "groups"),
+    ``cluster`` (the row plan at that size) and ``flat`` (``(threads,
+    elements a thread)``: the flat plan at that size) force a choice,
+    raising where the chain does not fit it, and ``cuts`` leaves parts of
+    a row-plan kernel out (``flat``, ``cuts``: measurement only,
     ``tools/codegen_ablate.py``)."""
     chain = Chain.from_json(ir)
     lk = LoweredKernel()
@@ -1631,6 +1801,9 @@ def lower_chain(ir, name=None, plan=None, cluster=None, cuts=()):
         return lk
     if plan not in (None, "rows", "groups"):
         raise ValueError("plan %r: 'rows' or 'groups'" % (plan,))
+    if flat is not None and (plan is not None or cluster is not None):
+        raise ValueError("flat=%r forces the flat plan: no plan or "
+                         "cluster beside it" % (flat,))
     try:
         layout, why = None, None
         if plan != "groups":
@@ -1641,12 +1814,23 @@ def lower_chain(ir, name=None, plan=None, cluster=None, cuts=()):
                     raise ValueError("%s does not fit the row plan: %s"
                                      % (lk.name, e))
                 why = "no row plan: %s" % (e,)
+        if layout is not None and flat is not None:
+            raise ValueError("%s takes the row plan, not the flat plan"
+                             % lk.name)
         if layout is not None:
             lk.src = _emit_rows(chain, lk.name, layout, cuts)
         else:
             layout = _Plan(chain)
             lk.tileable = _tileable_ir(chain)
-            lk.src = _emit_cuda(chain, lk.name, layout, lk.tileable, why)
+            if plan is None:
+                try:
+                    layout = _FlatPlan(chain, layout, *(flat or ()))
+                except _NoFit as e:
+                    if flat is not None:
+                        raise ValueError("%s does not fit the flat plan: "
+                                         "%s" % (lk.name, e))
+            emit = _emit_flat if layout.name == "flat" else _emit_cuda
+            lk.src = emit(chain, lk.name, layout, lk.tileable, why)
     except _Unsupported as e:
         lk.findings.append(Finding(
             "GEN001", lk.name,

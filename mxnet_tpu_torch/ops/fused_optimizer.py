@@ -45,7 +45,8 @@ from ..base import MXNetError
 __all__ = ["supports", "fused_sgd", "fused_sgd_momentum", "fused_adam",
            "fused_sgd_reference", "fused_sgd_momentum_reference",
            "fused_adam_reference", "fused_optimizer_update",
-           "fused_layer_norm", "layer_norm_reference", "launch_counts",
+           "fused_layer_norm", "layer_norm_reference", "LN_PARTS",
+           "ln_shipped_parts", "launch_counts",
            "reset_launch_counts", "LAUNCHES"]
 
 LAUNCHES = {"fused_layer_norm": 0, "fused_sgd": 0, "fused_sgd_momentum": 0,
@@ -325,19 +326,38 @@ def layer_norm_reference(x, scale, bias, eps=1e-5):
     return xc * torch.rsqrt(var + eps) * scale + bias
 
 
+# the parts of csrc/fused_ln.cu's design, each a bit of the kernel's
+# ``parts``; the main path runs the set the source ships
+# (``mxtt_fused_ln_shipped_parts``), the others are for measurement
+LN_PARTS = {"early_params": 1, "vec4": 2, "merge": 4, "row_warps": 8}
+
+
 def _ln_lib():
     from .build import load
     lib = load("fused_ln")
-    fn = lib.mxtt_fused_ln_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_float,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.mxtt_fused_ln_forward.argtypes is None:
+        args = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_void_p]
+        lib.mxtt_fused_ln_forward_parts.argtypes = args + [ctypes.c_int]
+        for fn in (lib.mxtt_fused_ln_forward,
+                   lib.mxtt_fused_ln_forward_parts,
+                   lib.mxtt_fused_ln_shipped_parts):
+            fn.restype = ctypes.c_int
+        lib.mxtt_fused_ln_forward.argtypes = args    # last: marks it done
+    return lib
 
 
-def _launch_ln(x, scale, bias, eps):
+def ln_shipped_parts():
+    """The names of the parts of ``csrc/fused_ln.cu``'s design that the
+    main path runs (builds the kernel)."""
+    bits = _ln_lib().mxtt_fused_ln_shipped_parts()
+    return sorted(k for k, b in LN_PARTS.items() if bits & b)
+
+
+def _launch_ln(x, scale, bias, eps, parts=None):
+    """The kernel on CUDA tensors.  ``parts`` (names of ``LN_PARTS``)
+    runs another set of the design's parts than the shipped one, for
+    measurement only: such a launch is not counted."""
     if x.dtype != torch.float32 or scale.dtype != torch.float32 \
             or bias.dtype != torch.float32:
         raise MXNetError("fused_layer_norm takes float32, got %s/%s/%s"
@@ -352,19 +372,41 @@ def _launch_ln(x, scale, bias, eps):
     if rows >= 2 ** 31:
         raise MXNetError("fused_layer_norm: %d rows exceed the kernel's "
                          "int32 row index" % rows)
-    fn = _ln_lib()
+    lib = _ln_lib()
     x2 = x.contiguous()
     scale, bias = scale.contiguous(), bias.contiguous()
     out = torch.empty_like(x2)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), rows, d, float(eps), stream)
+        args = (x2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), rows, d, float(eps), stream)
+        if parts is None:
+            err = lib.mxtt_fused_ln_forward(*args)
+        else:
+            err = lib.mxtt_fused_ln_forward_parts(
+                *args, sum(LN_PARTS[p] for p in set(parts)))
     if err != 0:
         raise MXNetError("fused_ln kernel launch failed: cudaError %d"
                          % err)
-    _count("fused_layer_norm")
+    if parts is None:
+        _count("fused_layer_norm")
     return out
+
+
+def _fused_layer_norm_parts(x, scale, bias, parts, eps=1e-5):
+    """The LayerNorm forward kernel with only ``parts`` (names of
+    ``LN_PARTS``) of its design; no part is the design it replaced (one
+    warp a row, lanes strided over single columns, eight warps a block,
+    the parameters loaded after the two trees).  CUDA tensors only, not
+    counted: ``tools/ln_ablate.py`` and ``chip_smoke.py`` time these
+    against the shipped set."""
+    unknown = set(parts) - set(LN_PARTS)
+    if unknown:
+        raise MXNetError("fused_ln: no part %s (%s)"
+                         % (sorted(unknown), sorted(LN_PARTS)))
+    if x.device.type != "cuda":
+        raise MXNetError("the fused_ln variants run on the card only")
+    return _launch_ln(x, scale, bias, float(eps), parts=tuple(parts))
 
 
 def _ln_bwd(x, scale, g, eps):

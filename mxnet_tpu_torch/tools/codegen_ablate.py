@@ -1,10 +1,15 @@
 """What holds the row plan of the mxgen kernels back (B10, first of all
-B10.1 ``_gen_tp_transformer_top1``): one chain emitted in several
-variants into one build and timed on the card.
+B10.1 ``_gen_tp_transformer_top1``), and what size the flat plan runs at:
+one chain emitted in several variants into one build and timed on the
+card.
 
     python -m mxnet_tpu_torch.tools.codegen_ablate [--chain NAME] [--iters 200]
 
-The variants, each a whole kernel emitted by ``analysis/codegen.py``
+A chain on the flat plan (``_gen_zero1_top2``) gets ``groups`` (below)
+and ``flat_t<T>_e<E>``, the flat plan at each size of
+``codegen._FLAT_SIZES`` (T threads a block, E consecutive elements a
+thread), each held to the twin first.  A chain on the row plan gets
+these variants, each a whole kernel emitted by ``analysis/codegen.py``
 ``lower_chain``:
 
 - ``groups``: the group plan (one block, a ``__syncthreads()`` between
@@ -50,11 +55,16 @@ def variants(chain):
     """``{variant: LoweredKernel}`` of ``chain`` (a :class:`codegen.Chain`),
     each under its own kernel name so that all build side by side."""
     base = cg.lower_chain(chain)
-    if base.plan != "rows":
+    if base.plan not in ("rows", "flat"):
         raise MXNetError("%s runs on the %s plan: nothing to ablate"
                          % (chain.name, base.plan))
     out = {"groups": cg.lower_chain(chain, chain.name + "_groups",
                                     plan="groups")}
+    if base.plan == "flat":
+        for t, e in cg._FLAT_SIZES:
+            out["flat_t%d_e%d" % (t, e)] = cg.lower_chain(
+                chain, "%s_t%d_e%d" % (chain.name, t, e), flat=(t, e))
+        return out
     for c in cg._ROW_CLUSTERS:
         if base.layout.fits(c) is None:
             out["rows_c%d" % c] = cg.lower_chain(
@@ -104,6 +114,13 @@ def main(argv=None):
     xs = [torch.as_tensor(x).to(dev) for x in
           cg.seeded_inputs(lowered["groups"].in_avals, cg.EQUIV_SEED)]
     kernels = {v: gen.GeneratedKernel(lk) for v, lk in lowered.items()}
+    want = cg.reference_outputs(lowered["groups"], xs)
+    for v, gk in kernels.items():
+        if v not in CUTS:       # a cut variant is wrong by design
+            ok, err = cg.compare_outputs(gen.generated_call(gk, *xs), want)
+            if not ok:
+                raise MXNetError("%s differs from the twin: max |diff| %g"
+                                 % (v, err))
     calls = {v: (lambda gk=gk: gen.generated_call(gk, *xs))
              for v, gk in kernels.items()}
     tiny = torch.zeros(1, device=dev)
@@ -122,6 +139,8 @@ def main(argv=None):
                "plan": lk.plan if lk else None,
                "cluster": lk.cluster if lk else None,
                "threads": lk.threads if lk else None,
+               "per_thread": getattr(lk.layout, "per_thread", None)
+               if lk else None,
                "cuts": list(CUTS.get(v, ())), "ms": min(runs[v]),
                "device": name}
         print(json.dumps(rec), flush=True)

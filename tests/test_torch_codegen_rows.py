@@ -1,8 +1,10 @@
-"""The row plan of the mxgen emitter (B10's redesign for Hopper), held on
-the CPU: which plan each chain gets, the row plan's levels, phases,
-exchanges and shared memory, the emitted text (deterministic, the
-mislowering seam, the ablation cuts), and a CPU emulation of the row
-plan's schedule against the twin and the reference's outputs.
+"""The row and flat plans of the mxgen emitter (B10's redesign for
+Hopper), held on the CPU: which plan each chain gets, the row plan's
+levels, phases, exchanges and shared memory, the emitted text
+(deterministic, the mislowering seam, the ablation cuts), a CPU emulation
+of the row plan's schedule against the twin and the reference's outputs,
+and the flat plan's indexing (every element exactly once, whole 16-byte
+runs, the tail masked) emulated the same way.
 
 The emulation (:func:`emulate`) runs the plan phase by phase: row-local
 eqns over all rows at once (elementwise, so the grouping of rows does not
@@ -32,7 +34,7 @@ ROWS = {"_gen_tp_transformer_top1": ((4, 32), 32),
         "_gen_tp_transformer_top2": ((4, 32), 32),
         "_gen_tp_transformer_top3": ((4, 32), 32),
         "_gen_zero1_top1": ((64,), 512), "_gen_zero1_top3": ((64,), 128)}
-GROUPS = ["_gen_zero1_top2"]
+FLAT = ["_gen_zero1_top2"]
 SMEM_48K = 48 * 1024
 
 
@@ -211,7 +213,7 @@ def emulate(lk, inputs):
 @pytest.mark.parametrize("name", tc.SHIPPED_NAMES)
 def test_each_shipped_chain_gets_its_plan(name):
     lk = tc._lowered(name)
-    want = "groups" if name in GROUPS else "rows"
+    want = "flat" if name in FLAT else "rows"
     assert lk.plan == want and lk.as_plan()["plan"] == want
     assert ("// Plan: %s" % want) in lk.src
     if want == "rows":
@@ -358,8 +360,13 @@ def test_ablation_variants_and_the_card():
                                  "rows_c8"] + list(codegen_ablate.CUTS))
     assert len({v.symbol for v in vs.values()}) == len(vs)
     assert vs["groups"].plan == "groups"
+    flat = codegen_ablate.variants(_chain("_gen_zero1_top2"))
+    assert sorted(flat) == sorted(["groups"] + [
+        "flat_t%d_e%d" % te for te in cg._FLAT_SIZES])
+    assert {v.plan for k, v in flat.items() if k != "groups"} == {"flat"}
+    import chip_smoke
     with pytest.raises(MXNetError, match="group plan|groups"):
-        codegen_ablate.variants(_chain("_gen_zero1_top2"))
+        codegen_ablate.variants(cg.Chain.from_json(chip_smoke._sweep_ir()))
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError):
             codegen_ablate.main([])
@@ -419,3 +426,186 @@ def test_the_row_sweep_takes_two_phases_and_matches(cluster):
     pl.phase[reader] = 0
     with pytest.raises(AssertionError, match="before its exchange"):
         emulate(lk, xs)
+
+
+# ---------------------------------------------------------------------------
+# the flat plan
+# ---------------------------------------------------------------------------
+def _flat_ir(n, dtype="float32"):
+    """A 1-D pointwise chain over ``n`` elements: ``a = x * 2``, ``b = a +
+    y`` (bool: ``b = x > y``), both outputs, and a single-element input."""
+    avals = {"0": [[n], dtype], "1": [[n], dtype], "2": [[], "float32"],
+             "3": [[n], dtype], "4": [[1], dtype], "5": [[n], dtype]}
+    ops = [{"prim": "mul", "in": [0, 2], "out": [3]},
+           {"prim": "add", "in": [3, 4], "out": [5]}]
+    if dtype == "bool":
+        avals.update({"3": [[n], "float32"], "0": [[n], "float32"],
+                      "4": [[1], "float32"], "5": [[n], "bool"],
+                      "1": [[n], "float32"]})
+        ops[1] = {"prim": "gt", "in": [3, 4], "out": [5]}
+    return tc._ir(ops, avals, [0, 1, 4], [3, 5],
+                  {"2": {"dtype": "float32", "shape": [],
+                         "values": ["0x40000000"]}})
+
+
+def flat_runs(lk, vec):
+    """The flat kernel's indexing, thread by thread: ``(elements, whole
+    16-byte run)`` of every thread that computes anything (``vec``: what
+    the launcher passes when every operand is 16-byte aligned)."""
+    pl = lk.layout
+    for b in range(pl.grid):
+        for t in range(pl.threads):
+            first = (b * pl.threads + t) * pl.per_thread
+            if first >= pl.n:
+                continue
+            if vec and pl.vector and first + pl.per_thread <= pl.n:
+                yield list(range(first, first + pl.per_thread)), True
+            else:
+                yield [o for o in range(first, first + pl.per_thread)
+                       if o < pl.n], False
+
+
+def emulate_flat(lk, inputs, vec=True):
+    """The flat kernel on the CPU: the twin's per-element arithmetic on
+    each thread's elements, in thread order; every element exactly once."""
+    c, pl = lk.chain, lk.layout
+    order = [o for run, _ in flat_runs(lk, vec) for o in run]
+    assert sorted(order) == list(range(pl.n)), "not every element once"
+    idx = torch.tensor(order, dtype=torch.long)
+    gathered = [x.reshape(-1)[idx] if c.avals[i].shape ==
+                c.avals[c.ext_out[0]].shape else x
+                for i, x in zip(c.ext_in, inputs)]
+    outs = []
+    for o in cg.reference_outputs(lk, gathered):
+        y = torch.empty_like(o.reshape(-1))
+        y[idx] = o.reshape(-1)
+        outs.append(y.reshape(o.shape))
+    return outs
+
+
+def test_b10_5_takes_the_flat_plan_at_the_pinned_size():
+    lk = tc._lowered("_gen_zero1_top2")
+    pl = lk.layout
+    assert (lk.plan, lk.cluster, lk.ws_bytes) == ("flat", 1, 0)
+    assert (pl.threads, pl.per_thread) == (cg.FLAT_THREADS,
+                                           cg.FLAT_PER_THREAD)
+    assert (cg.FLAT_THREADS, cg.FLAT_PER_THREAD) in cg._FLAT_SIZES
+    assert pl.n == 9458 and pl.vector and len(pl.groups) == 1
+    span = pl.threads * pl.per_thread
+    assert pl.grid == -(-9458 // span)
+    assert "// Plan: flat (no row plan: a 1-D chain has no row axes)" \
+        in lk.src
+    assert "<<<%d, %d, 0, (cudaStream_t)stream>>>" % (pl.grid, pl.threads) \
+        in lk.src
+    assert "__syncthreads" not in lk.src and "ws_g)" not in lk.src
+    assert lk.tileable and "%s_tiled(" % lk.symbol in lk.src
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 4097, 9458])
+def test_flat_indexing_covers_each_element_once(n):
+    lk = cg.lower_chain(_flat_ir(n))
+    pl = lk.layout
+    assert lk.plan == "flat" and pl.n == n
+    e = pl.per_thread
+    # the emulation reads the launch and the index from the text
+    assert "<<<%d, %d, 0," % (pl.grid, pl.threads) in lk.src
+    assert "const int first = (blockIdx.x * %d + threadIdx.x) * %d;" \
+        % (pl.threads, e) in lk.src
+    assert "if (vec && first + %d <= %d) {" % (e, n) in lk.src
+    assert "o < first + %d && o < %d; ++o" % (e, n) in lk.src
+    for vec in (True, False):
+        runs = list(flat_runs(lk, vec))
+        order = [o for run, _ in runs for o in run]
+        assert sorted(order) == list(range(n)), (n, vec)
+        whole = [run for run, w in runs if w]
+        assert all(len(r) == e and r[0] % e == 0 for r in whole)
+        assert len(whole) == (n // e if vec else 0)
+        # only the last thread holds a tail
+        assert all(len(r) == e for r, w in runs[:-1]) or not vec
+    xs = _inputs(lk)
+    for vec in (True, False):
+        got = emulate_flat(lk, xs, vec)
+        want = cg.reference_outputs(lk, xs)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("size", cg._FLAT_SIZES)
+def test_flat_text_is_deterministic_at_every_size(size):
+    chain = _chain("_gen_zero1_top2")
+    a = cg.lower_chain(chain, flat=size)
+    b = cg.lower_chain(cg.Chain.from_json(chain), flat=size)
+    assert a.src == b.src and a.plan == "flat"
+    assert (a.layout.threads, a.layout.per_thread) == size
+    assert "__launch_bounds__(%d)" % size[0] in a.src
+    if size == (cg.FLAT_THREADS, cg.FLAT_PER_THREAD):
+        assert a.src == tc._lowered("_gen_zero1_top2").src
+
+
+def test_groups_forced_keeps_the_group_plan():
+    chain = _chain("_gen_zero1_top2")
+    lk = cg.lower_chain(chain, plan="groups")
+    assert lk.plan == "groups" and lk.threads == 1024
+    assert "// Plan: groups.  One block, 1024 threads" in lk.src
+    assert "<<<1, 1024, 0, (cudaStream_t)stream>>>" in lk.src
+    flat = tc._lowered("_gen_zero1_top2")
+    # one per-element body: the group plan's loop body appears verbatim
+    # in the flat kernel's element-by-element path
+    body = lk.src.split("o += 1024) {\n")[1].split("  }\n}")[0]
+    assert body in flat.src
+    with pytest.raises(ValueError, match="flat"):
+        cg.lower_chain(chain, plan="groups", flat=(256, 4))
+    with pytest.raises(ValueError, match="multiple of"):
+        cg.lower_chain(chain, flat=(100, 4))
+
+
+def test_flat_outputs_match_twin_and_reference(ref):  # noqa: F811
+    lk = tc._lowered("_gen_zero1_top2")
+    xs = _inputs(lk)
+    got = emulate_flat(lk, xs)
+    ok, err = cg.compare_outputs(got, cg.reference_outputs(lk, xs))
+    assert ok and err == 0.0, err
+    tc._assert_matches(got, tc._outputs(ref, lk.name, "ref"),
+                       (lk.name, "ref"))
+    tc._assert_matches(got, tc._outputs(ref, lk.name, "whole"),
+                       (lk.name, "pallas"))
+
+
+def test_multi_group_or_reducing_chains_never_take_the_flat_plan():
+    import chip_smoke
+    sweep = cg.lower_chain(chip_smoke._sweep_ir())
+    assert sweep.plan == "groups" and len(sweep.layout.groups) > 1
+    n = 64
+    reducing = tc._ir(
+        [{"prim": "mul", "in": [0, 0], "out": [1]},
+         {"prim": "reduce_sum", "in": [1], "out": [2],
+          "params": {"axes": [0]}}],
+        {"0": [[n], "float32"], "1": [[n], "float32"],
+         "2": [[], "float32"]}, [0], [1, 2])
+    one_group_reduce = tc._ir(
+        [{"prim": "reduce_sum", "in": [0], "out": [1],
+          "params": {"axes": [0]}}],
+        {"0": [[n], "float32"], "1": [[], "float32"]}, [0], [1])
+    broadcast = tc._ir(
+        [{"prim": "broadcast_in_dim", "in": [0], "out": [1],
+          "params": {"shape": [n], "broadcast_dimensions": []}},
+         {"prim": "add", "in": [1, 2], "out": [3]}],
+        {"0": [[], "float32"], "1": [[n], "float32"],
+         "2": [[n], "float32"], "3": [[n], "float32"]}, [0, 2], [3])
+    for ir in (chip_smoke._sweep_ir(), reducing, one_group_reduce,
+               broadcast):
+        lk = cg.lower_chain(ir)
+        assert lk.src is not None and lk.plan == "groups", lk.findings
+        assert "// Plan: groups" in lk.src
+        with pytest.raises(ValueError, match="does not fit the flat plan"):
+            cg.lower_chain(ir, flat=(cg.FLAT_THREADS, cg.FLAT_PER_THREAD))
+
+
+def test_a_bool_chain_runs_the_flat_plan_element_by_element():
+    lk = cg.lower_chain(_flat_ir(1000, "bool"))
+    assert lk.plan == "flat" and not lk.layout.vector
+    assert "element by element" in lk.src and "vec &&" not in lk.src
+    assert "const int vec = 0;" in lk.src
+    xs = _inputs(lk)
+    got = emulate_flat(lk, xs, vec=True)
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, cg.reference_outputs(lk, xs)))
