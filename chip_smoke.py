@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Sixteen phases; any failure exits non-zero and prints no result line.
+Twenty phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -236,6 +236,48 @@ Sixteen phases; any failure exits non-zero and prints no result line.
     the card: its JSON line has ``codegen_numerics_ok == 1.0`` and
     ``codegen_n_kernels == 6``, and the launch counters (zeroed just
     before) show every ``_gen_*`` kernel launched.
+17. **The bf16 routes of B5-B7.** ``flash_forward_with_lse``,
+    ``flash_dq`` and ``flash_dkv`` on bfloat16 q, k, v, dO (the
+    ``mxtt_flash_*_bf16`` kernels of ``csrc/flash_attention.cu``) against
+    their bf16 plain versions (the f32 plain version on the widened
+    inputs, rounded) at the ring path's hop pairings, at D = 64 and 128
+    causal and full, ragged (3, 997 x 1000, 64) and D = 320: out, dq, dk,
+    dv within one bf16 ulp (counted as in phase 13), lse within 1e-5, two
+    runs bitwise, every launch on the ``…/bf16`` count.  Timed per layer
+    (both pairings) with CUDA events around eager calls, and at D = 64 and
+    128, beside the bound (bytes at bf16 I/O, f32 lse/delta; operations at
+    the f32 CUDA-core rate the route runs at), plain, and
+    ``scaled_dot_product_attention`` in bf16 (its forward; its backward
+    for dq and dk/dv together) as ``library_ms``.
+18. **Train ResNet-50 in bf16.** First the half BatchNorm on the card
+    on seeded bf16 data: moving statistics against the CPU's (rtol 1e-4;
+    the card reads the forward kernel's saved f32 statistics, the CPU
+    widens the data), the output within one bf16 ulp of the f64 spelling;
+    ``Optimizer(multi_precision=True)`` over ``Parameter.cast("bfloat16")``
+    weights on the card against the CPU (rtol 1e-6). Then phase 5's
+    recipe and batch through
+    ``DataParallelTrainer(..., dtype="bf16")`` (bf16 forward over the f32
+    bucket masters, dynamic loss scaling, B1 on ``[lr, inv_scale, ok]``
+    from the card) inside ``engine.bulk(4)``: 3 warm-up and 10 timed
+    steps, images/s over the flushed window, step intervals p50/p99 and
+    peak memory beside phase 5's f32 numbers; the final loss scale and
+    skipped count; ``fused_sgd_momentum`` launched steps x buckets times.
+    One bf16 step under ``torch.cuda.set_sync_debug_mode("error")`` with
+    the batch on the card must not synchronize (an f32 step is tried the
+    same way and a synchronizing op named, not failed).  A batch holding
+    an inf leaves the masters and momentum bitwise untouched, halves the
+    scale and books one skip.  Depth 1 and depth 4 over 3 steps on the
+    same batch tensors (cuDNN's deterministic algorithms for both): losses
+    and masters bitwise equal.
+19. **Train the TransformerLM in bf16.** Phase 8's configuration and
+    batches with ``dtype="bf16"`` (``compute_dtype`` on the mesh tier):
+    tokens/s, p50/p99, peak memory, each bf16 flash route launched steps x
+    layers x 2 hops times, the largest |loss_bf16 - loss_f32| against
+    phase 8's losses on the same seed and batches; ``--profile`` adds the
+    device time by category and the idle share.
+20. **The benches.** ``mxnet_tpu_torch.engine_bench.main([])`` and
+    ``precision_bench.main([])`` on the card: their JSON lines printed;
+    the ring and prefetch bounds held, ``precision_numerics_ok == 1.0``.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -253,7 +295,9 @@ stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
 for ``_gen_zero1_top2`` and null for the other five, which no single
 PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
 the row plan's time at each cluster size or the flat plan's at each
-size, and the group plan's), the
+size, and the group plan's); the bf16 routes
+``flash_*[bf16]`` per layer at the path's pairings, ``launches`` from
+phase 19, ``max_abs_err`` and ``max_bf16_ulps`` from phase 17; the
 card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -333,6 +377,8 @@ CONV_RAGGED = [((2, 8, 8, 16), 32), ((4, 6, 6, 16), 32), ((1, 14, 14, 8), 16),
 # images (M = 198, 99 positions each)
 CONV_EDGES = [((3, 7, 9, 64), 96), ((1, 5, 5, 128), 200), ((2, 9, 11, 64), 64)]
 CONV_F32 = ((2, 28, 28, 512), 128)
+# the phases 5 and 8 numbers phases 18 and 19 print beside their own
+RUNS = {}
 # slice 6: the mxgen kernels (B10) and codegen_bench (phases 15-16)
 GEN_TOL = 1e-5          # codegen.EQUIV_TOL: rtol = atol, ints/bools exact
 GEN_TIMED = 200
@@ -943,6 +989,10 @@ def phase_train(bucket, profile=False):
              ["%.1f" % t for t in times[:WARMUP]], peak / 2 ** 30))
     print("phase 5: launches %s (fused_sgd_momentum = %d steps x %d "
           "bucket)" % (counts, steps, n_buckets))
+    RUNS["phase 5"] = dict(
+        batch=batch, images_s=batch * TIMED / (timed.sum() / 1e3),
+        p50=np.percentile(timed, 50), p99=np.percentile(timed, 99),
+        peak_gib=peak / 2 ** 30)
     launches = {"fused_sgd_momentum": counts["fused_sgd_momentum"]}
     if profile:
         profile_train(tr, x, y)
@@ -1107,6 +1157,15 @@ TF32_PASSES = 3
 FLASH_NONMATRIX = {"flash_forward_with_lse": 8, "flash_dq": 8,
                    "flash_dkv": 11}
 FLASH_SPEEDUP = 1.5     # the wgmma design against the CUDA-core one
+# slice 13: the bf16 routes of B5-B7 (phase 17) at the ring path's hop
+# pairings and at D = 64 and 128, causal and full: (BH, Tq, Tk, D, causal)
+FLASH_BF16_CHECK = FLASH_PATH + [(64, 512, 512, 64, True),
+                                 (64, 512, 512, 64, False),
+                                 (32, 512, 512, 128, True),
+                                 (32, 512, 512, 128, False),
+                                 (3, 997, 1000, 64, True),
+                                 (2, 130, 61, 320, False)]
+FLASH_BF16_TIMED = [(64, 512, 512, 64, True), (32, 512, 512, 128, True)]
 
 
 def _pairs(tq, tk, causal):
@@ -1577,6 +1636,8 @@ def phase_train_lm(profile=False):
           % ({k: v for k, v in flash.items() if k.startswith("flash")},
              steps, CFG["n_layers"], k_ranks, ln,
              steps * (2 * CFG["n_layers"] + 1)))
+    RUNS["phase 8"] = dict(losses=losses,
+                           tokens_s=tokens * TIMED / (timed.sum() / 1e3))
     if profile:
         x, y = batches[-1]
         profile_train(tr, x, y, label="phase 8",
@@ -2786,6 +2847,473 @@ def phase_codegen_bench():
     return counts
 
 
+# -- slice 13: bf16 mixed precision and the run-ahead window ------------------
+def _flash_bf16_bound(name, cases):
+    """(bound ms, bound_by) of a bf16 route over ``cases``: q, k, v, dO
+    and the outputs at 2 bytes, lse and delta at 4, each read or written
+    once, against the f32 CUDA-core operations of :func:`_flash_bound`
+    (the route widens to f32 and runs on the CUDA cores)."""
+    flops = _flash_bound(name, cases)[2]
+    nbytes = 0
+    for bh, tq, tk, d, _ in cases:
+        qside, kside, rows = bh * tq * d, bh * tk * d, bh * tq
+        nbytes += {"flash_forward_with_lse": 2 * (2 * qside + 2 * kside)
+                   + 4 * rows,
+                   "flash_dq": 2 * (3 * qside + 2 * kside) + 8 * rows,
+                   "flash_dkv": 2 * (2 * qside + 4 * kside) + 8 * rows}[name]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _flash_bf16_args(cases, gen):
+    """Seeded bf16 (q, k, v, dO, lse, delta, causal, scale) per pairing,
+    lse and delta (f32) from the bf16 plain forward."""
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    out = []
+    for case in cases:
+        q, k, v, do, causal, scale = _flash_inputs(case, gen)
+        q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+        o, lse = pk.flash_forward_with_lse_reference(q, k, v, causal, scale)
+        out.append((q, k, v, do, lse, pk.flash_delta(o, do), causal, scale))
+    return out
+
+
+def _flash_bf16_calls(pk, a, plain=False):
+    """{wrapper: call} of the three bf16 routes (or plain versions) on one
+    pairing's args."""
+    if plain:
+        return {"flash_forward_with_lse": lambda: (
+                    pk.flash_forward_with_lse_reference(*a[:3], a[6], a[7])),
+                "flash_dq": lambda: (pk.flash_dq_reference(*a),),
+                "flash_dkv": lambda: pk.flash_dkv_reference(*a)}
+    return {"flash_forward_with_lse": lambda: pk.flash_forward_with_lse(
+                *a[:3], a[6], a[7]),
+            "flash_dq": lambda: (pk.flash_dq(*a),),
+            "flash_dkv": lambda: pk.flash_dkv(*a)}
+
+
+def phase_flash_bf16():
+    """Phase 17: the bf16 routes of B5-B7 against their bf16 plain
+    versions; timed per layer beside the bound, plain and SDPA in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        worst = {n: [0.0, 0.0] for n in FLASH_KERNELS}   # ulps, abs
+        for case in FLASH_BF16_CHECK:
+            (a,) = _flash_bf16_args([case], gen)
+            want = {n: [t for t in f()] for n, f in
+                    _flash_bf16_calls(pk, a, plain=True).items()}
+            errs = {}
+            for name, call in _flash_bf16_calls(pk, a).items():
+                before = pk.launch_counts()[name + "/bf16"]
+                runs = [call(), call()]
+                torch.cuda.synchronize()
+                if pk.launch_counts()[name + "/bf16"] != before + 2:
+                    raise RuntimeError("%s %s: not launched on the bf16 "
+                                       "route" % (name, case))
+                for got, again, w in zip(runs[0], runs[1], want[name]):
+                    if not torch.equal(got, again):
+                        raise RuntimeError("%s %s bf16: two runs differ"
+                                           % (name, case))
+                    if got.dtype != w.dtype or got.shape != w.shape:
+                        raise RuntimeError("%s %s bf16: %s %s against %s %s"
+                                           % (name, case, got.dtype,
+                                              tuple(got.shape), w.dtype,
+                                              tuple(w.shape)))
+                    if got.dtype == torch.float32:      # lse
+                        torch.testing.assert_close(got, w, rtol=FLASH_FWD_TOL,
+                                                   atol=FLASH_FWD_TOL)
+                        continue
+                    u = float(_bf16_ulps(got, w).max())
+                    e = float((got.float() - w.float()).abs().max())
+                    errs[name] = max(errs.get(name, 0.0), u)
+                    worst[name][0] = max(worst[name][0], u)
+                    worst[name][1] = max(worst[name][1], e)
+                    if u > 1.0:
+                        raise RuntimeError("%s %s bf16: %.2f bf16 ulps from "
+                                           "plain" % (name, case, u))
+            print("phase 17: %s bf16 within %s ulps of plain, lse %g, reruns "
+                  "bitwise" % (case, {k: "%.2f" % v for k, v in errs.items()},
+                               FLASH_FWD_TOL))
+            del a, want
+            torch.cuda.empty_cache()
+        out = []
+        for label, cases in (("path", FLASH_PATH),
+                             ("D=64", FLASH_BF16_TIMED[:1]),
+                             ("D=128", FLASH_BF16_TIMED[1:])):
+            args = _flash_bf16_args(cases, gen)
+            lib_in = [tuple(t[None].clone().requires_grad_() for t in a[:3])
+                      + (a[3][None], a[6]) for a in args]
+            with torch.no_grad():
+                lib_fwd = _event_ms(lambda: [F.scaled_dot_product_attention(
+                    *a[:3], is_causal=a[4]) for a in lib_in])
+            outs = [F.scaled_dot_product_attention(*a[:3], is_causal=a[4])
+                    for a in lib_in]
+            lib_bwd = _event_ms(lambda: [torch.autograd.grad(
+                o, a[:3], a[3], retain_graph=True)
+                for o, a in zip(outs, lib_in)])
+            backend = _sdpa_backend(*lib_in[0][:3], lib_in[0][4])
+            for name, (replaces, _) in FLASH_KERNELS.items():
+                calls = [_flash_bf16_calls(pk, a)[name] for a in args]
+                plains = [_flash_bf16_calls(pk, a, True)[name] for a in args]
+                ms = _event_ms(lambda: [c() for c in calls])
+                plain_ms = _event_ms(lambda: [c() for c in plains], iters=5)
+                bound_ms, bound_by = _flash_bf16_bound(name, cases)
+                lib = lib_fwd if name == "flash_forward_with_lse" else lib_bwd
+                print("phase 17: %s bf16 per layer at %s %s: %.5f ms, bound "
+                      "%.5f ms (%s) = %.1f %% of it, plain %.5f ms, library "
+                      "%.5f ms (%s, %s)"
+                      % (name, label, cases, ms, bound_ms, bound_by,
+                         100 * bound_ms / ms, plain_ms, lib, backend,
+                         "its forward" if name == "flash_forward_with_lse"
+                         else "its backward: B6+B7 together"))
+                if label == "path":
+                    out.append({
+                        "name": name + "[bf16]", "route": "cuda",
+                        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": replaces, "design": "bf16",
+                        "launches": None, "max_abs_err": worst[name][1],
+                        "max_bf16_ulps": worst[name][0], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib})
+            del args, lib_in, outs
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _resnet50(dtype="bf16"):
+    """A fresh ResNet-50 v1 (Xavier, RandomState(0)) under a
+    DataParallelTrainer of ``dtype`` with phase 5's SGD."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+    return net, DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                    dict(SGD_PARAMS), dtype=dtype)
+
+
+def _bn_half_check():
+    """The half-precision BatchNorm of a bf16 training step on the card
+    (moving statistics from the forward kernel's saved f32 mean and
+    inverse std) against the same op on the CPU (statistics over the data
+    widened to f32) and against the f32 spelling, on the same bf16 data:
+    moving statistics within rtol 1e-4 / atol 1e-6 of the CPU's, the
+    output within one bf16 ulp of the f32 spelling rounded once (the CPU
+    kernel normalizes with statistics rounded to bf16, so its output is
+    not the yardstick)."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as N
+    gen = torch.Generator().manual_seed(18)
+    x = (torch.randn(64, 32, 14, 14, generator=gen) * 3 + 1).bfloat16()
+    got = {}
+    for dev in ("cpu", "cuda"):
+        mm = torch.full((32,), 0.5, device=dev)
+        mv = torch.ones(32, device=dev)
+        g = torch.ones(32, dtype=torch.bfloat16, device=dev)
+        out = N.BatchNorm(x.to(dev), g, torch.zeros_like(g), mm, mv,
+                          eps=1e-5, momentum=0.9, fix_gamma=False,
+                          _train=True)
+        got[dev] = (out.cpu(), mm.cpu(), mv.cpu())
+    x32 = x.double()
+    mu = x32.mean(dim=(0, 2, 3), keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    want = ((x32 - mu) / torch.sqrt(var + 1e-5)).bfloat16()
+    ulps = float(_bf16_ulps(got["cuda"][0], want).max())
+    errs = [float((a - b).abs().max()) for a, b in zip(got["cuda"][1:],
+                                                     got["cpu"][1:])]
+    print("phase 18: half BatchNorm on the card: output within %.2f bf16 "
+          "ulps of the f64 spelling; moving mean / var against the CPU's "
+          "max |diff| %.3g / %.3g" % (ulps, *errs))
+    if ulps > 1.0:
+        raise RuntimeError("half BatchNorm output %.2f ulps off" % ulps)
+    for a, b in zip(got["cuda"][1:], got["cpu"][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def _multi_precision_check():
+    """``Optimizer(multi_precision=True)`` over ``Parameter.cast(
+    "bfloat16")`` weights on the card against the same on the CPU: 3
+    SGD-momentum updates of a Dense layer from seeded bf16 gradients; the
+    f32 masters and the rounded weights within rtol 1e-6."""
+    import torch
+    from mxnet_tpu_torch import gluon, initializer
+    from mxnet_tpu_torch import optimizer as topt
+    got = {}
+    for dev in ("cpu", "cuda"):
+        net = gluon.nn.Dense(64, in_units=32)
+        net.initialize(initializer.Xavier(), ctx=dev,
+                       rng=np.random.RandomState(3))
+        net.cast("bfloat16")
+        opt = topt.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
+                          multi_precision=True)
+        params = [p.data() for p in net.collect_params().values()]
+        states = [opt.create_state_multi_precision(i, w)
+                  for i, w in enumerate(params)]
+        rng = np.random.RandomState(4)
+        for _ in range(3):
+            for i, w in enumerate(params):
+                g = torch.from_numpy(rng.randn(*w.shape).astype(np.float32))
+                opt.update_multi_precision(i, w, g.to(dev).bfloat16(),
+                                           states[i])
+        if any(w.dtype != torch.bfloat16 or s[0].dtype != torch.float32
+               for w, s in zip(params, states)):
+            raise RuntimeError("multi_precision: weights %s, masters %s"
+                               % ([w.dtype for w in params],
+                                  [s[0].dtype for s in states]))
+        got[dev] = [w.float().cpu() for w in params] + [s[0].cpu()
+                                                         for s in states]
+    same = all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    print("phase 18: multi_precision SGD over bf16 (Parameter.cast) weights "
+          "on the card: masters and weights %s the CPU's"
+          % ("bitwise" if same else "within 1e-6 of"))
+
+
+def phase_train_bf16():
+    """Phase 18: ResNet-50 training in bf16 inside ``engine.bulk(4)``."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import engine
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+
+    _bn_half_check()
+    _multi_precision_check()
+
+    batch = RUNS["phase 5"]["batch"]
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(batch, 3, 224, 224).astype(np.float32)
+                         ).cuda()
+    y = torch.from_numpy((rng.rand(batch) * 1000).astype(np.int64)).cuda()
+    net, tr = _resnet50()
+    steps = WARMUP + TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fo.reset_launch_counts()
+    losses, marks = [], []
+    with engine.bulk(4):
+        for _ in range(WARMUP):
+            losses.append(tr.step(x, y))
+        tr.flush()
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            losses.append(tr.step(x, y))
+            marks.append(time.perf_counter())
+        tr.flush()
+        t1 = time.perf_counter()
+    counts = fo.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    scale, good, skipped = tr.loss_scale_state()
+    n_buckets = len(tr._groups)
+    if counts["fused_sgd_momentum"] != steps * n_buckets:
+        raise RuntimeError("fused_sgd_momentum launched %d times in the bf16 "
+                           "run, want %d" % (counts["fused_sgd_momentum"],
+                                             steps * n_buckets))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("bf16 losses %r" % losses)
+    if skipped or tr.dispatch_stats.snapshot()["inflight_max"] > 4:
+        raise RuntimeError("bf16 run: %d skipped steps, ring %s" % (
+            skipped, tr.dispatch_stats.snapshot()))
+    gaps = np.diff([t0] + marks) * 1e3
+    f32 = RUNS["phase 5"]
+    print("phase 18: resnet50_v1 bf16 batch %d inside engine.bulk(4); "
+          "losses %s" % (batch, ["%.4f" % v for v in losses]))
+    print("phase 18: %.1f images/s over %d timed steps (the window, flushed); "
+          "step intervals p50 %.2f ms, p99 %.2f ms; peak memory %.2f GiB | "
+          "phase 5 f32 in this call: %.1f images/s, p50 %.2f ms, p99 %.2f "
+          "ms, peak %.2f GiB"
+          % (batch * TIMED / (t1 - t0), TIMED, np.percentile(gaps, 50),
+             np.percentile(gaps, 99), peak / 2 ** 30, f32["images_s"],
+             f32["p50"], f32["p99"], f32["peak_gib"]))
+    print("phase 18: loss scale %.1f, good steps %d, skipped %d; "
+          "fused_sgd_momentum launches %d (= %d steps x %d bucket); "
+          "dispatch %s" % (scale, good, skipped,
+                           counts["fused_sgd_momentum"], steps, n_buckets,
+                           tr.dispatch_stats.snapshot()))
+    launches = {"fused_sgd_momentum": counts["fused_sgd_momentum"]}
+
+    # one step under sync debug "error", the batch already on the card
+    # (the mode is off again before the window's flush synchronizes)
+    torch.cuda.synchronize()
+    with engine.bulk(4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.step(x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    print("phase 18: one bf16 step under set_sync_debug_mode('error'): no "
+          "synchronizing call")
+    # the inf batch: masters and momentum bitwise untouched, one skip
+    masters = [w.clone() for w in tr._w_flat] + [s.clone() for s in
+                                                 tr._states]
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("inf")
+    before = tr.loss_scale_state()
+    tr.step(bad, y)
+    tr.flush()
+    after = tr.loss_scale_state()
+    if not all(torch.equal(a, b) for a, b in
+               zip(masters, list(tr._w_flat) + list(tr._states))):
+        raise RuntimeError("the inf batch moved the masters")
+    if after != (before[0] * 0.5, 0, before[2] + 1):
+        raise RuntimeError("inf batch: loss-scale state %s -> %s"
+                           % (before, after))
+    print("phase 18: inf batch: masters and momentum bitwise untouched, "
+          "loss-scale state %s -> %s" % (before, after))
+    del tr, net, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the f32 step under sync debug, to name a synchronizing op if any
+    net, t32 = _resnet50(None)
+    t32.step(x, y)
+    t32.flush()
+    with engine.bulk(4):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t32.step(x, y)
+            print("phase 18: one f32 step under set_sync_debug_mode("
+                  "'error'): no synchronizing call")
+        except RuntimeError as e:
+            print("phase 18: the f32 step synchronizes: %s" % str(e)[:200])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    del t32, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bitwise: depth 1 and depth 4, 3 steps each on the same batch tensors,
+    # deterministic cuDNN algorithms for both
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for depth in (1, 4):
+            net, t = _resnet50()
+            with engine.bulk(depth):
+                ls = [t.step(x, y) for _ in range(3)]
+                if len(t._inflight) > depth:
+                    raise RuntimeError("ring %d > %d" % (len(t._inflight),
+                                                         depth))
+            runs.append(([float(v) for v in ls],
+                         [w.clone() for w in t._w_flat]))
+            del net, t
+            gc.collect()
+        same = runs[0][0] == runs[1][0] and all(
+            torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        print("phase 18: depth 1 vs depth 4 (cudnn.deterministic), 3 steps: "
+              "losses %s / %s, masters bitwise %s"
+              % (runs[0][0], runs[1][0], same))
+        if not same:
+            raise RuntimeError("run-ahead depth changed the numbers")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    del runs, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_lm_bf16(profile=False):
+    """Phase 19: the TransformerLM in bf16 on phase 8's batches."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, MeshPlan
+    from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
+
+    k_ranks = 2
+    steps = WARMUP + TIMED
+    batches = [tuple(torch.from_numpy(a).cuda() for a in b)
+               for b in _lm_batches(steps, TRAIN_LM_BATCH)]
+    tr = DataParallelTrainer(
+        TransformerLM(TransformerLMConfig(**CFG, attention="ring")), None,
+        "sgd", dict(LM_SGD), mesh_plan=MeshPlan(sequence=k_ranks),
+        dtype="bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    fo.reset_launch_counts()
+    losses, times = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        loss = tr.step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    flash = pk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = steps * CFG["n_layers"] * k_ranks
+    if any(flash[n] != want or flash[n + "/bf16"] != want
+           for n in FLASH_KERNELS):
+        raise RuntimeError("bf16 flash launches %s, want %d each on the bf16 "
+                           "route" % (flash, want))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("bf16 LM losses %r" % losses)
+    f32 = RUNS["phase 8"]
+    delta = max(abs(a - b) for a, b in zip(losses, f32["losses"]))
+    timed = np.asarray(times[WARMUP:])
+    tokens = TRAIN_LM_BATCH * CFG["seq_len"]
+    print("phase 19: TransformerLM bf16 (compute_dtype), MeshPlan(sequence="
+          "%d), batch %d x %d; losses %s" % (k_ranks, TRAIN_LM_BATCH,
+                                             CFG["seq_len"],
+                                             ["%.4f" % v for v in losses]))
+    print("phase 19: %.1f tokens/s over %d timed steps (phase 8 f32 in this "
+          "call: %.1f); step p50 %.2f ms, p99 %.2f ms; peak memory %.3f GiB; "
+          "max |loss_bf16 - loss_f32| over %d steps %.5f"
+          % (tokens * TIMED / (timed.sum() / 1e3), TIMED, f32["tokens_s"],
+             np.percentile(timed, 50), np.percentile(timed, 99),
+             peak / 2 ** 30, steps, delta))
+    print("phase 19: launches %s = %d steps x %d layers x %d hops each on "
+          "the bf16 route; fused_layer_norm %d (bf16 takes the plain "
+          "spelling)" % ({k: v for k, v in flash.items()
+                          if k.startswith("flash")}, steps, CFG["n_layers"],
+                         k_ranks, fo.launch_counts()["fused_layer_norm"]))
+    if profile:
+        x, y = batches[-1]
+        profile_train(tr, x, y, label="phase 19",
+                      categories=LM_PROFILE_CATEGORIES)
+    del tr, batches
+    torch.cuda.empty_cache()
+    return flash
+
+
+def phase_benches():
+    """Phase 20: ``engine_bench`` and ``precision_bench`` on the card."""
+    import contextlib
+    import io
+    from mxnet_tpu_torch import engine_bench, precision_bench
+    lines = {}
+    for name, mod in (("engine_bench", engine_bench),
+                      ("precision_bench", precision_bench)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        line = buf.getvalue().strip().splitlines()[-1]
+        print("phase 20: %s %s" % (name, line))
+        lines[name] = json.loads(line)
+        if rc != 0:
+            raise RuntimeError("%s exited %d" % (name, rc))
+    eb, pb = lines["engine_bench"], lines["precision_bench"]
+    if not 1 <= eb["overlap_inflight_max"] <= eb["dispatch_depth"] \
+            or eb["overlap_prefetch_slots_max"] > 2:
+        raise RuntimeError("engine_bench ring bounds: %s" % eb)
+    if pb["precision_numerics_ok"] != 1.0:
+        raise RuntimeError("precision_bench numerics: %s" % pb)
+    return lines
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2835,6 +3363,15 @@ def main():
         launches = phase_codegen_bench()
         for k in gen_kernels:
             k["launches"] = launches[k["name"]]
+        bf16_kernels = phase_flash_bf16()
+        launches = phase_train_bf16()
+        for k in opt_kernels:
+            if k["name"] in launches:
+                k["launches_bf16"] = launches[k["name"]]
+        flash = phase_train_lm_bf16(profile="--profile" in sys.argv)
+        for k in bf16_kernels:
+            k["launches"] = flash[k["name"].split("[")[0] + "/bf16"]
+        phase_benches()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -2845,7 +3382,8 @@ def main():
         return 1
     print("total %.2f s" % (time.monotonic() - t_start))
     print(json.dumps({"kernels": [kernel] + opt_kernels + flash_kernels
-                      + [qmm_kernel] + conv_kernels + gen_kernels}))
+                      + bf16_kernels + [qmm_kernel] + conv_kernels
+                      + gen_kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Flash attention over (BH, T, D) f32: the Hopper port of the three TPU
-// kernels of mxnet_tpu/ops/pallas_kernels.py that ring attention runs on
+// Flash attention over (BH, T, D) f32 or bf16: the Hopper port of the three
+// TPU kernels of mxnet_tpu/ops/pallas_kernels.py that ring attention runs on
 // every hop (parallel/ring_attention.py):
 //
 //   mxtt_flash_fwd  <- _fa_kernel      (:62, via _flash_attention_fwd_impl /
@@ -64,15 +64,37 @@
 // width, lanes per row, tile rows and chunks chosen for a head dim
 // (ops/pallas_kernels.py simt_launch_shape is the same table).
 //
+// The element type: every kernel is a template over the type of q, k, v,
+// dO and the outputs (o, dq, dk, dv), instantiated for float and for
+// __nv_bfloat16 (the mxtt_flash_*_bf16 entries, the reference kernels on
+// bf16 operands: out_shape q.dtype, dq/dk/dv cast to the input dtype).
+// Only the loads and stores convert: a bf16 operand is widened to f32 as it
+// is loaded into registers or shared memory, every product, the softmax
+// and the sums run in f32 as for float, and each output element is rounded
+// to nearest-even once, as it is stored.  lse and delta are f32 for both.
+// A bf16 x bf16 product is exact in f32, so s = q.k has no rounding beyond
+// the f32 sum, as the reference's preferred_element_type=float32 dot.
+//
 // expf / logf stay IEEE: no --use_fast_math.  Built by
 // mxnet_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes (mxnet_tpu_torch/ops/pallas_kernels.py).  Each entry
 // point launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// the element type's widening load and rounding store
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
 
 constexpr float kNegInf = -1e30f;      // _NEG_INF of the Pallas kernels
 constexpr float kHalfNegInf = -5e29f;  // _NEG_INF / 2
@@ -91,16 +113,16 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // rows row0 .. row0 + TR - 1, columns d0 .. d0 + DP - 1 of a (rows, D)
 // matrix into dst[TR][DP], zeros past the matrix's last row and column
-template <int DP, int TR>
+template <int DP, int TR, typename T>
 __device__ __forceinline__ void load_tile(float (*dst)[DP],
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int row0, int rows, int D,
                                           int d0 = 0) {
   for (int e = threadIdx.x; e < TR * DP; e += kThreads) {
     const int r = e / DP, c = e % DP;
     const int row = row0 + r;
     dst[r][c] = (row < rows && d0 + c < D)
-                    ? src[(long long)row * D + d0 + c] : 0.f;
+                    ? to_f(src[(long long)row * D + d0 + c]) : 0.f;
   }
 }
 
@@ -145,35 +167,35 @@ __device__ __forceinline__ int col_of(int d, int sub) {
   return ((d / 4) * G + sub) * 4 + d % 4;
 }
 
-template <int DG, int G>
+template <int DG, int G, typename T>
 __device__ __forceinline__ void load_row(float* dst,
-                                         const float* __restrict__ row,
+                                         const T* __restrict__ row,
                                          bool valid, int sub, int D) {
 #pragma unroll
   for (int d = 0; d < DG; ++d) {
     const int c = col_of<G>(d, sub);
-    dst[d] = (valid && c < D) ? row[c] : 0.f;
+    dst[d] = (valid && c < D) ? to_f(row[c]) : 0.f;
   }
 }
 
-template <int DG, int G>
-__device__ __forceinline__ void store_row(float* __restrict__ row,
+template <int DG, int G, typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ row,
                                           const float* acc, float mul,
                                           bool divide, int sub, int D) {
 #pragma unroll
   for (int d = 0; d < DG; ++d) {
     const int c = col_of<G>(d, sub);
-    if (c < D) row[c] = divide ? acc[d] / mul : acc[d] * mul;
+    if (c < D) put(row + c, divide ? acc[d] / mul : acc[d] * mul);
   }
 }
 
 // ---------------------------------------------------------------------------
 // forward: one block per (bh, q-tile of kThreads / G rows)
 // ---------------------------------------------------------------------------
-template <int DP, int G, int TR>
+template <int DP, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Tq, int Tk, int D, float scale,
                  int causal, long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
@@ -191,8 +213,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DG; ++d) acc[d] = 0.f;
     float m = kNegInf, l = 0.f;
-    const float* kb = k + bh * Tk * D;
-    const float* vb = v + bh * Tk * D;
+    const T* kb = k + bh * Tk * D;
+    const T* vb = v + bh * Tk * D;
     // causal: keys past the block's last row are masked for every row
     const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
     for (int k0 = 0; k0 < k_end; k0 += TR) {
@@ -238,12 +260,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // dq: one block per (bh, q-tile), a loop over K tiles
 // ---------------------------------------------------------------------------
-template <int DP, int G, int TR>
+template <int DP, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dq,
+                const float* __restrict__ delta, T* __restrict__ dq,
                 int Tq, int Tk, int D, float scale, int causal,
                 long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
@@ -263,8 +285,8 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int d = 0; d < DG; ++d) acc[d] = 0.f;
     const float lse_i = qvalid ? lse[bh * Tq + qi] : 0.f;
     const float delta_i = qvalid ? delta[bh * Tq + qi] : 0.f;
-    const float* kb = k + bh * Tk * D;
-    const float* vb = v + bh * Tk * D;
+    const T* kb = k + bh * Tk * D;
+    const T* vb = v + bh * Tk * D;
     const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
     for (int k0 = 0; k0 < k_end; k0 += TR) {
       __syncthreads();
@@ -291,13 +313,13 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // dk, dv: one block per (bh, k-tile), a loop over Q tiles (k-major)
 // ---------------------------------------------------------------------------
-template <int DP, int G, int TR>
+template <int DP, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int Tq, int Tk, int D, float scale,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, int Tq, int Tk, int D, float scale,
                  int causal, long long n_bh, long long n_blocks) {
   constexpr int DG = DP / G;
   constexpr int BK = kThreads / G;
@@ -316,8 +338,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_row<DG, G>(vr, v + (bh * Tk + kj) * D, kvalid, sub, D);
 #pragma unroll
     for (int d = 0; d < DG; ++d) dka[d] = dva[d] = 0.f;
-    const float* qb = q + bh * Tq * D;
-    const float* db = dout + bh * Tq * D;
+    const T* qb = q + bh * Tq * D;
+    const T* db = dout + bh * Tq * D;
     // causal: queries before the block's first key see none of its keys
     const int q_begin = causal ? min(k0, Tq) : 0;
     for (int qt = q_begin; qt < Tq; qt += TR) {
@@ -358,11 +380,11 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // s[j] (+)= the chunks' q.k (or dO.v) of row x against rows r0 .. r0 +
 // TR - 1 of y, chunk by chunk through tile; x's chunk is reloaded per
 // chunk.  Syncs inside: every thread of the block calls it.
-template <int DC, int G, int TR>
+template <int DC, int G, int TR, typename T>
 __device__ __forceinline__ void chunk_dots(float* s, float (*tile)[DC],
-                                           const float* __restrict__ x,
+                                           const T* __restrict__ x,
                                            bool xvalid,
-                                           const float* __restrict__ y,
+                                           const T* __restrict__ y,
                                            int r0, int rows, int D, int sub) {
   constexpr int DG = DC / G;
 #pragma unroll
@@ -379,11 +401,11 @@ __device__ __forceinline__ void chunk_dots(float* s, float (*tile)[DC],
   }
 }
 
-template <int DC, int G, int TR>
+template <int DC, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_wide_kernel(const T* __restrict__ q,
+                      const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int Tq, int Tk, int D,
                       float scale, int causal, long long n_bh,
                       long long n_blocks) {
@@ -396,9 +418,9 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
     const int q0 = static_cast<int>(b / n_bh) * BQ;
     const int qi = q0 + threadIdx.x / G;
     const bool qvalid = qi < Tq;
-    const float* qrow = q + (bh * Tq + qi) * D;
-    const float* kb = k + bh * Tk * D;
-    const float* vb = v + bh * Tk * D;
+    const T* qrow = q + (bh * Tq + qi) * D;
+    const T* kb = k + bh * Tk * D;
+    const T* vb = v + bh * Tk * D;
     const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
     // pass 0: the running max and the sum of exponentials
     float m = kNegInf, l = 0.f;
@@ -454,13 +476,13 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DC, int G, int TR>
+template <int DC, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
+                     const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
+                     const float* __restrict__ delta, T* __restrict__ dq,
                      int Tq, int Tk, int D, float scale, int causal,
                      long long n_bh, long long n_blocks) {
   constexpr int DG = DC / G;
@@ -472,12 +494,12 @@ flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q0 = static_cast<int>(b / n_bh) * BQ;
     const int qi = q0 + threadIdx.x / G;
     const bool qvalid = qi < Tq;
-    const float* qrow = q + (bh * Tq + qi) * D;
-    const float* dorow = dout + (bh * Tq + qi) * D;
+    const T* qrow = q + (bh * Tq + qi) * D;
+    const T* dorow = dout + (bh * Tq + qi) * D;
     const float lse_i = qvalid ? lse[bh * Tq + qi] : 0.f;
     const float delta_i = qvalid ? delta[bh * Tq + qi] : 0.f;
-    const float* kb = k + bh * Tk * D;
-    const float* vb = v + bh * Tk * D;
+    const T* kb = k + bh * Tk * D;
+    const T* vb = v + bh * Tk * D;
     const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
     for (int d0 = 0; d0 < D; d0 += DC) {
       float acc[DG];
@@ -507,15 +529,15 @@ flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DC, int G, int TR>
+template <int DC, int G, int TR, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_wide_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
+flash_dkv_wide_kernel(const T* __restrict__ q,
+                      const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int Tq,
+                      T* __restrict__ dk, T* __restrict__ dv, int Tq,
                       int Tk, int D, float scale, int causal,
                       long long n_bh, long long n_blocks) {
   constexpr int DG = DC / G;
@@ -529,10 +551,10 @@ flash_dkv_wide_kernel(const float* __restrict__ q,
     const int k0 = static_cast<int>(b / n_bh) * BK;
     const int kj = k0 + threadIdx.x / G;
     const bool kvalid = kj < Tk;
-    const float* krow = k + (bh * Tk + kj) * D;
-    const float* vrow = v + (bh * Tk + kj) * D;
-    const float* qb = q + bh * Tq * D;
-    const float* db = dout + bh * Tq * D;
+    const T* krow = k + (bh * Tk + kj) * D;
+    const T* vrow = v + (bh * Tk + kj) * D;
+    const T* qb = q + bh * Tq * D;
+    const T* db = dout + bh * Tq * D;
     const int q_begin = causal ? min(k0, Tq) : 0;
     for (int d0 = 0; d0 < D; d0 += DC) {
       float dka[DG], dva[DG];
@@ -626,15 +648,16 @@ Grid grid_of(long long bh, long long t, int rows_per_block) {
 
 template <int DP, int G, int TR, bool WIDE>
 struct Fwd {
-  static int run(const float* q, const float* k, const float* v, float* o,
+  template <typename T>
+  static int run(const T* q, const T* k, const T* v, T* o,
                  float* lse, int bh, int tq, int tk, int d, float scale,
                  int causal, cudaStream_t st) {
     const Grid g = grid_of(bh, tq, kThreads / G);
     if constexpr (WIDE)
-      flash_fwd_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_fwd_wide_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, o, lse, tq, tk, d, scale, causal, g.bh, g.blocks);
     else
-      flash_fwd_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_fwd_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, o, lse, tq, tk, d, scale, causal, g.bh, g.blocks);
     return static_cast<int>(cudaGetLastError());
   }
@@ -642,17 +665,18 @@ struct Fwd {
 
 template <int DP, int G, int TR, bool WIDE>
 struct Dq {
-  static int run(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dq, int bh, int tq, int tk, int d, float scale,
+  template <typename T>
+  static int run(const T* q, const T* k, const T* v,
+                 const T* dout, const float* lse, const float* delta,
+                 T* dq, int bh, int tq, int tk, int d, float scale,
                  int causal, cudaStream_t st) {
     const Grid g = grid_of(bh, tq, kThreads / G);
     if constexpr (WIDE)
-      flash_dq_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_dq_wide_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal, g.bh,
           g.blocks);
     else
-      flash_dq_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_dq_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, dout, lse, delta, dq, tq, tk, d, scale, causal, g.bh,
           g.blocks);
     return static_cast<int>(cudaGetLastError());
@@ -661,17 +685,18 @@ struct Dq {
 
 template <int DP, int G, int TR, bool WIDE>
 struct Dkv {
-  static int run(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dk, float* dv, int bh, int tq, int tk, int d,
+  template <typename T>
+  static int run(const T* q, const T* k, const T* v,
+                 const T* dout, const float* lse, const float* delta,
+                 T* dk, T* dv, int bh, int tq, int tk, int d,
                  float scale, int causal, cudaStream_t st) {
     const Grid g = grid_of(bh, tk, kThreads / G);
     if constexpr (WIDE)
-      flash_dkv_wide_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_dkv_wide_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal,
           g.bh, g.blocks);
     else
-      flash_dkv_kernel<DP, G, TR><<<g.launched, kThreads, 0, st>>>(
+      flash_dkv_kernel<DP, G, TR, T><<<g.launched, kThreads, 0, st>>>(
           q, k, v, dout, lse, delta, dk, dv, tq, tk, d, scale, causal,
           g.bh, g.blocks);
     return static_cast<int>(cudaGetLastError());
@@ -720,6 +745,46 @@ extern "C" int mxtt_flash_dkv(const float* q, const float* k, const float* v,
                               const float* delta, float* dk, float* dv,
                               int bh, int tq, int tk, int d, float scale,
                               int causal, void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || tk <= 0) return 0;
+  return dispatch<Dkv>(d, q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
+                       scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 route: the same entries on __nv_bfloat16 q, k, v, dout and
+// outputs (o, dq, dk, dv); lse and delta stay f32.
+extern "C" int mxtt_flash_fwd_bf16(const __nv_bfloat16* q,
+                                   const __nv_bfloat16* k,
+                                   const __nv_bfloat16* v, __nv_bfloat16* o,
+                                   float* lse, int bh, int tq, int tk, int d,
+                                   float scale, int causal, void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || tq <= 0) return 0;
+  return dispatch<Fwd>(d, q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mxtt_flash_dq_bf16(const __nv_bfloat16* q,
+                                  const __nv_bfloat16* k,
+                                  const __nv_bfloat16* v,
+                                  const __nv_bfloat16* dout, const float* lse,
+                                  const float* delta, __nv_bfloat16* dq,
+                                  int bh, int tq, int tk, int d, float scale,
+                                  int causal, void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || tq <= 0) return 0;
+  return dispatch<Dq>(d, q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
+                      scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mxtt_flash_dkv_bf16(const __nv_bfloat16* q,
+                                   const __nv_bfloat16* k,
+                                   const __nv_bfloat16* v,
+                                   const __nv_bfloat16* dout,
+                                   const float* lse, const float* delta,
+                                   __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                   int bh, int tq, int tk, int d, float scale,
+                                   int causal, void* stream) {
   if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || tk <= 0) return 0;
   return dispatch<Dkv>(d, q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,

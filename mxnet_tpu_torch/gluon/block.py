@@ -18,9 +18,21 @@ runs eagerly — but keeps the reference's recompile contract meaningful:
 the outermost hybridized block records each (input shapes/dtypes,
 training flag) signature it is called with, and ``jit_cache_keys()``
 returns them, as the reference's ``CachedOp`` cache keys do.
+
+:func:`compute_dtype` is how a mixed-precision trainer runs a block in
+bfloat16 over f32 parameters (the reference casts every float parameter
+at the step's forward boundary, ``parallel/trainer.py:1328-1369``): inside
+the scope ``HybridBlock.forward`` hands ``hybrid_forward`` casts of its
+trainable float parameters, so the gradients flow back through the casts
+into the f32 tensors.  Auxiliary state (``grad_req="null"``: BatchNorm's
+moving statistics) is handed over as it is; the op casts it for its
+forward and writes its update back into the f32 tensors
+(``ops/nn.py``).  Not ``torch.autocast``, whose per-op lists keep some
+ops in f32.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 
@@ -29,7 +41,31 @@ import torch
 from ..ops import nn as F
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "compute_dtype"]
+
+_compute = threading.local()
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Run the blocks called in this thread inside the scope with their
+    trainable float parameters cast to ``dtype`` (module docstring);
+    ``None`` or float32 casts nothing."""
+    prev = getattr(_compute, "dtype", None)
+    _compute.dtype = None if dtype in (None, torch.float32) else dtype
+    try:
+        yield
+    finally:
+        _compute.dtype = prev
+
+
+def _for_compute(param, dtype):
+    """The tensor ``hybrid_forward`` gets for ``param``."""
+    t = param.data()
+    if dtype is None or param.grad_req == "null" \
+            or not t.is_floating_point() or t.dtype == dtype:
+        return t
+    return t.to(dtype)
 
 
 class _BlockScope:
@@ -160,7 +196,8 @@ class Block(torch.nn.Module):
             child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
-        """Cast every parameter (float32 / float64) in place."""
+        """Cast every parameter in place (float32, float64, float16 or
+        bfloat16)."""
         for child in self._children.values():
             child.cast(dtype)
         for param in self._reg_params.values():
@@ -217,7 +254,9 @@ class HybridBlock(Block):
                 tuple(sorted(kwargs.items())) if kwargs else ()))
         _active_depth.value = depth + (1 if self._active else 0)
         try:
-            pkw = {name: p.data() for name, p in self._reg_params.items()}
+            cdt = getattr(_compute, "dtype", None)
+            pkw = {name: _for_compute(p, cdt)
+                   for name, p in self._reg_params.items()}
             return self.hybrid_forward(F, *args, **pkw, **kwargs)
         finally:
             _active_depth.value = depth

@@ -31,8 +31,33 @@ class DeferredInitializationError(MXNetError):
     pass
 
 
+_HALF = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+         "float16": torch.float16, "fp16": torch.float16,
+         "half": torch.float16}
+
+
 def _torch_dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype.lower() in _HALF:
+        return _HALF[dtype.lower()]
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _host_dtype(dtype):
+    """The numpy dtype values are drawn or staged in on the host: float32
+    for bfloat16, which numpy lacks."""
+    if _torch_dtype(dtype) == torch.bfloat16:
+        return np.dtype(np.float32)
+    return np.dtype(dtype)
+
+
+def _dtype_tag(tdt):
+    """What ``Parameter.dtype`` holds for a torch dtype: the numpy dtype,
+    or the name ``"bfloat16"`` (numpy has none)."""
+    if tdt == torch.bfloat16:
+        return "bfloat16"
+    return np.dtype(str(tdt).replace("torch.", ""))
 
 
 class Parameter:
@@ -104,10 +129,11 @@ class Parameter:
         self._finish_init(init, device, default_init, rng)
 
     def _finish_init(self, init, device, default_init, rng):
-        arr = np.empty(self._shape, dtype=np.dtype(self.dtype))
+        arr = np.empty(self._shape, dtype=_host_dtype(self.dtype))
         chosen = init or self.init or default_init
         initializer.create(chosen)(initializer.InitDesc(self.name), arr, rng)
-        self._init_impl(torch.from_numpy(arr).to(device))
+        self._init_impl(torch.from_numpy(arr).to(
+            device=device, dtype=_torch_dtype(self.dtype)))
 
     def _init_impl(self, data):
         if self._data is not None:
@@ -158,7 +184,8 @@ class Parameter:
         if isinstance(data, torch.Tensor):
             t = data.to(_torch_dtype(self.dtype))
         else:
-            t = torch.from_numpy(np.array(data, dtype=np.dtype(self.dtype)))
+            t = torch.from_numpy(np.array(data, dtype=_host_dtype(
+                self.dtype))).to(_torch_dtype(self.dtype))
         if self._data is None:
             if device is None:
                 device = self._deferred_init[1] if self._deferred_init \
@@ -174,15 +201,16 @@ class Parameter:
             self._data.copy_(t)
 
     def cast(self, dtype):
-        """Change the parameter's dtype in place (float32 / float64; the
-        half types wait for mixed precision, ROADMAP.md queue A, item
-        5)."""
+        """Change the parameter's dtype in place (float32, float64,
+        float16 or bfloat16, as ``"bfloat16"`` / ``torch.bfloat16``); the
+        tensor keeps its identity and drops its gradient
+        (``gluon/parameter.py:155-162``)."""
         tdt = _torch_dtype(dtype)
-        if tdt not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                "cast to %s: half-precision parameters are ROADMAP.md "
-                "queue A, item 5 (mixed precision)" % (dtype,))
-        self.dtype = np.dtype(dtype)
+        if tdt not in (torch.float32, torch.float64, torch.float16,
+                       torch.bfloat16):
+            raise ValueError("cast to %s: a parameter is float32, float64, "
+                             "float16 or bfloat16" % (dtype,))
+        self.dtype = _dtype_tag(tdt)
         if self._data is not None:
             with torch.no_grad():
                 self._data.data = self._data.data.to(tdt)

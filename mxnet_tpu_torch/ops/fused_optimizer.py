@@ -98,9 +98,13 @@ def _scalars(lr, inv_scale, ok, device):
         # not wait for the work before it (the backward) to finish
         return torch.tensor(host, dtype=torch.float32,
                             pin_memory=True).to(device, non_blocking=True)
-    return torch.stack([torch.as_tensor(s, dtype=torch.float32,
-                                        device=device).reshape(())
-                        for s in parts])
+    # a python number becomes a fill kernel, not a host copy, so a step
+    # with device-computed flags never waits on the card here
+    return torch.stack([
+        s.to(device=device, dtype=torch.float32).reshape(())
+        if isinstance(s, torch.Tensor)
+        else torch.full((), float(s), dtype=torch.float32, device=device)
+        for s in parts])
 
 
 def _prep_g(g, inv_scale, rescale_grad, clip_gradient):

@@ -15,7 +15,18 @@ the latter run as channels-first views of the same memory.
 the batch statistics are the biased variance in f32 (f64 for f64 data)
 (``mxnet_tpu/ops/nn.py:290-302``) and the moving update is
 ``momentum*moving + (1-momentum)*batch`` (``:280-287``), written into the
-moving-stat tensors in place.
+moving-stat tensors in place.  Under a mixed-precision step the data is
+bfloat16 (or float16) while the moving statistics stay the f32 aux
+tensors: the forward reads their casts, as the reference's reads the
+cast aux; the batch statistics are f32 (the reference's ``E[x]`` and
+biased variance, ``:290-302``): on the card the forward kernel's own saved
+mean and inverse std, with no extra pass over the data, on the CPU (whose
+kernel rounds them to the data's dtype) ``E[x]`` and ``relu(E[x^2] -
+E[x]^2)`` over the data widened to f32; and the update
+``momentum*cast(moving) + (1-momentum)*batch``
+(a half-precision product plus an f32 term, so f32) lands back in the f32
+tensors, as the reference's ``muts.astype(float32)`` leaves it
+(``parallel/trainer.py:1366``).
 """
 from __future__ import annotations
 
@@ -166,6 +177,12 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                          use_global_stats=use_global_stats, axis=1,
                          _train=_train).movedim(1, axis)
     g = torch.ones_like(gamma) if fix_gamma else gamma
+    half = (data.dtype in (torch.bfloat16, torch.float16)
+            and moving_mean.dtype == torch.float32)
+    if half:
+        return _batch_norm_half(data, g, beta, moving_mean, moving_var,
+                                float(eps), momentum,
+                                _train and not use_global_stats)
     if _train and not use_global_stats:
         out = TF.batch_norm(data, None, None, g, beta, training=True,
                             eps=float(eps))
@@ -179,6 +196,31 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         return out
     return TF.batch_norm(data, moving_mean, moving_var, g, beta,
                          training=False, eps=float(eps))
+
+
+def _batch_norm_half(data, g, beta, moving_mean, moving_var, eps, momentum,
+                     train):
+    """BatchNorm on half-precision data over f32 moving statistics (the
+    module docstring's mixed-precision spelling); channels on axis 1."""
+    dt = data.dtype
+    mm_c, mv_c = moving_mean.to(dt), moving_var.to(dt)
+    if not train:
+        return TF.batch_norm(data, mm_c, mv_c, g, beta, training=False,
+                             eps=eps)
+    out, mean, invstd = torch.native_batch_norm(data, g, beta, None, None,
+                                                True, 0.0, eps)
+    with torch.no_grad():
+        if mean.dtype == torch.float32:
+            var = torch.relu(1.0 / (invstd * invstd) - eps)
+        else:
+            red = [0] + list(range(2, data.dim()))
+            x32 = data.detach().float()
+            mean = x32.mean(dim=red)
+            var = torch.relu((x32 * x32).mean(dim=red) - mean * mean)
+        mom = torch.full((), momentum, dtype=dt, device=data.device)
+        moving_mean.copy_(mom * mm_c + (1 - momentum) * mean)
+        moving_var.copy_(mom * mv_c + (1 - momentum) * var)
+    return out
 
 
 @register("Activation")

@@ -16,6 +16,10 @@ that module:
   == 0``, ``D <= 32`` (dk/dv from D = 12), and the CUDA-core design
   (``mxtt_flash_fwd`` / ``mxtt_flash_dq`` / ``mxtt_flash_dkv``,
   ``csrc/flash_attention.cu``: FMAs, one thread per row) for the rest;
+  on bfloat16 operands the bf16 route of the CUDA-core design
+  (``mxtt_flash_fwd_bf16`` / ``mxtt_flash_dq_bf16`` /
+  ``mxtt_flash_dkv_bf16``, the same source's kernels on
+  ``__nv_bfloat16``), at every head dim;
 - :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
@@ -45,8 +49,13 @@ Layout: ``q``/``k``/``v`` are ``(BH, T, D)`` (what ``_to_bhtd`` gives),
 ``lse`` and ``delta`` plain ``(BH, T)`` float32 — the reference's
 ``(BH, 8, T)`` sublane broadcast is a TPU tile artifact and is dropped.
 ``Tq`` and ``Tk`` may differ; in causal mode both are aligned at
-position 0.  Float32 only: another dtype raises (mixed precision is
-ROADMAP.md queue A, item 5).  Any head dim and any size: the CUDA-core
+position 0.  q, k, v and dO are float32 or bfloat16, all one dtype; the
+outputs (out, dq, dk, dv) take that dtype, as the reference's take q's
+(``:148``, ``:223``, ``:281-282``), and lse and delta are float32 on
+either route.  On bfloat16 each kernel widens its operands to f32 as it
+loads them, computes in f32 and rounds each output once; the plain
+version is the f32 plain version on the widened inputs, its outputs
+rounded the same way.  Any head dim and any size: the CUDA-core
 design takes D above 256 in chunks of 256 (:func:`simt_launch_shape`)
 and indexes in 64 bits.
 
@@ -84,16 +93,19 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
 _NEG_INF = -1e30
 
 # the flash kernels count every launch under their own name and under
-# their design's ("flash_dq/wgmma" or "flash_dq/simt", the same for
-# flash_forward_with_lse and flash_dkv); qmm_requant under its own name
-# and under its design's ("qmm_requant/wgmma" or "qmm_requant/mma");
+# their design's ("flash_dq/wgmma", "flash_dq/simt" or, on bfloat16,
+# "flash_dq/bf16", the same for flash_forward_with_lse and flash_dkv);
+# qmm_requant under its own name and under its design's
+# ("qmm_requant/wgmma" or "qmm_requant/mma");
 # conv3x3_epilogue under its own name, under its input route's (e.g.
 # "conv3x3_epilogue[int8]") and under its design's
 # ("conv3x3_epilogue/wgmma" or "conv3x3_epilogue/mma")
 LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_forward_with_lse/wgmma": 0,
-            "flash_forward_with_lse/simt": 0, "flash_dq/wgmma": 0,
-            "flash_dq/simt": 0, "flash_dkv/wgmma": 0, "flash_dkv/simt": 0,
+            "flash_forward_with_lse/simt": 0,
+            "flash_forward_with_lse/bf16": 0, "flash_dq/wgmma": 0,
+            "flash_dq/simt": 0, "flash_dq/bf16": 0, "flash_dkv/wgmma": 0,
+            "flash_dkv/simt": 0, "flash_dkv/bf16": 0,
             "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
             "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
@@ -135,7 +147,13 @@ def _valid(tq, tk, causal, device):
 def flash_forward_with_lse_reference(q, k, v, causal, scale):
     """Plain ``_fa_kernel``: ``(out, lse)`` with the online softmax's
     guards (masked scores -1e30, ``m_safe``, ``p = 0`` at the mask,
-    ``denom = max(l, 1e-30)``) taken over the whole row at once."""
+    ``denom = max(l, 1e-30)``) taken over the whole row at once.  On
+    bfloat16 inputs: the same on the widened inputs, ``out`` rounded to
+    bfloat16, ``lse`` float32."""
+    if q.dtype == torch.bfloat16:
+        out, lse = flash_forward_with_lse_reference(
+            *(t.float() for t in (q, k, v)), causal, scale)
+        return out.to(q.dtype), lse
     s = torch.einsum("btd,bsd->bts", q, k) * scale
     valid = _valid(q.shape[1], k.shape[1], causal, q.device)
     if valid is not None:
@@ -163,13 +181,24 @@ def _recompute(q, k, v, do, lse, delta, causal, scale):
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, causal, scale):
-    """Plain ``_fa_dq_kernel``: ``dq = (p (dp - delta)) k * scale``."""
+    """Plain ``_fa_dq_kernel``: ``dq = (p (dp - delta)) k * scale``
+    (bfloat16 inputs widened, ``dq`` rounded to bfloat16)."""
+    if q.dtype == torch.bfloat16:
+        return flash_dq_reference(*(t.float() for t in (q, k, v, do)),
+                                  lse, delta,
+                                  causal, scale).to(q.dtype)
     _, ds = _recompute(q, k, v, do, lse, delta, causal, scale)
     return torch.einsum("bts,bsd->btd", ds, k) * scale
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal, scale):
-    """Plain ``_fa_dkv_kernel``: ``(dk, dv) = (ds^T q * scale, p^T dO)``."""
+    """Plain ``_fa_dkv_kernel``: ``(dk, dv) = (ds^T q * scale, p^T dO)``
+    (bfloat16 inputs widened, ``dk``/``dv`` rounded to bfloat16)."""
+    if q.dtype == torch.bfloat16:
+        dk, dv = flash_dkv_reference(*(t.float() for t in (q, k, v, do)),
+                                     lse, delta,
+                                     causal, scale)
+        return dk.to(k.dtype), dv.to(v.dtype)
     p, ds = _recompute(q, k, v, do, lse, delta, causal, scale)
     dv = torch.einsum("bts,btd->bsd", p, do)
     dk = torch.einsum("bts,btd->bsd", ds, q) * scale
@@ -198,6 +227,8 @@ _ARGTYPES["mxtt_flash_simt_shape"] = [_I, _P]
 _ARGTYPES["mxtt_flash_fwd_wgmma"] = _ARGTYPES["mxtt_flash_fwd"]
 _ARGTYPES["mxtt_flash_dq_wgmma"] = _ARGTYPES["mxtt_flash_dq"]
 _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
+for _k in ("fwd", "dq", "dkv"):
+    _ARGTYPES["mxtt_flash_%s_bf16" % _k] = _ARGTYPES["mxtt_flash_%s" % _k]
 
 # wrapper -> the head dims flash_design sends to the wgmma design: those
 # where chip_smoke.py's phase 7 timed it faster than the CUDA-core design at
@@ -208,7 +239,8 @@ FLASH_WGMMA_DIMS = {"flash_forward_with_lse": frozenset(range(4, 33, 4)),
                     "flash_dq": frozenset(range(4, 33, 4)),
                     "flash_dkv": frozenset(range(12, 33, 4))}
 
-# the two designs of B5-B7: design -> wrapper -> (source, C entry point)
+# the designs of B5-B7 (two on float32, one on bfloat16): design ->
+# wrapper -> (source, C entry point)
 _FLASH_DESIGNS = {
     "wgmma": {"flash_forward_with_lse": ("flash_fwd_wgmma",
                                          "mxtt_flash_fwd_wgmma"),
@@ -217,6 +249,10 @@ _FLASH_DESIGNS = {
     "simt": {"flash_forward_with_lse": ("flash_attention", "mxtt_flash_fwd"),
              "flash_dq": ("flash_attention", "mxtt_flash_dq"),
              "flash_dkv": ("flash_attention", "mxtt_flash_dkv")},
+    "bf16": {"flash_forward_with_lse": ("flash_attention",
+                                        "mxtt_flash_fwd_bf16"),
+             "flash_dq": ("flash_attention", "mxtt_flash_dq_bf16"),
+             "flash_dkv": ("flash_attention", "mxtt_flash_dkv_bf16")},
 }
 
 
@@ -238,10 +274,16 @@ def wgmma_takes(d, aligned=True):
     return 4 <= d <= 32 and d % 4 == 0 and aligned
 
 
-def flash_design(d, wrapper, aligned=True):
+def flash_design(d, wrapper, aligned=True, dtype=torch.float32):
     """The design a card call of ``wrapper`` (``"flash_forward_with_lse"``,
-    ``"flash_dq"`` or ``"flash_dkv"``) takes, chosen by head dim and
-    alignment before any launch:
+    ``"flash_dq"`` or ``"flash_dkv"``) takes, chosen by operand dtype,
+    head dim and alignment before any launch:
+
+    - ``"bf16"`` for bfloat16 operands at every head dim: the bf16 route
+      of the CUDA-core design (``csrc/flash_attention.cu``'s kernels on
+      ``__nv_bfloat16``, ``mxtt_flash_*_bf16``);
+
+    and for float32:
 
     - ``"wgmma"`` (``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_wgmma.cu``:
       bulk copies into an mbarrier ring, a producer warpgroup that splits
@@ -253,6 +295,8 @@ def flash_design(d, wrapper, aligned=True):
     - ``"simt"`` (``csrc/flash_attention.cu``: CUDA-core FMAs, ``G``
       lanes per row, :func:`simt_launch_shape`) otherwise, among them D =
       64 and 128 and every D above 32."""
+    if dtype == torch.bfloat16:
+        return "bf16"
     ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
     return "wgmma" if ok else "simt"
 
@@ -292,13 +336,18 @@ def _simt_shape_built(d):
 
 
 def _check(wrapper, q, k, v, rows=()):
-    """Validate ``(BH, T, D)`` q/k/v and ``(BH, Tq, ...)`` row operands;
-    True when they live on the card."""
-    for t in (q, k, v) + tuple(rows):
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                "%s takes float32, got %s: other dtypes are ROADMAP.md "
-                "queue A, item 5 (mixed precision)" % (wrapper, t.dtype))
+    """Validate ``(BH, T, D)`` q/k/v and ``(BH, Tq, ...)`` row operands
+    (dO, then lse and delta); True when they live on the card."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise MXNetError("%s takes float32 or bfloat16 q/k/v, got %s"
+                         % (wrapper, q.dtype))
+    rows = tuple(rows)
+    for i, t in enumerate((q, k, v) + rows):
+        # dO has q's dtype; lse and delta are float32 on either route
+        want = torch.float32 if i >= 4 else q.dtype
+        if t.dtype != want:
+            raise MXNetError("%s: operand %d is %s, want %s (q is %s)"
+                             % (wrapper, i, t.dtype, want, q.dtype))
         if t.device != q.device:
             raise MXNetError("%s: every tensor must be on %s, got %s"
                              % (wrapper, q.device, t.device))
@@ -340,14 +389,18 @@ def _launch(wrapper, kernel, tensors, dims, scale, causal,
 
 def _design_entry(wrapper, tensors, d, design):
     """``(source, C entry point, design)`` of a card call of ``wrapper``:
-    :func:`flash_design` of its head dim, or ``design`` forced (raises
-    where the shape is not the design's)."""
+    :func:`flash_design` of its dtype and head dim, or ``design`` forced
+    (raises where the shape or dtype is not the design's)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
-    design = flash_design(d, wrapper, aligned) if design is None else design
+    dtype = tensors[0].dtype
+    if design is None:
+        design = flash_design(d, wrapper, aligned, dtype)
     if design not in _FLASH_DESIGNS or (design == "wgmma"
-                                        and not wgmma_takes(d, aligned)):
-        raise MXNetError("%s: the %r design does not take head dim %d (or "
-                         "unaligned operands)" % (wrapper, design, d))
+                                        and not wgmma_takes(d, aligned)) \
+            or (design == "bf16") != (dtype == torch.bfloat16):
+        raise MXNetError("%s: the %r design does not take head dim %d on "
+                         "%s (or unaligned operands)"
+                         % (wrapper, design, d, dtype))
     return _FLASH_DESIGNS[design][wrapper] + (design,)
 
 
@@ -362,8 +415,8 @@ def flash_forward_with_lse(q, k, v, causal, scale):
 
 def _flash_forward_with_lse(q, k, v, causal, scale, design=None):
     """:func:`flash_forward_with_lse`, with ``design`` ("wgmma" or
-    "simt") forced instead of chosen by head dim, so both designs can be
-    timed on the same inputs."""
+    "simt" on float32) forced instead of chosen by head dim, so both
+    designs can be timed on the same inputs."""
     if not _check("flash_forward_with_lse", q, k, v):
         return flash_forward_with_lse_reference(q, k, v, causal, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

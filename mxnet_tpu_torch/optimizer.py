@@ -8,7 +8,13 @@
 (``ops.fused_optimizer.fused_optimizer_update``) reads the same
 attributes.  The reference's other optimizers are not ported yet
 (ROADMAP.md queue A, item 1): :func:`create` names that item for them.
-``multi_precision=True`` (bf16/fp16 master weights) is ROADMAP item A5.
+
+``multi_precision=True`` (``:60-75``, ``:124-211``): a bfloat16 or
+float16 weight gets an f32 master copy in its state,
+``(master, inner_state)``; ``update_multi_precision`` runs the update on
+the master with the gradient widened to f32 and writes the master,
+rounded, back into the weight.  For SGD that is the reference's
+``mp_sgd_update`` / ``mp_sgd_mom_update`` arithmetic.
 """
 from __future__ import annotations
 
@@ -31,11 +37,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None, momentum=None, **kwargs):
-        if multi_precision:
-            raise NotImplementedError(
-                "multi_precision=True (low-precision weights with f32 "
-                "masters) is not ported yet: ROADMAP.md queue A, item 5 "
-                "(mixed precision)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -74,13 +75,21 @@ class Optimizer:
         return None
 
     def create_state_multi_precision(self, index, weight):
+        if self.multi_precision and _is_low_precision(weight.dtype):
+            master = weight.detach().to(torch.float32)
+            return (master, self.create_state(index, master))
         return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        self.update(index, weight, grad, state)
+        if self.multi_precision and _is_low_precision(weight.dtype):
+            master, inner = state
+            self.update(index, master, grad.to(torch.float32), inner)
+            _write(weight, master.to(weight.dtype))
+        else:
+            self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -124,6 +133,11 @@ class Optimizer:
 
     def _clip_arg(self):
         return -1.0 if self.clip_gradient is None else self.clip_gradient
+
+
+def _is_low_precision(dtype):
+    """Weights of these dtypes get f32 masters under multi_precision."""
+    return dtype in (torch.float16, torch.bfloat16)
 
 
 register = Optimizer.register

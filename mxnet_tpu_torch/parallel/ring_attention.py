@@ -16,7 +16,13 @@ device (``parallel/mesh.py``): q/k/v are ``(K, B, Tl, H, D)``, entry
   ``_NEG_INF / 2`` guards; the backward is the second ring, ``dq``
   accumulating on its rank and ``(dk, dv)`` accumulated straight into
   the chunk's owner (where the reference's travelling accumulators end
-  after K hops, added in the same order).
+  after K hops, added in the same order).  On bfloat16 chunks the
+  reference's rounding order holds (``:118-143``, ``:160-192``): each
+  hop's kernel writes bfloat16 (q's dtype), which is widened to f32 for
+  the online merge; the merged output is rounded to bfloat16 once at the
+  end, and is what the backward's ``delta`` reads.  Each hop's dq / dk /
+  dv come back bfloat16 and accumulate in f32, rounded once at the end;
+  lse and delta stay f32.
 - Causal trichotomy (``_hop_cases``, ``:91-101``): hop 0 is the diagonal
   for every rank (the causal kernel), at hop h >= 1 ranks r >= h see an
   earlier chunk (the full kernel) and ranks r < h a later one, which
@@ -88,7 +94,7 @@ def _flat(x):
 
 
 class _RingCore(torch.autograd.Function):
-    """Ring attention over ``(K, BH, Tl, D)`` f32 chunks."""
+    """Ring attention over ``(K, BH, Tl, D)`` f32 or bf16 chunks."""
 
     @staticmethod
     def forward(ctx, qf, kf, vf, causal, scale):
@@ -102,7 +108,7 @@ class _RingCore(torch.autograd.Function):
             qs = qf[lo:]
             out, l_h = _pk.flash_forward_with_lse(
                 _flat(qs), _flat(kc), _flat(vc), causal and hop == 0, scale)
-            out, l_h = out.view(qs.shape), l_h.view(qs.shape[:-1])
+            out, l_h = out.view(qs.shape).float(), l_h.view(qs.shape[:-1])
             # combine normalized chunk outputs through their logsumexps
             o_r, lse_r = o[lo:], lse[lo:]
             lse_new = torch.logaddexp(lse_r, l_h)
@@ -113,6 +119,7 @@ class _RingCore(torch.autograd.Function):
                                 torch.exp(l_h - safe))
             o_r.copy_(o_r * c_old[..., None] + out * c_hop[..., None])
             lse_r.copy_(lse_new)
+        o = o.to(qf.dtype)
         ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -124,7 +131,8 @@ class _RingCore(torch.autograd.Function):
         k_ranks = qf.shape[0]
         do = do.contiguous()
         delta = _pk.flash_delta(o, do)
-        dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+        dq, dk, dv = (torch.zeros(t.shape, dtype=torch.float32,
+                                  device=t.device) for t in (qf, kf, vf))
         for hop in range(k_ranks):
             lo = hop if causal else 0
             kc, vc = _at_hop(kf, hop, causal), _at_hop(vf, hop, causal)
@@ -138,7 +146,8 @@ class _RingCore(torch.autograd.Function):
             dq[lo:] += dq_h.view(qs.shape)
             _send_home(dk, dk_h.view(kc.shape), hop, causal)
             _send_home(dv, dv_h.view(vc.shape), hop, causal)
-        return dq, dk, dv, None, None
+        return (dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype), None,
+                None)
 
 
 def _to_bhtd(x):

@@ -30,15 +30,46 @@ every hop with the reference's chunk shapes.  Parameters are
 optimizer state from ``create_state`` and is updated by
 ``functional_optimizer_update`` (``trainer.py:764-778``).
 
-The data-mesh, kvstore, ZeRO, model-axis, pipeline, mixed-precision,
-gradient accumulation and input-transform tiers of the reference raise
+**Mixed precision** (``dtype="bf16"``, ``trainer.py:1211-1369``): on the
+replicated tier the flat f32 bucket buffers are the master weights.  The
+block runs inside ``gluon.block.compute_dtype(bfloat16)`` on the batch
+cast to bfloat16, so the forward reads bf16 casts of the f32 parameters
+and the gradients come back f32 through the casts into the flat gradient
+buckets.  The backward runs on ``loss.float() * scale``; ``all_finite``
+over the gradient buckets gives ``ok``, and each bucket's update unscales
+by ``inv_scale = 1 / scale`` and select-skips on ``ok`` (both 0-dim
+tensors on the device: one fused kernel pass, ``[lr, inv_scale, ok]``).
+Then ``precision.loss_scale_update`` ticks the scale, and the skipped
+count stays on the device too; nothing in the step reads a value back to
+the host.  The step returns the unscaled f32 loss.  The mesh tier passes
+``compute_dtype`` to ``transformer/step.py`` with no loss scaling, as the
+reference does.
+
+**Run-ahead** (``trainer.py:287-295``, ``:1839-1889``): after each step,
+on both tiers, a ``torch.cuda.Event`` recorded on the stream that ran it
+joins ``self._inflight`` (on the CPU, where the step has run when it
+returns, the loss tensor stands in).  When the ring holds more than
+``engine.bulk_size()`` steps, the host waits on the oldest and books the
+wait in ``dispatch_stats`` (``profiler.PipelineStats``).  ``flush()``
+drains the ring and, under bf16, publishes the loss scale and newly
+skipped steps (``precision.record_loss_scale``); ``engine.flush()`` and
+the exit of ``engine.bulk`` call it.  Dispatch order never changes, so
+every window size gives bitwise-equal losses and parameters.
+
+The data-mesh, kvstore, ZeRO, model-axis, pipeline, gradient
+accumulation and input-transform tiers of the reference raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
+import collections
+import time
+
 import numpy as np
 import torch
 
+from .. import engine as _engine
+from .. import precision as _precision
 from ..base import MXNetError, resolve_device
 from ..ops import fused_optimizer as _fused
 from .functional import functional_optimizer_update
@@ -50,10 +81,13 @@ __all__ = ["DataParallelTrainer"]
 def _unported(arg, item):
     raise NotImplementedError(
         "DataParallelTrainer(%s=...) is not ported yet: ROADMAP.md queue A, "
-        "item %s; the port trains on one device in f32" % (arg, item))
+        "item %s; the port trains on one device" % (arg, item))
 
 
 def _as_tensor(v, device):
+    """A batch (tensor, NDArray or numpy) on ``device``: a tensor already
+    there (a prefetched batch) is used as it is."""
+    v = getattr(v, "_data", v)
     t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
     return t.to(device, non_blocking=True)
 
@@ -79,6 +113,8 @@ class DataParallelTrainer:
     optimizer : str or Optimizer; ``optimizer_params`` go to ``create``.
     mesh_plan / sequence_parallel : the mesh tier (module docstring);
         ``model_parallel > 1`` raises (item 7).
+    dtype : ``None`` / ``"float32"``, or ``"bf16"`` for bfloat16 compute
+        over f32 masters (module docstring).
     device : where the step runs; ``None`` means CUDA (raising without a
         card), ``"cpu"`` the host.
     """
@@ -100,9 +136,8 @@ class DataParallelTrainer:
                 ("input_transform", input_transform, "3 (data pipeline)")):
             if val is not None:
                 _unported(arg, item)
-        if dtype not in (None, "float32", "f32", "fp32", np.float32,
-                         torch.float32):
-            _unported("dtype", "5 (mixed precision)")
+        self._dtype = _precision.resolve_dtype(dtype)
+        self._reduced = _precision.is_reduced(self._dtype)
         # the mesh tier (trainer.py:125-138): a plan routes a
         # mesh-program block through transformer/step.py
         plan = MeshPlan.coerce(mesh_plan)
@@ -126,6 +161,12 @@ class DataParallelTrainer:
         self._opt = optimizer
         self._ready = False
         self._step_count = 0
+        # run-ahead dispatch (module docstring): every dispatched step's
+        # event rides this ring, bounded by engine.bulk_size()
+        self._inflight = collections.deque()
+        from .. import profiler as _prof
+        self.dispatch_stats = _prof.PipelineStats(name="engine.dispatch")
+        _engine.register_flusher(self.flush)
 
     # -- setup -------------------------------------------------------------
     def _setup(self, data):
@@ -160,8 +201,7 @@ class DataParallelTrainer:
             if not self._fused_on:
                 singles.append([name])
                 continue
-            key = (float(p.lr_mult), float(p.wd_mult),
-                   str(np.dtype(p.dtype) if p.dtype else "float32"))
+            key = (float(p.lr_mult), float(p.wd_mult), str(p.data().dtype))
             buckets.setdefault(key, []).append(name)
         self._groups = list(buckets.values()) + singles
 
@@ -178,7 +218,18 @@ class DataParallelTrainer:
                 self._opt.lr_mult.setdefault(gi, p0.lr_mult)
             if p0.wd_mult != 1.0:
                 self._opt.wd_mult.setdefault(gi, p0.wd_mult)
+        if self._reduced:
+            self._init_loss_scale_state()
         self._ready = True
+
+    def _init_loss_scale_state(self):
+        """The device-resident loss-scale machine: scale, consecutive
+        finite steps, skipped steps in all."""
+        self._ls_scale, self._ls_good = _precision.init_loss_scale(
+            self._device)
+        self._ls_skipped = torch.zeros((), dtype=torch.int32,
+                                       device=self._device)
+        self._ls_reported_skipped = 0
 
     def _make_bucket(self, tensors):
         """One flat buffer for the weights and one for the gradients; each
@@ -199,18 +250,33 @@ class DataParallelTrainer:
         return wf, gf
 
     # -- the step ------------------------------------------------------------
-    def _apply_groups(self, lr, t):
+    def _apply_groups(self, lr, t, inv_scale=None, ok=None):
         """Optimizer update of every group, in place: one fused kernel
-        launch per bucket (SGD / Adam), else the unfused rule."""
+        launch per bucket (SGD / Adam), else the unfused rule.  Mixed
+        precision passes the loss-scale reciprocal and the finite flag
+        (0-dim f32 tensors): the kernel unscales and select-skips in the
+        same pass; the unfused rule runs on ``g * inv_scale`` and keeps
+        the old values where ``ok`` is 0."""
         opt = self._opt
+        scaled = inv_scale is not None
         for gi in range(len(self._groups)):
             wf, gf, state = self._w_flat[gi], self._g_flat[gi], \
                 self._states[gi]
             if self._fused_on and wf.dtype == torch.float32:
-                _fused.fused_optimizer_update(opt, gi, wf, gf, state, lr, t)
+                kw = {"inv_scale": inv_scale, "ok": ok} if scaled else {}
+                _fused.fused_optimizer_update(opt, gi, wf, gf, state, lr, t,
+                                              **kw)
                 continue
-            nw, ns = functional_optimizer_update(opt, gi, wf, gf, state,
-                                                 lr, t)
+            nw, ns = functional_optimizer_update(
+                opt, gi, wf, gf * inv_scale if scaled else gf, state, lr, t)
+            if scaled:
+                okb = ok > 0.0
+                nw = torch.where(okb, nw, wf)
+                if isinstance(state, tuple):
+                    ns = tuple(torch.where(okb, n, o)
+                               for n, o in zip(ns, state))
+                elif state is not None:
+                    ns = torch.where(okb, ns, state)
             with torch.no_grad():
                 wf.copy_(nw)
                 if isinstance(state, tuple):
@@ -220,12 +286,20 @@ class DataParallelTrainer:
                     state.copy_(ns)
 
     def step(self, data, label):
-        """Run one training step; returns the 0-dim loss tensor (on the
-        device, not synchronized)."""
+        """Run one training step; returns the 0-dim f32 loss tensor (on
+        the device, not synchronized).  The host blocks only when the
+        run-ahead window (``engine.set_bulk_size``) is full, and then on
+        the oldest in-flight step."""
         x = _as_tensor(data, self._device)
         y = _as_tensor(label, self._device)
         if self._plan is not None:
-            return self._step_mesh_tier(x, y)
+            loss = self._step_mesh_tier(x, y)
+        else:
+            loss = self._step_replicated(x, y)
+        self._track_inflight(loss)
+        return loss
+
+    def _step_replicated(self, x, y):
         if not self._ready:
             self._setup(x)
         self._step_count += 1
@@ -238,6 +312,8 @@ class DataParallelTrainer:
         was = block.training
         block.train(True)
         try:
+            if self._reduced:
+                return self._reduced_step(block, x, y, lr)
             out = block(x)
             l = self._loss(out, y)
             loss = l.mean() if hasattr(l, "mean") else l
@@ -246,6 +322,51 @@ class DataParallelTrainer:
             block.train(was)
         self._apply_groups(lr, self._step_count)
         return loss.detach()
+
+    def _reduced_step(self, block, x, y, lr):
+        """The mixed-precision replicated step (module docstring): bf16
+        forward over the f32 masters, scaled backward, unscaled and
+        select-skipped update, one tick of the loss-scale machine."""
+        from ..gluon.block import compute_dtype
+        if x.is_floating_point():
+            x = x.to(self._dtype)
+        with compute_dtype(self._dtype):
+            out = block(x)
+            l = self._loss(out, y)
+            loss = l.mean() if hasattr(l, "mean") else l
+        raw = loss.float()
+        scale = self._ls_scale
+        (raw * scale).backward()
+        fin = _precision.all_finite(self._g_flat)
+        self._apply_groups(lr, self._step_count, inv_scale=1.0 / scale,
+                           ok=fin.float())
+        self._ls_scale, self._ls_good = _precision.loss_scale_update(
+            scale, self._ls_good, fin)
+        self._ls_skipped = self._ls_skipped + (1 - fin.int())
+        return raw.detach()
+
+    # -- run-ahead ------------------------------------------------------------
+    @staticmethod
+    def _wait(marker):
+        if isinstance(marker, torch.cuda.Event):
+            marker.synchronize()
+
+    def _track_inflight(self, loss):
+        """Ring the dispatched step and apply backpressure: wait on the
+        OLDEST in-flight step while the ring holds more than
+        ``engine.bulk_size()``."""
+        if self._device.type == "cuda":
+            marker = torch.cuda.Event()
+            marker.record(torch.cuda.current_stream(self._device))
+        else:
+            marker = loss
+        self._inflight.append(marker)
+        limit = _engine.bulk_size()
+        while len(self._inflight) > limit:
+            t0 = time.perf_counter()
+            self._wait(self._inflight.popleft())
+            self.dispatch_stats.on_backpressure(time.perf_counter() - t0)
+        self.dispatch_stats.on_dispatch(len(self._inflight))
 
     # -- the mesh tier --------------------------------------------------------
     @property
@@ -284,7 +405,8 @@ class DataParallelTrainer:
             return nw, _state_leaves(ns)
 
         self._mesh_grad_fn, self._mesh_update_fn = _tstep.build_parts(
-            program, apply_update, leaf_counts)
+            program, apply_update, leaf_counts,
+            compute_dtype=self._dtype if self._reduced else None)
         self._ready = True
 
     def _step_mesh_tier(self, x, y):
@@ -333,9 +455,30 @@ class DataParallelTrainer:
                 for name in self._mesh_param_names}
 
     def flush(self):
-        """Block until every step dispatched to the device has run."""
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        """Drain the in-flight ring: block until every dispatched step has
+        run.  Under bf16 on the replicated tier, then publish the loss
+        scale and any newly skipped steps (the one place they are read
+        back)."""
+        t0 = time.perf_counter()
+        while self._inflight:
+            self._wait(self._inflight.popleft())
+        waited = time.perf_counter() - t0
+        if waited > 0:
+            self.dispatch_stats.on_backpressure(waited)
+        if self._reduced and self._ready and self._plan is None:
+            skipped = int(self._ls_skipped)
+            _precision.record_loss_scale(
+                float(self._ls_scale), skipped - self._ls_reported_skipped)
+            self._ls_reported_skipped = skipped
+
+    def loss_scale_state(self):
+        """``(scale, good_steps, skipped_steps)`` of the bf16 replicated
+        tier as host numbers (reads the device: call after ``flush``)."""
+        if not (self._reduced and self._ready and self._plan is None):
+            raise RuntimeError("no loss-scale state: dtype='bf16' on the "
+                               "replicated tier, after one step")
+        return (float(self._ls_scale), int(self._ls_good),
+                int(self._ls_skipped))
 
     def set_learning_rate(self, lr):
         self._opt.set_learning_rate(lr)

@@ -15,9 +15,13 @@ The ``sequence`` axis is the leading rank dimension of the activations
 (``parallel/mesh.py``): :func:`sequence_offset` gives every rank's first
 global position at once.
 
-:func:`layer_norm` routes to ``ops.fused_optimizer.fused_layer_norm`` on
-every device — the CUDA kernel on the card, its plain version on the
-CPU, the reference's backward on both.
+:func:`layer_norm` dispatches as the reference's does (``:110-126``):
+float32 goes to ``ops.fused_optimizer.fused_layer_norm`` on every device —
+the CUDA kernel on the card, its plain version on the CPU, the
+reference's backward on both; another dtype (bfloat16 under a mixed
+precision step) takes the reference's plain spelling, as
+``fused_layernorm_enabled(dtype=bfloat16)`` is False there
+(``mxnet_tpu/ops/fused_optimizer.py:81-82``).
 """
 from __future__ import annotations
 
@@ -43,8 +47,13 @@ def copy_to_model(x, plan):
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
-    """LayerNorm over the feature dim through the fused kernel."""
-    return fused_layer_norm(x, scale, bias, eps)
+    """LayerNorm over the feature dim: the fused kernel for float32, the
+    reference's plain spelling for another dtype."""
+    if x.dtype == torch.float32:
+        return fused_layer_norm(x, scale, bias, eps)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
 def column_parallel_dense(x, w_local, b_local=None):

@@ -16,8 +16,14 @@
   own rule via ``functional_optimizer_update``), the loop of
   ``:186-194``.
 
-``zero`` (ZeRO-1, ROADMAP.md queue A item 6), a pipelined plan (item 8)
-and ``compute_dtype`` (mixed precision, item 5) are not ported and raise.
+``compute_dtype`` (mixed precision, ``:95-150``): the parameters stay
+f32 — they are the masters — and are cast with the batch to the compute
+dtype at the loss boundary, so activations run in bfloat16 while the
+gradients come back f32 through the cast and the loss is returned f32.
+No loss scaling here, as in the reference: bfloat16 has f32's exponent.
+
+``zero`` (ZeRO-1, ROADMAP.md queue A item 6) and a pipelined plan (item
+8) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -39,17 +45,22 @@ def build_parts(program, apply_update, state_leaf_counts, zero=0,
     if zero or zero_plan is not None:
         raise NotImplementedError("build_parts(zero=1): ZeRO-1 over NCCL is "
                                   "ROADMAP.md queue A, item 6")
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError("build_parts(compute_dtype=%r): mixed "
-                                  "precision is ROADMAP.md queue A, item 5"
-                                  % (compute_dtype,))
+    from ..precision import resolve_dtype
+    dtype = resolve_dtype(compute_dtype)
+    reduced = dtype != torch.float32
     if program.plan.present("pipe"):
         raise NotImplementedError("build_parts: a pipelined plan is "
                                   "ROADMAP.md queue A, item 8")
 
+    def _to_compute(v):
+        if reduced and v.is_floating_point():
+            return v.to(dtype)
+        return v
+
     def grads_part(train_vals, x, y, key=None):
-        losses = program.loss_replica(train_vals, x, y, key)
-        loss = losses.mean()
+        vals = tuple(_to_compute(w) for w in train_vals)
+        losses = program.loss_replica(vals, _to_compute(x), y, key)
+        loss = losses.float().mean()
         grads = torch.autograd.grad(loss, tuple(train_vals))
         return grads, loss.detach()
 

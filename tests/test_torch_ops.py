@@ -238,8 +238,11 @@ def test_optimizer_registry_names_the_roadmap_item():
     assert type(topt.create("SGD", momentum=0.9)).__name__ == "SGD"
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         topt.create("nag")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        topt.create("sgd", multi_precision=True)
+    # multi_precision is ported: a bf16 weight gets an f32 master
+    mp = topt.create("sgd", multi_precision=True, momentum=0.9)
+    master, mom = mp.create_state_multi_precision(
+        0, torch.zeros(3, dtype=torch.bfloat16))
+    assert master.dtype == torch.float32 and mom.dtype == torch.float32
     with pytest.raises(MXNetError, match="Cannot find"):
         topt.create("no_such_optimizer")
 

@@ -275,14 +275,7 @@ def test_mesh_plan_declares_the_reference_arithmetic():
     (lambda: DataParallelTrainer(TransformerLM(TransformerLMConfig(**CFG)),
                                  None, "sgd", sequence_parallel=2, zero=1,
                                  device="cpu"), "item 6"),
-    (lambda: DataParallelTrainer(TransformerLM(TransformerLMConfig(**CFG)),
-                                 None, "sgd", sequence_parallel=2,
-                                 dtype="bf16", device="cpu"), "item 5"),
-    (lambda: pk.flash_forward_with_lse(*(torch.zeros(1, 4, 4,
-                                                     dtype=torch.bfloat16)
-                                         for _ in range(3)), True, 0.5),
-     "item 5"),
-], ids=["model", "pipeline", "data", "zero", "dtype", "bf16_flash"])
+], ids=["model", "pipeline", "data", "zero"])
 def test_unported_axes_and_modes_raise(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
