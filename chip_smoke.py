@@ -245,8 +245,10 @@ Twenty phases; any failure exits non-zero and prints no result line.
     dv within one bf16 ulp (counted as in phase 13), lse within 1e-5, two
     runs bitwise, every launch on the ``…/bf16`` count.  Timed per layer
     (both pairings) with CUDA events around eager calls, and at D = 64 and
-    128, beside the bound (bytes at bf16 I/O, f32 lse/delta; operations at
-    the f32 CUDA-core rate the route runs at), plain, and
+    128, beside the bound (bytes at bf16 I/O, f32 lse/delta; operations on
+    the tensor cores: q k^T and dO v^T in one bf16 pass, the products with
+    p or ds in two TF32 passes, the non-matrix operations at the f32 rate),
+    the bound of the route's own CUDA-core arithmetic, plain, and
     ``scaled_dot_product_attention`` in bf16 (its forward; its backward
     for dq and dk/dv together) as ``library_ms``.
 18. **Train ResNet-50 in bf16.** First the half BatchNorm on the card
@@ -260,7 +262,9 @@ Twenty phases; any failure exits non-zero and prints no result line.
     bucket masters, dynamic loss scaling, B1 on ``[lr, inv_scale, ok]``
     from the card) inside ``engine.bulk(4)``: 3 warm-up and 10 timed
     steps, images/s over the flushed window, step intervals p50/p99 and
-    peak memory beside phase 5's f32 numbers; the final loss scale and
+    peak memory, beside an f32 trainer timed the same way in the same
+    window (and phase 5's f32 numbers, taken outside any window); the
+    final loss scale and
     skipped count; ``fused_sgd_momentum`` launched steps x buckets times.
     One bf16 step under ``torch.cuda.set_sync_debug_mode("error")`` with
     the batch on the card must not synchronize (an f32 step is tried the
@@ -297,7 +301,9 @@ PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
 the row plan's time at each cluster size or the flat plan's at each
 size, and the group plan's); the bf16 routes
 ``flash_*[bf16]`` per layer at the path's pairings, ``launches`` from
-phase 19, ``max_abs_err`` and ``max_bf16_ulps`` from phase 17; the
+phase 19, ``max_abs_err`` and ``max_bf16_ulps`` from phase 17,
+``bound_ms`` the tensor-core bound on bf16 operands and
+``simt_bound_ms`` that of the route's f32 CUDA-core arithmetic; the
 card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -2848,23 +2854,47 @@ def phase_codegen_bench():
 
 
 # -- slice 13: bf16 mixed precision and the run-ahead window ------------------
+# the products of each kernel on bf16 operands: (exact, with f32): q k^T
+# and dO v^T are products of bf16 operands, exact in one bf16 tensor-core
+# pass with f32 accumulation; p v, ds k, p^T dO and ds^T q take an f32
+# operand (p or ds), two TF32 passes (its hi and lo parts against a bf16
+# operand, exact in TF32)
+FLASH_BF16_PRODUCTS = {"flash_forward_with_lse": (1, 1), "flash_dq": (2, 1),
+                       "flash_dkv": (2, 2)}
+
+
 def _flash_bf16_bound(name, cases):
-    """(bound ms, bound_by) of a bf16 route over ``cases``: q, k, v, dO
-    and the outputs at 2 bytes, lse and delta at 4, each read or written
-    once, against the f32 CUDA-core operations of :func:`_flash_bound`
-    (the route widens to f32 and runs on the CUDA cores)."""
-    flops = _flash_bound(name, cases)[2]
-    nbytes = 0
-    for bh, tq, tk, d, _ in cases:
+    """(bound ms, bound_by, simt ms, simt_by) of a bf16 route over
+    ``cases``.  Bytes: q, k, v, dO and the outputs at 2 bytes, lse and
+    delta at 4, each read or written once.  Operations
+    (``FLASH_BF16_PRODUCTS``): the exact products in one bf16 pass at 989
+    TFLOP/s and the products with p or ds in two TF32 passes at 495
+    TFLOP/s, one after the other on the tensor cores, beside the
+    non-matrix f32 operations per visible pair (``FLASH_NONMATRIX``) at 67
+    TFLOP/s; the larger of the two is the bound.  ``simt``: the same bytes
+    against the f32 CUDA-core operations of :func:`_flash_bound`, the
+    bound of the route's own design (it widens to f32 on the CUDA
+    cores)."""
+    exact, mixed = FLASH_BF16_PRODUCTS[name]
+    bf16 = tf32 = ops = nbytes = 0
+    for bh, tq, tk, d, causal in cases:
+        pairs = bh * _pairs(tq, tk, causal)
+        bf16 += pairs * 2 * d * exact
+        tf32 += pairs * 2 * d * mixed * 2
+        ops += pairs * FLASH_NONMATRIX[name]
         qside, kside, rows = bh * tq * d, bh * tk * d, bh * tq
         nbytes += {"flash_forward_with_lse": 2 * (2 * qside + 2 * kside)
                    + 4 * rows,
                    "flash_dq": 2 * (3 * qside + 2 * kside) + 8 * rows,
                    "flash_dkv": 2 * (2 * qside + 4 * kside) + 8 * rows}[name]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    ops_ms = max(bf16 / BF16_FLOPS_PER_S + tf32 / TF32_FLOPS_PER_S,
+                 ops / F32_FLOPS_PER_S) * 1e3
+    simt_ms = _flash_bound(name, cases)[2] / F32_FLOPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations")
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            max(bytes_ms, simt_ms),
+            "bytes" if bytes_ms >= simt_ms else "operations")
 
 
 def _flash_bf16_args(cases, gen):
@@ -2965,13 +2995,16 @@ def phase_flash_bf16():
                 plains = [_flash_bf16_calls(pk, a, True)[name] for a in args]
                 ms = _event_ms(lambda: [c() for c in calls])
                 plain_ms = _event_ms(lambda: [c() for c in plains], iters=5)
-                bound_ms, bound_by = _flash_bf16_bound(name, cases)
+                bound_ms, bound_by, simt_ms, simt_by = _flash_bf16_bound(
+                    name, cases)
                 lib = lib_fwd if name == "flash_forward_with_lse" else lib_bwd
-                print("phase 17: %s bf16 per layer at %s %s: %.5f ms, bound "
-                      "%.5f ms (%s) = %.1f %% of it, plain %.5f ms, library "
-                      "%.5f ms (%s, %s)"
+                print("phase 17: %s bf16 per layer at %s %s: %.5f ms, "
+                      "tensor-core bound %.5f ms (%s) = %.1f %% of it, f32 "
+                      "CUDA-core bound %.5f ms (%s) = %.1f %%, plain %.5f "
+                      "ms, library %.5f ms (%s, %s)"
                       % (name, label, cases, ms, bound_ms, bound_by,
-                         100 * bound_ms / ms, plain_ms, lib, backend,
+                         100 * bound_ms / ms, simt_ms, simt_by,
+                         100 * simt_ms / ms, plain_ms, lib, backend,
                          "its forward" if name == "flash_forward_with_lse"
                          else "its backward: B6+B7 together"))
                 if label == "path":
@@ -2982,7 +3015,8 @@ def phase_flash_bf16():
                         "launches": None, "max_abs_err": worst[name][1],
                         "max_bf16_ulps": worst[name][0], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib})
+                        "bound_by": bound_by, "simt_bound_ms": simt_ms,
+                        "library_ms": lib})
             del args, lib_in, outs
             torch.cuda.empty_cache()
         return out
@@ -3081,6 +3115,33 @@ def _multi_precision_check():
           % ("bitwise" if same else "within 1e-6 of"))
 
 
+def _window_run(tr, x, y):
+    """(losses, (images/s, p50 ms, p99 ms, peak GiB)) of ``WARMUP`` +
+    ``TIMED`` steps of ``tr`` inside ``engine.bulk(4)``: the warm-up
+    flushed, the timed steps' intervals as the host dispatched them, the
+    rate over the flushed window."""
+    import torch
+    from mxnet_tpu_torch import engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, marks = [], []
+    with engine.bulk(4):
+        for _ in range(WARMUP):
+            losses.append(tr.step(x, y))
+        tr.flush()
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            losses.append(tr.step(x, y))
+            marks.append(time.perf_counter())
+        tr.flush()
+        t1 = time.perf_counter()
+    gaps = np.diff([t0] + marks) * 1e3
+    return [float(v) for v in losses], (
+        x.shape[0] * TIMED / (t1 - t0), np.percentile(gaps, 50),
+        np.percentile(gaps, 99),
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
 def phase_train_bf16():
     """Phase 18: ResNet-50 training in bf16 inside ``engine.bulk(4)``."""
     import gc
@@ -3098,23 +3159,9 @@ def phase_train_bf16():
     y = torch.from_numpy((rng.rand(batch) * 1000).astype(np.int64)).cuda()
     net, tr = _resnet50()
     steps = WARMUP + TIMED
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     fo.reset_launch_counts()
-    losses, marks = [], []
-    with engine.bulk(4):
-        for _ in range(WARMUP):
-            losses.append(tr.step(x, y))
-        tr.flush()
-        t0 = time.perf_counter()
-        for _ in range(TIMED):
-            losses.append(tr.step(x, y))
-            marks.append(time.perf_counter())
-        tr.flush()
-        t1 = time.perf_counter()
+    losses, timing = _window_run(tr, x, y)
     counts = fo.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(v) for v in losses]
     scale, good, skipped = tr.loss_scale_state()
     n_buckets = len(tr._groups)
     if counts["fused_sgd_momentum"] != steps * n_buckets:
@@ -3126,17 +3173,8 @@ def phase_train_bf16():
     if skipped or tr.dispatch_stats.snapshot()["inflight_max"] > 4:
         raise RuntimeError("bf16 run: %d skipped steps, ring %s" % (
             skipped, tr.dispatch_stats.snapshot()))
-    gaps = np.diff([t0] + marks) * 1e3
-    f32 = RUNS["phase 5"]
     print("phase 18: resnet50_v1 bf16 batch %d inside engine.bulk(4); "
           "losses %s" % (batch, ["%.4f" % v for v in losses]))
-    print("phase 18: %.1f images/s over %d timed steps (the window, flushed); "
-          "step intervals p50 %.2f ms, p99 %.2f ms; peak memory %.2f GiB | "
-          "phase 5 f32 in this call: %.1f images/s, p50 %.2f ms, p99 %.2f "
-          "ms, peak %.2f GiB"
-          % (batch * TIMED / (t1 - t0), TIMED, np.percentile(gaps, 50),
-             np.percentile(gaps, 99), peak / 2 ** 30, f32["images_s"],
-             f32["p50"], f32["p99"], f32["peak_gib"]))
     print("phase 18: loss scale %.1f, good steps %d, skipped %d; "
           "fused_sgd_momentum launches %d (= %d steps x %d bucket); "
           "dispatch %s" % (scale, good, skipped,
@@ -3175,10 +3213,21 @@ def phase_train_bf16():
     del tr, net, masters
     gc.collect()
     torch.cuda.empty_cache()
-    # the f32 step under sync debug, to name a synchronizing op if any
+    # f32 in the same window, so the two rates differ only in dtype
     net, t32 = _resnet50(None)
-    t32.step(x, y)
-    t32.flush()
+    losses32, timing32 = _window_run(t32, x, y)
+    if not losses32[-1] < losses32[0]:
+        raise RuntimeError("f32 losses in the window %r" % losses32)
+    f32 = RUNS["phase 5"]
+    print("phase 18: %d timed steps each inside engine.bulk(4), flushed: "
+          "bf16 %.1f images/s, step intervals p50 %.2f ms, p99 %.2f ms, "
+          "peak memory %.2f GiB | f32 %.1f images/s, p50 %.2f ms, p99 %.2f "
+          "ms, peak %.2f GiB | bf16 / f32 %.4f | phase 5 f32 (no window) "
+          "in this call: %.1f images/s, p50 %.2f ms, p99 %.2f ms"
+          % ((TIMED,) + tuple(timing) + tuple(timing32)
+             + (timing[0] / timing32[0], f32["images_s"], f32["p50"],
+                f32["p99"])))
+    # the f32 step under sync debug, to name a synchronizing op if any
     with engine.bulk(4):
         torch.cuda.set_sync_debug_mode("error")
         try:

@@ -23,6 +23,7 @@ import torch
 from .. import initializer
 from ..base import MXNetError, resolve_device
 from ..context import current_context
+from ..precision import torch_dtype as _torch_dtype
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
 
@@ -31,25 +32,13 @@ class DeferredInitializationError(MXNetError):
     pass
 
 
-_HALF = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-         "float16": torch.float16, "fp16": torch.float16,
-         "half": torch.float16}
-
-
-def _torch_dtype(dtype):
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    if isinstance(dtype, str) and dtype.lower() in _HALF:
-        return _HALF[dtype.lower()]
-    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
-
-
 def _host_dtype(dtype):
     """The numpy dtype values are drawn or staged in on the host: float32
     for bfloat16, which numpy lacks."""
-    if _torch_dtype(dtype) == torch.bfloat16:
+    tdt = _torch_dtype(dtype)
+    if tdt == torch.bfloat16:
         return np.dtype(np.float32)
-    return np.dtype(dtype)
+    return np.dtype(str(tdt).replace("torch.", ""))
 
 
 def _dtype_tag(tdt):

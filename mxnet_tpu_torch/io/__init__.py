@@ -190,12 +190,12 @@ class DeviceFeedIter(DataIter):
     A worker thread pulls host batches from ``base`` and moves them to
     ``device`` (default the card; ``"cpu"`` hands the host tensors over
     as they are): each array goes through a pinned host copy to the card
-    with ``non_blocking=True`` on a side stream, an event is recorded
-    there and the worker waits on it, so a batch is handed over only once
-    it is on the card.  ``next()`` makes the consumer's stream wait on
-    the batch's event and marks each tensor as used there
-    (``record_stream``), so the caching allocator never hands a slot the
-    step still reads to a later batch.
+    with ``non_blocking=True`` on a side stream, where an event is
+    recorded.  That event is the one fence: ``next()`` makes the
+    consumer's stream wait on it (the host never blocks on a transfer)
+    and marks each tensor as used there (``record_stream``), so the
+    caching allocator never hands a slot the step still reads to a later
+    batch.
 
     ``depth`` is a hard slot ring: at most ``depth`` prefetched batches
     are on the card at once (queued or mid-transfer: a slot semaphore
@@ -259,8 +259,8 @@ class DeviceFeedIter(DataIter):
         return self.base.provide_label
 
     def _to_device(self, batch):
-        """``(DataBatch of device NDArrays, event or None)``; the worker
-        waits on the event before queueing the batch."""
+        """``(DataBatch of device NDArrays, event or None)``; the
+        consumer's stream waits on the event in :meth:`next`."""
         arrays = [_host_tensor(a) for a in batch.data]
         labels = [_host_tensor(a) for a in (batch.label or [])]
         event = None
@@ -271,9 +271,6 @@ class DeviceFeedIter(DataIter):
                     for t in arrays + labels]
                 event = torch.cuda.Event()
                 event.record(self._side)
-            # the transfer is fenced here, on the worker: the consumer
-            # never waits on (or contends with) a half-shipped batch
-            event.synchronize()
         else:
             outs = arrays + labels
         n = len(arrays)

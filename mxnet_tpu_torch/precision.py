@@ -1,9 +1,11 @@
 """Mixed-precision policy: the port of ``mxnet_tpu/precision.py``
 (``:149-271``) — bf16 compute with f32 masters and dynamic loss scaling.
 
-- **dtype policy**: :func:`resolve_dtype` maps the trainer's ``dtype=``
-  knob to a torch dtype (``float32`` / ``bfloat16``); :func:`is_reduced`
-  says whether loss scaling and master weights apply.
+- **dtype policy**: :func:`torch_dtype` reads a dtype name through the
+  one table of names (``DTYPE_NAMES``, also ``Parameter.cast``'s);
+  :func:`resolve_dtype` maps the trainer's ``dtype=`` knob to a torch
+  dtype (``float32`` / ``bfloat16``); :func:`is_reduced` says whether
+  loss scaling and master weights apply.
 - **dynamic loss scaling**: :func:`init_loss_scale` gives the
   device-resident state (a 0-dim f32 scale and an int32 counter of
   consecutive finite steps), :func:`all_finite` the per-step inf/nan
@@ -31,7 +33,8 @@ import torch
 
 __all__ = ["PRECISION_MASTER_F32", "PRECISION_F32_GRAD_REDUCE",
            "LOSS_SCALE_INIT", "GROWTH_FACTOR", "BACKOFF_FACTOR",
-           "GROWTH_INTERVAL", "MAX_SCALE", "MIN_SCALE", "resolve_dtype",
+           "GROWTH_INTERVAL", "MAX_SCALE", "MIN_SCALE", "DTYPE_NAMES",
+           "torch_dtype", "resolve_dtype",
            "is_reduced", "init_loss_scale", "all_finite",
            "loss_scale_update", "record_loss_scale"]
 
@@ -47,41 +50,39 @@ GROWTH_INTERVAL = 200
 MAX_SCALE = 2.0 ** 24
 MIN_SCALE = 1.0
 
-_ALIASES = {"f32": "float32", "fp32": "float32", "float32": "float32",
-            "bf16": "bfloat16", "bfloat16": "bfloat16"}
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the dtype names the port takes: the trainer's ``dtype=`` knob
+# (:func:`resolve_dtype`) and ``Parameter.cast`` both read them
+DTYPE_NAMES = {"f32": torch.float32, "fp32": torch.float32,
+               "float32": torch.float32, "bf16": torch.bfloat16,
+               "bfloat16": torch.bfloat16, "fp16": torch.float16,
+               "float16": torch.float16, "half": torch.float16}
+
+
+def torch_dtype(spec):
+    """The torch dtype of ``spec``: a torch dtype, a name in
+    ``DTYPE_NAMES`` (any case) or anything ``numpy.dtype`` takes."""
+    if isinstance(spec, torch.dtype):
+        return spec
+    if isinstance(spec, str) and spec.lower() in DTYPE_NAMES:
+        return DTYPE_NAMES[spec.lower()]
+    import numpy as np
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(spec))).dtype
 
 
 def resolve_dtype(spec):
     """The trainer's ``dtype=`` knob -> ``torch.float32`` or
-    ``torch.bfloat16``.  ``None`` means float32; a string alias, a torch
-    dtype or a numpy float32 are taken."""
+    ``torch.bfloat16``.  ``None`` means float32; a name, a torch dtype or
+    a numpy dtype are taken (:func:`torch_dtype`)."""
     if spec is None:
         return torch.float32
-    if isinstance(spec, str):
-        name = _ALIASES.get(spec.lower())
-        if name is None:
-            raise ValueError("dtype must be one of %s, got %r"
-                             % (sorted(set(_ALIASES)), spec))
-        return _DTYPES[name]
-    if isinstance(spec, torch.dtype):
-        if spec not in (torch.float32, torch.bfloat16):
-            raise ValueError("dtype must be float32 or bfloat16, got %r"
-                             % (spec,))
-        return spec
-    import numpy as np
     try:
-        dt = np.dtype(spec)
+        dtype = torch_dtype(spec)
     except TypeError:
-        raise ValueError("dtype must be float32 or bfloat16, got %r"
-                         % (spec,)) from None
-    if dt == np.float32:
-        return torch.float32
-    name = _ALIASES.get(dt.name)
-    if name is None:
+        dtype = None
+    if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("dtype must be float32 or bfloat16, got %r"
                          % (spec,))
-    return _DTYPES[name]
+    return dtype
 
 
 def is_reduced(dtype):

@@ -66,7 +66,9 @@ class PipelineStats:
     The dispatch half: ``on_dispatch`` (a step dispatched with ``inflight``
     steps now unsynchronized) and ``on_backpressure`` (the dispatcher
     blocked on its oldest in-flight step).  One thread-safe accumulator,
-    one :meth:`snapshot` with the reference's keys; it is also a
+    one :meth:`snapshot` with the reference's keys but its worker-respawn
+    counters (``respawns``, ``respawns_epoch``), which wait for a pipeline
+    that respawns workers (ROADMAP.md queue A, item 3); it is also a
     collector of the telemetry registry (``mxtpu_pipeline_*`` gauges
     labeled by name, held weakly)."""
 
@@ -78,8 +80,6 @@ class PipelineStats:
         self._stall_s = 0.0
         self._batches = 0
         self._depth_max = 0
-        self._respawns = 0
-        self._respawns_epoch = 0
         self._num_workers = num_workers
         domain = Domain(name)
         self._counter = domain.new_counter("queue_depth")
@@ -106,16 +106,6 @@ class PipelineStats:
     def on_wait(self, stall_s):
         with self._lock:
             self._stall_s += stall_s
-
-    def on_respawn(self):
-        with self._lock:
-            self._respawns += 1
-            self._respawns_epoch += 1
-
-    def on_epoch(self):
-        """Epoch boundary: reset the per-epoch respawn counter."""
-        with self._lock:
-            self._respawns_epoch = 0
 
     def on_dispatch(self, inflight):
         """A step was dispatched with ``inflight`` steps now
@@ -149,8 +139,6 @@ class PipelineStats:
                 "stall_s": round(self._stall_s, 3),
                 "stall_pct": round(100.0 * self._stall_s / wall, 2),
                 "queue_depth_max": self._depth_max,
-                "respawns": self._respawns,
-                "respawns_epoch": self._respawns_epoch,
                 "dispatched_steps": self._dispatched,
                 "inflight_max": self._inflight_max,
                 "dispatch_stall_s": round(self._dispatch_stall_s, 3),

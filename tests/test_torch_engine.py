@@ -10,9 +10,10 @@ both trainer tiers, f32 and bf16), and the depth-1 run is held to the
 reference's trainer at 1e-5 (the f32 tolerance of
 ``tests/test_torch_train.py``).  The ring never holds more than
 ``engine.bulk_size()`` steps, and ``dispatch_stats`` has the reference's
-keys.  On the CPU a step has run when it returns, so the ring holds the
-loss tensors in place of CUDA events; the ``cuda``-marked test holds the
-same on the card.
+keys but the worker-respawn counters, which wait for a pipeline that
+respawns workers (A3).  On the CPU a step has run when it returns, so
+the ring holds the loss tensors in place of CUDA events; the
+``cuda``-marked test holds the same on the card.
 """
 import time
 
@@ -37,6 +38,8 @@ from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
 BATCH, FEAT, NCLS = 16, 8, 4
 STEPS = 10
 TOL = 1e-5
+# the reference's snapshot keys the port leaves out until A3
+RESPAWN_KEYS = {"respawns", "respawns_epoch"}
 
 
 def _data(n=160, seed=0):
@@ -222,7 +225,9 @@ def test_backpressure_bounds_inflight_ring():
         engine.flush()
     assert not tr._inflight
     snap = tr.dispatch_stats.snapshot()
-    assert set(snap) == set(JaxPipelineStats(name="x").snapshot())
+    assert set(JaxPipelineStats(name="x").snapshot()) - set(snap) \
+        == RESPAWN_KEYS
+    assert set(snap) <= set(JaxPipelineStats(name="x").snapshot())
     assert snap["dispatched_steps"] == 12
     assert 1 <= snap["inflight_max"] <= 2
     assert snap["dispatch_stall_s"] >= 0.0
@@ -250,7 +255,7 @@ def test_pipeline_stats_snapshot_keys_match_reference():
         s.on_dispatch(3)
         s.on_backpressure(0.002)
     a, b = mine.snapshot(), ref.snapshot()
-    assert set(a) == set(b)
+    assert set(b) - set(a) == RESPAWN_KEYS and set(a) <= set(b)
     for k in ("batches", "queue_depth_max", "dispatched_steps",
               "inflight_max", "dispatch_stall_s", "stall_s"):
         assert a[k] == b[k], k

@@ -14,28 +14,37 @@ True)`` and ``Parameter.cast`` to half types) held against mxnet_tpu.
   against the reference's fused update in interpret mode at 1e-5.
 - A small Gluon net (two conv + BatchNorm + relu stages, two dense
   layers) trained 3 steps in bf16 by both packages from the same weights
-  with the ResNet recipe's SGD (lr 0.05, momentum 0.9, wd 1e-4): the
-  ``(scale, good, skipped)`` state after every step exactly equal, the
-  losses within 2e-2 relative (reached: 6.3e-3, one bf16 ulp of the loss
-  at two of three steps) and every master and moving statistic within
-  1e-2 absolute (reached: 7.8e-3).  Each package rounds its bf16 ops in
-  its own order (XLA keeps excess precision inside a fusion, torch rounds
-  every op), so the two drift apart as far as either drifts from its f32
-  twin: the port is also held to no more than twice the reference's own
-  bf16-vs-f32 difference, per tensor.
+  with the ResNet recipe's SGD (lr 0.05, momentum 0.9, wd 1e-4): every
+  layer's output bf16 inside the step (forward hooks), the ``(scale,
+  good, skipped)`` state after every step exactly equal, the losses
+  within 7e-3 relative (reached: 6.3e-3, one bf16 ulp of the loss at two
+  of three steps) and every master and moving statistic within 8e-3
+  absolute (reached: 7.8e-3).  Each package rounds its bf16 ops in its
+  own order (XLA keeps excess precision inside a fusion, torch rounds
+  every op), so per tensor the two drift apart about as far as either
+  drifts from its f32 twin: the port is held to no more than twice the
+  reference's own bf16-vs-f32 difference per tensor, and over all
+  tensors to ``NEARER`` (0.9) times it (reached 0.78).
 - A 2-layer TransformerLM at ``MeshPlan(sequence=2)`` with
   ``dtype="bf16"`` (``compute_dtype`` on the mesh tier, the bf16 flash
-  routes on every hop) against the reference's for 3 steps: losses
-  within 2e-2 (one bf16 ulp of a loss near 3.9 is 1.6e-2; reached 1.6e-2
-  at the first step, 0 at the other two), parameters within 2e-2
-  (reached 1.0e-2, on ``pos_embed``; the embeddings' gradients are
-  scatter-adds in bf16 in both packages) and no more than twice the
-  reference's own bf16-vs-f32 difference per parameter.
+  routes on every hop: their operands and outputs seen bf16) against the
+  reference's for 3 steps: losses within 2e-2 (one bf16 ulp of a loss
+  near 3.9 is 1.6e-2; reached 1.6e-2 at the first step, 0 at the other
+  two), parameters within 1.2e-2 (reached 1.0e-2, on ``pos_embed``; the
+  embeddings' gradients are scatter-adds in bf16 in both packages), no
+  more than twice the reference's own bf16-vs-f32 difference per
+  parameter and ``NEARER`` times it over all (reached 0.68).
+- Controls: each tier computing in f32 (the replicated one with its
+  loss-scale machine still running) misses those limits, on the numbers
+  alone (replicated: losses 9.8e-3 relative, all tensors at 1.0 of the
+  bf16-vs-f32 difference; mesh: 1.6e-2 on ``embed``, 1.0 over all).
 - ``multi_precision``: a bf16 weight's f32 master, the update on it and
   the rounded write-back equal the reference's (SGD with and without
   momentum, Adam) bitwise; ``Parameter.cast`` / ``Block.cast`` to
   bfloat16 and float16 round as the reference's casts do.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -68,11 +77,16 @@ from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
 SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 SHAPE = (8, 3, 8, 8)
 STEPS = 3
-LOSS_RTOL, MASTER_ATOL = 2e-2, 1e-2
+LOSS_RTOL, MASTER_ATOL = 7e-3, 8e-3
 LM_CFG = dict(vocab_size=32, d_model=16, n_heads=4, n_layers=2, d_ff=32,
               seq_len=16)
 LM_SGD = {"learning_rate": 0.1, "momentum": 0.9}
-LM_LOSS_ATOL, LM_PARAM_ATOL = 2e-2, 2e-2
+LM_LOSS_ATOL, LM_PARAM_ATOL = 2e-2, 1.2e-2
+# over all tensors, the port's distance from the bf16 reference is at most
+# this share of the reference's own bf16-vs-f32 distance: a bf16 port lands
+# nearer the bf16 reference (reached 0.78 replicated, 0.68 on the mesh), a
+# port computing in f32 sits at 1.0
+NEARER = 0.9
 
 
 # -- the loss-scale machine ------------------------------------------------
@@ -160,9 +174,11 @@ def _batches(n=STEPS, seed=7):
             for _ in range(n)]
 
 
+@functools.lru_cache(maxsize=None)
 def _reference(dtype):
     """(initial arrays, losses, states, final arrays by relative name) of
-    the reference trainer on a one-device mesh."""
+    the reference trainer on a one-device mesh (the callers only read
+    them)."""
     np.random.seed(0)
     net = _make(jgluon)
     net.initialize(mx.init.Xavier())
@@ -193,33 +209,89 @@ def _port(init, dtype="bf16"):
     return net, tr
 
 
-def test_bf16_replicated_trainer_matches_reference():
+def _distance_failures(got, want, f32_twin, atol):
+    """The limits on final f32 arrays: each within ``atol`` of the bf16
+    reference and within twice the reference's own bf16-vs-f32 distance,
+    and all together nearer the bf16 reference than ``NEARER`` times that
+    distance (module docstring)."""
+    out, near, far = [], 0.0, 0.0
+    assert sorted(got) == sorted(want)
+    for name, arr in got.items():
+        # the masters and moving statistics stay f32
+        assert arr.dtype == np.float32, name
+        diff = float(np.abs(arr - want[name]).max())
+        floor = float(np.abs(want[name] - f32_twin[name]).max())
+        near, far = near + diff, far + floor
+        if diff > atol:
+            out.append("%s: %.3g from the reference > %g" % (name, diff,
+                                                             atol))
+        if diff > 2 * floor + 1e-6:
+            out.append("%s: %.3g > twice the bf16-vs-f32 %.3g"
+                       % (name, diff, floor))
+    if near > NEARER * far:
+        out.append("sum of distances %.3g > %g x the bf16-vs-f32 %.3g"
+                   % (near, NEARER, far))
+    return out
+
+
+def _run_replicated(force_f32=False):
+    """(failures, output dtypes of every layer in the steps) of the port's
+    bf16 replicated trainer against the reference's; ``force_f32`` is the
+    control: the same trainer computing in f32 under its loss-scale
+    machine."""
     init, want_losses, want_states, want = _reference("bf16")
     _, _, _, f32_twin = _reference(None)
     net, tr = _port(init)
+    if force_f32:
+        tr._dtype = torch.float32
+    seen = set()
+    hooks = [b.register_forward_hook(
+        lambda m, a, out: seen.add((type(m).__name__, out.dtype)))
+        for b in net._children.values()]
     before = F.launch_counts()
     losses, states = [], []
-    for x, y in _batches():
-        loss = tr.step(x, y)
-        assert loss.dtype == torch.float32 and loss.shape == ()
-        losses.append(float(loss))
-        states.append(tr.loss_scale_state())
+    try:
+        for x, y in _batches():
+            loss = tr.step(x, y)
+            assert loss.dtype == torch.float32 and loss.shape == ()
+            losses.append(float(loss))
+            states.append(tr.loss_scale_state())
+    finally:
+        for h in hooks:
+            h.remove()
     assert F.launch_counts() == before      # the CPU takes plain versions
-    assert states == want_states
-    np.testing.assert_allclose(losses, want_losses, rtol=LOSS_RTOL)
-    got = {n: p.data().detach().numpy() for n, p in
-           net.collect_params().items()}
-    rel = relative_names(list(got), net.prefix)
-    assert sorted(rel) == sorted(want)
-    for r, n in rel.items():
-        # the masters and moving statistics stay f32 tensors
-        assert got[n].dtype == np.float32, r
-        diff = float(np.abs(got[n] - want[r]).max())
-        assert diff <= MASTER_ATOL, (r, diff)
-        floor = float(np.abs(want[r] - f32_twin[r]).max())
-        assert diff <= 2 * floor + 1e-6, (r, diff, floor)
     # the parameters are the views of the flat f32 bucket
     assert tr._w_flat[0].dtype == torch.float32 and len(tr._groups) == 1
+    failures = [] if states == want_states else ["states %s" % states]
+    rel = np.abs(np.asarray(losses) - want_losses) / np.abs(want_losses)
+    if rel.max() > LOSS_RTOL:
+        failures.append("losses %s: relative %.3g" % (losses, rel.max()))
+    got = {n: p.data().detach().numpy() for n, p in
+           net.collect_params().items()}
+    got = {r: got[n] for r, n in relative_names(list(got),
+                                                net.prefix).items()}
+    return failures + _distance_failures(got, want, f32_twin,
+                                         MASTER_ATOL), seen
+
+
+def test_bf16_replicated_trainer_matches_reference():
+    failures, seen = _run_replicated()
+    # every layer computed in bf16 inside the step
+    assert {dt for _, dt in seen} == {torch.bfloat16}, seen
+    assert {name for name, _ in seen} == {"Conv2D", "BatchNorm",
+                                          "Activation", "Dense"}
+    assert failures == []
+
+
+def test_bf16_replicated_limits_refuse_an_f32_step():
+    """The control: the trainer computing in f32 (its scale machine
+    running, so the states still match) misses the bf16 reference's
+    limits on the numbers alone."""
+    failures, seen = _run_replicated(force_f32=True)
+    assert {dt for _, dt in seen} == {torch.float32}
+    assert not any(f.startswith("states") for f in failures)
+    assert any(f.startswith("losses") for f in failures), failures
+    assert any(f.startswith("sum of distances") for f in failures), failures
 
 
 def test_bf16_inf_batch_is_a_bitwise_noop():
@@ -324,6 +396,7 @@ def _lm_batch(batch=4, seed=1):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_lm(dtype):
     mx.random.seed(0)
     jtr = JaxTrainer(JaxLM(JaxConfig(**LM_CFG, attention="ring")), None,
@@ -336,13 +409,26 @@ def _jax_lm(dtype):
     return losses, jtr.mesh_params()
 
 
-def test_bf16_mesh_tier_matches_reference():
+def _run_mesh(dtype, monkeypatch):
+    """(failures, {flash wrapper: dtypes of its inputs and outputs}) of the
+    port's mesh tier at ``dtype`` against the reference's bf16 step; at
+    ``dtype=None`` (f32) it is the control."""
     want, want_params = _jax_lm("bf16")
     _, f32_twin = _jax_lm(None)
+    seen = {}
+    for name in ("flash_forward_with_lse", "flash_dq", "flash_dkv"):
+        def wrap(*a, _f=getattr(pk, name), _n=name):
+            out = _f(*a)
+            seen.setdefault(_n, set()).update(
+                t.dtype for t in (a[:4] + (out if isinstance(out, tuple)
+                                            else (out,)))
+                if isinstance(t, torch.Tensor) and t.dim() == 3)
+            return out
+        monkeypatch.setattr(pk, name, wrap)
     x, y = _lm_batch()
     tr = DataParallelTrainer(
         TransformerLM(TransformerLMConfig(**LM_CFG, attention="ring")), None,
-        "sgd", dict(LM_SGD), mesh_plan=MeshPlan(sequence=2), dtype="bf16",
+        "sgd", dict(LM_SGD), mesh_plan=MeshPlan(sequence=2), dtype=dtype,
         device="cpu")
     before = pk.launch_counts()
     losses = []
@@ -351,17 +437,36 @@ def test_bf16_mesh_tier_matches_reference():
         assert loss.dtype == torch.float32
         losses.append(float(loss))
     assert pk.launch_counts() == before
-    np.testing.assert_allclose(losses, want, rtol=0, atol=LM_LOSS_ATOL)
     assert losses[-1] < losses[0]
+    assert tr._mesh_program.attention_mode == "ring"
+    failures = []
+    diff = float(np.abs(np.asarray(losses) - want).max())
+    if diff > LM_LOSS_ATOL:
+        failures.append("losses %s: %.3g from the reference" % (losses,
+                                                                 diff))
     got = tr.mesh_params()
     assert list(got) == list(want_params)
-    for name, arr in got.items():
-        assert arr.dtype == np.float32
-        diff = float(np.abs(arr - want_params[name]).max())
-        floor = float(np.abs(want_params[name] - f32_twin[name]).max())
-        assert diff <= LM_PARAM_ATOL, (name, diff)
-        assert diff <= 2 * floor + 1e-6, (name, diff, floor)
-    assert tr._mesh_program.attention_mode == "ring"
+    return failures + _distance_failures(got, want_params, f32_twin,
+                                         LM_PARAM_ATOL), seen
+
+
+def test_bf16_mesh_tier_matches_reference(monkeypatch):
+    failures, seen = _run_mesh("bf16", monkeypatch)
+    # q, k, v, dO and every hop's o, dq, dk, dv are bf16 (lse and delta
+    # are 2-D and stay f32)
+    assert seen == {n: {torch.bfloat16} for n in
+                    ("flash_forward_with_lse", "flash_dq", "flash_dkv")}
+    assert failures == []
+
+
+def test_bf16_mesh_limits_refuse_an_f32_step(monkeypatch):
+    """The control: the mesh tier in f32 misses the bf16 reference's
+    limits on the parameters."""
+    failures, seen = _run_mesh(None, monkeypatch)
+    assert seen == {n: {torch.float32} for n in
+                    ("flash_forward_with_lse", "flash_dq", "flash_dkv")}
+    assert any(f.startswith("sum of distances") for f in failures), failures
+    assert any("from the reference >" in f for f in failures), failures
 
 
 # -- multi_precision and the half-type casts ----------------------------------
