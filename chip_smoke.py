@@ -236,21 +236,31 @@ Twenty phases; any failure exits non-zero and prints no result line.
     the card: its JSON line has ``codegen_numerics_ok == 1.0`` and
     ``codegen_n_kernels == 6``, and the launch counters (zeroed just
     before) show every ``_gen_*`` kernel launched.
-17. **The bf16 routes of B5-B7.** ``flash_forward_with_lse``,
-    ``flash_dq`` and ``flash_dkv`` on bfloat16 q, k, v, dO (the
-    ``mxtt_flash_*_bf16`` kernels of ``csrc/flash_attention.cu``) against
-    their bf16 plain versions (the f32 plain version on the widened
-    inputs, rounded) at the ring path's hop pairings, at D = 64 and 128
-    causal and full, ragged (3, 997 x 1000, 64) and D = 320: out, dq, dk,
-    dv within one bf16 ulp (counted as in phase 13), lse within 1e-5, two
-    runs bitwise, every launch on the ``…/bf16`` count.  Timed per layer
-    (both pairings) with CUDA events around eager calls, and at D = 64 and
-    128, beside the bound (bytes at bf16 I/O, f32 lse/delta; operations on
-    the tensor cores: q k^T and dO v^T in one bf16 pass, the products with
-    p or ds in two TF32 passes, the non-matrix operations at the f32 rate),
-    the bound of the route's own CUDA-core arithmetic, plain, and
+17. **The bf16 designs of B5-B7.** ``flash_forward_with_lse``,
+    ``flash_dq`` and ``flash_dkv`` on bfloat16 q, k, v, dO, on each bf16
+    design that takes the pairing, forced: the bf16 ``wgmma`` design of the
+    forward and dk/dv (``csrc/flash_bf16_wgmma.cu``, D % 8 == 0 up to 32)
+    and the CUDA-core route of all three (the ``mxtt_flash_*_bf16`` kernels
+    of ``csrc/flash_attention.cu``), against their bf16 plain versions
+    (the f32 plain version on the widened inputs, rounded) at the ring
+    path's hop pairings, at D = 64 and 128 causal and full, ragged (3, 997
+    x 1000, 64), D = 320 and the wgmma design's edges
+    (``FLASH_BF16_WGMMA_EDGES``: ragged tiles, Tq != Tk both ways, T = 1,
+    D = 8, 24, 32): out, dq, dk, dv within one bf16 ulp (counted as in
+    phase 13), lse within 1e-5, two runs bitwise, every launch on its
+    design's count.  Timed per layer (both pairings) with CUDA events
+    around eager calls, the two designs of the forward and dk/dv in turns
+    (wgmma_bf16, bf16, bf16, wgmma_bf16), and at D = 64 and 128 (the
+    CUDA-core route alone), beside the bound (bytes at bf16 I/O, f32
+    lse/delta; operations on the tensor cores: q k^T and dO v^T in one
+    bf16 pass, the products with p or ds in two bf16 passes, cheaper than
+    two TF32 ones, the non-matrix operations at the f32 rate), the bound
+    of the CUDA-core route's own arithmetic, plain, and
     ``scaled_dot_product_attention`` in bf16 (its forward; its backward
-    for dq and dk/dv together) as ``library_ms``.
+    for dq and dk/dv together) as ``library_ms``.  Both designs of the
+    forward and dk/dv timed per layer at the path's pairings with D = 8,
+    24, 32 (``FLASH_BF16_DIMS``); fails where ``flash_design`` chose the
+    slower one.
 18. **Train ResNet-50 in bf16.** First the half BatchNorm on the card
     on seeded bf16 data: moving statistics against the CPU's (rtol 1e-4;
     the card reads the forward kernel's saved f32 statistics, the CPU
@@ -275,8 +285,10 @@ Twenty phases; any failure exits non-zero and prints no result line.
     and masters bitwise equal.
 19. **Train the TransformerLM in bf16.** Phase 8's configuration and
     batches with ``dtype="bf16"`` (``compute_dtype`` on the mesh tier):
-    tokens/s, p50/p99, peak memory, each bf16 flash route launched steps x
-    layers x 2 hops times, the largest |loss_bf16 - loss_f32| against
+    tokens/s, p50/p99, peak memory, each bf16 flash kernel launched steps
+    x layers x 2 hops times, the forward and dk/dv all on the bf16
+    ``wgmma`` design and dq on the CUDA-core route
+    (``PATH_BF16_ROUTES``), the largest |loss_bf16 - loss_f32| against
     phase 8's losses on the same seed and batches; ``--profile`` adds the
     device time by category and the idle share.
 20. **The benches.** ``mxnet_tpu_torch.engine_bench.main([])`` and
@@ -299,11 +311,15 @@ stages on the wgmma design (``source`` ``csrc/conv3x3_wgmma.cu``),
 for ``_gen_zero1_top2`` and null for the other five, which no single
 PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
 the row plan's time at each cluster size or the flat plan's at each
-size, and the group plan's); the bf16 routes
-``flash_*[bf16]`` per layer at the path's pairings, ``launches`` from
-phase 19, ``max_abs_err`` and ``max_bf16_ulps`` from phase 17,
-``bound_ms`` the tensor-core bound on bf16 operands and
-``simt_bound_ms`` that of the route's f32 CUDA-core arithmetic; the
+size, and the group plan's); the bf16 flash kernels ``flash_*[bf16]``
+per layer at the path's pairings on the design the path takes
+(``design``: the forward and dk/dv on ``wgmma_bf16``, ``source``
+``csrc/flash_bf16_wgmma.cu``, with ``cuda_core_ms`` the CUDA-core
+route's time in the same turns; dq on the CUDA-core route),
+``launches`` and ``launches_by_design`` from phase 19, ``max_abs_err``
+and ``max_bf16_ulps`` from phase 17, ``bound_ms`` the tensor-core bound
+on bf16 operands and ``simt_bound_ms`` that of the f32 CUDA-core
+arithmetic; the
 card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
@@ -877,7 +893,9 @@ LM_PROFILE_CATEGORIES = (
     ("flash attention (B5-B7)", ("flash_fwd_kernel", "flash_dq_kernel",
                                  "flash_dkv_kernel",
                                  "flash_fwd_wgmma_kernel",
-                                 "flash_bwd_wgmma_kernel")),
+                                 "flash_bwd_wgmma_kernel",
+                                 "flash_fwd_bf16_kernel",
+                                 "flash_dkv_bf16_kernel")),
     ("layer norm (B4)", ("ln_fwd",)),
     ("matmul", ("gemm", "cutlass")),
     ("reduction", ("reduce",)),
@@ -1172,6 +1190,9 @@ FLASH_BF16_CHECK = FLASH_PATH + [(64, 512, 512, 64, True),
                                  (3, 997, 1000, 64, True),
                                  (2, 130, 61, 320, False)]
 FLASH_BF16_TIMED = [(64, 512, 512, 64, True), (32, 512, 512, 128, True)]
+# the bf16 design each flash kernel takes at the path's D = 16 (phase 19)
+PATH_BF16_ROUTES = {"flash_forward_with_lse": "wgmma_bf16",
+                    "flash_dq": "bf16", "flash_dkv": "wgmma_bf16"}
 
 
 def _pairs(tq, tk, causal):
@@ -1289,12 +1310,12 @@ def _flash_bwd_args(cases, gen):
     return out
 
 
-def _design_hops(bwd, name, iters=20):
-    """{design: [ms per pairing]} of one flash kernel on each design over
-    the pairings' args ``bwd``, timed in turns (wgmma, simt, simt, wgmma)
+def _design_hops(bwd, name, iters=20, designs=("wgmma", "simt")):
+    """{design: [ms per pairing]} of one flash kernel on each of two
+    designs over the pairings' args ``bwd``, timed in turns (a, b, b, a)
     and the two times of each averaged."""
-    runs = {"wgmma": [], "simt": []}
-    for design in ("wgmma", "simt", "simt", "wgmma"):
+    runs = {d: [] for d in designs}
+    for design in designs + designs[::-1]:
         call = _flash_call(name, design)
         runs[design].append([_event_ms(lambda a=a: call(a), iters)
                              for a in bwd])
@@ -2857,30 +2878,51 @@ def phase_codegen_bench():
 # the products of each kernel on bf16 operands: (exact, with f32): q k^T
 # and dO v^T are products of bf16 operands, exact in one bf16 tensor-core
 # pass with f32 accumulation; p v, ds k, p^T dO and ds^T q take an f32
-# operand (p or ds), two TF32 passes (its hi and lo parts against a bf16
-# operand, exact in TF32)
+# operand (p or ds), exact as FLASH_BF16_PARTS bf16 parts against the bf16
+# operand (the split of csrc/flash_bf16_wgmma.cu, which
+# tests/test_torch_flash_bf16_wgmma.py holds to the contract) or as two
+# TF32 parts, whichever the card does sooner
 FLASH_BF16_PRODUCTS = {"flash_forward_with_lse": (1, 1), "flash_dq": (2, 1),
                        "flash_dkv": (2, 2)}
+FLASH_BF16_PARTS = 2
+# the bf16 designs (the bf16 wgmma design of the forward and
+# dk/dv, csrc/flash_bf16_wgmma.cu, and the CUDA-core route of all three),
+# and the edges of the wgmma one (key tiles of 64, query tiles of 32, own
+# tiles of 128, D % 8 == 0 up to 32): T not a multiple of the tiles, Tq !=
+# Tk both ways (dk/dv blocks with no query to visit), T = 1, D = 8, 24, 32
+BF16_DESIGNS = ("wgmma_bf16", "bf16")
+FLASH_BF16_WGMMA_EDGES = [(3, 997, 1000, 16, True), (2, 130, 70, 16, True),
+                          (2, 70, 130, 16, True), (4, 1, 300, 16, False),
+                          (2, 1, 1, 16, False), (2, 200, 200, 8, True),
+                          (2, 97, 33, 24, True), (3, 997, 1000, 32, False),
+                          (2, 64, 64, 32, True)]
+# head dims both bf16 designs are timed at besides the path's 16 (the
+# path's pairings with D replaced): the measurement behind flash_design's
+# choice on bf16
+FLASH_BF16_DIMS = (8, 24, 32)
 
 
 def _flash_bf16_bound(name, cases):
-    """(bound ms, bound_by, simt ms, simt_by) of a bf16 route over
+    """(bound ms, bound_by, simt ms, simt_by) of a bf16 design over
     ``cases``.  Bytes: q, k, v, dO and the outputs at 2 bytes, lse and
     delta at 4, each read or written once.  Operations
     (``FLASH_BF16_PRODUCTS``): the exact products in one bf16 pass at 989
-    TFLOP/s and the products with p or ds in two TF32 passes at 495
-    TFLOP/s, one after the other on the tensor cores, beside the
-    non-matrix f32 operations per visible pair (``FLASH_NONMATRIX``) at 67
-    TFLOP/s; the larger of the two is the bound.  ``simt``: the same bytes
-    against the f32 CUDA-core operations of :func:`_flash_bound`, the
-    bound of the route's own design (it widens to f32 on the CUDA
-    cores)."""
+    TFLOP/s; each product with p or ds as ``FLASH_BF16_PARTS`` bf16 passes
+    at 989 TFLOP/s or two TF32 passes at 495, the cheaper (the bf16 parts,
+    which meet the contract); one after the other on the tensor cores,
+    beside the non-matrix f32 operations per visible pair
+    (``FLASH_NONMATRIX``) at 67 TFLOP/s; the larger of the two is the
+    bound.  ``simt``: the same bytes against the f32 CUDA-core operations
+    of :func:`_flash_bound`, the bound of the CUDA-core route's own
+    arithmetic (it widens to f32 on the CUDA cores)."""
     exact, mixed = FLASH_BF16_PRODUCTS[name]
-    bf16 = tf32 = ops = nbytes = 0
+    per_mixed = min(FLASH_BF16_PARTS / BF16_FLOPS_PER_S,
+                    2 / TF32_FLOPS_PER_S)
+    tensor_s = ops = nbytes = 0
     for bh, tq, tk, d, causal in cases:
         pairs = bh * _pairs(tq, tk, causal)
-        bf16 += pairs * 2 * d * exact
-        tf32 += pairs * 2 * d * mixed * 2
+        tensor_s += pairs * 2 * d * (exact / BF16_FLOPS_PER_S
+                                     + mixed * per_mixed)
         ops += pairs * FLASH_NONMATRIX[name]
         qside, kside, rows = bh * tq * d, bh * tk * d, bh * tq
         nbytes += {"flash_forward_with_lse": 2 * (2 * qside + 2 * kside)
@@ -2888,8 +2930,7 @@ def _flash_bf16_bound(name, cases):
                    "flash_dq": 2 * (3 * qside + 2 * kside) + 8 * rows,
                    "flash_dkv": 2 * (2 * qside + 4 * kside) + 8 * rows}[name]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(bf16 / BF16_FLOPS_PER_S + tf32 / TF32_FLOPS_PER_S,
-                 ops / F32_FLOPS_PER_S) * 1e3
+    ops_ms = max(tensor_s, ops / F32_FLOPS_PER_S) * 1e3
     simt_ms = _flash_bound(name, cases)[2] / F32_FLOPS_PER_S * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2910,22 +2951,116 @@ def _flash_bf16_args(cases, gen):
     return out
 
 
-def _flash_bf16_calls(pk, a, plain=False):
-    """{wrapper: call} of the three bf16 routes (or plain versions) on one
-    pairing's args."""
-    if plain:
-        return {"flash_forward_with_lse": lambda: (
-                    pk.flash_forward_with_lse_reference(*a[:3], a[6], a[7])),
-                "flash_dq": lambda: (pk.flash_dq_reference(*a),),
-                "flash_dkv": lambda: pk.flash_dkv_reference(*a)}
-    return {"flash_forward_with_lse": lambda: pk.flash_forward_with_lse(
-                *a[:3], a[6], a[7]),
-            "flash_dq": lambda: (pk.flash_dq(*a),),
-            "flash_dkv": lambda: pk.flash_dkv(*a)}
+def _flash_bf16_plain(pk, a):
+    """{wrapper: call} of the three bf16 plain versions on one pairing's
+    args."""
+    return {"flash_forward_with_lse": lambda: (
+                pk.flash_forward_with_lse_reference(*a[:3], a[6], a[7])),
+            "flash_dq": lambda: (pk.flash_dq_reference(*a),),
+            "flash_dkv": lambda: pk.flash_dkv_reference(*a)}
+
+
+def _flash_bf16_designs(pk, name, d):
+    """The bf16 designs of wrapper ``name`` that take head dim ``d``."""
+    return [x for x in BF16_DESIGNS if name in pk._FLASH_DESIGNS[x]
+            and (x != "wgmma_bf16" or pk.wgmma_bf16_takes(d))]
+
+
+def _flash_bf16_check(torch, pk, case, gen, worst):
+    """Each bf16 design of the forward, dq and dk/dv that takes the head
+    dim (routed to it or not) against the bf16 plain version at one
+    pairing: one bf16 ulp, lse 1e-5, reruns bitwise, every launch counted
+    on its design.  Returns {wrapper/design: worst ulps}."""
+    (a,) = _flash_bf16_args([case], gen)
+    want = {n: list(f()) for n, f in _flash_bf16_plain(pk, a).items()}
+    errs = {}
+    for name in FLASH_KERNELS:
+        for design in _flash_bf16_designs(pk, name, case[3]):
+            key = name + "/" + design
+            call = _flash_call(name, design)
+            before = pk.launch_counts()[key]
+            runs = [call(a), call(a)]
+            runs = [r if isinstance(r, tuple) else (r,) for r in runs]
+            torch.cuda.synchronize()
+            if pk.launch_counts()[key] != before + 2:
+                raise RuntimeError("%s %s: not launched on the %s design"
+                                   % (name, case, design))
+            for got, again, w in zip(runs[0], runs[1], want[name]):
+                if not torch.equal(got, again):
+                    raise RuntimeError("%s %s %s: two runs differ"
+                                       % (name, case, design))
+                if got.dtype != w.dtype or got.shape != w.shape:
+                    raise RuntimeError("%s %s %s: %s %s against %s %s"
+                                       % (name, case, design, got.dtype,
+                                          tuple(got.shape), w.dtype,
+                                          tuple(w.shape)))
+                if got.dtype == torch.float32:      # lse
+                    torch.testing.assert_close(got, w, rtol=FLASH_FWD_TOL,
+                                               atol=FLASH_FWD_TOL)
+                    continue
+                u = float(_bf16_ulps(got, w).max())
+                e = float((got.float() - w.float()).abs().max())
+                errs[key] = max(errs.get(key, 0.0), u)
+                ulps, abs_err = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(ulps, u), max(abs_err, e))
+                if u > 1.0:
+                    raise RuntimeError("%s %s %s: %.2f bf16 ulps from "
+                                       "plain" % (name, case, design, u))
+    del a, want
+    return errs
+
+
+def _flash_bf16_hops(pk, args):
+    """{(wrapper, design): [ms per pairing]} of every bf16 design of the
+    three kernels over the pairings' args, the two designs of the forward
+    and dk/dv timed in turns."""
+    out = {}
+    for name in FLASH_KERNELS:
+        designs = tuple(_flash_bf16_designs(pk, name, args[0][0].shape[2]))
+        if len(designs) == 2:
+            hops = _design_hops(args, name, designs=designs)
+        else:
+            call = _flash_call(name, designs[0])
+            hops = {designs[0]: [_event_ms(lambda a=a: call(a))
+                                 for a in args]}
+        out.update({(name, d): h for d, h in hops.items()})
+    return out
+
+
+def _flash_bf16_dim_sweep(torch, pk, gen, path_ms):
+    """Both bf16 designs of the forward and dk/dv per layer at the path's
+    pairings with each head dim of FLASH_BF16_DIMS (and the path's 16,
+    ``path_ms``), beside flash_design's choice; fails where the chosen
+    design is the slower one."""
+    per_dim = {16: path_ms}
+    for d in FLASH_BF16_DIMS:
+        args = _flash_bf16_args([c[:3] + (d,) + c[4:] for c in FLASH_PATH],
+                                gen)
+        per_dim[d] = {key: sum(h) for key, h in
+                      _flash_bf16_hops(pk, args).items()}
+        del args
+        torch.cuda.empty_cache()
+    wrong = []
+    for d in sorted(per_dim):
+        ms = per_dim[d]
+        names = [n for n in FLASH_KERNELS if (n, "wgmma_bf16") in ms]
+        chosen = {n: pk.flash_design(d, n, dtype=torch.bfloat16)
+                  for n in names}
+        print("phase 17: head dim %d per layer: %s" % (d, ", ".join(
+            "%s wgmma_bf16 %.5f / bf16 %.5f ms (%.2fx), flash_design %s"
+            % (n, ms[(n, "wgmma_bf16")], ms[(n, "bf16")],
+               ms[(n, "bf16")] / ms[(n, "wgmma_bf16")], chosen[n])
+            for n in names)))
+        wrong += ["%s at D = %d" % (n, d) for n in names
+                  if ms[(n, chosen[n])] > min(ms[(n, x)]
+                                              for x in BF16_DESIGNS)]
+    if wrong:
+        raise RuntimeError("flash_design chose the slower bf16 design for %s"
+                           % ", ".join(wrong))
 
 
 def phase_flash_bf16():
-    """Phase 17: the bf16 routes of B5-B7 against their bf16 plain
+    """Phase 17: the bf16 designs of B5-B7 against their bf16 plain
     versions; timed per layer beside the bound, plain and SDPA in bf16."""
     import torch
     import torch.nn.functional as F
@@ -2935,46 +3070,15 @@ def phase_flash_bf16():
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         gen = torch.Generator(device="cuda").manual_seed(17)
-        worst = {n: [0.0, 0.0] for n in FLASH_KERNELS}   # ulps, abs
-        for case in FLASH_BF16_CHECK:
-            (a,) = _flash_bf16_args([case], gen)
-            want = {n: [t for t in f()] for n, f in
-                    _flash_bf16_calls(pk, a, plain=True).items()}
-            errs = {}
-            for name, call in _flash_bf16_calls(pk, a).items():
-                before = pk.launch_counts()[name + "/bf16"]
-                runs = [call(), call()]
-                torch.cuda.synchronize()
-                if pk.launch_counts()[name + "/bf16"] != before + 2:
-                    raise RuntimeError("%s %s: not launched on the bf16 "
-                                       "route" % (name, case))
-                for got, again, w in zip(runs[0], runs[1], want[name]):
-                    if not torch.equal(got, again):
-                        raise RuntimeError("%s %s bf16: two runs differ"
-                                           % (name, case))
-                    if got.dtype != w.dtype or got.shape != w.shape:
-                        raise RuntimeError("%s %s bf16: %s %s against %s %s"
-                                           % (name, case, got.dtype,
-                                              tuple(got.shape), w.dtype,
-                                              tuple(w.shape)))
-                    if got.dtype == torch.float32:      # lse
-                        torch.testing.assert_close(got, w, rtol=FLASH_FWD_TOL,
-                                                   atol=FLASH_FWD_TOL)
-                        continue
-                    u = float(_bf16_ulps(got, w).max())
-                    e = float((got.float() - w.float()).abs().max())
-                    errs[name] = max(errs.get(name, 0.0), u)
-                    worst[name][0] = max(worst[name][0], u)
-                    worst[name][1] = max(worst[name][1], e)
-                    if u > 1.0:
-                        raise RuntimeError("%s %s bf16: %.2f bf16 ulps from "
-                                           "plain" % (name, case, u))
-            print("phase 17: %s bf16 within %s ulps of plain, lse %g, reruns "
+        worst = {}          # wrapper/design -> (ulps, abs)
+        for case in FLASH_BF16_CHECK + FLASH_BF16_WGMMA_EDGES:
+            errs = _flash_bf16_check(torch, pk, case, gen, worst)
+            print("phase 17: %s within %s bf16 ulps of plain, lse %g, reruns "
                   "bitwise" % (case, {k: "%.2f" % v for k, v in errs.items()},
                                FLASH_FWD_TOL))
-            del a, want
             torch.cuda.empty_cache()
         out = []
+        path_ms = None
         for label, cases in (("path", FLASH_PATH),
                              ("D=64", FLASH_BF16_TIMED[:1]),
                              ("D=128", FLASH_BF16_TIMED[1:])):
@@ -2990,35 +3094,53 @@ def phase_flash_bf16():
                 o, a[:3], a[3], retain_graph=True)
                 for o, a in zip(outs, lib_in)])
             backend = _sdpa_backend(*lib_in[0][:3], lib_in[0][4])
+            hops = _flash_bf16_hops(pk, args)
+            if label == "path":
+                path_ms = {key: sum(h) for key, h in hops.items()}
             for name, (replaces, _) in FLASH_KERNELS.items():
-                calls = [_flash_bf16_calls(pk, a)[name] for a in args]
-                plains = [_flash_bf16_calls(pk, a, True)[name] for a in args]
-                ms = _event_ms(lambda: [c() for c in calls])
+                plains = [_flash_bf16_plain(pk, a)[name] for a in args]
                 plain_ms = _event_ms(lambda: [c() for c in plains], iters=5)
                 bound_ms, bound_by, simt_ms, simt_by = _flash_bf16_bound(
                     name, cases)
                 lib = lib_fwd if name == "flash_forward_with_lse" else lib_bwd
-                print("phase 17: %s bf16 per layer at %s %s: %.5f ms, "
-                      "tensor-core bound %.5f ms (%s) = %.1f %% of it, f32 "
-                      "CUDA-core bound %.5f ms (%s) = %.1f %%, plain %.5f "
-                      "ms, library %.5f ms (%s, %s)"
-                      % (name, label, cases, ms, bound_ms, bound_by,
-                         100 * bound_ms / ms, simt_ms, simt_by,
-                         100 * simt_ms / ms, plain_ms, lib, backend,
-                         "its forward" if name == "flash_forward_with_lse"
-                         else "its backward: B6+B7 together"))
-                if label == "path":
-                    out.append({
-                        "name": name + "[bf16]", "route": "cuda",
-                        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": replaces, "design": "bf16",
-                        "launches": None, "max_abs_err": worst[name][1],
-                        "max_bf16_ulps": worst[name][0], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "simt_bound_ms": simt_ms,
-                        "library_ms": lib})
+                routed = pk.flash_design(cases[0][3], name,
+                                         dtype=torch.bfloat16)
+                for design in BF16_DESIGNS:
+                    if (name, design) not in hops:
+                        continue
+                    ms = sum(hops[(name, design)])
+                    print("phase 17: %s %s per layer at %s %s: %.5f ms (hops "
+                          "%s)%s, tensor-core bound %.5f ms (%s) = %.1f %% of "
+                          "it, f32 CUDA-core bound %.5f ms (%s) = %.1f %%, "
+                          "plain %.5f ms, library %.5f ms (%s, %s)"
+                          % (name, design, label, cases, ms,
+                             ["%.5f" % x for x in hops[(name, design)]],
+                             " [routed]" if design == routed else "",
+                             bound_ms, bound_by, 100 * bound_ms / ms,
+                             simt_ms, simt_by, 100 * simt_ms / ms, plain_ms,
+                             lib, backend,
+                             "its forward" if name == "flash_forward_with_lse"
+                             else "its backward: B6+B7 together"))
+                if label != "path":
+                    continue
+                ulps, abs_err = worst[name + "/" + routed]
+                row = {"name": name + "[bf16]", "route": "cuda",
+                       "source": "mxnet_tpu_torch/csrc/%s.cu"
+                       % pk._FLASH_DESIGNS[routed][name][0],
+                       "replaces": replaces, "design": routed,
+                       "launches": None, "max_abs_err": abs_err,
+                       "max_bf16_ulps": ulps,
+                       "ms": sum(hops[(name, routed)]),
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "simt_bound_ms": simt_ms,
+                       "library_ms": lib}
+                if routed != "bf16":
+                    row["cuda_core_ms"] = sum(hops[(name, "bf16")])
+                    row["cuda_core_max_bf16_ulps"] = worst[name + "/bf16"][0]
+                out.append(row)
             del args, lib_in, outs
             torch.cuda.empty_cache()
+        _flash_bf16_dim_sweep(torch, pk, gen, path_ms)
         return out
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
@@ -3304,10 +3426,14 @@ def phase_train_lm_bf16(profile=False):
     flash = pk.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = steps * CFG["n_layers"] * k_ranks
-    if any(flash[n] != want or flash[n + "/bf16"] != want
-           for n in FLASH_KERNELS):
-        raise RuntimeError("bf16 flash launches %s, want %d each on the bf16 "
-                           "route" % (flash, want))
+    d = CFG["d_model"] // CFG["n_heads"]
+    routes = {n: pk.flash_design(d, n, dtype=torch.bfloat16)
+              for n in FLASH_KERNELS}
+    if routes != PATH_BF16_ROUTES or any(
+            flash[n] != want or flash[n + "/" + routes[n]] != want
+            for n in FLASH_KERNELS):
+        raise RuntimeError("bf16 flash launches %s, want %d each on %s"
+                           % (flash, want, PATH_BF16_ROUTES))
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise RuntimeError("bf16 LM losses %r" % losses)
     f32 = RUNS["phase 8"]
@@ -3325,10 +3451,10 @@ def phase_train_lm_bf16(profile=False):
              np.percentile(timed, 50), np.percentile(timed, 99),
              peak / 2 ** 30, steps, delta))
     print("phase 19: launches %s = %d steps x %d layers x %d hops each on "
-          "the bf16 route; fused_layer_norm %d (bf16 takes the plain "
-          "spelling)" % ({k: v for k, v in flash.items()
-                          if k.startswith("flash")}, steps, CFG["n_layers"],
-                         k_ranks, fo.launch_counts()["fused_layer_norm"]))
+          "%s; fused_layer_norm %d (bf16 takes the plain spelling)"
+          % ({k: v for k, v in flash.items() if k.startswith("flash")},
+             steps, CFG["n_layers"], k_ranks, routes,
+             fo.launch_counts()["fused_layer_norm"]))
     if profile:
         x, y = batches[-1]
         profile_train(tr, x, y, label="phase 19",
@@ -3419,7 +3545,11 @@ def main():
                 k["launches_bf16"] = launches[k["name"]]
         flash = phase_train_lm_bf16(profile="--profile" in sys.argv)
         for k in bf16_kernels:
-            k["launches"] = flash[k["name"].split("[")[0] + "/bf16"]
+            name = k["name"].split("[")[0]
+            k["launches"] = flash[name + "/" + k["design"]]
+            k["launches_by_design"] = {
+                d: flash[name + "/" + d] for d in BF16_DESIGNS
+                if name + "/" + d in flash}
         phase_benches()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -70,6 +70,9 @@
 //   warpgroup index is broadcast by a shuffle, the waits spin inside the
 //   asm, one lane per warp arrives by a predicate, the last step is
 //   peeled), so ptxas keeps the wgmmas asynchronous.
+//
+// The online softmax of a tile (softmax_tile) is flash_wgmma.cuh's, shared
+// with the bf16 design (flash_bf16_wgmma.cu).
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -88,9 +91,6 @@ constexpr int MAX_STAGES = 4;
 constexpr int MAX_RAW = 8;
 constexpr int SMEM_LIMIT = 232448;   // bytes of shared memory a block may use
 constexpr int PASSES = 3;            // hi.hi, hi.lo, lo.hi
-constexpr float kNegInf = -1e30f;    // _NEG_INF of the Pallas kernel
-constexpr float kHalfNegInf = -5e29f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // bytes of one copy of a streamed tile, of a stage of the ring (k hi / lo,
 // v^T hi / lo) and of a raw slot (k, v)
@@ -114,78 +114,6 @@ __device__ __forceinline__ void mma_s(float (&s)[BT / 2], const Own<DP>& aq,
                   ps + kk > 0);
     }
   }
-}
-
-// 2^x by the SFU, flushing to 0 below 2^-126
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The online softmax of one tile for the thread's two rows, in place: s
-// (element e: own row row_lo + r + 8 h, h = (e / 2) % 2, key c0 + 8 nb + 2 t
-// + c, nb = e / 4, c = e % 2) becomes p.  m holds the rows' running max (the
-// same in the quad of lanes that share r: its 64 keys), l the thread's
-// partial running sums over its own keys (summed over the quad at the end),
-// corr the factor l and the output accumulators take.  MASK: the diagonal
-// or the ragged end crosses the tile.
-//
-// s = fl(acc * scale), as the reference rounds it; p = 2^(s log2(e) - m_safe
-// log2(e)) by one FMA and ex2.approx (relative error ~2^-22).  An argument
-// below -126 gives 0, so p = 0 wherever s <= -5e29 (a masked score, or a
-// score one float step or more below a running max above -5e29): the
-// reference's select holds without one.  The max and the sums run as trees
-// of four partials (partial j takes nb = j, j + 4; c = 0, 1 in that order).
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[BT / 2], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             float scale, int row_lo, int r,
-                                             int t, int c0, int Tk,
-                                             int causal) {
-  float mx[2][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx[h][j] = kNegInf;
-  }
-#pragma unroll
-  for (int e = 0; e < BT / 2; ++e) {
-    const int h = (e >> 1) & 1, j = (e >> 2) & 3;
-    float x = __fmul_rn(s[e], scale);
-    if (MASK) {
-      const int qi = row_lo + r + 8 * h;
-      const int kj = c0 + 8 * (e >> 2) + 2 * t + (e & 1);
-      if (kj >= Tk || (causal && kj > qi)) x = kNegInf;
-    }
-    s[e] = x;
-    mx[h][j] = fmaxf(mx[h][j], x);
-  }
-  float ml[2];   // m_safe log2(e)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float x = fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    const float m_new = fmaxf(m[h], x);
-    ml[h] = (m_new <= kHalfNegInf ? 0.f : m_new) * kLog2e;
-    corr[h] = m[h] <= kHalfNegInf
-                  ? 0.f
-                  : exp2_approx(fmaf(m[h], kLog2e, -ml[h]));
-    m[h] = m_new;
-  }
-  float sum[2][4] = {};
-#pragma unroll
-  for (int e = 0; e < BT / 2; ++e) {
-    const int h = (e >> 1) & 1, j = (e >> 2) & 3;
-    const float p = exp2_approx(fmaf(s[e], kLog2e, -ml[h]));
-    s[e] = p;
-    sum[h][j] += p;
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    l[h] = l[h] * corr[h] +
-           ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
 }
 
 // One block: (query tile, bh) of the flat grid, the last queries of each bh
@@ -315,11 +243,11 @@ flash_fwd_wgmma_kernel(const float* __restrict__ q,
       const int c0 = i * BT;
       float corr[2];
       if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))
-        softmax_tile<true>(s, m, l, corr, scale, row_lo, r, t, c0, Tk,
-                           causal);
+        softmax_tile<BT, true>(s, m, l, corr, scale, row_lo, r, t, c0,
+                               Tk, causal);
       else
-        softmax_tile<false>(s, m, l, corr, scale, row_lo, r, t, c0, Tk,
-                            causal);
+        softmax_tile<BT, false>(s, m, l, corr, scale, row_lo, r, t, c0,
+                                Tk, causal);
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
 #pragma unroll

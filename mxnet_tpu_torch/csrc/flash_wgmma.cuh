@@ -1,10 +1,12 @@
-// Pieces shared by the split-TF32 flash kernels (flash_fwd_wgmma.cu,
-// flash_bwd_wgmma.cu): the 64-byte-swizzled K-major tile layout and its
+// Pieces shared by the flash kernels on the tensor cores (the split-TF32
+// flash_fwd_wgmma.cu and flash_bwd_wgmma.cu, and the bf16
+// flash_bf16_wgmma.cu): the 64-byte-swizzled K-major tile layout and its
 // wgmma descriptors, mbarrier waits and arrivals that keep a warpgroup's
 // control flow uniform, the TF32 hi / lo split of a landed tile (as it lies
 // and transposed), the A fragments of a warpgroup's own rows, the tf32
-// wgmma by N, the product with a register operand from an accumulator, and
-// the shapes both kernels take.  ops/build.py passes -I csrc and hashes
+// wgmma by N, the product with a register operand from an accumulator, the
+// forward's online softmax of a tile, and the shapes the split-TF32
+// kernels take.  ops/build.py passes -I csrc and hashes
 // this text into every library's name.
 //
 // TF32 keeps 10 mantissa bits, so every operand x is split into hi = x with
@@ -24,6 +26,9 @@
 namespace {
 
 constexpr uint32_t kTf32 = 0xFFFFE000u;
+constexpr float kNegInf = -1e30f;    // _NEG_INF of the Pallas kernels
+constexpr float kHalfNegInf = -5e29f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // byte offset of element (row, k) of a K-major tile of R rows, 64-byte
 // swizzle, the K axis in atoms of 16 floats
@@ -189,6 +194,79 @@ __device__ __forceinline__ void mma_rs(float (&acc)[NA][DP / 2],
       Rs<DP>::run(acc[kk % NA], a, tile_desc(ps == 1 ? bl : bh, DP, kk), 1);
     }
   }
+}
+
+// 2^x by the SFU, flushing to 0 below 2^-126
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile of BT keys for the thread's two rows, in
+// place (both forward designs, flash_fwd_wgmma.cu and flash_bf16_wgmma.cu): s
+// (element e: own row row_lo + r + 8 h, h = (e / 2) % 2, key c0 + 8 nb + 2 t
+// + c, nb = e / 4, c = e % 2) becomes p.  m holds the rows' running max (the
+// same in the quad of lanes that share r: its 64 keys), l the thread's
+// partial running sums over its own keys (summed over the quad at the end),
+// corr the factor l and the output accumulators take.  MASK: the diagonal
+// or the ragged end crosses the tile.
+//
+// s = fl(acc * scale), as the reference rounds it; p = 2^(s log2(e) - m_safe
+// log2(e)) by one FMA and ex2.approx (relative error ~2^-22).  An argument
+// below -126 gives 0, so p = 0 wherever s <= -5e29 (a masked score, or a
+// score one float step or more below a running max above -5e29): the
+// reference's select holds without one.  The max and the sums run as trees
+// of four partials (partial j takes nb = j, j + 4; c = 0, 1 in that order).
+template <int BT, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BT / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float scale, int row_lo, int r,
+                                             int t, int c0, int Tk,
+                                             int causal) {
+  float mx[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[h][j] = kNegInf;
+  }
+#pragma unroll
+  for (int e = 0; e < BT / 2; ++e) {
+    const int h = (e >> 1) & 1, j = (e >> 2) & 3;
+    float x = __fmul_rn(s[e], scale);
+    if (MASK) {
+      const int qi = row_lo + r + 8 * h;
+      const int kj = c0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      if (kj >= Tk || (causal && kj > qi)) x = kNegInf;
+    }
+    s[e] = x;
+    mx[h][j] = fmaxf(mx[h][j], x);
+  }
+  float ml[2];   // m_safe log2(e)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float x = fmaxf(fmaxf(mx[h][0], mx[h][1]), fmaxf(mx[h][2], mx[h][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[h], x);
+    ml[h] = (m_new <= kHalfNegInf ? 0.f : m_new) * kLog2e;
+    corr[h] = m[h] <= kHalfNegInf
+                  ? 0.f
+                  : exp2_approx(fmaf(m[h], kLog2e, -ml[h]));
+    m[h] = m_new;
+  }
+  float sum[2][4] = {};
+#pragma unroll
+  for (int e = 0; e < BT / 2; ++e) {
+    const int h = (e >> 1) & 1, j = (e >> 2) & 3;
+    const float p = exp2_approx(fmaf(s[e], kLog2e, -ml[h]));
+    s[e] = p;
+    sum[h][j] += p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    l[h] = l[h] * corr[h] +
+           ((sum[h][0] + sum[h][1]) + (sum[h][2] + sum[h][3]));
 }
 
 // D % 4 == 0 up to 32 (a row is whole 16-byte units for the bulk copies;

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (conv3x3_wgmma.cu, qmm_wgmma.cu, flash_bwd_wgmma.cu): shared-memory
-// addresses, mbarriers, tiled TMA and bulk loads, the async-proxy fence,
-// register reallocation between warpgroups, swizzled wgmma descriptors, the
-// int8 and bf16 wgmma instructions at N 64 and 128, the tf32 ones at N 16,
-// 32 and 64 (A from registers), and the host's tensor-map encoder and SM
-// count.  Each kernel source includes it once; ops/build.py passes -I csrc
+// (conv3x3_wgmma.cu, qmm_wgmma.cu, the flash_*wgmma*.cu sources): shared-
+// memory addresses, mbarriers, tiled TMA (2-D and 3-D) and bulk loads, the
+// async-proxy fence, register reallocation between warpgroups, swizzled and
+// unswizzled wgmma descriptors, the int8 and bf16 wgmma instructions at N 64
+// and 128, the bf16 ones with A from registers at N 16, 32 and 64 (B
+// K-major or transposed), the tf32 ones at N 16, 32 and 64 (A from
+// registers), and the host's tensor-map encoder and SM count.  Each kernel source includes it once; ops/build.py passes -I csrc
 // and hashes this text into every library's name.
 #pragma once
 
@@ -28,6 +29,16 @@ __device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(8 * BKB >> 4) << 32) |
          ((uint64_t)(BKB == 128 ? 1 : 2) << 62);
+}
+
+// wgmma descriptor of an operand in the unswizzled ("interleave") layout:
+// core matrices of 8 rows x 16 bytes, each 128 contiguous bytes; `lbo` the
+// byte distance between core matrices adjacent along K, `sbo` along M / N
+// (for a K-major and a transposed, MN-major, operand alike); layout type 0
+__device__ __forceinline__ uint64_t il_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -69,6 +80,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of a 3-D map (c0 innermost), zeros where
+// the box leaves the tensor
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -239,6 +264,69 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// wgmma m64nNk16 bf16 -> f32: D = A * B, plus D where `acc` is non-zero.
+// A from registers: a[0..3] of a thread (lane l of warp w) hold A's (row,
+// k) pairs (r, 2t..2t+1), (r + 8, 2t..), (r, 2t + 8..), (r + 8, 2t + 8..)
+// with r = 16 w + l / 4, t = l % 4, the lower k in the low half.  That is
+// the accumulator layout above taken 16 columns at a time: the f32
+// accumulator of an m64nN product packs, element pairs (e, e + 1) of each
+// 8-element group, into the A operand of the next product's k-steps with
+// no permutation.  B from shared memory, K-major (TB = 0) or transposed,
+// MN-major (TB = 1), which 16-bit types allow.
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs_n16(float (&d)[8],
+    const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs_n32(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc),
+        "n"(TB));
 }
 
 // wgmma m64nNk8 tf32 -> f32: D = A * B, plus D where `acc` is non-zero.

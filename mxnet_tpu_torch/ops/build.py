@@ -31,8 +31,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port, by name
 KERNEL_SOURCES = ("fused_ln", "fused_optimizer", "flash_attention",
-                  "flash_fwd_wgmma", "flash_bwd_wgmma", "qmm_requant",
-                  "qmm_wgmma", "conv3x3_epilogue", "conv3x3_wgmma")
+                  "flash_fwd_wgmma", "flash_bwd_wgmma", "flash_bf16_wgmma",
+                  "qmm_requant", "qmm_wgmma", "conv3x3_epilogue",
+                  "conv3x3_wgmma")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

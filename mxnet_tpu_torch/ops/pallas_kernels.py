@@ -16,10 +16,13 @@ that module:
   == 0``, ``D <= 32`` (dk/dv from D = 12), and the CUDA-core design
   (``mxtt_flash_fwd`` / ``mxtt_flash_dq`` / ``mxtt_flash_dkv``,
   ``csrc/flash_attention.cu``: FMAs, one thread per row) for the rest;
-  on bfloat16 operands the bf16 route of the CUDA-core design
-  (``mxtt_flash_fwd_bf16`` / ``mxtt_flash_dq_bf16`` /
-  ``mxtt_flash_dkv_bf16``, the same source's kernels on
-  ``__nv_bfloat16``), at every head dim;
+  on bfloat16 operands the bf16 ``wgmma`` design of the forward and
+  dk/dv (``mxtt_flash_fwd_wgmma_bf16`` / ``mxtt_flash_dkv_wgmma_bf16``,
+  ``csrc/flash_bf16_wgmma.cu``: TMA, bf16 ``wgmma`` with p or ds split
+  into two bf16 parts) for ``D % 8 == 0`` up to 32, and the bf16 route of
+  the CUDA-core design (``mxtt_flash_fwd_bf16`` / ``mxtt_flash_dq_bf16`` /
+  ``mxtt_flash_dkv_bf16``, ``csrc/flash_attention.cu``'s kernels on
+  ``__nv_bfloat16``) for the rest and for dq;
 - :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
@@ -55,7 +58,9 @@ outputs (out, dq, dk, dv) take that dtype, as the reference's take q's
 either route.  On bfloat16 each kernel widens its operands to f32 as it
 loads them, computes in f32 and rounds each output once; the plain
 version is the f32 plain version on the widened inputs, its outputs
-rounded the same way.  Any head dim and any size: the CUDA-core
+rounded the same way; the bf16 ``wgmma`` design keeps the products
+exact in f32 by splitting p or ds into bf16 parts.  Any head dim and any
+size: the CUDA-core
 design takes D above 256 in chunks of 256 (:func:`simt_launch_shape`)
 and indexes in 64 bits.
 
@@ -86,7 +91,7 @@ __all__ = ["flash_forward_with_lse", "flash_forward_with_lse_reference",
            "qmm_requant_reference", "qmm_design", "quantized_conv_requant",
            "conv3x3_epilogue", "conv3x3_epilogue_reference",
            "conv3x3_design", "flash_design", "wgmma_takes",
-           "FLASH_WGMMA_DIMS",
+           "wgmma_bf16_takes", "FLASH_WGMMA_DIMS",
            "simt_launch_shape", "launch_counts", "reset_launch_counts",
            "LAUNCHES"]
 
@@ -94,7 +99,8 @@ _NEG_INF = -1e30
 
 # the flash kernels count every launch under their own name and under
 # their design's ("flash_dq/wgmma", "flash_dq/simt" or, on bfloat16,
-# "flash_dq/bf16", the same for flash_forward_with_lse and flash_dkv);
+# "flash_dq/bf16", the same for flash_forward_with_lse and flash_dkv, and
+# "flash_forward_with_lse/wgmma_bf16" and "flash_dkv/wgmma_bf16");
 # qmm_requant under its own name and under its design's
 # ("qmm_requant/wgmma" or "qmm_requant/mma");
 # conv3x3_epilogue under its own name, under its input route's (e.g.
@@ -106,6 +112,8 @@ LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_forward_with_lse/bf16": 0, "flash_dq/wgmma": 0,
             "flash_dq/simt": 0, "flash_dq/bf16": 0, "flash_dkv/wgmma": 0,
             "flash_dkv/simt": 0, "flash_dkv/bf16": 0,
+            "flash_forward_with_lse/wgmma_bf16": 0,
+            "flash_dkv/wgmma_bf16": 0,
             "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
             "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
@@ -229,6 +237,8 @@ _ARGTYPES["mxtt_flash_dq_wgmma"] = _ARGTYPES["mxtt_flash_dq"]
 _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
 for _k in ("fwd", "dq", "dkv"):
     _ARGTYPES["mxtt_flash_%s_bf16" % _k] = _ARGTYPES["mxtt_flash_%s" % _k]
+_ARGTYPES["mxtt_flash_fwd_wgmma_bf16"] = _ARGTYPES["mxtt_flash_fwd"]
+_ARGTYPES["mxtt_flash_dkv_wgmma_bf16"] = _ARGTYPES["mxtt_flash_dkv"]
 
 # wrapper -> the head dims flash_design sends to the wgmma design: those
 # where chip_smoke.py's phase 7 timed it faster than the CUDA-core design at
@@ -239,8 +249,8 @@ FLASH_WGMMA_DIMS = {"flash_forward_with_lse": frozenset(range(4, 33, 4)),
                     "flash_dq": frozenset(range(4, 33, 4)),
                     "flash_dkv": frozenset(range(12, 33, 4))}
 
-# the designs of B5-B7 (two on float32, one on bfloat16): design ->
-# wrapper -> (source, C entry point)
+# the designs of B5-B7 (two on float32, two on bfloat16 for the forward
+# and dk/dv, one for dq): design -> wrapper -> (source, C entry point)
 _FLASH_DESIGNS = {
     "wgmma": {"flash_forward_with_lse": ("flash_fwd_wgmma",
                                          "mxtt_flash_fwd_wgmma"),
@@ -253,7 +263,12 @@ _FLASH_DESIGNS = {
                                         "mxtt_flash_fwd_bf16"),
              "flash_dq": ("flash_attention", "mxtt_flash_dq_bf16"),
              "flash_dkv": ("flash_attention", "mxtt_flash_dkv_bf16")},
+    "wgmma_bf16": {"flash_forward_with_lse": ("flash_bf16_wgmma",
+                                              "mxtt_flash_fwd_wgmma_bf16"),
+                   "flash_dkv": ("flash_bf16_wgmma",
+                                 "mxtt_flash_dkv_wgmma_bf16")},
 }
+_BF16_DESIGNS = ("bf16", "wgmma_bf16")
 
 
 def _fn(name, source="flash_attention"):
@@ -274,12 +289,29 @@ def wgmma_takes(d, aligned=True):
     return 4 <= d <= 32 and d % 4 == 0 and aligned
 
 
+def wgmma_bf16_takes(d, aligned=True):
+    """Whether the bf16 wgmma design (``csrc/flash_bf16_wgmma.cu``) takes
+    head dim ``d``: ``D % 8 == 0`` from 8 to 32 (rows of whole 16-byte
+    chunks for the TMA boxes; wider rows outgrow the registers), with
+    16-byte aligned q, k, v (and dO) (``aligned``: TMA's global
+    addresses)."""
+    return 8 <= d <= 32 and d % 8 == 0 and aligned
+
+
 def flash_design(d, wrapper, aligned=True, dtype=torch.float32):
     """The design a card call of ``wrapper`` (``"flash_forward_with_lse"``,
     ``"flash_dq"`` or ``"flash_dkv"``) takes, chosen by operand dtype,
     head dim and alignment before any launch:
 
-    - ``"bf16"`` for bfloat16 operands at every head dim: the bf16 route
+    for bfloat16 operands:
+
+    - ``"wgmma_bf16"`` (``csrc/flash_bf16_wgmma.cu``: TMA into an mbarrier
+      ring, bf16 ``wgmma`` with p or ds split into two bf16 parts) for the
+      forward and dk/dv wherever it takes the shape
+      (:func:`wgmma_bf16_takes`): chip_smoke.py's phase 17 timed it
+      faster than the CUDA-core bf16 route at every such head dim (D = 8,
+      16 — the ring path's —, 24, 32) and fails if that stops holding;
+    - ``"bf16"`` otherwise, and for dq at every head dim: the bf16 route
       of the CUDA-core design (``csrc/flash_attention.cu``'s kernels on
       ``__nv_bfloat16``, ``mxtt_flash_*_bf16``);
 
@@ -296,7 +328,9 @@ def flash_design(d, wrapper, aligned=True, dtype=torch.float32):
       lanes per row, :func:`simt_launch_shape`) otherwise, among them D =
       64 and 128 and every D above 32."""
     if dtype == torch.bfloat16:
-        return "bf16"
+        ok = wrapper in _FLASH_DESIGNS["wgmma_bf16"] \
+            and wgmma_bf16_takes(d, aligned)
+        return "wgmma_bf16" if ok else "bf16"
     ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
     return "wgmma" if ok else "simt"
 
@@ -395,9 +429,11 @@ def _design_entry(wrapper, tensors, d, design):
     dtype = tensors[0].dtype
     if design is None:
         design = flash_design(d, wrapper, aligned, dtype)
-    if design not in _FLASH_DESIGNS or (design == "wgmma"
-                                        and not wgmma_takes(d, aligned)) \
-            or (design == "bf16") != (dtype == torch.bfloat16):
+    if wrapper not in _FLASH_DESIGNS.get(design, ()) \
+            or (design == "wgmma" and not wgmma_takes(d, aligned)) \
+            or (design == "wgmma_bf16"
+                and not wgmma_bf16_takes(d, aligned)) \
+            or (design in _BF16_DESIGNS) != (dtype == torch.bfloat16):
         raise MXNetError("%s: the %r design does not take head dim %d on "
                          "%s (or unaligned operands)"
                          % (wrapper, design, d, dtype))
@@ -415,8 +451,9 @@ def flash_forward_with_lse(q, k, v, causal, scale):
 
 def _flash_forward_with_lse(q, k, v, causal, scale, design=None):
     """:func:`flash_forward_with_lse`, with ``design`` ("wgmma" or
-    "simt" on float32) forced instead of chosen by head dim, so both
-    designs can be timed on the same inputs."""
+    "simt" on float32, "wgmma_bf16" or "bf16" on bfloat16) forced instead
+    of chosen by head dim, so both designs can be timed on the same
+    inputs."""
     if not _check("flash_forward_with_lse", q, k, v):
         return flash_forward_with_lse_reference(q, k, v, causal, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -466,7 +503,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal, scale):
 
 
 def _flash_dkv(q, k, v, do, lse, delta, causal, scale, design=None):
-    """:func:`flash_dkv`, with ``design`` ("wgmma" or "simt") forced."""
+    """:func:`flash_dkv`, with ``design`` ("wgmma" or "simt" on float32,
+    "wgmma_bf16" or "bf16" on bfloat16) forced."""
     if not _check("flash_dkv", q, k, v, (do, lse, delta)):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     q, k, v, do, lse, delta = (t.contiguous()

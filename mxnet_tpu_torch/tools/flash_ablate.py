@@ -1,26 +1,33 @@
-"""What holds the wgmma design of the flash kernels back — the forward
-(B5) and ``flash_dq`` (B6) and ``flash_dkv`` (B7): each kernel rebuilt
-with one part switched off at a time and timed at the ring path's
-pairings of one TransformerLM layer.
+"""What holds the wgmma designs of the flash kernels back — the forward
+(B5) and ``flash_dq`` (B6) and ``flash_dkv`` (B7) in split TF32, and the
+forward and ``flash_dkv`` on bfloat16: each kernel rebuilt with one part
+switched off at a time and timed at the ring path's pairings of one
+TransformerLM layer.
 
     python -m mxnet_tpu_torch.tools.flash_ablate [--iters 20]
 
-Each variant is ``csrc/flash_fwd_wgmma.cu`` (:data:`FWD_CUTS`) or
-``csrc/flash_bwd_wgmma.cu`` (:data:`CUTS`) with textual edits, built
-through ``ops.build.load_source`` as ``tools/qmm_ablate.py`` builds B8's:
+Each variant is ``csrc/flash_fwd_wgmma.cu`` (:data:`FWD_CUTS`),
+``csrc/flash_bwd_wgmma.cu`` (:data:`CUTS`) or ``csrc/flash_bf16_wgmma.cu``
+(:data:`BF16_CUTS`, on bfloat16 inputs) with textual edits, built through
+``ops.build.load_source`` as ``tools/qmm_ablate.py`` builds B8's:
 
 - ``full``: the source as it is;
-- ``no_loads``: no bulk copies of the streamed tiles, the raw ring's
-  barriers still run;
-- ``no_split``: no split / transposed tile writes by the producer;
+- ``no_loads``: no bulk copies (TMA boxes on bfloat16) of the streamed
+  tiles, the ring's barriers still run;
+- ``no_split``: no split / transposed tile writes by the producer (split
+  TF32 only: the bf16 design has none);
 - ``no_mma``: no ``wgmma``;
-- ``no_lo``: the ``lo`` terms cut (one TF32 pass per product: what the
-  f32 contract costs);
+- ``no_lo``: the ``lo`` terms cut (one TF32 pass per product, or one bf16
+  part of p and ds: what the contract costs);
 - ``no_softmax`` (forward): no online softmax (the scale, masks, running
   max, ``expf``, row sums; p is the raw score);
 - ``no_recompute`` (backward): no softmax recompute (``expf``, the masks,
   ``ds``);
 - ``no_stores``: no output stores.
+
+A cut of one kernel's part leaves the other kernel of its source as it is
+(the bf16 source's ``no_softmax`` times dk/dv unchanged, ``no_recompute``
+the forward).
 
 A variant's outputs are wrong by design (``no_lo`` only misses the
 contract), so only its device time is printed: CUDA events around
@@ -46,7 +53,8 @@ from ..ops.pallas_kernels import (_ARGTYPES, flash_delta,
                                   flash_forward_with_lse_reference)
 from .conv_ablate import device_ms, edited_source
 
-__all__ = ["CUTS", "FWD_CUTS", "variant_source", "path_pairings", "main"]
+__all__ = ["CUTS", "FWD_CUTS", "BF16_CUTS", "variant_source",
+           "path_pairings", "main"]
 
 _COPIES = ("      mbar_expect_tx(bar, 2 * bytes);\n"
            "      bulk_load(smem_u32(dst), sa + off, bytes, bar);\n"
@@ -97,11 +105,11 @@ _FWD_S = ("      Rs<BT>::run(s, ps == 2 ? aq.lo[kk] : aq.hi[kk], "
 _FWD_PV = ("      mma_rs<PASSES, DP, BT, NA>(o, ph, pl, st + 2 * Z::TILE / 16,\n"
            "                                 st + 3 * Z::TILE / 16);\n")
 _FWD_SOFTMAX = ("      if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))\n"
-                "        softmax_tile<true>(s, m, l, corr, scale, row_lo, r, t, "
-                "c0, Tk,\n                           causal);\n"
+                "        softmax_tile<BT, true>(s, m, l, corr, scale, row_lo, "
+                "r, t, c0,\n                               Tk, causal);\n"
                 "      else\n"
-                "        softmax_tile<false>(s, m, l, corr, scale, row_lo, r, t, "
-                "c0, Tk,\n                            causal);\n")
+                "        softmax_tile<BT, false>(s, m, l, corr, scale, row_lo, "
+                "r, t, c0,\n                                Tk, causal);\n")
 _FWD_STORE = "    if (row >= Tq) continue;\n"
 
 FWD_CUTS = {
@@ -114,12 +122,53 @@ FWD_CUTS = {
     "no_stores": [(_FWD_STORE, "    if (row >= Tq || Tq > 0) continue;\n")],
 }
 
-# source -> (its cuts, {wrapper: C entry point})
+# the bf16 design's cuts, in csrc/flash_bf16_wgmma.cu (forward and dk/dv)
+_BF16_LOADS = ("  mbar_expect_tx(bar, 2 * (D / 8) * R * 16);\n"
+               "  for (int c = 0; c < D / 8; ++c) {\n"
+               "    tma_load_3d(smem_u32(dst + c * R * 16), a, bar, 8 * c, "
+               "row0, bh);\n"
+               "    tma_load_3d(smem_u32(dst + tile + c * R * 16), b, bar, "
+               "8 * c, row0, bh);\n  }\n")
+_BF16_PV = ("      Bf16<DP, 1>::run(acc[kk % NA], a, mnmajor(tile, R, kk), "
+            "1);\n")
+_BF16_S = "    Bf16<FWD_BT, 0>::run(s, a, kmajor(tile, FWD_BT, kk), kk > 0);\n"
+_BF16_XY = ("    Bf16<DKV_BT, 0>::run(x, a, kmajor(st, DKV_BT, kk), kk > 0);\n"
+            "    Bf16<DKV_BT, 0>::run(y, b, kmajor(st + TILE, DKV_BT, kk), "
+            "kk > 0);\n")
+_BF16_SOFTMAX = ("      if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))\n"
+                 "        softmax_tile<BT, true>(s, m, l, corr, scale, row_lo, "
+                 "r, t, c0, Tk,\n                               causal);\n"
+                 "      else\n"
+                 "        softmax_tile<BT, false>(s, m, l, corr, scale, row_lo, "
+                 "r, t, c0, Tk,\n                                causal);\n")
+_BF16_RECOMPUTE = ("        p[e] = valid ? expf(x[e] * scale - lr) : 0.f;\n"
+                   "        ds[e] = valid ? p[e] * (y[e] - dr) : 0.f;\n")
+
+BF16_CUTS = {
+    "full": [],
+    "no_loads": [(_BF16_LOADS, "  mbar_arrive(bar);\n")],
+    "no_mma": [(_BF16_PV, ""), (_BF16_S, ""), (_BF16_XY, "")],
+    "no_lo": [("constexpr int PARTS = 2;", "constexpr int PARTS = 1;")],
+    "no_softmax": [(_BF16_SOFTMAX, "      corr[0] = corr[1] = 1.f;\n")],
+    "no_recompute": [(_BF16_RECOMPUTE, "        p[e] = x[e];\n"
+                                       "        ds[e] = y[e];\n")],
+    "no_stores": [(_STORE, "    if (row >= rows || rows > 0) continue;\n"),
+                  (_FWD_STORE, "    if (row >= Tq || Tq > 0) continue;\n")],
+}
+
+# source -> (its cuts, {wrapper: C entry point}, operand dtype)
 _KERNELS = {
     "flash_fwd_wgmma": (FWD_CUTS,
-                        {"flash_forward_with_lse": "mxtt_flash_fwd_wgmma"}),
+                        {"flash_forward_with_lse": "mxtt_flash_fwd_wgmma"},
+                        torch.float32),
     "flash_bwd_wgmma": (CUTS, {"flash_dq": "mxtt_flash_dq_wgmma",
-                               "flash_dkv": "mxtt_flash_dkv_wgmma"}),
+                               "flash_dkv": "mxtt_flash_dkv_wgmma"},
+                        torch.float32),
+    "flash_bf16_wgmma": (BF16_CUTS,
+                         {"flash_forward_with_lse":
+                          "mxtt_flash_fwd_wgmma_bf16",
+                          "flash_dkv": "mxtt_flash_dkv_wgmma_bf16"},
+                         torch.bfloat16),
 }
 
 
@@ -143,7 +192,7 @@ def path_pairings(batch=32, heads=8, seq_len=1024, ranks=2, head_dim=16):
 def _sources():
     """``{library name: source text}`` of every variant of both kernels."""
     return {"%s_ablate_%s" % (source, x): variant_source(x, source)
-            for source, (cuts, _) in _KERNELS.items() for x in cuts}
+            for source, (cuts, _, _) in _KERNELS.items() for x in cuts}
 
 
 def _fns(source, name, text):
@@ -158,11 +207,11 @@ def _fns(source, name, text):
     return out
 
 
-def _inputs(case, rng, dev):
+def _inputs(case, rng, dev, dtype=torch.float32):
     bh, tq, tk, d, causal = case
-    q, do = (torch.as_tensor(rng.randn(bh, tq, d), device=dev).float()
+    q, do = (torch.as_tensor(rng.randn(bh, tq, d), device=dev).to(dtype)
              for _ in range(2))
-    k, v = (torch.as_tensor(rng.randn(bh, tk, d), device=dev).float()
+    k, v = (torch.as_tensor(rng.randn(bh, tk, d), device=dev).to(dtype)
             for _ in range(2))
     o, lse = flash_forward_with_lse_reference(q, k, v, causal, d ** -0.5)
     return q, k, v, do, lse, flash_delta(o, do)
@@ -173,14 +222,15 @@ def main(argv=None):
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
     dev = resolve_device(None)
+    sources = list(_KERNELS)
     texts = _sources()
     build.build_all((), texts)
-    fns = {}                          # (variant, wrapper) -> C entry point
-    for source, (cuts, _) in _KERNELS.items():
-        for x in cuts:
+    fns = {}              # (source, variant, wrapper) -> C entry point
+    for source in sources:
+        for x in _KERNELS[source][0]:
             lib = "%s_ablate_%s" % (source, x)
             for wrapper, fn in _fns(source, lib, texts[lib]).items():
-                fns[(x, wrapper)] = fn
+                fns[(source, x, wrapper)] = fn
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = torch.cuda.get_device_name(dev)
     rng = np.random.RandomState(0)
@@ -188,30 +238,34 @@ def main(argv=None):
     per_hop = {key: [] for key in fns}
     for case in cases:
         bh, tq, tk, d, causal = case
-        q, k, v, do, lse, delta = _inputs(case, rng, dev)
-        ins = {"flash_forward_with_lse": (q, k, v, torch.empty_like(q),
-                                          torch.empty_like(lse)),
-               "flash_dq": (q, k, v, do, lse, delta, torch.empty_like(q)),
-               "flash_dkv": (q, k, v, do, lse, delta, torch.empty_like(k),
-                             torch.empty_like(v))}
-        for cuts, entries in _KERNELS.values():
+        for source in sources:
+            cuts, entries, dtype = _KERNELS[source]
+            q, k, v, do, lse, delta = _inputs(case, rng, dev, dtype)
+            ins = {"flash_forward_with_lse": (q, k, v, torch.empty_like(q),
+                                              torch.empty_like(lse)),
+                   "flash_dq": (q, k, v, do, lse, delta,
+                                torch.empty_like(q)),
+                   "flash_dkv": (q, k, v, do, lse, delta,
+                                 torch.empty_like(k), torch.empty_like(v))}
             for wrapper in entries:
                 call = tuple(t.data_ptr() for t in ins[wrapper]) + (
                     bh, tq, tk, d, d ** -0.5, int(causal), stream)
                 runs = {x: [] for x in cuts}
                 order = list(cuts) * 2 + list(cuts)[::-1]
                 for i, x in enumerate(order):
-                    ms = device_ms(fns[(x, wrapper)], call, args.iters, dev,
-                                   "flash_ablate %s %s" % (x, wrapper))
+                    ms = device_ms(fns[(source, x, wrapper)], call,
+                                   args.iters, dev, "flash_ablate %s %s %s"
+                                   % (source, x, wrapper))
                     if i >= len(cuts):        # the first round warms up
                         runs[x].append(ms)
                 for x in cuts:
-                    per_hop[(x, wrapper)].append(min(runs[x]))
-        del q, k, v, do, lse, delta, ins
+                    per_hop[(source, x, wrapper)].append(min(runs[x]))
+            del q, k, v, do, lse, delta, ins
     records = []
-    for (x, wrapper), times in per_hop.items():
-        rec = {"variant": x, "kernel": wrapper, "pairings": cases,
-               "hop_ms": times, "layer_ms": sum(times), "device": name}
+    for (source, x, wrapper), times in per_hop.items():
+        rec = {"source": source, "variant": x, "kernel": wrapper,
+               "pairings": cases, "hop_ms": times, "layer_ms": sum(times),
+               "device": name}
         print(json.dumps(rec), flush=True)
         records.append(rec)
     return records

@@ -17,9 +17,10 @@ held against mxnet_tpu.
   largest magnitude (each hop rounds its output before the f32 merge, in
   the reference's order; the merged output and the per-hop gradients'
   sum round once more).
-- ``flash_design`` sends bfloat16 to the ``"bf16"`` route at every head
-  dim, a forced design must match the operands' dtype, and mixed dtypes
-  are refused.
+- ``flash_design`` sends bfloat16 dq to the ``"bf16"`` route at every
+  head dim, and the forward and dk/dv there except at the bf16 wgmma
+  design's head dims (``tests/test_torch_flash_bf16_wgmma.py``); a forced
+  design must match the operands' dtype, and mixed dtypes are refused.
 - ``cuda``-marked tests hold each bf16 kernel to its plain version on a
   card (skipped here; ``chip_smoke.py`` phase 17 runs them at the
   training path's shapes).
@@ -145,9 +146,14 @@ def test_bf16_ring_attention_matches_reference(causal):
 
 
 def test_bf16_route_design_and_refusals():
+    # the forward and dk/dv take the bf16 wgmma design at D % 8 == 0 up to
+    # 32 (the ring path's D = 16 among them), the CUDA-core bf16 route
+    # elsewhere; dq takes the CUDA-core bf16 route at every head dim
     for d in (4, 16, 32, 64, 128, 320):
         for w in ("flash_forward_with_lse", "flash_dq", "flash_dkv"):
-            assert pk.flash_design(d, w, dtype=torch.bfloat16) == "bf16"
+            want = "wgmma_bf16" if w != "flash_dq" and d in (16, 32) \
+                else "bf16"
+            assert pk.flash_design(d, w, dtype=torch.bfloat16) == want
     assert pk.flash_design(16, "flash_dq") == "wgmma"
     assert pk.flash_design(64, "flash_dq") == "simt"
     for w in ("flash_forward_with_lse", "flash_dq", "flash_dkv"):
@@ -202,4 +208,5 @@ def test_bf16_kernels_match_plain_on_cuda(bh, tq, tk, d, causal):
         _within_one_ulp(got.cpu(), want.cpu(), what)
     after = pk.launch_counts()
     for w in ("flash_forward_with_lse", "flash_dq", "flash_dkv"):
-        assert after[w + "/bf16"] == before[w + "/bf16"] + 1
+        key = w + "/" + pk.flash_design(d, w, dtype=torch.bfloat16)
+        assert after[key] == before[key] + 1
