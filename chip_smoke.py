@@ -22,7 +22,11 @@ Twenty phases; any failure exits non-zero and prints no result line.
    and one tiny kernel's launch floor, beside the least time the card
    could take (bytes) and the aims (1.25x the floor at the decode shapes,
    1.40x at the prefill's; a miss is printed, not failed).  Fails where
-   the replaced design is more than 10 % faster than B4.
+   the replaced design is more than 10 % faster than B4.  Beside the
+   build, in the same step, ``nvcc -cubin -Xptxas -v`` of the flash wgmma
+   sources (``PTXAS_SOURCES``): each kernel instantiation's registers,
+   spill stores and loads and any C75xx advisory (``wgmma`` serialized)
+   are printed.
 2. **Serve.** The TransformerLM at the widest configuration the repo
    documents (vocab 256, d_model 128, 8 heads, 4 layers, d_ff 512,
    seq_len 1024; random weights from ``init_params(0)``), page size 8, 8
@@ -238,9 +242,9 @@ Twenty phases; any failure exits non-zero and prints no result line.
     before) show every ``_gen_*`` kernel launched.
 17. **The bf16 designs of B5-B7.** ``flash_forward_with_lse``,
     ``flash_dq`` and ``flash_dkv`` on bfloat16 q, k, v, dO, on each bf16
-    design that takes the pairing, forced: the bf16 ``wgmma`` design of the
-    forward and dk/dv (``csrc/flash_bf16_wgmma.cu``, D % 8 == 0 up to 32)
-    and the CUDA-core route of all three (the ``mxtt_flash_*_bf16`` kernels
+    design that takes the pairing, forced: the bf16 ``wgmma`` design of
+    all three (``csrc/flash_bf16_wgmma.cu``, D % 8 == 0 up to 32) and the
+    CUDA-core route of all three (the ``mxtt_flash_*_bf16`` kernels
     of ``csrc/flash_attention.cu``), against their bf16 plain versions
     (the f32 plain version on the widened inputs, rounded) at the ring
     path's hop pairings, at D = 64 and 128 causal and full, ragged (3, 997
@@ -249,7 +253,7 @@ Twenty phases; any failure exits non-zero and prints no result line.
     D = 8, 24, 32): out, dq, dk, dv within one bf16 ulp (counted as in
     phase 13), lse within 1e-5, two runs bitwise, every launch on its
     design's count.  Timed per layer (both pairings) with CUDA events
-    around eager calls, the two designs of the forward and dk/dv in turns
+    around eager calls, the two designs of each kernel in turns
     (wgmma_bf16, bf16, bf16, wgmma_bf16), and at D = 64 and 128 (the
     CUDA-core route alone), beside the bound (bytes at bf16 I/O, f32
     lse/delta; operations on the tensor cores: q k^T and dO v^T in one
@@ -257,10 +261,14 @@ Twenty phases; any failure exits non-zero and prints no result line.
     two TF32 ones, the non-matrix operations at the f32 rate), the bound
     of the CUDA-core route's own arithmetic, plain, and
     ``scaled_dot_product_attention`` in bf16 (its forward; its backward
-    for dq and dk/dv together) as ``library_ms``.  Both designs of the
-    forward and dk/dv timed per layer at the path's pairings with D = 8,
-    24, 32 (``FLASH_BF16_DIMS``); fails where ``flash_design`` chose the
-    slower one.
+    for dq and dk/dv together) as ``library_ms``.  Both designs of each
+    kernel timed per layer at the path's pairings with D = 8, 24, 32
+    (``FLASH_BF16_DIMS``); fails where ``flash_design`` chose the slower
+    one.  dq's bf16 wgmma kernel at each key tile of
+    ``flash_ablate.DQ_TILES`` (the other width built in phase 1 from the
+    source with ``DQ_BT`` edited) held to plain at the path's pairings and
+    timed per layer in turns; fails where the shipped width is more than
+    ``DQ_TILE_SLACK`` slower than another.
 18. **Train ResNet-50 in bf16.** First the half BatchNorm on the card
     on seeded bf16 data: moving statistics against the CPU's (rtol 1e-4;
     the card reads the forward kernel's saved f32 statistics, the CPU
@@ -286,11 +294,11 @@ Twenty phases; any failure exits non-zero and prints no result line.
 19. **Train the TransformerLM in bf16.** Phase 8's configuration and
     batches with ``dtype="bf16"`` (``compute_dtype`` on the mesh tier):
     tokens/s, p50/p99, peak memory, each bf16 flash kernel launched steps
-    x layers x 2 hops times, the forward and dk/dv all on the bf16
-    ``wgmma`` design and dq on the CUDA-core route
+    x layers x 2 hops times, all on the bf16 ``wgmma`` design
     (``PATH_BF16_ROUTES``), the largest |loss_bf16 - loss_f32| against
     phase 8's losses on the same seed and batches; ``--profile`` adds the
-    device time by category and the idle share.
+    device time by category, each flash kernel's time per step and the
+    idle share.
 20. **The benches.** ``mxnet_tpu_torch.engine_bench.main([])`` and
     ``precision_bench.main([])`` on the card: their JSON lines printed;
     the ring and prefetch bounds held, ``precision_numerics_ok == 1.0``.
@@ -313,9 +321,10 @@ PyTorch call computes; ``plan`` and ``cluster`` as lowered, ``plan_ms``
 the row plan's time at each cluster size or the flat plan's at each
 size, and the group plan's); the bf16 flash kernels ``flash_*[bf16]``
 per layer at the path's pairings on the design the path takes
-(``design``: the forward and dk/dv on ``wgmma_bf16``, ``source``
+(``design``: all three on ``wgmma_bf16``, ``source``
 ``csrc/flash_bf16_wgmma.cu``, with ``cuda_core_ms`` the CUDA-core
-route's time in the same turns; dq on the CUDA-core route),
+route's time in the same turns; dq's also ``key_tile_ms``, its time at
+each key tile),
 ``launches`` and ``launches_by_design`` from phase 19, ``max_abs_err``
 and ``max_bf16_ulps`` from phase 17, ``bound_ms`` the tensor-core bound
 on bf16 operands and ``simt_bound_ms`` that of the f32 CUDA-core
@@ -323,7 +332,9 @@ arithmetic; the
 card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
+import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -461,6 +472,45 @@ def _call_ms(fn, iters=200):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# the sources whose every kernel instantiation phase 1 reports from
+# ptxas -v (registers, spills, C75xx advisories)
+PTXAS_SOURCES = ("flash_bf16_wgmma", "flash_bwd_wgmma")
+
+
+def _short_kernel(name):
+    """A kernel's demangled name without its namespace and arguments."""
+    name = name.split("(anonymous namespace)::")[-1]
+    cut = name.find(">(")
+    return name[:cut + 1] if cut >= 0 else name
+
+
+def _advisories(texts):
+    """ptxas's C75xx advisories of one kernel, each kind once with its
+    count (the PTX line numbers dropped)."""
+    kinds = {}
+    for text in texts:
+        kind = re.sub(r" in around line \d+", "", text)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return "; ".join("%s (x%d)" % kv for kv in kinds.items()) or "none"
+
+
+def _dq_tile_name(bt):
+    return "flash_bf16_wgmma_dq%d" % bt
+
+
+def _dq_tile_sources():
+    """``{library name: source}`` of dq's bf16 wgmma kernel at each key
+    tile of ``flash_ablate.DQ_TILES`` but the shipped one (phase 17 times
+    them against each other)."""
+    from mxnet_tpu_torch.tools import flash_ablate
+    out = {}
+    for bt in flash_ablate.DQ_TILES:
+        text, shipped = flash_ablate.dq_tile_source(bt)
+        if bt != shipped:
+            out[_dq_tile_name(bt)] = text
+    return out
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -471,11 +521,24 @@ def phase_kernels():
 
     t0 = time.monotonic()
     emitted = {lk.symbol: lk.src for lk in cg.shipped_lowered()}
+    emitted.update(_dq_tile_sources())
     t1 = time.monotonic()
-    libs = build.build_all(build.KERNEL_SOURCES, emitted)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ptxas = pool.submit(build.ptxas_report, PTXAS_SOURCES)
+        libs = build.build_all(build.KERNEL_SOURCES, emitted)
+        report = ptxas.result()
     print("phase 1: lowered the 6 shipped mxgen chains to CUDA in %.2f s; "
-          "built %s in %.2f s (one nvcc each, started together)"
-          % (t1 - t0, sorted(libs), time.monotonic() - t1))
+          "built %s in %.2f s (one nvcc each, started together, beside "
+          "ptxas -v of %s)"
+          % (t1 - t0, sorted(libs), time.monotonic() - t1,
+             list(PTXAS_SOURCES)))
+    for source, rows in report.items():
+        for r in rows:
+            print("phase 1: ptxas %s.cu %s: %s registers, spill stores %s "
+                  "B, spill loads %s B, advisories: %s"
+                  % (source, _short_kernel(r["kernel"]), r["registers"],
+                     r["spill_stores"], r["spill_loads"],
+                     _advisories(r["advisories"])))
     d = CFG["d_model"]
     # the serving path's LN shapes (prefill buckets, the last-position
     # final LN, the decode slot batch) and ragged ones
@@ -895,6 +958,7 @@ LM_PROFILE_CATEGORIES = (
                                  "flash_fwd_wgmma_kernel",
                                  "flash_bwd_wgmma_kernel",
                                  "flash_fwd_bf16_kernel",
+                                 "flash_dq_bf16_kernel",
                                  "flash_dkv_bf16_kernel")),
     ("layer norm (B4)", ("ln_fwd",)),
     ("matmul", ("gemm", "cutlass")),
@@ -904,9 +968,10 @@ LM_PROFILE_CATEGORIES = (
 
 
 def profile_train(trainer, x, y, steps=2, label="phase 5",
-                  categories=PROFILE_CATEGORIES):
+                  categories=PROFILE_CATEGORIES, split=None):
     """Device time by kernel category over ``steps`` training steps
-    (``torch.profiler``), and the device's idle share of the window."""
+    (``torch.profiler``), and the device's idle share of the window; the
+    kernels of category ``split`` each on a line of their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -939,6 +1004,12 @@ def profile_train(trainer, x, y, steps=2, label="phase 5",
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
         print("%s profile: %-24s %9.3f ms per step (%.4f of busy)"
               % (label, cat, us / steps / 1e3, us / busy))
+    frags = dict(categories).get(split, ())
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        if any(f in e.key.lower() for f in frags):
+            print("%s profile: %s split: %9.3f ms per step x%-3d %s"
+                  % (label, split, e.self_device_time_total / steps / 1e3,
+                     e.count // steps, _short_kernel(e.key)))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print("%s profile: kernel %9.3f ms per step x%-5d %s"
               % (label, e.self_device_time_total / steps / 1e3,
@@ -1192,7 +1263,7 @@ FLASH_BF16_CHECK = FLASH_PATH + [(64, 512, 512, 64, True),
 FLASH_BF16_TIMED = [(64, 512, 512, 64, True), (32, 512, 512, 128, True)]
 # the bf16 design each flash kernel takes at the path's D = 16 (phase 19)
 PATH_BF16_ROUTES = {"flash_forward_with_lse": "wgmma_bf16",
-                    "flash_dq": "bf16", "flash_dkv": "wgmma_bf16"}
+                    "flash_dq": "wgmma_bf16", "flash_dkv": "wgmma_bf16"}
 
 
 def _pairs(tq, tk, causal):
@@ -1668,6 +1739,7 @@ def phase_train_lm(profile=False):
     if profile:
         x, y = batches[-1]
         profile_train(tr, x, y, label="phase 8",
+                      split=LM_PROFILE_CATEGORIES[0][0],
                       categories=LM_PROFILE_CATEGORIES)
     del tr, batches
     torch.cuda.empty_cache()
@@ -2900,6 +2972,9 @@ FLASH_BF16_WGMMA_EDGES = [(3, 997, 1000, 16, True), (2, 130, 70, 16, True),
 # path's pairings with D replaced): the measurement behind flash_design's
 # choice on bf16
 FLASH_BF16_DIMS = (8, 24, 32)
+# dq's key tile: another width may be this much faster than the shipped
+# one before phase 17 fails
+DQ_TILE_SLACK = 0.05
 
 
 def _flash_bf16_bound(name, cases):
@@ -3059,6 +3134,69 @@ def _flash_bf16_dim_sweep(torch, pk, gen, path_ms):
                            % ", ".join(wrong))
 
 
+def _dq_tile_call(torch, pk, bt):
+    """A call of dq's bf16 wgmma kernel on key tiles of ``bt`` rows on one
+    pairing's args: the shipped width through ``_flash_dq`` (counted),
+    another through its source built in phase 1 (uncounted)."""
+    import ctypes
+    from mxnet_tpu_torch.ops import build
+    from mxnet_tpu_torch.tools import flash_ablate
+    text, shipped = flash_ablate.dq_tile_source(bt)
+    if bt == shipped:
+        return _flash_call("flash_dq", "wgmma_bf16")
+    entry = "mxtt_flash_dq_wgmma_bf16"
+    fn = getattr(build.load_source(_dq_tile_name(bt), text), entry)
+    fn.argtypes = pk._ARGTYPES[entry]
+    fn.restype = ctypes.c_int
+
+    def call(a):
+        q, k, v, do, lse, delta, causal, scale = a
+        dq = torch.empty_like(q)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, do, lse, delta, dq)),
+                 q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                 float(scale), int(causal), stream)
+        if err != 0:
+            raise RuntimeError("dq key tile %d: cudaError %d" % (bt, err))
+        return dq
+    return call
+
+
+def _flash_dq_tiles(torch, pk, args):
+    """dq's bf16 wgmma kernel at each key tile of ``DQ_TILES`` at the
+    path's pairings: one bf16 ulp of plain, reruns bitwise, then timed per
+    layer in turns (each width, then in reverse, averaged); fails where
+    the shipped width is more than ``DQ_TILE_SLACK`` slower than another.
+    Returns {width: ms per layer}."""
+    from mxnet_tpu_torch.tools import flash_ablate
+    shipped = flash_ablate.dq_tile_source(flash_ablate.DQ_TILES[0])[1]
+    calls = {bt: _dq_tile_call(torch, pk, bt)
+             for bt in flash_ablate.DQ_TILES}
+    for a in args:
+        want = pk.flash_dq_reference(*a)
+        for bt, call in calls.items():
+            got, again = call(a), call(a)
+            if not torch.equal(got, again):
+                raise RuntimeError("dq key tile %d: two runs differ" % bt)
+            u = float(_bf16_ulps(got, want).max())
+            if u > 1.0:
+                raise RuntimeError("dq key tile %d: %.2f bf16 ulps from "
+                                   "plain" % (bt, u))
+    runs = {bt: [] for bt in calls}
+    for bt in list(calls) + list(calls)[::-1]:
+        runs[bt].append(sum(_event_ms(lambda a=a: calls[bt](a))
+                            for a in args))
+    ms = {bt: sum(r) / len(r) for bt, r in runs.items()}
+    print("phase 17: flash_dq wgmma_bf16 per layer at path by key tile: %s "
+          "(shipped %d; each within one bf16 ulp of plain, reruns bitwise)"
+          % (", ".join("%d keys %.5f ms" % kv for kv in ms.items()),
+             shipped))
+    if ms[shipped] > (1 + DQ_TILE_SLACK) * min(ms.values()):
+        raise RuntimeError("dq's shipped key tile %d is slower than %s"
+                           % (shipped, ms))
+    return ms
+
+
 def phase_flash_bf16():
     """Phase 17: the bf16 designs of B5-B7 against their bf16 plain
     versions; timed per layer beside the bound, plain and SDPA in bf16."""
@@ -3097,6 +3235,13 @@ def phase_flash_bf16():
             hops = _flash_bf16_hops(pk, args)
             if label == "path":
                 path_ms = {key: sum(h) for key, h in hops.items()}
+                dq_tiles = _flash_dq_tiles(torch, pk, args)
+                bwd = sum(path_ms[(n, pk.flash_design(
+                    cases[0][3], n, dtype=torch.bfloat16))]
+                    for n in ("flash_dq", "flash_dkv"))
+                print("phase 17: B6 + B7 bf16 per layer at path on their "
+                      "routed designs %.5f ms against SDPA bf16's backward "
+                      "%.5f ms (%.2fx)" % (bwd, lib_bwd, bwd / lib_bwd))
             for name, (replaces, _) in FLASH_KERNELS.items():
                 plains = [_flash_bf16_plain(pk, a)[name] for a in args]
                 plain_ms = _event_ms(lambda: [c() for c in plains], iters=5)
@@ -3137,6 +3282,8 @@ def phase_flash_bf16():
                 if routed != "bf16":
                     row["cuda_core_ms"] = sum(hops[(name, "bf16")])
                     row["cuda_core_max_bf16_ulps"] = worst[name + "/bf16"][0]
+                if name == "flash_dq":
+                    row["key_tile_ms"] = dq_tiles
                 out.append(row)
             del args, lib_in, outs
             torch.cuda.empty_cache()
@@ -3458,7 +3605,8 @@ def phase_train_lm_bf16(profile=False):
     if profile:
         x, y = batches[-1]
         profile_train(tr, x, y, label="phase 19",
-                      categories=LM_PROFILE_CATEGORIES)
+                      categories=LM_PROFILE_CATEGORIES,
+                      split=LM_PROFILE_CATEGORIES[0][0])
     del tr, batches
     torch.cuda.empty_cache()
     return flash

@@ -2,42 +2,46 @@
 // mbarrier ring, bf16 wgmma with A from registers and B as it lies, warp
 // specialisation (sm_90a).
 //
-// The Hopper design of two kernels of mxnet_tpu/ops/pallas_kernels.py on
-// bf16 q, k, v and dO, which ring attention runs on every hop of the bf16
+// The Hopper design of the three kernels of mxnet_tpu/ops/pallas_kernels.py
+// on bf16 q, k, v and dO, which ring attention runs on every hop of the bf16
 // TransformerLM step (parallel/ring_attention.py):
 //
 //   mxtt_flash_fwd_wgmma_bf16 <- _fa_kernel     (:62, called by
 //                                _flash_attention_fwd_impl, :146)
+//   mxtt_flash_dq_wgmma_bf16  <- _fa_dq_kernel  (:171, called by
+//                                flash_dq, :314)
 //   mxtt_flash_dkv_wgmma_bf16 <- _fa_dkv_kernel (:226, called by
 //                                flash_dkv, :345)
 //
 // flash_attention.cu keeps the CUDA-core bf16 route (mxtt_flash_*_bf16) for
-// the head dims this one does not take or is slower at, and for dq
-// (ops/pallas_kernels.py, flash_design).  Both compute what the Pallas
-// bodies compute on bf16 operands, with their guards:
+// the head dims this one does not take (ops/pallas_kernels.py,
+// flash_design).  Both compute what the Pallas bodies compute on bf16
+// operands, with their guards:
 //   forward: s = q.k * scale, masked entries -1e30 (never -inf): keys past
 //   Tk, and key j > query i when causal (both aligned at position 0); the
 //   online softmax m_new = max(m, rowmax s), m_safe = 0 while m_new is
 //   still the mask value, corr = 0 while m is, p = 0 where s <= -5e29; at
 //   the end denom = max(l, 1e-30), out = acc / denom and lse = m +
 //   log(denom), so a row that saw no key keeps lse = -1e30 + log(1e-30);
-//   dk/dv: p = exp(s - lse) where the pair (q row i, k row j) is valid, else
-//   0 (valid: i < Tq, j < Tk, j <= i when causal), dp = dO.v, ds = p (dp -
-//   delta), 0 where not valid; dv = sum_i p dO, dk = sum_i ds q * scale.
+//   backward: p = exp(s - lse) where the pair (q row i, k row j) is valid,
+//   else 0 (valid: i < Tq, j < Tk, j <= i when causal), dp = dO.v, ds = p
+//   (dp - delta), 0 where not valid; dq = sum_j ds k * scale, dv = sum_i p
+//   dO, dk = sum_i ds q * scale.
 //   Rows past the ragged ends are zeros in shared memory (the TMA box's
-//   out-of-bounds fill), so no unloaded row is ever multiplied.
+//   out-of-bounds fill) or in the own rows' fragments, so no unloaded row is
+//   ever multiplied.
 //
 // Numerics, the reference's on bf16 operands: every product accumulates in
 // f32, the products with the f32 probabilities take p or ds in f32 (the
 // reference widens them), lse stays f32, and each output is rounded to
-// bf16 once.  q, k, v and dO are exact in bf16, so s = q.k^T (and s^T =
-// k.q^T, dp^T = v.dO^T) is one bf16 wgmma pass with f32 accumulation.  In
-// p.v, p^T.dO and ds^T.q the f32 operand x (p or ds) is split into PARTS
-// bf16 values, hi = bf16(x), lo = bf16(x - hi) (each difference exact in
-// f32), and the products of the parts with the exact bf16 operand are
-// summed in f32: two parts keep x to ~2^-17 of itself, far inside the
-// contract of one bf16 ulp of the plain version, which
-// tests/test_torch_flash_bf16_wgmma.py's emulation holds at two parts
+// bf16 once.  q, k, v and dO are exact in bf16, so s = q.k^T, dp = dO.v^T
+// (and s^T = k.q^T, dp^T = v.dO^T) is one bf16 wgmma pass with f32
+// accumulation.  In p.v, ds.k, p^T.dO and ds^T.q the f32 operand x (p or
+// ds) is split into PARTS bf16 values, hi = bf16(x), lo = bf16(x - hi)
+// (each difference exact in f32), and the products of the parts with the
+// exact bf16 operand are summed in f32: two parts keep x to ~2^-17 of
+// itself, far inside the contract of one bf16 ulp of the plain version,
+// which tests/test_torch_flash_bf16_wgmma.py's emulation holds at two parts
 // (and shows one part missing).  The softmax is flash_wgmma.cuh's
 // softmax_tile, as in the split-TF32 forward: s rounded times the scale,
 // 2^x of one FMA on the SFU; the backward's recompute is IEEE expf; logf
@@ -49,42 +53,50 @@
 // the recompute, the splits) outweighs the bf16 products (one pass of 2 D
 // flops per exact product, PARTS per mixed one, at 989 TFLOP/s dense); the
 // bytes (q, k, v, dO in and the outputs at 2 bytes, lse and delta at 4:
-// ~52 MB per layer forward, ~78 MB dk/dv) take 0.016-0.023 ms.  At D = 16 every wgmma is small (K = 16, N <= 64), so what
-// holds the design back is latency, as in the split-TF32 designs.  The
-// design:
+// ~52 MB per layer forward, ~66 MB dq, ~78 MB dk/dv) take 0.016-0.023 ms.
+// At D = 16 every wgmma is small (K = 16, N <= 64), so what holds the
+// design back is latency, as in the split-TF32 designs.  The design:
 //
 // - Blocks and pipelining: the split-TF32 designs' (flash_fwd_wgmma.cu,
-//   flash_bwd_wgmma.cu).  The forward is q-major, 128 queries a block (two
-//   consumer warpgroups of 64) walking the keys in tiles of 64; dk/dv is
-//   k-major, 128 keys a block walking the queries in tiles of 32.  Every
-//   output element is summed by one warpgroup in a fixed order: reruns are
-//   bitwise.  Causal blocks skip the tiles wholly on the masked side; a
-//   warpgroup masks only the tiles the diagonal or a ragged end crosses.
-//   Per tile a consumer warpgroup waits for one wgmma group (the products
-//   over the previous tile and the scores of this one), runs the softmax or
-//   the recompute, and issues the next group.
+//   flash_bwd_wgmma.cu).  The forward and dq are q-major, 128 queries a
+//   block (two consumer warpgroups of 64) walking the keys in tiles of 64
+//   (DQ_BT for dq); dk/dv is k-major, 128 keys a block walking the queries
+//   in tiles of 32.  Every output element is summed by one warpgroup in a
+//   fixed order: reruns are bitwise.  Causal blocks skip the tiles wholly
+//   on the masked side; a warpgroup masks only the tiles the diagonal or a
+//   ragged end crosses.  Per tile a consumer warpgroup waits for one wgmma
+//   group (the products over the previous tile and the scores of this one),
+//   runs the softmax or the recompute, and issues the next group.
 // - Loads.  Exact operands need no split, so there is no split pass and no
 //   second ring: one producer thread keeps up to STAGES tiles in flight
 //   by TMA (a 3-D map (D, T, BH), boxes of 8 columns by the tile's rows)
 //   straight into the layout wgmma reads, on `full` / `empty` mbarriers.
 //   The producer warpgroup's other threads write lse and delta of each
-//   streamed tile into its stage (dk/dv).  setmaxnreg gives the producer 56
-//   registers and the consumers 224.
+//   streamed tile into its stage (dk/dv; dq keeps its own rows' lse and
+//   delta in registers).  setmaxnreg gives the producer 56 registers and
+//   the consumers 224.
 // - Layout.  A tile of R rows is held unswizzled as column chunks: chunk c
 //   (columns 8 c .. 8 c + 7, 16 bytes a row) of row j at c R 16 + 16 j, the
 //   box TMA writes.  Its 8-row by 16-byte core matrices make it a K-major B
-//   (the product contracts over the columns: k for s = q.k^T, q and dO for
-//   s^T and dp^T) and, through 16-bit wgmma's transpose bit, an MN-major B
-//   (the product contracts over the rows: v in p.v, dO in p^T.dO, q in
-//   ds^T.q) as it lies: the producer writes no transposed copy.  Chunks past
-//   D (D = 8 or 24 padded to 16 or 32) are zeroed once and never loaded.
+//   (the product contracts over the columns: k for s = q.k^T, v for dp =
+//   dO.v^T, q and dO for s^T and dp^T) and, through 16-bit wgmma's
+//   transpose bit, an MN-major B (the product contracts over the rows: v in
+//   p.v, k in ds.k, dO in p^T.dO, q in ds^T.q) as it lies: the producer
+//   writes no transposed copy.  Chunks past D (D = 8 or 24 padded to 16 or
+//   32) are zeroed once and never loaded.
 // - Products.  wgmma m64nNk16 .bf16 with A from registers.  The scores take
-//   the warpgroup's own rows (q; k and v for dk/dv) as A, loaded once per
-//   block.  The mixed products take p or ds straight from the score
-//   accumulator: its element pairs (e, e + 1) of each 8-element group are
-//   the A fragment of the next product's k-steps with no permutation (see
-//   sm90.cuh), so a split is a pair of cvt.rn.bf16x2 and a subtraction.
-//   They sum into NA independent accumulators, part by part.
+//   the warpgroup's own rows (q, and dO for dq; k and v for dk/dv) as A,
+//   loaded once per block.  The mixed products take p or ds straight from
+//   the score accumulator: its element pairs (e, e + 1) of each 8-element
+//   group are the A fragment of the next product's k-steps with no
+//   permutation (see sm90.cuh), so a split is a pair of cvt.rn.bf16x2 and a
+//   subtraction.  They sum into NA independent accumulators, part by part,
+//   so consecutive wgmmas rarely accumulate into the same registers.
+// - dq, measured slower on an H100 (PERF.md): key tiles of 128 (DQ_BT;
+//   chip_smoke.py times both), and two wgmma groups per tile (s, dp of the
+//   next tile, then dq over this one, waited on with wait_group 1 and ds
+//   split into two alternating buffers, so that the recompute overlaps
+//   dq's products: ptxas injected warpgroup.arrive (C7519) around them).
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -105,6 +117,8 @@ constexpr int THREADS = 384;         // producer, 2 consumers
 constexpr int STAGES = 8;            // tiles in flight
 constexpr int FWD_BT = 64;           // keys per streamed tile (forward)
 constexpr int DKV_BT = 32;           // queries per streamed tile (dk/dv)
+constexpr int DQ_BT = 64;            // keys per streamed tile (dq)
+constexpr int DQ_NA = 2;             // dq's independent accumulators
 constexpr int PARTS = 2;             // bf16 parts of p and ds: hi, lo
 
 // wgmma m64nNk16 bf16, A from registers, B K-major (TB 0) or MN-major (TB
@@ -654,6 +668,204 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   store_bf16<DP, NA>(dv + off, acc_v, row_lo, Tk, D, r, t, 1.f);
 }
 
+// ds of a key tile from s and dp, in place in s, split into PARTS bf16
+// fragments.  Accumulator e of the thread: own query row_lo + r + 8 ((e /
+// 2) % 2), whose lse and delta are lr[.] and dr[.], streamed key c0 + 8 (e
+// / 4) + 2 t + e % 2.  MASK: the diagonal or a ragged end crosses the tile.
+template <int BT, bool MASK>
+__device__ __forceinline__ void recompute_dq(
+    float (&s)[BT / 2], const float (&dp)[BT / 2], const float (&lr)[2],
+    const float (&dr)[2], float scale, int r, int t, int row_lo, int c0,
+    int Tq, int Tk, int causal, uint32_t (&sp)[PARTS][BT / 4]) {
+#pragma unroll
+  for (int nb = 0; nb < BT / 8; ++nb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = nb * 4 + 2 * h + c;
+        bool valid = true;
+        if (MASK) {
+          const int qi = row_lo + r + 8 * h, kj = c0 + nb * 8 + 2 * t + c;
+          valid = qi < Tq && kj < Tk && (!causal || qi >= kj);
+        }
+        const float p = valid ? expf(s[e] * scale - lr[h]) : 0.f;
+        s[e] = valid ? p * (dp[e] - dr[h]) : 0.f;
+      }
+    }
+  }
+  split_bf16<BT / 2>(s, sp);
+}
+
+// s = q.k^T and dp = dO.v^T over DP, by k-step and by 64 keys with s and
+// dp alternating: A the own rows' q / dO fragments, B the stage's k / v
+// tiles of BT keys (K-major)
+template <int DP, int BT>
+__device__ __forceinline__ void mma_sdp(float (&s)[BT / 2],
+                                        float (&dp)[BT / 2],
+                                        const uint32_t (&aq)[DP / 4],
+                                        const uint32_t (&ado)[DP / 4],
+                                        uint32_t st) {
+  constexpr int TILE = BT * DP * 2;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t a[4] = {aq[4 * kk], aq[4 * kk + 1], aq[4 * kk + 2],
+                           aq[4 * kk + 3]};
+    const uint32_t b[4] = {ado[4 * kk], ado[4 * kk + 1], ado[4 * kk + 2],
+                           ado[4 * kk + 3]};
+#pragma unroll
+    for (int h = 0; h < BT / 64; ++h) {
+      float (&sh)[32] = *reinterpret_cast<float (*)[32]>(s + 32 * h);
+      float (&dh)[32] = *reinterpret_cast<float (*)[32]>(dp + 32 * h);
+      const uint32_t k64 = st + h * 64 * 16;   // keys 64 h .. 64 h + 63
+      Bf16<64, 0>::run(sh, a, kmajor(k64, BT, kk), kk > 0);
+      Bf16<64, 0>::run(dh, b, kmajor(k64 + TILE, BT, kk), kk > 0);
+    }
+  }
+}
+
+// dq.  One block: (query tile, bh) of the flat grid, the last queries of
+// each bh (the heaviest causal tiles) first; the keys streamed in tiles of
+// BT rows, k and v.  NA independent accumulators.
+template <int DP, int BT, int NA>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const bf16* __restrict__ q,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int Tq, int Tk, int D, float scale, int causal,
+                     int n_own) {
+  constexpr int S = STAGES;
+  constexpr int TILE = BT * DP * 2;    // bytes of one tile: k, then v
+  constexpr int STAGE = 2 * TILE;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+
+  const int bh = blockIdx.x / n_own;
+  const int q0 = (n_own - 1 - (int)(blockIdx.x % n_own)) * BM;
+  // the key tiles this block visits: [0, n)
+  const int last = causal ? min(Tk, q0 + BM) : Tk;
+  const int n = (last + BT - 1) / BT;
+  uint8_t* const stages =
+      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  init_ring(full, empty, stages, STAGE, D < DP);
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {
+    reg_dealloc<56>();
+    // one thread keeps the ring full: tile i (k and v) into stage i % S
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S;
+        mbar_wait(smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
+        load_pair<BT>(&kmap, &vmap, stages + s * STAGE, TILE,
+                      smem_u32(&full[s]), D, i * BT, bh);
+      }
+    }
+    return;
+  }
+
+  reg_alloc<224>();
+  // The consumers: warpgroup cw owns queries q0 + 64 cw .. + 63.  Per tile i
+  // it waits for one wgmma group, dq over tile i - 1 and s, dp of tile i;
+  // recomputes ds of tile i; then issues dq over tile i and s, dp of tile i
+  // + 1 as the next group.
+  const int ct = threadIdx.x - 128;
+  const int cw = __shfl_sync(0xffffffffu, ct >> 7, 0);
+  const int warp = (ct >> 5) & 3, lane = ct & 31;
+  const int r = 16 * warp + (lane >> 2), t = lane & 3;
+  const int row_lo = q0 + 64 * cw;   // the warpgroup's first own query
+  const uint32_t st0 = smem_u32(stages);
+  float acc[NA][DP / 2];
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[a][e] = 0.f;
+    fence_regs(acc[a]);
+  }
+  // the tiles this warpgroup computes, [0, hi): causal, none wholly past its
+  // last query; none when it owns no query.  The producer loads, and every
+  // consumer warp releases, all n.
+  const int hi = row_lo >= Tq ? 0
+                 : causal     ? min(n, (row_lo + 63) / BT + 1)
+                              : n;
+  auto release = [&](int i) { warp_arrive(smem_u32(&empty[i % S]), lane); };
+  if (hi > 0) {
+    uint32_t aq[DP / 4], ado[DP / 4];
+    load_frag<DP>(aq, q + (long long)bh * Tq * D, row_lo, Tq, D, r, t);
+    load_frag<DP>(ado, dout + (long long)bh * Tq * D, row_lo, Tq, D, r, t);
+    // lse and delta of the thread's two own rows
+    float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + r + 8 * h;
+      if (row < Tq) {
+        lr[h] = lse[(long long)bh * Tq + row];
+        dr[h] = delta[(long long)bh * Tq + row];
+      }
+    }
+    // s: the tile's scores, then ds in place; sp: ds split, the A operand
+    // of dq += ds k
+    float s[BT / 2], dp[BT / 2];
+    uint32_t sp[PARTS][BT / 4];
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) s[e] = dp[e] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wait_phase(smem_u32(&full[0]), 0);
+    wgmma_fence();
+    mma_sdp<DP, BT>(s, dp, aq, ado, st0);
+    wgmma_commit();
+    // the last step (MORE false) issues no next s, dp
+    auto step = [&](int i, auto more) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p) fence_regs(sp[p]);
+      if (i > 0) release(i - 1);
+      const int c0 = i * BT;
+      if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))
+        recompute_dq<BT, true>(s, dp, lr, dr, scale, r, t, row_lo, c0, Tq,
+                               Tk, causal, sp);
+      else
+        recompute_dq<BT, false>(s, dp, lr, dr, scale, r, t, row_lo, c0, Tq,
+                                Tk, causal, sp);
+      wgmma_fence();
+      const uint32_t st = st0 + (i % S) * STAGE;
+      // dq += ds k: B the k tile, MN-major
+      mma_parts<DP, BT, NA>(acc, sp, st);
+      if (decltype(more)::value) {
+        wait_phase(smem_u32(&full[(i + 1) % S]), ((i + 1) / S) & 1);
+        mma_sdp<DP, BT>(s, dp, aq, ado, st0 + ((i + 1) % S) * STAGE);
+      }
+      wgmma_commit();
+    };
+    for (int i = 0; i < hi - 1; ++i) step(i, std::true_type());
+    step(hi - 1, std::false_type());
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) fence_regs(sp[p]);
+    fence_regs(s);
+    fence_regs(dp);
+    release(hi - 1);
+  }
+  // tiles this warpgroup skips still pass through its barriers
+  for (int i = hi; i < n; ++i) {
+    wait_phase(smem_u32(&full[i % S]), (i / S) & 1);
+    release(i);
+  }
+
+  store_bf16<DP, NA>(dq + (long long)bh * Tq * D, acc, row_lo, Tq, D, r, t,
+                     scale);
+}
+
 // the dynamic shared memory of a ring of `stage`-byte stages, with the
 // alignment slack
 constexpr int ring_bytes(int stage) { return STAGES * stage + 128; }
@@ -732,6 +944,28 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+              const float* lse, const float* delta, bf16* dq, int bh, int tq,
+              int tk, int d, float scale, int causal, cudaStream_t st) {
+  constexpr int BT = DQ_BT, NA = DQ_NA;
+  CUtensorMap kmap, vmap;
+  if (!encode(&kmap, k, bh, tk, d, BT) || !encode(&vmap, v, bh, tk, d, BT))
+    return (int)cudaErrorInvalidValue;
+  const int smem = ring_bytes(2 * BT * DP * 2);
+  auto kern = flash_dq_bf16_kernel<DP, BT, NA>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_own = (tq + BM - 1) / BM;
+  const long long grid = (long long)n_own * bh;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)grid, THREADS, smem, st>>>(kmap, vmap, q, dout, lse, delta,
+                                             dq, tq, tk, d, scale, causal,
+                                             n_own);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, out: (bh, tq, d); k, v: (bh, tk, d); contiguous bf16, 16-byte aligned,
@@ -768,4 +1002,21 @@ extern "C" int mxtt_flash_dkv_wgmma_bf16(const bf16* q, const bf16* k,
                                      tq, tk, d, scale, causal, st)
                  : launch_dkv<32, 1>(q, k, v, dout, lse, delta, dk, dv, bh,
                                      tq, tk, d, scale, causal, st);
+}
+
+// dq: (bh, tq, d) bf16; the rest as for dk / dv.
+extern "C" int mxtt_flash_dq_wgmma_bf16(const bf16* q, const bf16* k,
+                                        const bf16* v, const bf16* dout,
+                                        const float* lse, const float* delta,
+                                        bf16* dq, int bh, int tq, int tk,
+                                        int d, float scale, int causal,
+                                        void* stream) {
+  const void* ptrs[4] = {q, k, v, dout};
+  if (!takes_bf16(ptrs, 4, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bh <= 0 || tq <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d <= 16 ? launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
+                                 scale, causal, st)
+                 : launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
+                                 scale, causal, st);
 }

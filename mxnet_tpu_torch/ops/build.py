@@ -9,21 +9,27 @@ edited source or header never loads a stale library, and returns the
 ``ctypes.CDLL``.  :func:`load_source` does the same for a source the
 program emits (the mxgen kernels of ``analysis/codegen.py``): the text is
 written into the build directory under the same hash.  :func:`build_all`
-starts one ``nvcc`` per source at once.  Nothing here runs on import.
+starts one ``nvcc`` per source at once.  :func:`ptxas_report` compiles
+named sources once more to a cubin with ``-Xptxas -v`` and returns what
+ptxas says of each kernel instantiation: registers, spills and its C75xx
+advisories (``wgmma`` serialized, among them).  Nothing here runs on
+import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import threading
 
 from ..base import MXNetError
 
-__all__ = ["load", "load_source", "build_all", "source_path",
-           "KERNEL_SOURCES"]
+__all__ = ["load", "load_source", "build_all", "ptxas_report",
+           "source_path", "KERNEL_SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -157,3 +163,84 @@ def load_source(name, src):
         if lib is None:
             lib = _libs[out] = ctypes.CDLL(path)
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_ADVICE = re.compile(r"\((C75\d\d)\) (.*?) in (?:the )?function '([^']+)'")
+
+
+def _demangled(names):
+    """``{mangled: readable}`` through the toolkit's ``cu++filt``, or the
+    names as they are where it is missing."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=False).stdout
+    lines = out.splitlines()
+    if len(lines) != len(names):
+        return {n: n for n in names}
+    return dict(zip(names, lines))
+
+
+def _parse_ptxas(log):
+    """``[{kernel, registers, spill_stores, spill_loads, advisories}]`` of
+    one ``-Xptxas -v`` log, a kernel (mangled) per compiled entry function
+    in the order compiled; each advisory (``"C7511 <text>"``, printed
+    before the entries) on the function it names."""
+    rows, order, cur = {}, [], None
+
+    def row(name):
+        return rows.setdefault(name, {
+            "kernel": name, "registers": None, "spill_stores": None,
+            "spill_loads": None, "advisories": []})
+    for line in log.splitlines():
+        m = _ADVICE.search(line)
+        if m:
+            row(m.group(3))["advisories"].append("%s %s" % m.group(1, 2))
+            continue
+        m = _ENTRY.search(line)
+        if m:
+            cur = row(m.group(1))
+            order.append(cur)
+            continue
+        m = _SPILL.search(line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _USED.search(line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return order
+
+
+def ptxas_report(names):
+    """``{source name: [{kernel, registers, spill_stores, spill_loads,
+    advisories}]}``: each named ``csrc`` source compiled to a cubin with the
+    libraries' flags and ``-Xptxas -v``, one ``nvcc`` each, all started
+    together (into a temporary directory under the build directory); the
+    log as ptxas wrote it is kept as ``<name>.ptxas.log`` there."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    flags = [f for f in _FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {n: subprocess.Popen(
+            [_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-I", _CSRC, "-o",
+             os.path.join(tmp, n + ".cubin"), source_path(n)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names}
+        out = {}
+        for n, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise MXNetError("nvcc -Xptxas -v failed for %s (rc=%d):\n%s"
+                                 % (n, proc.returncode, log))
+            with open(os.path.join(BUILD_DIR, n + ".ptxas.log"), "w",
+                      encoding="utf-8") as f:
+                f.write(log)
+            out[n] = _parse_ptxas(log)
+    names = _demangled([r["kernel"] for rows in out.values() for r in rows])
+    for rows in out.values():
+        for r in rows:
+            r["kernel"] = names[r["kernel"]]
+    return out

@@ -16,13 +16,14 @@ that module:
   == 0``, ``D <= 32`` (dk/dv from D = 12), and the CUDA-core design
   (``mxtt_flash_fwd`` / ``mxtt_flash_dq`` / ``mxtt_flash_dkv``,
   ``csrc/flash_attention.cu``: FMAs, one thread per row) for the rest;
-  on bfloat16 operands the bf16 ``wgmma`` design of the forward and
-  dk/dv (``mxtt_flash_fwd_wgmma_bf16`` / ``mxtt_flash_dkv_wgmma_bf16``,
-  ``csrc/flash_bf16_wgmma.cu``: TMA, bf16 ``wgmma`` with p or ds split
-  into two bf16 parts) for ``D % 8 == 0`` up to 32, and the bf16 route of
-  the CUDA-core design (``mxtt_flash_fwd_bf16`` / ``mxtt_flash_dq_bf16`` /
+  on bfloat16 operands the bf16 ``wgmma`` design of all three
+  (``mxtt_flash_fwd_wgmma_bf16`` / ``mxtt_flash_dq_wgmma_bf16`` /
+  ``mxtt_flash_dkv_wgmma_bf16``, ``csrc/flash_bf16_wgmma.cu``: TMA, bf16
+  ``wgmma`` with p or ds split into two bf16 parts) for ``D % 8 == 0`` up
+  to 32, and the bf16 route of the CUDA-core design
+  (``mxtt_flash_fwd_bf16`` / ``mxtt_flash_dq_bf16`` /
   ``mxtt_flash_dkv_bf16``, ``csrc/flash_attention.cu``'s kernels on
-  ``__nv_bfloat16``) for the rest and for dq;
+  ``__nv_bfloat16``) for the rest;
 - :func:`qmm_requant` (``_qmm_requant_kernel``, ``:436``), which the op
   ``_contrib_quantized_conv_requant`` (:func:`quantized_conv_requant`)
   runs for channels-last 1×1 convolutions when ``MXTPU_PALLAS_QMM=1``,
@@ -99,8 +100,8 @@ _NEG_INF = -1e30
 
 # the flash kernels count every launch under their own name and under
 # their design's ("flash_dq/wgmma", "flash_dq/simt" or, on bfloat16,
-# "flash_dq/bf16", the same for flash_forward_with_lse and flash_dkv, and
-# "flash_forward_with_lse/wgmma_bf16" and "flash_dkv/wgmma_bf16");
+# "flash_dq/bf16" or "flash_dq/wgmma_bf16", the same for
+# flash_forward_with_lse and flash_dkv);
 # qmm_requant under its own name and under its design's
 # ("qmm_requant/wgmma" or "qmm_requant/mma");
 # conv3x3_epilogue under its own name, under its input route's (e.g.
@@ -113,7 +114,7 @@ LAUNCHES = {"flash_forward_with_lse": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_dq/simt": 0, "flash_dq/bf16": 0, "flash_dkv/wgmma": 0,
             "flash_dkv/simt": 0, "flash_dkv/bf16": 0,
             "flash_forward_with_lse/wgmma_bf16": 0,
-            "flash_dkv/wgmma_bf16": 0,
+            "flash_dq/wgmma_bf16": 0, "flash_dkv/wgmma_bf16": 0,
             "qmm_requant": 0, "qmm_requant/wgmma": 0, "qmm_requant/mma": 0,
             "conv3x3_epilogue": 0,
             "conv3x3_epilogue[int8]": 0, "conv3x3_epilogue[bf16]": 0,
@@ -238,6 +239,7 @@ _ARGTYPES["mxtt_flash_dkv_wgmma"] = _ARGTYPES["mxtt_flash_dkv"]
 for _k in ("fwd", "dq", "dkv"):
     _ARGTYPES["mxtt_flash_%s_bf16" % _k] = _ARGTYPES["mxtt_flash_%s" % _k]
 _ARGTYPES["mxtt_flash_fwd_wgmma_bf16"] = _ARGTYPES["mxtt_flash_fwd"]
+_ARGTYPES["mxtt_flash_dq_wgmma_bf16"] = _ARGTYPES["mxtt_flash_dq"]
 _ARGTYPES["mxtt_flash_dkv_wgmma_bf16"] = _ARGTYPES["mxtt_flash_dkv"]
 
 # wrapper -> the head dims flash_design sends to the wgmma design: those
@@ -249,8 +251,8 @@ FLASH_WGMMA_DIMS = {"flash_forward_with_lse": frozenset(range(4, 33, 4)),
                     "flash_dq": frozenset(range(4, 33, 4)),
                     "flash_dkv": frozenset(range(12, 33, 4))}
 
-# the designs of B5-B7 (two on float32, two on bfloat16 for the forward
-# and dk/dv, one for dq): design -> wrapper -> (source, C entry point)
+# the designs of B5-B7 (two on float32, two on bfloat16): design ->
+# wrapper -> (source, C entry point)
 _FLASH_DESIGNS = {
     "wgmma": {"flash_forward_with_lse": ("flash_fwd_wgmma",
                                          "mxtt_flash_fwd_wgmma"),
@@ -265,6 +267,8 @@ _FLASH_DESIGNS = {
              "flash_dkv": ("flash_attention", "mxtt_flash_dkv_bf16")},
     "wgmma_bf16": {"flash_forward_with_lse": ("flash_bf16_wgmma",
                                               "mxtt_flash_fwd_wgmma_bf16"),
+                   "flash_dq": ("flash_bf16_wgmma",
+                                "mxtt_flash_dq_wgmma_bf16"),
                    "flash_dkv": ("flash_bf16_wgmma",
                                  "mxtt_flash_dkv_wgmma_bf16")},
 }
@@ -306,14 +310,14 @@ def flash_design(d, wrapper, aligned=True, dtype=torch.float32):
     for bfloat16 operands:
 
     - ``"wgmma_bf16"`` (``csrc/flash_bf16_wgmma.cu``: TMA into an mbarrier
-      ring, bf16 ``wgmma`` with p or ds split into two bf16 parts) for the
-      forward and dk/dv wherever it takes the shape
-      (:func:`wgmma_bf16_takes`): chip_smoke.py's phase 17 timed it
-      faster than the CUDA-core bf16 route at every such head dim (D = 8,
-      16 — the ring path's —, 24, 32) and fails if that stops holding;
-    - ``"bf16"`` otherwise, and for dq at every head dim: the bf16 route
-      of the CUDA-core design (``csrc/flash_attention.cu``'s kernels on
-      ``__nv_bfloat16``, ``mxtt_flash_*_bf16``);
+      ring, bf16 ``wgmma`` with p or ds split into two bf16 parts) for all
+      three wherever it takes the shape (:func:`wgmma_bf16_takes`):
+      chip_smoke.py's phase 17 timed it faster than the CUDA-core bf16
+      route at every such head dim (D = 8, 16 — the ring path's —, 24, 32)
+      and fails if that stops holding;
+    - ``"bf16"`` otherwise: the bf16 route of the CUDA-core design
+      (``csrc/flash_attention.cu``'s kernels on ``__nv_bfloat16``,
+      ``mxtt_flash_*_bf16``);
 
     and for float32:
 
@@ -328,9 +332,7 @@ def flash_design(d, wrapper, aligned=True, dtype=torch.float32):
       lanes per row, :func:`simt_launch_shape`) otherwise, among them D =
       64 and 128 and every D above 32."""
     if dtype == torch.bfloat16:
-        ok = wrapper in _FLASH_DESIGNS["wgmma_bf16"] \
-            and wgmma_bf16_takes(d, aligned)
-        return "wgmma_bf16" if ok else "bf16"
+        return "wgmma_bf16" if wgmma_bf16_takes(d, aligned) else "bf16"
     ok = d in FLASH_WGMMA_DIMS[wrapper] and wgmma_takes(d, aligned)
     return "wgmma" if ok else "simt"
 
@@ -477,9 +479,9 @@ def flash_dq(q, k, v, do, lse, delta, causal, scale):
 
 
 def _flash_dq(q, k, v, do, lse, delta, causal, scale, design=None):
-    """:func:`flash_dq`, with ``design`` ("wgmma" or "simt") forced
-    instead of chosen by head dim, so both designs can be timed on the
-    same inputs."""
+    """:func:`flash_dq`, with ``design`` ("wgmma" or "simt" on float32,
+    "wgmma_bf16" or "bf16" on bfloat16) forced instead of chosen by head
+    dim, so both designs can be timed on the same inputs."""
     if not _check("flash_dq", q, k, v, (do, lse, delta)):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
     q, k, v, do, lse, delta = (t.contiguous()

@@ -1,8 +1,7 @@
 """What holds the wgmma designs of the flash kernels back — the forward
-(B5) and ``flash_dq`` (B6) and ``flash_dkv`` (B7) in split TF32, and the
-forward and ``flash_dkv`` on bfloat16: each kernel rebuilt with one part
-switched off at a time and timed at the ring path's pairings of one
-TransformerLM layer.
+(B5) and ``flash_dq`` (B6) and ``flash_dkv`` (B7), in split TF32 and on
+bfloat16: each kernel rebuilt with one part switched off at a time and
+timed at the ring path's pairings of one TransformerLM layer.
 
     python -m mxnet_tpu_torch.tools.flash_ablate [--iters 20]
 
@@ -25,9 +24,11 @@ Each variant is ``csrc/flash_fwd_wgmma.cu`` (:data:`FWD_CUTS`),
   ``ds``);
 - ``no_stores``: no output stores.
 
-A cut of one kernel's part leaves the other kernel of its source as it is
-(the bf16 source's ``no_softmax`` times dk/dv unchanged, ``no_recompute``
-the forward).
+A cut of one kernel's part leaves the other kernels of its source as
+they are (the bf16 source's ``no_softmax`` times dq and dk/dv unchanged,
+``no_recompute`` the forward).  :func:`dq_tile_source` gives the bf16
+source with dq's key tile set to another of :data:`DQ_TILES`, the widths
+``chip_smoke.py``'s phase 17 times against each other.
 
 A variant's outputs are wrong by design (``no_lo`` only misses the
 contract), so only its device time is printed: CUDA events around
@@ -43,6 +44,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 
 import numpy as np
 import torch
@@ -53,8 +55,8 @@ from ..ops.pallas_kernels import (_ARGTYPES, flash_delta,
                                   flash_forward_with_lse_reference)
 from .conv_ablate import device_ms, edited_source
 
-__all__ = ["CUTS", "FWD_CUTS", "BF16_CUTS", "variant_source",
-           "path_pairings", "main"]
+__all__ = ["CUTS", "FWD_CUTS", "BF16_CUTS", "DQ_TILES", "variant_source",
+           "dq_tile_source", "path_pairings", "main"]
 
 _COPIES = ("      mbar_expect_tx(bar, 2 * bytes);\n"
            "      bulk_load(smem_u32(dst), sa + off, bytes, bar);\n"
@@ -122,7 +124,9 @@ FWD_CUTS = {
     "no_stores": [(_FWD_STORE, "    if (row >= Tq || Tq > 0) continue;\n")],
 }
 
-# the bf16 design's cuts, in csrc/flash_bf16_wgmma.cu (forward and dk/dv)
+# the bf16 design's cuts, in csrc/flash_bf16_wgmma.cu (forward, dq and
+# dk/dv; the loads, the split into parts, the mixed products and the
+# stores are shared)
 _BF16_LOADS = ("  mbar_expect_tx(bar, 2 * (D / 8) * R * 16);\n"
                "  for (int c = 0; c < D / 8; ++c) {\n"
                "    tma_load_3d(smem_u32(dst + c * R * 16), a, bar, 8 * c, "
@@ -143,15 +147,23 @@ _BF16_SOFTMAX = ("      if (c0 + BT > Tk || (causal && c0 + BT - 1 > row_lo))\n"
                  "r, t, c0, Tk,\n                                causal);\n")
 _BF16_RECOMPUTE = ("        p[e] = valid ? expf(x[e] * scale - lr) : 0.f;\n"
                    "        ds[e] = valid ? p[e] * (y[e] - dr) : 0.f;\n")
+_BF16_SDP = ("      Bf16<64, 0>::run(sh, a, kmajor(k64, BT, kk), kk > 0);\n"
+             "      Bf16<64, 0>::run(dh, b, kmajor(k64 + TILE, BT, kk), "
+             "kk > 0);\n")
+_BF16_DQ_RECOMPUTE = (
+    "        const float p = valid ? expf(s[e] * scale - lr[h]) : 0.f;\n"
+    "        s[e] = valid ? p * (dp[e] - dr[h]) : 0.f;\n")
 
 BF16_CUTS = {
     "full": [],
     "no_loads": [(_BF16_LOADS, "  mbar_arrive(bar);\n")],
-    "no_mma": [(_BF16_PV, ""), (_BF16_S, ""), (_BF16_XY, "")],
+    "no_mma": [(_BF16_PV, ""), (_BF16_S, ""), (_BF16_XY, ""),
+               (_BF16_SDP, "")],
     "no_lo": [("constexpr int PARTS = 2;", "constexpr int PARTS = 1;")],
     "no_softmax": [(_BF16_SOFTMAX, "      corr[0] = corr[1] = 1.f;\n")],
     "no_recompute": [(_BF16_RECOMPUTE, "        p[e] = x[e];\n"
-                                       "        ds[e] = y[e];\n")],
+                                       "        ds[e] = y[e];\n"),
+                     (_BF16_DQ_RECOMPUTE, "        s[e] = dp[e];\n")],
     "no_stores": [(_STORE, "    if (row >= rows || rows > 0) continue;\n"),
                   (_FWD_STORE, "    if (row >= Tq || Tq > 0) continue;\n")],
 }
@@ -167,6 +179,7 @@ _KERNELS = {
     "flash_bf16_wgmma": (BF16_CUTS,
                          {"flash_forward_with_lse":
                           "mxtt_flash_fwd_wgmma_bf16",
+                          "flash_dq": "mxtt_flash_dq_wgmma_bf16",
                           "flash_dkv": "mxtt_flash_dkv_wgmma_bf16"},
                          torch.bfloat16),
 }
@@ -176,6 +189,24 @@ def variant_source(name, source="flash_bwd_wgmma"):
     """``csrc/<source>.cu`` with the edits of its variant ``name``; raises
     if an edit's text is not in the source exactly once."""
     return edited_source(source, _KERNELS[source][0][name], name)
+
+
+# dq's key tile in csrc/flash_bf16_wgmma.cu (DQ_BT): the widths timed
+DQ_TILES = (64, 128)
+_DQ_BT = re.compile(r"constexpr int DQ_BT = (\d+);")
+
+
+def dq_tile_source(bt):
+    """``(text, shipped)``: ``csrc/flash_bf16_wgmma.cu`` with dq's key
+    tile set to ``bt`` rows (one of :data:`DQ_TILES`), and the width the
+    source ships."""
+    with open(build.source_path("flash_bf16_wgmma"), encoding="utf-8") as f:
+        text = f.read()
+    found = _DQ_BT.findall(text)
+    if len(found) != 1 or bt not in DQ_TILES:
+        raise ValueError("dq key tile %r: the source sets DQ_BT %d times"
+                         % (bt, len(found)))
+    return _DQ_BT.sub("constexpr int DQ_BT = %d;" % bt, text), int(found[0])
 
 
 def path_pairings(batch=32, heads=8, seq_len=1024, ranks=2, head_dim=16):

@@ -17,10 +17,10 @@ held against mxnet_tpu.
   largest magnitude (each hop rounds its output before the f32 merge, in
   the reference's order; the merged output and the per-hop gradients'
   sum round once more).
-- ``flash_design`` sends bfloat16 dq to the ``"bf16"`` route at every
-  head dim, and the forward and dk/dv there except at the bf16 wgmma
-  design's head dims (``tests/test_torch_flash_bf16_wgmma.py``); a forced
-  design must match the operands' dtype, and mixed dtypes are refused.
+- ``flash_design`` sends bfloat16 calls of all three to the ``"bf16"``
+  route except at the bf16 wgmma design's head dims
+  (``tests/test_torch_flash_bf16_wgmma.py``); a forced design must match
+  the operands' dtype, and mixed dtypes are refused.
 - ``cuda``-marked tests hold each bf16 kernel to its plain version on a
   card (skipped here; ``chip_smoke.py`` phase 17 runs them at the
   training path's shapes).
@@ -146,13 +146,11 @@ def test_bf16_ring_attention_matches_reference(causal):
 
 
 def test_bf16_route_design_and_refusals():
-    # the forward and dk/dv take the bf16 wgmma design at D % 8 == 0 up to
-    # 32 (the ring path's D = 16 among them), the CUDA-core bf16 route
-    # elsewhere; dq takes the CUDA-core bf16 route at every head dim
+    # all three take the bf16 wgmma design at D % 8 == 0 up to 32 (the ring
+    # path's D = 16 among them), the CUDA-core bf16 route elsewhere
     for d in (4, 16, 32, 64, 128, 320):
         for w in ("flash_forward_with_lse", "flash_dq", "flash_dkv"):
-            want = "wgmma_bf16" if w != "flash_dq" and d in (16, 32) \
-                else "bf16"
+            want = "wgmma_bf16" if d in (16, 32) else "bf16"
             assert pk.flash_design(d, w, dtype=torch.bfloat16) == want
     assert pk.flash_design(16, "flash_dq") == "wgmma"
     assert pk.flash_design(64, "flash_dq") == "simt"

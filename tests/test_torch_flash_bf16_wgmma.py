@@ -1,5 +1,6 @@
-"""The bf16 ``wgmma`` design of B5 (the flash forward) and B7 (dk/dv),
-``csrc/flash_bf16_wgmma.cu``, and what routes a bfloat16 call to it, held
+"""The bf16 ``wgmma`` design of B5 (the flash forward), B6 (dq) and B7
+(dk/dv), ``csrc/flash_bf16_wgmma.cu``, and what routes a bfloat16 call to
+it, held
 on the CPU: a torch emulation of its arithmetic against the reference's
 Pallas kernels in interpret mode, the choice of design
 (``ops.pallas_kernels.flash_design``), the forced designs, the launch
@@ -11,7 +12,8 @@ float32 (a bf16 × bf16 product is exact in float32); the forward's online
 softmax over tiles of 64 keys in the kernel's order (s rounded times the
 scale, masked to -1e30, the running max, p and ``corr`` as 2^x of one
 fused multiply-add); the backward's recompute per tile of 32 queries
-(``p = exp(s·scale - lse)`` where valid, ``ds = p (dp - delta)``); every
+(dk/dv) or of 64 keys (dq) (``p = exp(s·scale - lse)`` where valid, ``ds
+= p (dp - delta)``); every
 product with the float32 p or ds as the sum, in float32, of the products
 of its bf16 parts (``hi = bf16(x)``, each next part bf16 of what the
 earlier ones leave) with the exact bf16 operand, part by part; the outputs
@@ -43,8 +45,10 @@ from mxnet_tpu_torch.tools import flash_ablate
 
 FWD, DQ, DKV = "flash_forward_with_lse", "flash_dq", "flash_dkv"
 SOURCE = "flash_bf16_wgmma"
+ENTRIES = {FWD: "mxtt_flash_fwd_wgmma_bf16", DQ: "mxtt_flash_dq_wgmma_bf16",
+           DKV: "mxtt_flash_dkv_wgmma_bf16"}
 PARTS = 2                         # the kernels' split of p and ds
-FWD_BT, DKV_BT = 64, 32           # streamed tile rows
+FWD_BT, DKV_BT, DQ_BT = 64, 32, 64   # streamed tile rows
 LOG2E = 1.4426950408889634
 # (BH, Tq, Tk, D, causal): the ring path's D = 16 at a CPU size, T a
 # multiple of the tiles and ragged, causal and full, Tq != Tk both ways;
@@ -137,9 +141,35 @@ def emulate_dkv(q, k, v, do, lse, delta, causal, scale, parts=PARTS):
     return (dk, dv), (dk.bfloat16(), dv.bfloat16())
 
 
+def emulate_dq(q, k, v, do, lse, delta, causal, scale, parts=PARTS):
+    """dq f32 before rounding and dq bf16 as dq computes it on bf16 q, k, v,
+    dO and f32 lse, delta: q-major over key tiles of DQ_BT, s and dp
+    summed in f32, the ``expf`` recompute, dq the f32 sum over ds's bf16
+    parts of part·k, times the scale, rounded once."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    bh, tq, _ = q.shape
+    tk = k.shape[1]
+    dq = torch.zeros_like(q)
+    qi = torch.arange(tq)[:, None]
+    for b in range(bh):
+        for c0 in range(0, tk, DQ_BT):
+            kt, vt = k[b, c0:c0 + DQ_BT], v[b, c0:c0 + DQ_BT]
+            kj = c0 + torch.arange(kt.shape[0])[None, :]
+            valid = (qi >= kj) if causal else torch.ones(tq, len(kt),
+                                                         dtype=bool)
+            s = q[b] @ kt.t()
+            dp = do[b] @ vt.t()
+            p = torch.where(valid, torch.exp(s * scale - lse[b, :, None]),
+                            0.0)
+            ds = torch.where(valid, p * (dp - delta[b, :, None]), 0.0)
+            dq[b] += _mixed(ds.t(), kt, parts)
+    dq = dq * scale
+    return dq, dq.bfloat16()
+
+
 def _case(bh, tq, tk, d, causal):
-    """Seeded bf16 inputs (torch), the reference's bf16 forward and dk/dv
-    (interpret mode) and its lse, delta."""
+    """Seeded bf16 inputs (torch), the reference's bf16 forward, dq and
+    dk/dv (interpret mode) and its lse, delta."""
     rng = np.random.RandomState(tq + tk + d + causal)
     q, tq_ = tb._bf16(rng, bh, tq, d)
     do, tdo = tb._bf16(rng, bh, tq, d)
@@ -152,33 +182,40 @@ def _case(bh, tq, tk, d, causal):
     delta = jpk.flash_delta(want_o, jdo)
     want_dk, want_dv = jpk.flash_dkv(jq, jk, jv, jdo, want_lse, delta,
                                      causal, scale, interpret=True)
+    want_dq = jpk.flash_dq(jq, jk, jv, jdo, want_lse, delta, causal, scale,
+                           interpret=True)
     lse_t = torch.from_numpy(np.array(want_lse))
     delta_t = torch.from_numpy(np.array(delta))
     return dict(ins=(tq_, tk_, tv, tdo), lse=lse_t, delta=delta_t,
                 scale=scale, want_o=want_o, want_lse=want_lse,
-                want_dkv=(want_dk, want_dv))
+                want_dkv=(want_dk, want_dv), want_dq=want_dq)
 
 
 def _exact(case):
-    """The float64 forward and dk/dv on the same inputs and lse, delta:
-    what the float32 sums approximate."""
+    """The float64 forward, dq and dk/dv on the same inputs and lse,
+    delta: what the float32 sums approximate."""
     bh, tq, tk, d, causal = case
     c = _case(*case)
     q, k, v, do = (t.double() for t in c["ins"])
     o, _ = pk.flash_forward_with_lse_reference(q, k, v, causal, c["scale"])
-    dk, dv = pk.flash_dkv_reference(q, k, v, do, c["lse"].double(),
-                                    c["delta"].double(), causal, c["scale"])
-    return c, o, (dk, dv)
+    args = (q, k, v, do, c["lse"].double(), c["delta"].double(), causal,
+            c["scale"])
+    dq = pk.flash_dq_reference(*args)
+    dk, dv = pk.flash_dkv_reference(*args)
+    return c, o, dq, (dk, dv)
 
 
 def _sum_errors(case, parts):
-    """The largest |f32 sum - f64| of out, dk and dv with `parts` parts."""
-    c, o, dkv = _exact(case)
+    """The largest |f32 sum - f64| of out, dq, dk and dv with `parts`
+    parts."""
+    c, o, dq, dkv = _exact(case)
     bh, tq, tk, d, causal = case
     got_o = emulate_fwd(*c["ins"][:3], causal, c["scale"], parts)[0]
-    got = emulate_dkv(*c["ins"], c["lse"], c["delta"], causal, c["scale"],
-                      parts)[0]
+    bwd = (*c["ins"], c["lse"], c["delta"], causal, c["scale"], parts)
+    got_dq = emulate_dq(*bwd)[0]
+    got = emulate_dkv(*bwd)[0]
     return {"out": float((got_o.double() - o).abs().max()),
+            "dq": float((got_dq.double() - dq).abs().max()),
             "dk": float((got[0].double() - dkv[0]).abs().max()),
             "dv": float((got[1].double() - dkv[1]).abs().max())}
 
@@ -207,9 +244,20 @@ def test_bf16_wgmma_dkv_emulation_matches_the_reference(case):
         tb._within_one_ulp(g, w, what)
 
 
+@pytest.mark.parametrize("case", EMULATED, ids=str)
+def test_bf16_wgmma_dq_emulation_matches_the_reference(case):
+    """Two bf16 parts of ds meet the contract against the reference's
+    ``flash_dq`` on bf16 inputs in interpret mode."""
+    bh, tq, tk, d, causal = case
+    c = _case(*case)
+    _, got = emulate_dq(*c["ins"], c["lse"], c["delta"], causal,
+                        c["scale"])
+    tb._within_one_ulp(got, c["want_dq"], "dq")
+
+
 @pytest.mark.parametrize("case", [EMULATED[3], EMULATED[4]], ids=str)
 def test_one_bf16_part_is_far_further_off(case):
-    """Why two parts: with one, the float32 sums of out, dk and dv are
+    """Why two parts: with one, the float32 sums of out, dq, dk and dv are
     many times further from the float64 values than with two, and the
     rounded outputs miss the contract (a control: the emulation can
     fail it)."""
@@ -219,16 +267,18 @@ def test_one_bf16_part_is_far_further_off(case):
     bh, tq, tk, d, causal = case
     c = _case(*case)
     _, got_o, _ = emulate_fwd(*c["ins"][:3], causal, c["scale"], parts=1)
-    _, got = emulate_dkv(*c["ins"], c["lse"], c["delta"], causal,
-                         c["scale"], parts=1)
-    for g, w in zip((got_o,) + got, (c["want_o"],) + c["want_dkv"]):
+    bwd = (*c["ins"], c["lse"], c["delta"], causal, c["scale"])
+    _, got_dq = emulate_dq(*bwd, parts=1)
+    _, got = emulate_dkv(*bwd, parts=1)
+    for g, w in zip((got_o, got_dq) + got,
+                    (c["want_o"], c["want_dq"]) + c["want_dkv"]):
         assert tb._ulps(tb._f32(g), tb._f32(w)).max() > 1.0
 
 
 # -- the choice of design ----------------------------------------------------------
 def test_bf16_routes_by_wrapper_and_head_dim():
     bf = torch.bfloat16
-    for w in (FWD, DKV):
+    for w in (FWD, DQ, DKV):
         assert pk.flash_design(16, w, dtype=bf) == "wgmma_bf16"
         for d in (4, 12, 20, 40, 64, 128, 256):
             assert pk.flash_design(d, w, dtype=bf) == "bf16", (w, d)
@@ -236,8 +286,6 @@ def test_bf16_routes_by_wrapper_and_head_dim():
             assert pk.wgmma_bf16_takes(d)
             assert pk.flash_design(d, w, dtype=bf) == "wgmma_bf16"
             assert pk.flash_design(d, w, aligned=False, dtype=bf) == "bf16"
-    for d in (8, 16, 32, 64):
-        assert pk.flash_design(d, DQ, dtype=bf) == "bf16"
     for d in (0, 4, 12, 40, 64):
         assert not pk.wgmma_bf16_takes(d)
     assert not pk.wgmma_bf16_takes(16, aligned=False)
@@ -246,21 +294,21 @@ def test_bf16_routes_by_wrapper_and_head_dim():
 
 
 @pytest.mark.parametrize("wrapper,shape", [
-    (FWD, (1, 8, 12)), (DKV, (1, 8, 64)), (DQ, (1, 8, 16))])
+    (FWD, (1, 8, 12)), (DKV, (1, 8, 64)), (DQ, (1, 8, 12))])
 def test_a_forced_bf16_wgmma_design_is_refused_before_any_launch(wrapper,
                                                                   shape):
-    """A head dim the design does not take, a wrapper it has no kernel for
-    (dq) or float32 operands raise before anything is built or launched."""
+    """A head dim the design does not take or float32 operands raise
+    before anything is built or launched."""
     q = torch.zeros(shape, dtype=torch.bfloat16)
     before = pk.launch_counts()
     with pytest.raises(MXNetError, match="does not take"):
         pk._design_entry(wrapper, (q,), shape[2], "wgmma_bf16")
     with pytest.raises(MXNetError, match="does not take"):
-        pk._design_entry(FWD, (q.float()[..., :8],), 8, "wgmma_bf16")
+        pk._design_entry(wrapper, (q.float()[..., :8],), 8, "wgmma_bf16")
     assert pk.launch_counts() == before
-    entry = pk._design_entry(FWD, (q[..., :8].contiguous(),), 8,
+    entry = pk._design_entry(wrapper, (q[..., :8].contiguous(),), 8,
                              "wgmma_bf16")
-    assert entry == (SOURCE, "mxtt_flash_fwd_wgmma_bf16", "wgmma_bf16")
+    assert entry == (SOURCE, ENTRIES[wrapper], "wgmma_bf16")
 
 
 def test_cpu_calls_take_the_plain_version_and_count_nothing():
@@ -276,9 +324,11 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
         want = pk.flash_forward_with_lse_reference(q, k, v, True, 0.25)
         assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
         delta = pk.flash_delta(o, do)
-        got = pk._flash_dkv(q, k, v, do, lse, delta, True, 0.25,
-                            design=design)
-        want = pk.flash_dkv_reference(q, k, v, do, lse, delta, True, 0.25)
+        args = (q, k, v, do, lse, delta, True, 0.25)
+        assert torch.equal(pk._flash_dq(*args, design=design),
+                           pk.flash_dq_reference(*args))
+        got = pk._flash_dkv(*args, design=design)
+        want = pk.flash_dkv_reference(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert pk.launch_counts() == before
 
@@ -294,22 +344,21 @@ def _text(name):
 
 
 def test_bf16_wgmma_launch_counters_and_source():
-    for w in (FWD, DKV):
+    for w in (FWD, DQ, DKV):
         assert pk.LAUNCHES[w + "/wgmma_bf16"] >= 0
-    assert DQ + "/wgmma_bf16" not in pk.LAUNCHES
     assert pk._FLASH_DESIGNS["wgmma_bf16"] == {
-        FWD: (SOURCE, "mxtt_flash_fwd_wgmma_bf16"),
-        DKV: (SOURCE, "mxtt_flash_dkv_wgmma_bf16")}
+        w: (SOURCE, entry) for w, entry in ENTRIES.items()}
     assert SOURCE in build.KERNEL_SOURCES
     src = _text(SOURCE)
-    for text in ("_fa_kernel     (:62", "_fa_dkv_kernel (:226",
-                 "extern \"C\" int mxtt_flash_fwd_wgmma_bf16(",
-                 "extern \"C\" int mxtt_flash_dkv_wgmma_bf16(",
+    for text in ("_fa_kernel     (:62", "_fa_dq_kernel  (:171",
+                 "_fa_dkv_kernel (:226",
                  "m64nNk16 .bf16", "tma_load_3d(",
                  "constexpr int PARTS = %d;" % PARTS,
+                 "constexpr int DQ_BT = %d;" % DQ_BT,
                  '#include "sm90.cuh"', '#include "flash_wgmma.cuh"'):
         assert text in src, text
-    for name in ("mxtt_flash_fwd_wgmma_bf16", "mxtt_flash_dkv_wgmma_bf16"):
+    for name in ENTRIES.values():
+        assert 'extern "C" int %s(' % name in src, name
         assert pk._ARGTYPES[name] == pk._ARGTYPES[name.replace(
             "_wgmma_bf16", "")]
 
@@ -334,6 +383,42 @@ def test_the_bf16_wgmma_helpers_have_one_home():
     assert "softmax_tile<BT, true>(" in _text(SOURCE)
 
 
+_PTXAS_LOG = """\
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 3787 by \
+compiler to allow use of registers in GMMA in function '_Z1bILi32EEvv'
+ptxas info    : (C7511) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for the \
+wgmma pipeline in the function '_Z1bILi32EEvv'
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILi16EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi16EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bILi32EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bILi32EEvv
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+
+
+def test_the_ptxas_report_reads_each_instantiation():
+    """``build._parse_ptxas`` (what ``chip_smoke.py``'s phase 1 prints for
+    this source and ``csrc/flash_bwd_wgmma.cu``): registers and spills per
+    compiled entry, in the order compiled, and each C75xx advisory, which
+    ptxas prints before the entries, on the function it names."""
+    rows = build._parse_ptxas(_PTXAS_LOG)
+    assert [r["kernel"] for r in rows] == ["_Z1aILi16EEvv", "_Z1bILi32EEvv"]
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"])
+            for r in rows] == [(168, 0, 0), (255, 12, 16)]
+    assert rows[0]["advisories"] == []
+    assert rows[1]["advisories"] == [
+        "C7519 warpgroup.arrive is injected in around line 3787 by compiler "
+        "to allow use of registers in GMMA",
+        "C7511 Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to insufficient register resources for the wgmma "
+        "pipeline"]
+
+
 # -- the ablation tool ------------------------------------------------------------
 @pytest.mark.parametrize("variant", sorted(flash_ablate.BF16_CUTS))
 def test_bf16_ablation_edits_apply_to_the_kernel_source(variant):
@@ -341,8 +426,20 @@ def test_bf16_ablation_edits_apply_to_the_kernel_source(variant):
     ``csrc/flash_bf16_wgmma.cu`` exactly once."""
     cut = flash_ablate.variant_source(variant, SOURCE)
     assert (cut == _text(SOURCE)) == (variant == "full")
-    for entry in ("mxtt_flash_fwd_wgmma_bf16", "mxtt_flash_dkv_wgmma_bf16"):
+    for entry in ENTRIES.values():
         assert entry in cut
+
+
+@pytest.mark.parametrize("bt", flash_ablate.DQ_TILES)
+def test_dq_key_tile_edit_applies_to_the_kernel_source(bt):
+    """``flash_ablate.dq_tile_source`` sets dq's key tile, and only it; the
+    shipped width is the emulation's."""
+    text, shipped = flash_ablate.dq_tile_source(bt)
+    assert shipped == DQ_BT
+    assert text.count("constexpr int DQ_BT = %d;" % bt) == 1
+    assert (text == _text(SOURCE)) == (bt == shipped)
+    assert text.replace("DQ_BT = %d;" % bt, "DQ_BT = %d;" % shipped) \
+        == _text(SOURCE)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -384,6 +481,29 @@ def test_bf16_wgmma_kernels_match_plain_on_cuda(case):
     after = pk.launch_counts()
     assert after[FWD + "/wgmma_bf16"] == before[FWD + "/wgmma_bf16"] + 2
     assert after[DKV + "/wgmma_bf16"] == before[DKV + "/wgmma_bf16"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES, ids=str)
+def test_bf16_wgmma_dq_matches_plain_on_cuda(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the bf16 wgmma kernels have no "
+                    "CPU mode")
+    bh, tq, tk, d, causal = case
+    g = torch.Generator(device="cuda").manual_seed(tq + d)
+    q, do = (torch.randn(bh, tq, d, device="cuda", generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(bh, tk, d, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    scale = d ** -0.5
+    want_o, lse = pk.flash_forward_with_lse_reference(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, pk.flash_delta(want_o, do), causal, scale)
+    before = pk.launch_counts()[DQ + "/wgmma_bf16"]
+    runs = [pk._flash_dq(*args, design="wgmma_bf16") for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    tb._within_one_ulp(runs[0].cpu(), pk.flash_dq_reference(*args).cpu(),
+                       "dq")
+    assert pk.launch_counts()[DQ + "/wgmma_bf16"] == before + 2
 
 
 if __name__ == "__main__":
