@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty phases; any failure exits non-zero and prints no result line.
+Twenty-one phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -302,6 +302,37 @@ Twenty phases; any failure exits non-zero and prints no result line.
 20. **The benches.** ``mxnet_tpu_torch.engine_bench.main([])`` and
     ``precision_bench.main([])`` on the card: their JSON lines printed;
     the ring and prefetch bounds held, ``precision_numerics_ok == 1.0``.
+21. **Gluon ResNet-50 training.** The reference's imperative loop on
+    ``mx.gpu()``: ``vision.resnet50_v1()`` (1000 classes, NCHW, f32,
+    created on the card by ``initialize()`` with no ``ctx``), each step
+    ``with autograd.record(): L = loss(net(x), y)``, ``L.backward()``,
+    ``gluon.Trainer(..., "sgd", lr 0.1, momentum 0.9, wd 1e-4,
+    kvstore="device").step(batch)`` and ``metric.Accuracy`` /
+    ``TopKAccuracy(5)`` / ``CrossEntropy`` updates, at phase 5's batch
+    of 256 (halved on out-of-memory): 2 warm-up and 10 timed steps,
+    images/s, step p50/p99 and peak memory beside phase 5's images/s.
+    Fails unless every loss is finite and the last below the first, and
+    unless no launch counter of B1-B10 moved during the steps (the
+    reference's Gluon update is per parameter and reaches no
+    ``pallas_call``).  Parity from one set of carried weights at batch 2
+    x 224 x 224, 2 steps: (a) the card against the CPU in float64
+    (losses, parameters and moving statistics within
+    ``GLUON_F64_TOL``, the card-vs-CPU check) and in float32 with TF32
+    off (the first-step loss within 1e-4; the parameters after one step
+    are printed, not held: a max-pool or ReLU choice that f32 rounding
+    flips moves a whole gradient term); (b) the Gluon route against one
+    step of ``DataParallelTrainer`` (B1 on the card, launched once per
+    bucket) in float32 with TF32 off and cuDNN's deterministic
+    algorithms: the loss within ``GLUON_ROUTE_LOSS_TOL`` (the same
+    forward), every parameter and moving statistic within
+    ``GLUON_ROUTE_ULPS`` float32 ulps (the update's rounding; the
+    momentum coefficient first acts at the second step, held on the CPU
+    by tests).  Checkpoints:
+    ``save_parameters`` in both formats reloaded into a fresh net on the
+    card gives logits bitwise the saved net's, each file byte-identical
+    to one written on the CPU from the same values, and ``save_states``
+    -> ``load_states`` into a fresh Trainer then one step is bitwise the
+    uninterrupted step (cuDNN's deterministic algorithms).
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -424,6 +455,19 @@ CONV_BF16_FLOOR = 2.0 ** -6
 OPT_CASES = [(None, 0.0, 1.0, 1.0, 1.0), (0.5, 1e-4, 1.0, 1.0, 1.0),
              (None, 1e-4, 0.25, 1.0, 1.0), (0.3, 0.0, 1.0, 1.0 / 1024, 1.0),
              (0.5, 1e-4, 0.5, 0.5, 0.0)]
+# slice 16: Gluon ResNet-50 training through the imperative loop (phase
+# 21); the reference's Gluon recipe, and the tolerances of its parities:
+# float64 card vs CPU after two steps (the f32 rounding floor, amplified
+# ~1e6 by two chaotic steps per phase 6, is ~1e-10 in float64); the two
+# training routes on the card, the first-step loss (one forward) and the
+# parameters after one step in float32 ulps at max(|w0|, |w1|) (the same
+# gradients under cuDNN's deterministic algorithms, so the update's
+# rounding alone: a missing wd is 84 ulps on a BatchNorm gamma)
+GLUON_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_WARMUP = 2
+GLUON_F64_TOL = 1e-5
+GLUON_ROUTE_LOSS_TOL = 1e-5
+GLUON_ROUTE_ULPS = 4
 # wrapper -> (bytes moved per element, f32 operations per element, the
 # TPU kernel it replaces)
 OPT_KERNELS = {
@@ -790,7 +834,7 @@ def _bucket_size():
     net.initialize(initializer.Zero(), ctx="cpu")
     with torch.no_grad():
         net(torch.zeros(1, 3, 64, 64))
-    return sum(p.data().numel() for p in net.collect_params().values()
+    return sum(p.tensor().numel() for p in net.collect_params().values()
                if p.grad_req != "null")
 
 
@@ -1122,8 +1166,8 @@ def _worst_param_diff(a, b):
     pa, pb = a.collect_params(), b.collect_params()
     ra = relative_names(list(pa.keys()), a.prefix)
     rb = relative_names(list(pb.keys()), b.prefix)
-    return max((float((pa[name].data().detach().cpu().double()
-                       - pb[rb[rel]].data().detach().cpu().double())
+    return max((float((pa[name].tensor().detach().cpu().double()
+                       - pb[rb[rel]].tensor().detach().cpu().double())
                       .abs().max()), rel) for rel, name in ra.items())
 
 
@@ -1140,7 +1184,7 @@ def phase_train_parity():
                    rng=np.random.RandomState(1))
     with torch.no_grad():
         net(torch.zeros(1, 3, 224, 224))
-    arrays = {n: p.data().detach().numpy().copy()
+    arrays = {n: p.tensor().detach().numpy().copy()
               for n, p in net.collect_params().items()}
     rng = np.random.RandomState(2)
     x = rng.rand(2, 3, 224, 224).astype(np.float32)
@@ -3360,7 +3404,7 @@ def _multi_precision_check():
         net.cast("bfloat16")
         opt = topt.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-4,
                           multi_precision=True)
-        params = [p.data() for p in net.collect_params().values()]
+        params = [p.tensor() for p in net.collect_params().values()]
         states = [opt.create_state_multi_precision(i, w)
                   for i, w in enumerate(params)]
         rng = np.random.RandomState(4)
@@ -3637,6 +3681,315 @@ def phase_benches():
     return lines
 
 
+# -- slice 16: the Gluon imperative training path ----------------------------
+def _hand_counters():
+    from mxnet_tpu_torch.ops import fused_optimizer, generated_kernels
+    from mxnet_tpu_torch.ops import pallas_kernels
+    return (fused_optimizer, pallas_kernels, generated_kernels)
+
+
+def _hand_launches():
+    """{counter: launches} of every B1-B10 wrapper that launched since the
+    last reset (empty when none did)."""
+    out = {}
+    for m in _hand_counters():
+        out.update({k: v for k, v in m.launch_counts().items() if v})
+    return out
+
+
+def _gluon_step(net, trainer, loss_fn, x, y, metrics=()):
+    """One step of the reference's loop; returns the per-sample losses."""
+    from mxnet_tpu_torch import autograd, nd
+    with autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    if metrics:
+        probs = nd.softmax(out)
+        for m in metrics:
+            m.update([y], [probs])
+    return loss
+
+
+def _gluon_net(arrays, device, dtype="float32"):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    net = from_jax_params(vision.resnet50_v1(), arrays, device=device)
+    net.cast(dtype)
+    return net
+
+
+def _gluon_train(arrays, device, x, y, dtype="float32", steps=2):
+    """``steps`` Gluon steps from ``arrays`` on ``device``: (net, trainer,
+    losses, the parameters after the first step)."""
+    from mxnet_tpu_torch import gluon, nd
+    net = _gluon_net(arrays, device, dtype)
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD),
+                       kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = nd.array(x, ctx=device, dtype=dtype)
+    ys = nd.array(y, ctx=device)
+    losses, first = [], None
+    for _ in range(steps):
+        losses.append(float(_gluon_step(net, tr, loss_fn, xs, ys).mean()
+                            .asscalar()))
+        if first is None:
+            first = _rel_params(net)
+    if not np.isfinite(losses).all():
+        raise RuntimeError("non-finite Gluon loss on %s: %r" % (device,
+                                                                losses))
+    return net, tr, losses, first
+
+
+def _rel_params(net):
+    """{name relative to the block prefix: a float64 host copy} of every
+    parameter and moving statistic."""
+    from mxnet_tpu_torch.gluon.utils import relative_names
+    ps = net.collect_params()
+    return {rel: ps[n].tensor().detach().cpu().double()
+            for rel, n in relative_names(list(ps.keys()), net.prefix).items()}
+
+
+def _worst_diff(a, b):
+    """(max |a - b| over the arrays of two ``_rel_params``, its name)."""
+    return max((float((a[rel] - b[rel]).abs().max()), rel) for rel in a)
+
+
+def _f32_ulp(v):
+    """One float32 ulp at |v|: 2^(exponent - 24), normals only."""
+    import torch
+    _, e = torch.frexp(v.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v), e - 24)
+
+
+def _worst_ulps(a, b, w0):
+    """(max over every element of two ``_rel_params`` one step from
+    ``w0`` of |a - b| in float32 ulps at max(|w0|, |a|), its name)."""
+    import torch
+    return max((float(((a[rel] - b[rel]).abs() / _f32_ulp(
+        torch.maximum(w0[rel].abs(), a[rel].abs()))).max()), rel)
+        for rel in a)
+
+
+def phase_gluon_train():
+    """Phase 21, the timed run: Gluon ResNet-50 through the imperative
+    loop at phase 5's batch."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import context, gluon, initializer, metric, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = context.gpu()
+    batch = RUNS["phase 5"]["batch"]
+    rng = np.random.RandomState(21)
+    while True:
+        net = tr = x = y = None
+        try:
+            net = vision.resnet50_v1()
+            net.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+            tr = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD),
+                               kvstore="device")
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            metrics = [metric.Accuracy(), metric.TopKAccuracy(5),
+                       metric.CrossEntropy()]
+            x = nd.array(rng.rand(batch, 3, 224, 224))
+            y = nd.array(rng.randint(0, 1000, batch))
+            if x.context.type != "cuda":
+                raise RuntimeError("nd.array made %s, not the card"
+                                   % x.context)
+            torch.cuda.reset_peak_memory_stats()
+            for m in _hand_counters():
+                m.reset_launch_counts()
+            losses, times = [], []
+            for _ in range(GLUON_WARMUP + TIMED):
+                t0 = time.perf_counter()
+                loss = _gluon_step(net, tr, loss_fn, x, y, metrics)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss.mean().asscalar()))
+            launched = _hand_launches()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+            del net, tr, x, y
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch //= 2
+            print("phase 21: out of memory, batch halved to %d" % batch)
+    peak = torch.cuda.max_memory_allocated()
+    devices = {p.data().context.type for p in net.collect_params().values()}
+    if devices != {"cuda"}:
+        raise RuntimeError("parameters on %s, not the card" % devices)
+    if launched:
+        raise RuntimeError("the Gluon steps launched hand kernels: %s"
+                           % launched)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("Gluon loss not finite or not falling: %r"
+                           % losses)
+    timed = np.asarray(times[GLUON_WARMUP:])
+    ips = batch * TIMED / (timed.sum() / 1e3)
+    print("phase 21: Gluon resnet50_v1 batch %d on %s, losses %s"
+          % (batch, ctx, ["%.4f" % v for v in losses]))
+    print("phase 21: %.1f images/s over %d timed steps (phase 5's "
+          "DataParallelTrainer: %.1f images/s, same call); step p50 %.2f "
+          "ms, p99 %.2f ms; warm-up steps %s ms; peak memory %.2f GiB"
+          % (ips, TIMED, RUNS["phase 5"]["images_s"],
+             np.percentile(timed, 50), np.percentile(timed, 99),
+             ["%.1f" % t for t in times[:GLUON_WARMUP]], peak / 2 ** 30))
+    print("phase 21: metrics %s" % [m.get() for m in metrics])
+    print("phase 21: B1-B10 launches during the Gluon steps: %s (none)"
+          % launched)
+    RUNS["phase 21"] = dict(batch=batch, images_s=ips,
+                            p50=np.percentile(timed, 50),
+                            p99=np.percentile(timed, 99),
+                            peak_gib=peak / 2 ** 30)
+    del net, tr, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _arrays_of(net):
+    return {n: p.tensor().detach().cpu().numpy().copy()
+            for n, p in net.collect_params().items()}
+
+
+def phase_gluon_parity():
+    """Phase 21, parity and checkpoints at batch 2 x 224^2."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), ctx="cpu",
+                   rng=np.random.RandomState(1))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224))
+    arrays = _arrays_of(net)
+    rng = np.random.RandomState(2)
+    x = rng.rand(2, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, 2)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # cuDNN's deterministic algorithms: the two routes of (b) then take
+    # the same gradients, and the checkpoints' reruns are bitwise
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    w0 = _rel_params(net)
+    try:
+        cpu64, _, l_cpu64, _ = _gluon_train(arrays, "cpu", x, y, "float64")
+        gpu64, _, l_gpu64, _ = _gluon_train(arrays, None, x, y, "float64")
+        _, _, l_cpu, cpu1 = _gluon_train(arrays, "cpu", x, y, steps=1)
+        gpu, gtr, l_gpu, gpu1 = _gluon_train(arrays, None, x, y)
+        # (b) one step of the fused route on the same weights and batch
+        dnet = _gluon_net(arrays, None)
+        dtr = DataParallelTrainer(dnet, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                  "sgd", dict(GLUON_SGD))
+        fo.reset_launch_counts()
+        l_dpt = float(dtr.step(x, y))
+        b1 = fo.launch_counts()["fused_sgd_momentum"]
+        d_64, at_64 = _worst_param_diff(cpu64, gpu64)
+        d_gpu, at_gpu = _worst_diff(cpu1, gpu1)
+        dpt1 = _rel_params(dnet)
+        d_route, at_route = _worst_diff(gpu1, dpt1)
+        u_route, uat_route = _worst_ulps(gpu1, dpt1, w0)
+        ckpt = _gluon_checkpoints(gpu, gtr, x, y, tempfile, autograd, gluon,
+                                  nd)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    dl_64 = max(abs(a - b) for a, b in zip(l_cpu64, l_gpu64))
+    first = abs(l_cpu[0] - l_gpu[0])
+    first_route = abs(l_gpu[0] - l_dpt)
+    print("phase 21: (a) f64 losses cpu %s, cuda %s; max |dloss| %.3g, "
+          "max |dparam| after 2 steps %.3g (%s) (tol %g)"
+          % (["%.9f" % v for v in l_cpu64], ["%.9f" % v for v in l_gpu64],
+             dl_64, d_64, at_64, GLUON_F64_TOL))
+    print("phase 21: (a) f32 TF32 off: losses cpu %s, cuda %s; first-step "
+          "loss %.3g (tol %g); after 1 step max |dparam| %.3g (%s), not held "
+          "(a max-pool or ReLU choice that f32 rounding flips moves a whole "
+          "gradient term)"
+          % (["%.6f" % v for v in l_cpu], ["%.6f" % v for v in l_gpu],
+             first, TRAIN_TOL, d_gpu, at_gpu))
+    print("phase 21: (b) Gluon %.6f vs DataParallelTrainer %.6f (B1 "
+          "launched %d times, %d bucket(s)); first-step loss %.3g (tol %g); "
+          "after 1 step max %.3g f32 ulps (%s) (tol %g), max |dparam| %.3g "
+          "(%s)"
+          % (l_gpu[0], l_dpt, b1, len(dtr._groups), first_route,
+             GLUON_ROUTE_LOSS_TOL, u_route, uat_route, GLUON_ROUTE_ULPS,
+             d_route, at_route))
+    print("phase 21: checkpoints: %s" % ckpt)
+    if dl_64 > GLUON_F64_TOL or d_64 > GLUON_F64_TOL:
+        raise RuntimeError("f64 Gluon card vs CPU: loss %.3g, params %.3g"
+                           % (dl_64, d_64))
+    if first > TRAIN_TOL:
+        raise RuntimeError("f32 Gluon card vs CPU: first loss %.3g" % first)
+    if b1 != len(dtr._groups):
+        raise RuntimeError("B1 launched %d times in the fused route" % b1)
+    if first_route > GLUON_ROUTE_LOSS_TOL or u_route > GLUON_ROUTE_ULPS:
+        raise RuntimeError("Gluon vs DataParallelTrainer: loss %.3g, params "
+                           "after 1 step %.3g ulps" % (first_route, u_route))
+
+
+def _gluon_checkpoints(net, tr, x, y, tempfile, autograd, gluon, nd):
+    """``save_parameters`` in both formats, reloaded on the card and
+    written on the CPU; ``save_states`` -> ``load_states``, one more step
+    each way (see the module docstring)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    xs, ys = nd.array(x), nd.array(y)
+    with autograd.predict_mode():
+        logits = net(xs).asnumpy()
+    cpu_net = _gluon_net(_arrays_of(net), "cpu")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("mxtpu", "mxnet"):
+            card, host = "%s/card.%s" % (d, fmt), "%s/cpu.%s" % (d, fmt)
+            net.save_parameters(card, format=fmt)
+            cpu_net.save_parameters(host, format=fmt)
+            with open(card, "rb") as a, open(host, "rb") as b:
+                same_bytes = a.read() == b.read()
+            fresh = vision.resnet50_v1()
+            fresh.load_parameters(card)
+            with autograd.predict_mode():
+                again = fresh(xs).asnumpy()
+            bitwise = np.array_equal(again, logits)
+            out[fmt] = dict(bytes_equal_cpu=same_bytes,
+                            logits_bitwise=bitwise)
+            if not (same_bytes and bitwise):
+                raise RuntimeError("checkpoint %s: %s" % (fmt, out[fmt]))
+        net.save_parameters(d + "/resume.params")
+        tr.save_states(d + "/resume.states")
+        resumed = vision.resnet50_v1()
+        resumed.load_parameters(d + "/resume.params")
+        rtr = gluon.Trainer(resumed.collect_params(), "sgd",
+                            dict(GLUON_SGD), kvstore="device")
+        rtr.load_states(d + "/resume.states")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    la = _gluon_step(net, tr, loss_fn, xs, ys).asnumpy()
+    lb = _gluon_step(resumed, rtr, loss_fn, xs, ys).asnumpy()
+    worst = max(float((a.tensor().detach() - b.tensor().detach()).abs()
+                      .max())
+                for a, b in zip(net.collect_params().values(),
+                                resumed.collect_params().values()))
+    out["resume"] = dict(loss_bitwise=bool(np.array_equal(la, lb)),
+                         max_abs_param_diff=worst)
+    if worst != 0.0 or not np.array_equal(la, lb):
+        raise RuntimeError("save_states -> load_states then a step is not "
+                           "bitwise the uninterrupted step: %s"
+                           % out["resume"])
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3699,6 +4052,8 @@ def main():
                 d: flash[name + "/" + d] for d in BF16_DESIGNS
                 if name + "/" + d in flash}
         phase_benches()
+        phase_gluon_train()
+        phase_gluon_parity()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

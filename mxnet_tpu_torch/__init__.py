@@ -23,5 +23,29 @@ serving of a Symbol/Module ResNet — ``ops.registry``, ``ndarray``,
 ``symbol``, ``executor``, ``module``, ``io``, ``ops.quantization``,
 ``contrib.quantization``, ``serving.quantize`` and
 ``serving.runner.ModelRunner``, the fused 1×1 convolutions running the
-``qmm_requant`` kernel.  ROADMAP.md lists the rest.
+``qmm_requant`` kernel; and the Gluon imperative training path —
+``ndarray`` arithmetic, ``autograd``, ``gluon.Trainer``, ``kvstore``
+('local' / 'device'), ``metric`` and ``serialization``, which runs the
+reference's per-parameter update and none of the hand kernels.
+ROADMAP.md lists the rest.
+
+The reference's top-level names load on first use: ``mx.nd``,
+``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
+``mx.optimizer``, ``mx.init`` (``initializer``), ``mx.cpu()`` and
+``mx.gpu()``.
 """
+import importlib
+
+_LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
+         "gluon": "gluon", "metric": "metric", "kvstore": "kvstore",
+         "optimizer": "optimizer", "init": "initializer",
+         "initializer": "initializer", "serialization": "serialization"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return importlib.import_module("." + _LAZY[name], __name__)
+    if name in ("cpu", "gpu", "current_context", "num_gpus"):
+        from . import context
+        return getattr(context, name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

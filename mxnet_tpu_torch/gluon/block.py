@@ -7,10 +7,27 @@ are the reference's up to the process-wide counter of the outermost
 block (``resnetv10_`` in one process may be ``resnetv13_`` in another).
 
 A block is an ``nn.Module``: children assigned as attributes or added
-with ``register_child`` are its submodules, and ``train()`` / ``eval()``
-set the mode that BatchNorm reads.  A new block is in inference mode, as
-a reference block called outside ``autograd.record(train_mode=True)``
-is; the trainer switches to training mode for its step.
+with ``register_child`` are its submodules.  A block runs on torch
+tensors or on NDArrays, and the two keep their own training flag:
+
+- Called on tensors (``parallel.DataParallelTrainer``, serving), a block
+  reads ``nn.Module``'s ``train()`` / ``eval()`` mode.  A new block is in
+  inference mode, as a reference block called outside
+  ``autograd.record(train_mode=True)`` is; the trainer switches to
+  training mode for its step.
+- Called on NDArrays (the reference's imperative loop), a
+  ``HybridBlock`` returns NDArrays.  It runs its tensor forward under
+  ``torch.set_grad_enabled(autograd.is_recording())`` — so it lands on
+  the tape only inside ``autograd.record()`` — and every block under it
+  reads ``autograd.is_training()`` as its training flag
+  (:meth:`Block._train_flag`), as the reference's forward passes it
+  (``mxnet_tpu/gluon/block.py:382,388``): BatchNorm's moving statistics
+  update exactly when that flag is on, under ``record(train_mode=False)``
+  and ``pause(train_mode=True)`` as elsewhere.
+
+``hybrid_forward(F, x, **params)`` gets ``F``, every registered op's
+torch function by name (``ops.registry.namespace()``), and the
+parameters' tensors.
 
 Parameters with a 0 in their shape are initialized at the first forward
 (``infer_param_shapes``).  ``hybridize()`` compiles nothing — PyTorch
@@ -38,12 +55,16 @@ import threading
 
 import torch
 
-from ..ops import nn as F
+from .. import autograd
+from ..ndarray import NDArray
+from ..ops import registry as _registry
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "compute_dtype"]
 
 _compute = threading.local()
+# the training flag of blocks called on NDArrays (None: nn.Module's mode)
+_nd_training = threading.local()
 
 
 @contextlib.contextmanager
@@ -61,7 +82,7 @@ def compute_dtype(dtype):
 
 def _for_compute(param, dtype):
     """The tensor ``hybrid_forward`` gets for ``param``."""
-    t = param.data()
+    t = param.tensor()
     if dtype is None or param.grad_req == "null" \
             or not t.is_floating_point() or t.dtype == dtype:
         return t
@@ -203,6 +224,56 @@ class Block(torch.nn.Module):
         for param in self._reg_params.values():
             param.cast(dtype)
 
+    def _train_flag(self):
+        """The training flag this block runs with: ``autograd.is_training()``
+        inside a call on NDArrays, else ``nn.Module``'s mode."""
+        flag = getattr(_nd_training, "value", None)
+        return self.training if flag is None else flag
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, format="mxtpu"):
+        """Every initialized parameter under its attribute path
+        (``features.0.weight``), in ``format`` ("mxtpu" or the reference's
+        "mxnet" dmlc stream) — the bytes the reference writes for the same
+        values."""
+        from ..serialization import save_ndarrays
+        params = self._collect_params_with_prefix()
+        save_ndarrays(filename, {k: v.tensor() for k, v in params.items()
+                                 if v._data is not None}, format=format)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load a file of :meth:`save_parameters` (either format); a
+        parameter not yet initialized is created on ``ctx`` (default: its
+        deferred-init device, else the CUDA device)."""
+        from ..serialization import load_ndarrays
+        loaded = load_ndarrays(filename, ctx="cpu")
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise IOError("missing parameter %r in %s"
+                                  % (name, filename))
+        for name, data in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise IOError("unknown parameter %r in %s"
+                                  % (name, filename))
+                continue
+            params[name].set_data(data, device=ctx)
+
+    def __call__(self, *args, **kwargs):
+        if any(isinstance(a, NDArray) for a in args):
+            return _call_on_ndarrays(self, args, kwargs)
+        return super().__call__(*args, **kwargs)
+
     def _apply(self, fn, *args, **kwargs):
         raise NotImplementedError(
             "a gluon block lives on the device it was initialized on: pass "
@@ -213,13 +284,35 @@ class Block(torch.nn.Module):
         raise NotImplementedError
 
 
+def _call_on_ndarrays(block, args, kwargs):
+    """Run ``block`` on NDArray inputs (module docstring): a
+    ``HybridBlock`` on their tensors, recorded only while recording and
+    with autograd's training flag; a plain ``Block``'s ``forward`` on the
+    NDArrays themselves."""
+    if not isinstance(block, HybridBlock):
+        return block.forward(*args, **kwargs)
+    raw = [a._data if isinstance(a, NDArray) else a for a in args]
+    kw = {k: v._data if isinstance(v, NDArray) else v
+          for k, v in kwargs.items()}
+    prev = getattr(_nd_training, "value", None)
+    _nd_training.value = autograd.is_training()
+    try:
+        with torch.set_grad_enabled(autograd.is_recording()):
+            out = torch.nn.Module.__call__(block, *raw, **kw)
+    finally:
+        _nd_training.value = prev
+    if isinstance(out, (list, tuple)):
+        return [NDArray(o) for o in out]
+    return NDArray(out)
+
+
 _active_depth = threading.local()
 
 
 class HybridBlock(Block):
     """Block whose ``hybrid_forward(F, x, **params)`` gets the operator
-    namespace ``F`` (``ops/nn.py``) and its parameters' tensors
-    (reference: gluon/block.py:669)."""
+    namespace ``F`` (``ops.registry.namespace()``) and its parameters'
+    tensors (reference: gluon/block.py:669)."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -250,14 +343,15 @@ class HybridBlock(Block):
             self._jit_keys.add((
                 tuple((tuple(a.shape), str(a.dtype)) for a in args
                       if isinstance(a, torch.Tensor)),
-                bool(self.training),
+                bool(self._train_flag()),
                 tuple(sorted(kwargs.items())) if kwargs else ()))
         _active_depth.value = depth + (1 if self._active else 0)
         try:
             cdt = getattr(_compute, "dtype", None)
             pkw = {name: _for_compute(p, cdt)
                    for name, p in self._reg_params.items()}
-            return self.hybrid_forward(F, *args, **pkw, **kwargs)
+            return self.hybrid_forward(_registry.namespace(), *args, **pkw,
+                                       **kwargs)
         finally:
             _active_depth.value = depth
 

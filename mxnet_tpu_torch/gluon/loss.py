@@ -1,20 +1,28 @@
-"""Gluon losses: the port of ``Loss`` and ``SoftmaxCrossEntropyLoss`` from
-``mxnet_tpu/gluon/loss.py``.  A loss returns one value per sample; the
-trainer takes the ``.mean()``.  The other losses of that module are
-ROADMAP.md queue A, item 1."""
+"""Gluon losses: the port of ``mxnet_tpu/gluon/loss.py`` (L2, L1,
+SigmoidBCE, SoftmaxCE, KLDiv, Huber, Hinge, SquaredHinge, Logistic,
+Triplet).  A loss returns one value per sample (the mean over every axis
+but ``batch_axis``); the trainer takes the ``.mean()``.  ``CTCLoss``
+raises: it belongs to ROADMAP.md queue A, item 10."""
 from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
 
-def _apply_weighting(loss, weight=None, sample_weight=None):
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
     if sample_weight is not None:
-        loss = loss * sample_weight
+        loss = F.broadcast_mul(loss, sample_weight)
     if weight is not None:
         loss = loss * weight
     return loss
+
+
+def _reshape_like(x, y):
+    return x.reshape(y.shape)
 
 
 class Loss(HybridBlock):
@@ -23,8 +31,57 @@ class Loss(HybridBlock):
         self._weight = weight
         self._batch_axis = batch_axis
 
+    def _per_sample(self, F, loss, sample_weight):
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class L2Loss(Loss):
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = F.square(pred - _reshape_like(label, pred))
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = F.abs(pred - _reshape_like(label, pred))
+        return self._per_sample(F, loss, sample_weight)
+
+
+def _softrelu_bce(F, pred, label):
+    """relu(x) - x*z + log(1 + exp(-|x|)): BCE with logits, stable."""
+    return F.relu(pred) - pred * label + F.Activation(
+        -F.abs(pred), act_type="softrelu")
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        if not self._from_sigmoid:
+            loss = _softrelu_bce(F, pred, label)
+        else:
+            eps = 1e-12
+            loss = -(F.log(pred + eps) * label
+                     + F.log(1.0 - pred + eps) * (1.0 - label))
+        return self._per_sample(F, loss, sample_weight)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -44,10 +101,93 @@ class SoftmaxCrossEntropyLoss(Loss):
         if self._sparse_label:
             loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
         else:
-            label = label.reshape(pred.shape)
-            loss = -(pred * label).sum(dim=self._axis, keepdim=True)
-        loss = _apply_weighting(loss, self._weight, sample_weight)
-        return F.mean(loss, axis=self._batch_axis, exclude=True)
+            label = _reshape_like(label, pred)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        return self._per_sample(F, loss, sample_weight)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        return self._per_sample(F, loss, sample_weight)
+
+
+class CTCLoss(Loss):
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        raise NotImplementedError(
+            "CTCLoss (the contrib ctc_loss op) is ROADMAP.md queue A, "
+            "item 10")
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = F.abs(pred - _reshape_like(label, pred))
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        return self._per_sample(F, loss, sample_weight)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = F.relu(self._margin - pred * _reshape_like(label, pred))
+        return self._per_sample(F, loss, sample_weight)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        loss = F.square(F.relu(self._margin
+                               - pred * _reshape_like(label, pred)))
+        return self._per_sample(F, loss, sample_weight)
+
+
+class LogisticLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        return self._per_sample(F, _softrelu_bce(F, pred, label),
+                                sample_weight)
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = _reshape_like(positive, pred)
+        negative = _reshape_like(negative, pred)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,15 +1,24 @@
-"""Gluon basic layers: the port of ``mxnet_tpu/gluon/nn/basic_layers.py``
-(``Sequential``, ``HybridSequential``, ``Dense``, ``Activation``,
-``BatchNorm``, ``Flatten``).  The other layers of that module are
-ROADMAP.md queue A, item 1."""
+"""Gluon basic layers: the port of ``mxnet_tpu/gluon/nn/basic_layers.py``.
+
+Layers that behave differently in training (``BatchNorm``, ``Dropout``)
+read :meth:`Block._train_flag`: ``autograd.is_training()`` when called on
+NDArrays, ``nn.Module``'s mode when called on tensors.  ``Dropout``
+draws its masks from the ``torch.Generator`` it is given (torch's
+default generator of the data's device when none is), so a run is
+repeatable from one seed; its masks are not the reference's (a JAX
+PRNG stream), only their law is.
+"""
 from __future__ import annotations
 
 import numpy as np
 
+from ... import ndarray as nd
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
-           "BatchNorm", "Flatten"]
+           "BatchNorm", "Flatten", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "Swish", "GELU", "Dropout", "InstanceNorm", "LayerNorm",
+           "Embedding", "Lambda", "HybridLambda", "HybridConcurrent"]
 
 
 class _SequentialMixin:
@@ -159,4 +168,189 @@ class BatchNorm(HybridBlock):
                            eps=self._epsilon, momentum=self._momentum,
                            fix_gamma=not self._scale,
                            use_global_stats=self._use_global_stats,
-                           axis=self._axis, _train=self.training)
+                           axis=self._axis, _train=self._train_flag())
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    def __init__(self, alpha_initializer="zeros", **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(1,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class GELU(HybridBlock):
+    """The tanh approximation, as the reference's ``jax.nn.gelu``."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
+
+
+class Dropout(HybridBlock):
+    """Inverted dropout of ``rate``, the mask shared along ``axes``, drawn
+    from ``generator`` (module docstring)."""
+
+    def __init__(self, rate, axes=(), generator=None, **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+        self._generator = generator
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes,
+                         _train=self._train_flag(),
+                         generator=self._generator)
+
+
+class _Norm(HybridBlock):
+    """gamma and beta of the size of the input's ``axis``."""
+
+    def __init__(self, axis, epsilon, beta_initializer, gamma_initializer,
+                 in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_param_shapes(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta):
+            if p._deferred_init:
+                p.shape = (c,)
+
+
+class InstanceNorm(_Norm):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class LayerNorm(_Norm):
+    """``ops.nn.LayerNorm``, as the reference's layer (its fused kernel B4
+    belongs to the TransformerLM)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        if sparse_grad:
+            raise NotImplementedError(
+                "Embedding(sparse_grad=True): sparse gradients are "
+                "ROADMAP.md queue A, item 10")
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
+
+class Lambda(Block):
+    """A function over NDArrays as a block: a callable, or the name of an
+    ``nd`` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_impl = getattr(nd, function)
+            self._func_name = function
+        else:
+            self._func_impl = function
+            self._func_name = function.__name__
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, x, *args)`` over tensors as a block, or the name of an
+    op of ``F``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+            self._func = lambda F, *args: getattr(F, function)(*args)
+        else:
+            self._func = function
+            self._func_name = function.__name__
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+
+class HybridConcurrent(HybridBlock):
+    """Children run on the same input, their outputs joined on ``axis``
+    (reference: gluon/contrib/nn/basic_layers.py)."""
+
+    def __init__(self, axis=1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def add(self, block):
+        self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[block(x) for block in self._children.values()],
+                        dim=self.axis)

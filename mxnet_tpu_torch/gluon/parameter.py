@@ -14,15 +14,24 @@ that owns the attribute (``_parameters`` or ``_buffers``), so
 ``parameters()`` and ``state_dict()`` see it.  The tensor's identity
 never changes afterwards: ``set_data`` copies in place, and the trainer
 moves the storage into its flat buckets with ``tensor.data = view``.
+
+``data()`` / ``grad()`` return NDArrays, as the reference's do: ``data()``
+one fixed NDArray over the tensor (writes through it copy in place; it
+is the autograd variable with this parameter's ``grad_req``), ``grad()``
+one over the tensor's ``.grad`` buffer (zeros until a backward writes
+it).  :meth:`Parameter.tensor` is the one accessor of the torch tensor
+itself, for the code that runs blocks on tensors (``parallel``,
+``serving``, ``HybridBlock`` on tensor inputs).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import initializer
+from .. import autograd, initializer
 from ..base import MXNetError, resolve_device
 from ..context import current_context
+from ..ndarray import NDArray
 from ..precision import torch_dtype as _torch_dtype
 
 __all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
@@ -55,6 +64,7 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self._data = None
+        self._nd = None
         self._deferred_init = ()
         self._owners = []
         self.name = name
@@ -69,6 +79,19 @@ class Parameter:
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,
                                                       self.dtype)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be write, add or null, not %r"
+                             % (req,))
+        self._grad_req = req
+        if self._nd is not None and self._data.requires_grad:
+            autograd._mark(self._nd, req)
 
     @property
     def shape(self):
@@ -133,6 +156,9 @@ class Parameter:
         if self.grad_req != "null":
             data = torch.nn.Parameter(data, requires_grad=True)
         self._data = data
+        self._nd = NDArray(data, fixed=True)
+        if self.grad_req != "null":
+            autograd._mark(self._nd, self.grad_req)
         self._deferred_init = ()
         for module, attr in self._owners:
             self._register(module, attr)
@@ -156,22 +182,46 @@ class Parameter:
             raise RuntimeError("parameter %s not initialized; call "
                                "initialize()" % self.name)
 
-    def data(self, ctx=None):
+    def tensor(self):
+        """The parameter's torch tensor (the one registered on its
+        module)."""
         self._check_init()
         return self._data
 
-    def grad(self, ctx=None):
+    def data(self, ctx=None):
+        """The parameter's value as an NDArray over its tensor."""
         self._check_init()
-        if self.grad_req == "null":
+        return self._nd
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self, ctx=None):
+        """The gradient buffer as an NDArray (allocated as zeros on first
+        use)."""
+        self._check_init()
+        if self.grad_req == "null" or not self._data.requires_grad:
             raise RuntimeError("parameter %s has grad_req=null" % self.name)
-        return self._data.grad
+        if self._data.grad is None:
+            self._data.grad = torch.zeros_like(self._data)
+        return NDArray(self._data.grad, fixed=True)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data.grad is not None:
+            with torch.no_grad():
+                self._data.grad.zero_()
 
     def set_data(self, data, device=None):
         """Write ``data`` (numpy or tensor) into the parameter in place; an
         uninitialized parameter adopts its shape, on ``device`` (default:
         its deferred-init device, else :func:`current_context`)."""
+        if isinstance(data, NDArray):
+            data = data._data
         if isinstance(data, torch.Tensor):
-            t = data.to(_torch_dtype(self.dtype))
+            t = data.detach().to(_torch_dtype(self.dtype))
         else:
             t = torch.from_numpy(np.array(data, dtype=_host_dtype(
                 self.dtype))).to(_torch_dtype(self.dtype))
@@ -267,3 +317,11 @@ class ParameterDict:
         init = init or initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit, rng=rng)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def setattr(self, name, value):
+        for v in self.values():
+            setattr(v, name, value)

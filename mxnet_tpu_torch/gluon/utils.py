@@ -1,4 +1,7 @@
-"""Carry a reference block's weights into the port's block.
+"""Gluon utilities: the port of ``mxnet_tpu/gluon/utils.py``
+(``split_data``, ``split_and_load``, ``clip_global_norm``,
+``check_sha1``; ``download`` raises, the port fetching nothing), and the
+carrying of a reference block's weights into the port's block.
 
 :func:`from_jax_params` takes ``{name: numpy array}`` as the reference's
 ``collect_params()`` gives it (every parameter's ``.data()._data`` turned
@@ -12,13 +15,72 @@ be ``resnetv13_`` in the process that built the reference), so
 """
 from __future__ import annotations
 
+import hashlib
+import math
 import re
+import warnings
 
 import numpy as np
 
+from .. import ndarray as nd
 from ..base import MXNetError, resolve_device
+from ..ndarray import NDArray
 
-__all__ = ["from_jax_params", "relative_names"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
+           "download", "from_jax_params", "relative_names"]
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """``data`` cut along ``batch_axis`` into ``num_slice`` slices, the last
+    taking the remainder when ``even_split`` is off."""
+    size = data.shape[batch_axis]
+    if even_split and size % num_slice != 0:
+        raise ValueError("batch size %d cannot be evenly split into %d "
+                         "slices" % (size, num_slice))
+    step = size // num_slice
+    return [data.slice_axis(batch_axis, i * step,
+                            (i + 1) * step if i < num_slice - 1 else size)
+            for i in range(num_slice)]
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """``data`` split into one slice per context and each slice placed on
+    its context."""
+    if not isinstance(data, NDArray):
+        data = nd.array(data, ctx=ctx_list[0])
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    slices = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+
+
+def clip_global_norm(arrays, max_norm):
+    """Scale ``arrays`` in place so their joint L2 norm is at most
+    ``max_norm``; returns the norm before scaling (a host float)."""
+    total = math.sqrt(sum(float(a.norm().asscalar()) ** 2 for a in arrays))
+    if not np.isfinite(total):
+        warnings.warn("nan or inf in gradient norm")
+    scale = max_norm / (total + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            a *= scale
+    return total
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether ``filename``'s SHA-1 is ``sha1_hash``."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(block)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, **kwargs):
+    """The port fetches nothing over the network: place the file locally
+    and open it by path."""
+    raise MXNetError("gluon.utils.download(%r): the port does not fetch "
+                     "files; place the file locally" % (url,))
 
 
 def _prefix_pattern(prefix):

@@ -1,12 +1,11 @@
 """The neural-network operators of the port, under the reference's operator
-names: the part of ``mxnet_tpu/ops/nn.py`` (and of its ``reduce`` /
-``indexing`` ops) that the ported paths run.
+names: the part of ``mxnet_tpu/ops/nn.py`` that the ported paths run.
 
-A ``HybridBlock`` of the port receives this module as ``F`` in
-``hybrid_forward``, as a block of the reference receives ``nd``; the
-symbolic executor reaches the same functions through the op registry
-(``ops/registry.py``).  The JAX package leaves these ops to XLA; here
-they are PyTorch calls (cuDNN / cuBLAS on the card).  Both layouts of the
+A ``HybridBlock`` of the port receives these functions (with every other
+registered op) as ``F`` in ``hybrid_forward``, as a block of the
+reference receives ``nd``; the symbolic executor and ``nd`` reach the
+same functions through the op registry (``ops/registry.py``).  The JAX
+package leaves these ops to XLA; here they are PyTorch calls (cuDNN / cuBLAS on the card).  Both layouts of the
 reference are taken: channels-first (``NCHW`` data, ``OIHW`` weights) and
 channels-last (``NHWC`` data, ``OHWI`` weights, ``BatchNorm(axis=3)``),
 the latter run as channels-first views of the same memory.
@@ -33,11 +32,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from ..precision import torch_dtype
 from .registry import register
 
 __all__ = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
-           "Activation", "Flatten", "SoftmaxOutput", "log_softmax", "pick",
-           "mean"]
+           "Activation", "Flatten", "SoftmaxOutput", "softmax",
+           "log_softmax", "softmin", "softmax_cross_entropy", "LayerNorm",
+           "InstanceNorm", "LeakyReLU", "Dropout"]
 
 _CHANNELS_LAST = ("NWC", "NHWC", "NDHWC")
 
@@ -253,27 +254,115 @@ def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
     return torch.softmax(data, dim=1 if multi_output else -1)
 
 
-def log_softmax(data, axis=-1):
-    return torch.log_softmax(data, dim=axis)
+def _softmax_io(data, dtype):
+    """Half-precision softmax accumulates in f32 and returns the input's
+    dtype unless ``dtype`` names another (reference: ops/nn.py
+    ``_softmax_io``)."""
+    out = torch_dtype(dtype) if dtype is not None else data.dtype
+    if data.dtype in (torch.float16, torch.bfloat16):
+        data = data.float()
+    return data, out
 
 
-def pick(data, index, axis=-1, keepdims=False):
-    """``data`` indexed along ``axis`` by ``index`` (one index per row)."""
+@register("softmax")
+def softmax(data, axis=-1, temperature=None, dtype=None):
+    data, out = _softmax_io(data, dtype)
+    x = data / temperature if temperature else data
+    return torch.softmax(x, dim=axis).to(out)
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None, dtype=None):
+    data, out = _softmax_io(data, dtype)
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis).to(out)
+
+
+@register("softmin")
+def softmin(data, axis=-1, temperature=None, dtype=None):
+    data, out = _softmax_io(data, dtype)
+    return torch.softmax(-data, dim=axis).to(out)
+
+
+@register("softmax_cross_entropy", arg_names=["data", "label"])
+def softmax_cross_entropy(data, label):
+    """The summed cross-entropy of integer labels (reference:
+    src/operator/loss_binary_op.cc)."""
+    lp = torch.log_softmax(data, dim=-1)
+    return -lp.gather(-1, label.long()[:, None]).sum()
+
+
+@register("LayerNorm", arg_names=["data", "gamma", "beta"])
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalized over ``axis`` in f32 (reference: ops/nn.py:393; the
+    fused kernel B4 is the TransformerLM's, not this op's)."""
     axis = axis % data.dim()
-    idx = index.to(device=data.device, dtype=torch.long).unsqueeze(axis)
-    out = torch.gather(data, axis, idx)
-    return out if keepdims else out.squeeze(axis)
+    x32 = data.float()
+    var, mean = torch.var_mean(x32, dim=axis, keepdim=True, unbiased=False)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
+    return out.to(data.dtype)
 
 
-def mean(data, axis=None, keepdims=False, exclude=False):
-    """Mean over ``axis`` (all axes when None); ``exclude=True`` reduces
-    over every axis except ``axis``."""
-    if axis is None:
-        return data.mean()
-    axes = (axis,) if isinstance(axis, int) else tuple(axis)
-    axes = tuple(a % data.dim() for a in axes)
-    if exclude:
-        axes = tuple(a for a in range(data.dim()) if a not in axes)
-    if not axes:
+@register("InstanceNorm", arg_names=["data", "gamma", "beta"])
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Normalized over the spatial axes per (N, C), in f32."""
+    red = tuple(range(2, data.dim()))
+    x32 = data.float()
+    var, mean = torch.var_mean(x32, dim=red, keepdim=True, unbiased=False)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    out = out * gamma.reshape(shape) + beta.reshape(shape)
+    return out.to(data.dtype)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", arg_names=["data", "gamma"], needs_train=True)
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, _train=False,
+              generator=None):
+    """leaky / prelu / elu / selu / gelu (the tanh form, as
+    ``jax.nn.gelu``'s default is) / rrelu, whose training slopes are
+    drawn from ``generator`` (reference: src/operator/leaky_relu.cc)."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() == 1 and g.dim() < data.dim():
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data > 0, data, _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return TF.gelu(data, approximate="tanh")
+    if act_type == "rrelu":
+        if _train:
+            u = torch.rand(data.shape, generator=generator,
+                           device=data.device, dtype=data.dtype)
+            s = lower_bound + (upper_bound - lower_bound) * u
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+@register("Dropout", needs_train=True)
+def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+            _train=False, generator=None):
+    """Inverted dropout: each kept element scaled by 1/(1-p), the mask
+    shared along ``axes`` and drawn from ``generator`` (torch's default
+    generator of the device when None); the identity outside training
+    unless ``mode="always"`` (reference: src/operator/nn/dropout.cc)."""
+    if (not _train and mode != "always") or p == 0:
         return data
-    return data.mean(dim=axes, keepdim=keepdims)
+    shape = [1 if i in axes else s for i, s in enumerate(data.shape)]
+    keep = torch.rand(shape, generator=generator, device=data.device) \
+        < 1.0 - p
+    return torch.where(keep, data / (1.0 - p), torch.zeros_like(data))

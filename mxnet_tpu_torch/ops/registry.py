@@ -22,7 +22,7 @@ import ast
 import inspect
 
 __all__ = ["Op", "register", "get", "list_ops", "canonicalize",
-           "canonicalize_kwargs", "load_all"]
+           "canonicalize_kwargs", "load_all", "namespace"]
 
 _OPS = {}
 
@@ -81,7 +81,7 @@ def get(name):
     except KeyError:
         raise KeyError("operator %r is not registered in the port (have %d "
                        "ops; the rest of the op set is ROADMAP.md queue A, "
-                       "item 1)" % (name, len(_OPS))) from None
+                       "item 1(b))" % (name, len(_OPS))) from None
 
 
 def list_ops():
@@ -110,7 +110,8 @@ def canonicalize_kwargs(kwargs):
 
 
 # the modules whose imports fill the table
-_OP_MODULES = ("nn", "elemwise", "matrix", "quantization", "pallas_kernels")
+_OP_MODULES = ("nn", "elemwise", "reduce", "matrix", "indexing",
+               "quantization", "pallas_kernels")
 
 
 def load_all():
@@ -119,3 +120,18 @@ def load_all():
     import importlib
     for m in _OP_MODULES:
         importlib.import_module("." + m, __package__)
+
+
+_NAMESPACE = []
+
+
+def namespace():
+    """Every registered op's torch function as an attribute, under each of
+    its names: the ``F`` a port ``HybridBlock`` receives in
+    ``hybrid_forward``, as a reference block receives ``nd``."""
+    if not _NAMESPACE:
+        import types
+        load_all()
+        ns = types.SimpleNamespace(**{n: op.fn for n, op in _OPS.items()})
+        _NAMESPACE.append(ns)
+    return _NAMESPACE[0]

@@ -9,6 +9,13 @@
 attributes.  The reference's other optimizers are not ported yet
 (ROADMAP.md queue A, item 1): :func:`create` names that item for them.
 
+:class:`Updater` (``get_updater``, ``:618-666``) applies an optimizer per
+index with lazily created states, as the Gluon ``Trainer`` and the
+kvstore run it; its ``get_states`` pickles ``{index: numpy array or
+tuple}`` as the reference's does, so a states file either package writes
+loads in the other (``dump_optimizer=True`` pickles the optimizer's
+class too, which only its own package can load).
+
 ``multi_precision=True`` (``:60-75``, ``:124-211``): a bfloat16 or
 float16 weight gets an f32 master copy in its state,
 ``(master, inner_state)``; ``update_multi_precision`` runs the update on
@@ -18,12 +25,16 @@ rounded, back into the weight.  For SGD that is the reference's
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .ops import optimizer_ops as ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "register", "create",
+           "get_updater"]
 
 _REG = {}
 
@@ -53,6 +64,15 @@ class Optimizer:
         self.idx2name = param_idx2name or {}
         self.param_dict = param_dict or {}
         self._extra = kwargs
+
+    def __getstate__(self):
+        """Pickled with each parameter of ``param_dict`` reduced to its
+        ``lr_mult`` / ``wd_mult`` (all the optimizer reads of it), so a
+        pickled optimizer carries no block or tensor."""
+        state = dict(self.__dict__)
+        state["param_dict"] = {i: _Mults(p.lr_mult, p.wd_mult)
+                               for i, p in self.param_dict.items()}
+        return state
 
     @staticmethod
     def register(klass):
@@ -135,6 +155,19 @@ class Optimizer:
         return -1.0 if self.clip_gradient is None else self.clip_gradient
 
 
+class _Mults:
+    __slots__ = ("lr_mult", "wd_mult")
+
+    def __init__(self, lr_mult, wd_mult):
+        self.lr_mult, self.wd_mult = lr_mult, wd_mult
+
+    def __getstate__(self):
+        return (self.lr_mult, self.wd_mult)
+
+    def __setstate__(self, state):
+        self.lr_mult, self.wd_mult = state
+
+
 def _is_low_precision(dtype):
     """Weights of these dtypes get f32 masters under multi_precision."""
     return dtype in (torch.float16, torch.bfloat16)
@@ -205,3 +238,80 @@ class Adam(Optimizer):
         _write(m, nm)
         _write(v, nv)
         _write(weight, nw)
+
+
+def _tensor(x):
+    return getattr(x, "_data", x)
+
+
+def _to_numpy(s):
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_to_numpy(x) for x in s)
+    t = s.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _to_tensor(s, like):
+    """A state loaded from numpy, on ``like``'s device; an f32 state of a
+    low-precision weight outside multi-precision is cast back to the
+    weight's dtype (bfloat16 states are pickled widened)."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return tuple(_to_tensor(x, like) for x in s)
+    if not isinstance(s, np.ndarray):
+        return s
+    return torch.from_numpy(np.array(s)).to(like.device)
+
+
+class Updater:
+    """Applies ``optimizer`` to (index, grad, weight), creating each
+    index's state on first use (reference: optimizer.py:618-666)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        grad, weight = _tensor(grad), _tensor(weight)
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced[index]:
+            state = _to_tensor(self.states[index], weight)
+            mp = self.optimizer.multi_precision \
+                and _is_low_precision(weight.dtype)
+            if not mp and _is_low_precision(weight.dtype):
+                state = _cast(state, weight.dtype)
+            self.states[index] = state
+            self.states_synced[index] = True
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        states = {k: _to_numpy(v) for k, v in self.states.items()}
+        if dump_optimizer:
+            return pickle.dumps((states, self.optimizer))
+        return pickle.dumps(states)
+
+    def set_states(self, states):
+        loaded = pickle.loads(states)
+        if isinstance(loaded, tuple) and len(loaded) == 2 \
+                and isinstance(loaded[1], Optimizer):
+            loaded, self.optimizer = loaded
+        self.states = dict(loaded)
+        self.states_synced = {k: False for k in self.states}
+
+
+def _cast(s, dtype):
+    if isinstance(s, tuple):
+        return tuple(_cast(x, dtype) for x in s)
+    return s if s is None else s.to(dtype)
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

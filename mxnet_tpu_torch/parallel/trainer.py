@@ -188,11 +188,11 @@ class DataParallelTrainer:
         self._aux_names = [n for n, p in params.items()
                            if p.grad_req == "null"]
         for n, p in params.items():
-            if p.data().device != dev:
+            if p.tensor().device != dev:
                 raise MXNetError(
                     "parameter %s lives on %s but the trainer runs on %s: "
-                    "initialize the block with ctx=%s" % (n, p.data().device,
-                                                          dev, dev))
+                    "initialize the block with ctx=%s"
+                    % (n, p.tensor().device, dev, dev))
 
         self._fused_on = _fused.supports(self._opt) is not None
         buckets, singles = {}, []
@@ -201,13 +201,14 @@ class DataParallelTrainer:
             if not self._fused_on:
                 singles.append([name])
                 continue
-            key = (float(p.lr_mult), float(p.wd_mult), str(p.data().dtype))
+            key = (float(p.lr_mult), float(p.wd_mult),
+                   str(p.tensor().dtype))
             buckets.setdefault(key, []).append(name)
         self._groups = list(buckets.values()) + singles
 
         self._w_flat, self._g_flat, self._states = [], [], []
         for gi, names in enumerate(self._groups):
-            wf, gf = self._make_bucket([self._params_by_name[n].data()
+            wf, gf = self._make_bucket([self._params_by_name[n].tensor()
                                         for n in names])
             self._w_flat.append(wf)
             self._g_flat.append(gf)

@@ -94,7 +94,7 @@ def _batch(tier):
 def _params(net, tr):
     if net is None:
         return list(tr.mesh_params().values())
-    return [p.data().detach().numpy().copy()
+    return [p.tensor().detach().numpy().copy()
             for p in net.collect_params().values()]
 
 
@@ -368,7 +368,7 @@ def test_runahead_bitwise_on_cuda():
             assert all(isinstance(e, torch.cuda.Event)
                        for e in tr._inflight)
         runs.append(([float(l) for l in losses],
-                     [p.data().cpu().numpy()
+                     [p.tensor().cpu().numpy()
                       for p in net.collect_params().values()]))
     assert runs[0][0] == runs[1][0]
     for a, b in zip(runs[0][1], runs[1][1]):

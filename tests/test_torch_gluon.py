@@ -71,9 +71,9 @@ def _both(jblock, tblock, x, train, seed=0):
     for rel in sorted(jrel):
         pj, pt = jp[jrel[rel]], tp[trel[rel]]
         if pj.grad_req == "null":
-            aux.append((pj.data().asnumpy(), pt.data().numpy()))
+            aux.append((pj.data().asnumpy(), pt.tensor().numpy()))
         else:
-            pairs.append((pj.grad().asnumpy(), pt.grad().numpy()))
+            pairs.append((pj.grad().asnumpy(), pt.grad().asnumpy()))
     return pairs, aux
 
 
@@ -235,7 +235,7 @@ def test_from_jax_params_raises_on_missing_extra_and_shape():
         from_jax_params(gluon.nn.Dense(3, in_units=5), arrays, device="cpu")
     # names match relative to the block prefix, whatever its counter
     td = from_jax_params(gluon.nn.Dense(3), arrays, device="cpu")
-    assert torch.equal(td.weight.data(),
+    assert torch.equal(td.weight.tensor(),
                        torch.from_numpy(np.array(arrays[wname])))
 
 

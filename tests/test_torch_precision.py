@@ -266,7 +266,7 @@ def _run_replicated(force_f32=False):
     rel = np.abs(np.asarray(losses) - want_losses) / np.abs(want_losses)
     if rel.max() > LOSS_RTOL:
         failures.append("losses %s: relative %.3g" % (losses, rel.max()))
-    got = {n: p.data().detach().numpy() for n, p in
+    got = {n: p.tensor().detach().numpy() for n, p in
            net.collect_params().items()}
     got = {r: got[n] for r, n in relative_names(list(got),
                                                 net.prefix).items()}
@@ -516,10 +516,10 @@ def test_parameter_cast_half_matches_reference(dtype):
     want_t = {"bfloat16": torch.bfloat16, "float16": torch.float16}[dtype]
     for (jn, jp), (n, p) in zip(jnet.collect_params().items(),
                                 net.collect_params().items()):
-        assert p.data().dtype == want_t
+        assert p.tensor().dtype == want_t
         assert str(p.dtype) == str(jp.dtype) == dtype
         np.testing.assert_array_equal(
-            p.data().float().detach().numpy(),
+            p.tensor().float().detach().numpy(),
             np.asarray(jp.data()._data.astype(jnp.float32)))
     # a forward in the cast dtype runs
     out = net(torch.ones(2, 7, dtype=want_t))

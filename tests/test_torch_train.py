@@ -119,13 +119,13 @@ def _port_run(config):
         loss = tr.step(x, y)
         assert loss.shape == () and loss.device.type == "cpu"
         losses.append(float(loss))
-        ptrs.append([tr._params_by_name[n].data().data_ptr()
+        ptrs.append([tr._params_by_name[n].tensor().data_ptr()
                      for n in tr._train_names])
     return net, tr, losses, ptrs
 
 
 def _assert_params(config, net, ref_final, ref_prefix):
-    got = {n: p.data().detach().numpy()
+    got = {n: p.tensor().detach().numpy()
            for n, p in net.collect_params().items()}
     mine = relative_names(list(got), net.prefix)
     theirs = relative_names(list(ref_final), ref_prefix)
@@ -154,7 +154,7 @@ def test_trainer_matches_reference_fused_trainer(config):
     base = tr._w_flat[0].data_ptr()
     end = base + 4 * tr._w_flat[0].numel()
     assert all(base <= p < end for p in ptrs[0])
-    grads = [tr._params_by_name[n].data().grad.data_ptr()
+    grads = [tr._params_by_name[n].tensor().grad.data_ptr()
              for n in tr._train_names]
     gbase = tr._g_flat[0].data_ptr()
     assert all(gbase <= p < gbase + 4 * tr._g_flat[0].numel()
@@ -227,8 +227,8 @@ def test_unfused_route_matches_fused_bucket():
     np.testing.assert_allclose(lu, lf, rtol=0, atol=TOL)
     for a, b in zip(fused.collect_params().values(),
                     unfused.collect_params().values()):
-        np.testing.assert_allclose(b.data().detach().numpy(),
-                                   a.data().detach().numpy(), rtol=0,
+        np.testing.assert_allclose(b.tensor().detach().numpy(),
+                                   a.tensor().detach().numpy(), rtol=0,
                                    atol=TOL)
 
 
@@ -242,10 +242,10 @@ def test_float64_block_trains_on_the_unfused_route():
     losses = [float(tr.step(x.astype(np.float64), y)) for x, y in _batches()]
     assert np.isfinite(losses).all()
     assert tr._w_flat[0].dtype == torch.float64
-    assert all(p.data().dtype == torch.float64
+    assert all(p.tensor().dtype == torch.float64
                for p in net.collect_params().values())
     assert F.launch_counts() == before
     # the half types are ported: the block casts in place
     net.cast("float16")
-    assert all(p.data().dtype == torch.float16
+    assert all(p.tensor().dtype == torch.float16
                for p in net.collect_params().values())
