@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-one phases; any failure exits non-zero and prints no result line.
+Twenty-three phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -333,6 +333,59 @@ Twenty-one phases; any failure exits non-zero and prints no result line.
     to one written on the CPU from the same values, and ``save_states``
     -> ``load_states`` into a fresh Trainer then one step is bitwise the
     uninterrupted step (cuDNN's deterministic algorithms).
+22. **Channels-last ResNet-50.** At phase 5's batch (halved on
+    out-of-memory): (a) phase 21's Gluon loop and recipe on
+    ``resnet50_v1(layout="NHWC")`` (OHWI weights, ``BatchNorm(axis=-1)``,
+    NHWC images) in float32, (b) the same net in bf16 (``net.cast(
+    "bfloat16")``, ``multi_precision=True``, the logits cast to float32
+    before the loss), each with images/s, step p50/p99 and peak memory
+    beside phase 21's NCHW numbers and no B1-B10 launch; (c)
+    ``DataParallelTrainer(dtype="bf16")`` on the NHWC net inside
+    ``engine.bulk(4)`` on phase 18's batch transposed: images/s, p50/p99
+    and peak memory beside phase 18's NCHW bf16 window, loss scale,
+    ``fused_sgd_momentum`` launched steps x buckets times (the kernels
+    line's ``launches_bf16_nhwc``).  ``--profile`` adds the device time
+    by category of (c) and of phase 18's NCHW recipe, side by side, with
+    cuDNN's layout transposes and torch's copy kernels as categories of
+    their own, each such kernel on its own line, and the idle share.
+    Parity from one set of carried weights at batch 2 x 224^2, TF32 off,
+    cuDNN deterministic: NHWC against NCHW on the card (weights moved
+    OIHW -> OHWI), float64 logits and one float64 step within
+    ``NHWC_F64_TOL``; in float32, predict-mode logits within
+    ``NHWC_F32_LOGIT_TOL`` of the largest, one step's loss within 1e-4
+    and every parameter and moving statistic after it within
+    ``NHWC_F32_STEP_TOL`` of the step's largest move (past ``STEP_ULPS``
+    ulps).  Torch runs float64 convolutions on cuDNN's NCHW kernels
+    whatever the input's layout (the phase prints the memory format it
+    returns per dtype), so the float32 checks are the ones that hold the
+    channels-last kernels.  NHWC card against NHWC CPU, two float64
+    steps within ``GLUON_F64_TOL``; an NHWC ``.params`` file written on the card, in
+    both formats, byte-identical to the CPU's and reloaded to bitwise
+    logits.
+23. **The vision model zoo.** Every name of ``vision.get_model`` (the
+    reference's 34) through ``tools/benchmark_score.score`` on the card
+    (1000 classes, Xavier drawn on the card from a seeded generator,
+    ``hybridize(static_alloc=True)``, 224^2, 299^2 for ``inceptionv3``,
+    ``ZOO_WARMUP`` + ``ZOO_ITERS`` forwards, cut from the tool's 5 + 20;
+    smoke readings, their spread not measured): images/s at batch 1 and
+    32.  ``resnet50_v1``'s whole 1-32 sweep in both layouts, timed
+    apart from those: at each batch size both nets built once, then
+    ``ZOO_SWEEP_ROUNDS`` rounds that alternate the layouts' order, each
+    timing ~``ZOO_SWEEP_S`` s of forwards; the median and range per
+    layout, and whether the ranges part.  Initialization of three large
+    nets drawn on the card from a ``torch.Generator`` against drawn on
+    the host from a ``numpy.random.RandomState`` and copied over (the
+    tool's draw against the reference's), each up to its first forward.
+    One net per family (``ZOO_FAMILIES``) trained two Gluon
+    SGD+momentum steps at batch 32: finite losses, no trainable
+    parameter with an all-zero gradient.  The same eight, He-initialized
+    (the signal reaches the head), card against CPU in float64 at batch
+    2 from carried parameters: logits within ``ZOO_F64_TOL`` of the
+    largest.  ``get_model(name, pretrained=True,
+    root=...)`` from a plain ``.params`` file and from a ``file://``
+    repo with a registered SHA-1: logits bitwise the saving net's.
+    Every B1-B10 counter stays at 0 over the phase, as the reference's
+    zoo reaches no ``pallas_call``.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -1011,11 +1064,19 @@ LM_PROFILE_CATEGORIES = (
 )
 
 
+def _category(kernel, categories):
+    """The first category whose fragments the kernel's name holds."""
+    name = kernel.lower()
+    return next((c for c, frags in categories
+                 if any(f in name for f in frags)), "other")
+
+
 def profile_train(trainer, x, y, steps=2, label="phase 5",
                   categories=PROFILE_CATEGORIES, split=None):
     """Device time by kernel category over ``steps`` training steps
     (``torch.profiler``), and the device's idle share of the window; the
-    kernels of category ``split`` each on a line of their own."""
+    kernels of category ``split`` (a name, or a tuple of names) each on a
+    line of their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1038,9 +1099,7 @@ def profile_train(trainer, x, y, steps=2, label="phase 5",
         return
     cats = {}
     for e in kernels:
-        name = e.key.lower()
-        cat = next((c for c, frags in categories
-                    if any(f in name for f in frags)), "other")
+        cat = _category(e.key, categories)
         cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
     print("%s profile: %d steps, wall %.2f ms, device busy %.2f ms, "
           "idle share %.4f" % (label, steps, wall_us / 1e3, busy / 1e3,
@@ -1048,12 +1107,12 @@ def profile_train(trainer, x, y, steps=2, label="phase 5",
     for cat, us in sorted(cats.items(), key=lambda kv: -kv[1]):
         print("%s profile: %-24s %9.3f ms per step (%.4f of busy)"
               % (label, cat, us / steps / 1e3, us / busy))
-    frags = dict(categories).get(split, ())
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        if any(f in e.key.lower() for f in frags):
-            print("%s profile: %s split: %9.3f ms per step x%-3d %s"
-                  % (label, split, e.self_device_time_total / steps / 1e3,
-                     e.count // steps, _short_kernel(e.key)))
+    for cat in ((split,) if isinstance(split, str) else split or ()):
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+            if _category(e.key, categories) == cat:
+                print("%s profile: %s split: %9.3f ms per step x%-3d %s"
+                      % (label, cat, e.self_device_time_total / steps / 1e3,
+                         e.count // steps, _short_kernel(e.key)))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print("%s profile: kernel %9.3f ms per step x%-5d %s"
               % (label, e.self_device_time_total / steps / 1e3,
@@ -2044,9 +2103,7 @@ def _profile_calls(label, fn, categories, per, steps=2, top=14):
     busy = sum(e.self_device_time_total for e in kernels)
     cats = {}
     for e in kernels:
-        name = e.key.lower()
-        cat = next((c for c, frags in categories
-                    if any(f in name for f in frags)), "other")
+        cat = _category(e.key, categories)
         cats[cat] = cats.get(cat, 0.0) + e.self_device_time_total
     print("%s: %d calls (one %s each), wall %.2f ms, device busy %.2f ms, "
           "idle share %.4f" % (label, steps, per, wall_us / 1e3, busy / 1e3,
@@ -3532,6 +3589,8 @@ def phase_train_bf16():
     if not losses32[-1] < losses32[0]:
         raise RuntimeError("f32 losses in the window %r" % losses32)
     f32 = RUNS["phase 5"]
+    RUNS["phase 18"] = dict(batch=x.shape[0], images_s=timing[0],
+                            p50=timing[1], p99=timing[2], peak_gib=timing[3])
     print("phase 18: %d timed steps each inside engine.bulk(4), flushed: "
           "bf16 %.1f images/s, step intervals p50 %.2f ms, p99 %.2f ms, "
           "peak memory %.2f GiB | f32 %.1f images/s, p50 %.2f ms, p99 %.2f "
@@ -3697,11 +3756,15 @@ def _hand_launches():
     return out
 
 
-def _gluon_step(net, trainer, loss_fn, x, y, metrics=()):
-    """One step of the reference's loop; returns the per-sample losses."""
+def _gluon_step(net, trainer, loss_fn, x, y, metrics=(), cast=False):
+    """One step of the reference's loop; returns the per-sample losses.
+    ``cast``: the logits of a half-precision net go to float32 before the
+    loss, as the reference's bf16 recipe does."""
     from mxnet_tpu_torch import autograd, nd
     with autograd.record():
         out = net(x)
+        if cast:
+            out = out.astype("float32")
         loss = loss_fn(out, y)
     loss.backward()
     trainer.step(x.shape[0])
@@ -3712,19 +3775,21 @@ def _gluon_step(net, trainer, loss_fn, x, y, metrics=()):
     return loss
 
 
-def _gluon_net(arrays, device, dtype="float32"):
+def _gluon_net(arrays, device, dtype="float32", layout="NCHW"):
     from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.gluon.utils import from_jax_params
-    net = from_jax_params(vision.resnet50_v1(), arrays, device=device)
+    net = from_jax_params(vision.resnet50_v1(layout=layout), arrays,
+                          device=device)
     net.cast(dtype)
     return net
 
 
-def _gluon_train(arrays, device, x, y, dtype="float32", steps=2):
+def _gluon_train(arrays, device, x, y, dtype="float32", steps=2,
+                 layout="NCHW"):
     """``steps`` Gluon steps from ``arrays`` on ``device``: (net, trainer,
     losses, the parameters after the first step)."""
     from mxnet_tpu_torch import gluon, nd
-    net = _gluon_net(arrays, device, dtype)
+    net = _gluon_net(arrays, device, dtype, layout)
     tr = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD),
                        kvstore="device")
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
@@ -3990,6 +4055,597 @@ def _gluon_checkpoints(net, tr, x, y, tempfile, autograd, gluon, nd):
     return out
 
 
+# -- slice 17: channels-last ResNet-50 and the vision model zoo --------------
+# layout transposes and copies first, so cuDNN's nchwToNhwc / nhwcToNchw
+# kernels are not counted as convolution
+LAYOUT_PROFILE_CATEGORIES = (
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("copies", ("copy",)),
+) + PROFILE_CATEGORIES
+NHWC_F64_TOL = 1e-8      # NHWC against NCHW on the card, float64, 1 step
+# NHWC against NCHW on the card in float32: predict-mode logits, as a share
+# of the largest; one step, each array as a share of the step's largest
+# move, past STEP_ULPS ulps of the value
+NHWC_F32_LOGIT_TOL = 1e-5
+NHWC_F32_STEP_TOL = 0.1
+STEP_ULPS = 2
+ZOO_F64_TOL = 1e-9       # the zoo's logits, card against CPU, float64
+ZOO_ITERS, ZOO_WARMUP = 5, 2     # benchmark_score's 20 / 5, cut for time
+ZOO_SWEEP_ROUNDS, ZOO_SWEEP_S = 5, 0.3    # the resnet50_v1 layout sweep
+ZOO_INIT_NAMES = ("vgg19_bn", "resnet152_v1", "densenet201")
+ZOO_TRAIN_BATCH = 32
+ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+ZOO_FAMILIES = ("resnet18_v2", "vgg11_bn", "alexnet", "squeezenet1.1",
+                "mobilenet1.0", "mobilenetv2_1.0", "densenet121",
+                "inceptionv3")
+
+
+def _gluon_timed(label, layout="NCHW", dtype="float32"):
+    """Phase 21's loop (Gluon ``resnet50_v1(layout=...)``, 1000 classes,
+    its SGD, the three metrics) at phase 5's batch (halved on
+    out-of-memory), in ``dtype`` (bf16: ``net.cast`` and
+    ``multi_precision=True``): GLUON_WARMUP + TIMED steps; the rates and
+    the B1-B10 launches in them."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import gluon, initializer, metric, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    batch = RUNS["phase 5"]["batch"]
+    rng = np.random.RandomState(21)
+    half = dtype != "float32"
+    while True:
+        net = tr = x = y = None
+        try:
+            net = vision.resnet50_v1(layout=layout)
+            net.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+            net.cast(dtype)
+            tr = gluon.Trainer(net.collect_params(), "sgd",
+                               dict(GLUON_SGD, multi_precision=half),
+                               kvstore="device")
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            metrics = [metric.Accuracy(), metric.TopKAccuracy(5),
+                       metric.CrossEntropy()]
+            shape = (batch, 3, 224, 224) if layout == "NCHW" \
+                else (batch, 224, 224, 3)
+            x = nd.array(rng.rand(*shape), dtype=dtype)
+            y = nd.array(rng.randint(0, 1000, batch))
+            torch.cuda.reset_peak_memory_stats()
+            for m in _hand_counters():
+                m.reset_launch_counts()
+            losses, times = [], []
+            for _ in range(GLUON_WARMUP + TIMED):
+                t0 = time.perf_counter()
+                loss = _gluon_step(net, tr, loss_fn, x, y, metrics,
+                                   cast=half)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss.mean().asscalar()))
+            launched = _hand_launches()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+            del net, tr, x, y
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch //= 2
+            print("%s: out of memory, batch halved to %d" % (label, batch))
+    peak = torch.cuda.max_memory_allocated()
+    if launched:
+        raise RuntimeError("%s launched hand kernels: %s" % (label, launched))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("%s: loss not finite or not falling: %r"
+                           % (label, losses))
+    w = net.collect_params()[net.prefix + "conv2d0_weight"].tensor()
+    if w.dim() != 4 or (layout == "NHWC" and w.shape[-1] != 3):
+        raise RuntimeError("%s: first conv weight %s" % (label,
+                                                         tuple(w.shape)))
+    timed = np.asarray(times[GLUON_WARMUP:])
+    out = dict(batch=batch, images_s=batch * TIMED / (timed.sum() / 1e3),
+               p50=np.percentile(timed, 50), p99=np.percentile(timed, 99),
+               peak_gib=peak / 2 ** 30, losses=losses)
+    print("%s: Gluon resnet50_v1 %s %s batch %d, losses %s" % (
+        label, layout, dtype, batch, ["%.4f" % v for v in losses]))
+    del net, tr, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _print_rates(label, what, got, beside, beside_name):
+    print("%s: %s %.1f images/s, step p50 %.2f ms, p99 %.2f ms, peak "
+          "memory %.2f GiB | %s in this call: %.1f images/s, p50 %.2f ms, "
+          "p99 %.2f ms, peak %.2f GiB | ratio %.4f"
+          % (label, what, got["images_s"], got["p50"], got["p99"],
+             got["peak_gib"], beside_name, beside["images_s"], beside["p50"],
+             beside["p99"], beside["peak_gib"],
+             got["images_s"] / beside["images_s"]))
+
+
+def phase_nhwc_train(profile=False):
+    """Phase 22, the timed runs: channels-last ResNet-50 through the Gluon
+    loop in float32 and bf16, and through ``DataParallelTrainer(dtype=
+    "bf16")`` inside ``engine.bulk(4)``; returns B1's launches there."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+
+    f32 = _gluon_timed("phase 22 (a)", "NHWC")
+    _print_rates("phase 22 (a)", "NHWC f32 Gluon", f32, RUNS["phase 21"],
+                 "phase 21 NCHW f32")
+    b16 = _gluon_timed("phase 22 (b)", "NHWC", "bfloat16")
+    _print_rates("phase 22 (b)", "NHWC bf16 Gluon", b16, f32,
+                 "(a) NHWC f32")
+    print("phase 22 (a)-(b): B1-B10 launches during the Gluon steps: none")
+
+    batch = RUNS["phase 18"]["batch"]
+    rng = np.random.RandomState(0)
+    xc = torch.from_numpy(rng.rand(batch, 3, 224, 224).astype(np.float32)
+                          ).cuda()
+    y = torch.from_numpy((rng.rand(batch) * 1000).astype(np.int64)).cuda()
+    x = xc.permute(0, 2, 3, 1).contiguous()
+    net = vision.resnet50_v1(layout="NHWC")
+    net.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+    tr = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(SGD_PARAMS), dtype="bf16")
+    fo.reset_launch_counts()
+    losses, timing = _window_run(tr, x, y)
+    counts = fo.launch_counts()
+    steps, n_buckets = WARMUP + TIMED, len(tr._groups)
+    if counts["fused_sgd_momentum"] != steps * n_buckets:
+        raise RuntimeError("fused_sgd_momentum launched %d times in the NHWC "
+                           "bf16 run, want %d"
+                           % (counts["fused_sgd_momentum"],
+                              steps * n_buckets))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("NHWC bf16 losses %r" % losses)
+    scale, good, skipped = tr.loss_scale_state()
+    got = dict(zip(("images_s", "p50", "p99", "peak_gib"), timing))
+    print("phase 22 (c): DataParallelTrainer(dtype='bf16') NHWC batch %d "
+          "inside engine.bulk(4); losses %s; loss scale %.1f, skipped %d; "
+          "fused_sgd_momentum launches %d (= %d steps x %d bucket)"
+          % (batch, ["%.4f" % v for v in losses], scale, skipped,
+             counts["fused_sgd_momentum"], steps, n_buckets))
+    _print_rates("phase 22 (c)", "NHWC bf16 DataParallelTrainer", got,
+                 RUNS["phase 18"], "phase 18 NCHW bf16")
+    RUNS["phase 22"] = dict(f32=f32, bf16=b16, dpt=got)
+    if profile:
+        profile_train(tr, x, y, label="phase 22 (c) NHWC bf16",
+                      categories=LAYOUT_PROFILE_CATEGORIES,
+                      split=("layout transposes", "copies"))
+        del tr, net
+        gc.collect()
+        net, t18 = _resnet50()
+        profile_train(t18, xc, y, label="phase 18 recipe NCHW bf16",
+                      categories=LAYOUT_PROFILE_CATEGORIES,
+                      split=("layout transposes", "copies"))
+        del t18
+    else:
+        del tr
+    del net, x, xc, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["fused_sgd_momentum"]
+
+
+def _predict(net, x, device, dtype="float64"):
+    """Predict-mode logits of ``net`` on ``x`` in ``dtype`` (numpy)."""
+    from mxnet_tpu_torch import autograd, nd
+    with autograd.predict_mode():
+        return net(nd.array(x, ctx=device, dtype=dtype)).asnumpy()
+
+
+def _conv_formats():
+    """{dtype: the memory format of a cuDNN convolution's output} for a
+    channels-last input and weight on the card, as the NHWC layers hand
+    them to ``F.conv2d``."""
+    import torch
+    import torch.nn.functional as TF
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(2, 64, 56, 56, device="cuda", generator=gen)
+    w = torch.randn(64, 64, 3, 3, device="cuda", generator=gen)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        y = TF.conv2d(x.to(dt).movedim(1, -1).contiguous().movedim(-1, 1),
+                      w.to(dt).movedim(1, -1).contiguous().movedim(-1, 1),
+                      padding=1)
+        out[str(dt).split(".")[1]] = (
+            "channels_last" if y.is_contiguous(
+                memory_format=torch.channels_last)
+            else "contiguous" if y.is_contiguous() else "strided")
+    return out
+
+
+def _moved(params):
+    """``_rel_params`` of an NHWC net with its 4-D arrays moved to OIHW."""
+    return {r: v.movedim(-1, 1) if v.dim() == 4 else v
+            for r, v in params.items()}
+
+
+def phase_nhwc_parity():
+    """Phase 22, parity and checkpoints at batch 2 x 224^2."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import autograd, initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), ctx="cpu",
+                   rng=np.random.RandomState(1))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224))
+    arrays = _arrays_of(net)
+    nhwc = {n: np.ascontiguousarray(np.moveaxis(a, 1, -1))
+            if a.ndim == 4 else a for n, a in arrays.items()}
+    rng = np.random.RandomState(2)
+    x = rng.rand(2, 3, 224, 224).astype(np.float32)
+    xl = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    y = rng.randint(0, 1000, 2)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # NHWC against NCHW on the card: float64 logits, one step
+        lg_l = _predict(_gluon_net(nhwc, None, "float64", "NHWC"), xl, None)
+        lg_c = _predict(_gluon_net(arrays, None, "float64"), x, None)
+        lf_l = _predict(_gluon_net(nhwc, None, "float32", "NHWC"), xl, None,
+                        "float32")
+        lf_c = _predict(_gluon_net(arrays, None, "float32"), x, None,
+                        "float32")
+        _, _, l64l, p64l = _gluon_train(nhwc, None, xl, y, "float64", 1,
+                                        "NHWC")
+        _, _, l64c, p64c = _gluon_train(arrays, None, x, y, "float64", 1)
+        _, _, l32l, p32l = _gluon_train(nhwc, None, xl, y, steps=1,
+                                        layout="NHWC")
+        _, _, l32c, p32c = _gluon_train(arrays, None, x, y, steps=1)
+        w0 = _rel_params(_gluon_net(arrays, "cpu"))
+        # NHWC card against NHWC CPU, float64, two steps
+        gpu64, gtr, lg64, _ = _gluon_train(nhwc, None, xl, y, "float64",
+                                           layout="NHWC")
+        cpu64, _, lc64, _ = _gluon_train(nhwc, "cpu", xl, y, "float64",
+                                         layout="NHWC")
+        ckpt = _nhwc_checkpoints(nhwc, xl, y, tempfile)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    d_logits = float(np.abs(lg_l - lg_c).max())
+    scale = float(np.abs(lg_c).max())
+    d_step64, at64 = _worst_diff(_moved(p64l), p64c)
+    d_lf = float(np.abs(lf_l - lf_c).max()) / float(np.abs(lf_c).max())
+    moved = max(float((p32c[r] - w0[r]).abs().max()) for r in p32c)
+    step32 = {r: float(((v - p32c[r]).abs() - STEP_ULPS * _f32_ulp(
+        p32c[r])).max()) / moved for r, v in _moved(p32l).items()}
+    d32, at32 = max((v, r) for r, v in step32.items())
+    # each layout's float32 step against the float64 one (the two layouts'
+    # float64 steps are bitwise equal): what float32 resolves per array
+    to64 = {lay: max((float((v - p64c[r]).abs().max()) / moved, r)
+                     for r, v in p.items())
+            for lay, p in (("NCHW", p32c), ("NHWC", _moved(p32l)))}
+    formats = _conv_formats()
+    dl64 = max(abs(a - b) for a, b in zip(lg64, lc64))
+    dp64, atp64 = _worst_param_diff(cpu64, gpu64)
+    print("phase 22: a cuDNN convolution of channels-last data returns %s "
+          "(float32 holds the channels-last kernels; float64 runs NCHW "
+          "kernels whatever the layout, so its NHWC checks hold the layers' "
+          "view and weight handling, not those kernels)" % formats)
+    print("phase 22: NHWC vs NCHW on the card, float64 logits max |diff| "
+          "%.3g (tol %g x %.3g); one float64 step: loss %.12f vs %.12f, max "
+          "|dparam| %.3g (%s) (tol %g)"
+          % (d_logits, NHWC_F64_TOL, scale, l64l[0], l64c[0], d_step64,
+             at64, NHWC_F64_TOL))
+    print("phase 22: NHWC vs NCHW on the card, float32 TF32 off: logits max "
+          "|diff| %.3g of the largest (tol %g); one step: loss %.7f vs %.7f "
+          "(tol %g); every array within %.3g of the step's largest move "
+          "(%.3g), past %d ulps, worst at %s (tol %g; %d of %d arrays past "
+          "1e-3); against the float64 step, NCHW float32 %.3g at %s, NHWC "
+          "float32 %.3g at %s" % (
+              d_lf, NHWC_F32_LOGIT_TOL, l32l[0], l32c[0], TRAIN_TOL, d32,
+              moved, STEP_ULPS, at32, NHWC_F32_STEP_TOL,
+              sum(v > 1e-3 for v in step32.values()), len(step32),
+              to64["NCHW"][0], to64["NCHW"][1], to64["NHWC"][0],
+              to64["NHWC"][1]))
+    print("phase 22: NHWC card vs NHWC CPU, float64, two steps: losses %s / "
+          "%s, max |dloss| %.3g, max |dparam| %.3g (%s) (tol %g)"
+          % (["%.9f" % v for v in lg64], ["%.9f" % v for v in lc64], dl64,
+             dp64, atp64, GLUON_F64_TOL))
+    print("phase 22: NHWC checkpoints: %s" % ckpt)
+    if d_logits > NHWC_F64_TOL * scale or d_step64 > NHWC_F64_TOL \
+            or abs(l64l[0] - l64c[0]) > NHWC_F64_TOL:
+        raise RuntimeError("NHWC vs NCHW float64: logits %.3g, params %.3g"
+                           % (d_logits, d_step64))
+    if formats["float32"] != "channels_last":
+        raise RuntimeError("float32 NHWC convolution not channels-last: %s"
+                           % formats)
+    if abs(l32l[0] - l32c[0]) > TRAIN_TOL or d_lf > NHWC_F32_LOGIT_TOL \
+            or d32 > NHWC_F32_STEP_TOL:
+        raise RuntimeError("NHWC vs NCHW float32: loss %.3g, logits %.3g, "
+                           "step %.3g at %s" % (abs(l32l[0] - l32c[0]), d_lf,
+                                                d32, at32))
+    if dl64 > GLUON_F64_TOL or dp64 > GLUON_F64_TOL:
+        raise RuntimeError("NHWC card vs CPU float64: loss %.3g, params %.3g"
+                           % (dl64, dp64))
+
+
+def _nhwc_checkpoints(nhwc, xl, y, tempfile):
+    """An NHWC net's ``.params`` written on the card, in both formats:
+    byte-identical to the CPU's file of the same values, and reloaded
+    into a fresh NHWC net on the card to bitwise logits."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    card = _gluon_net(nhwc, None, layout="NHWC")
+    host = _gluon_net(nhwc, "cpu", layout="NHWC")
+    xs = nd.array(xl)
+    with autograd.predict_mode():
+        logits = card(xs).asnumpy()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("mxtpu", "mxnet"):
+            a, b = "%s/card.%s" % (d, fmt), "%s/cpu.%s" % (d, fmt)
+            card.save_parameters(a, format=fmt)
+            host.save_parameters(b, format=fmt)
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same = fa.read() == fb.read()
+            fresh = vision.resnet50_v1(layout="NHWC")
+            fresh.load_parameters(a)
+            with autograd.predict_mode():
+                again = fresh(xs).asnumpy()
+            out[fmt] = dict(bytes_equal_cpu=same,
+                            logits_bitwise=bool(np.array_equal(again,
+                                                               logits)))
+            if not all(out[fmt].values()):
+                raise RuntimeError("NHWC checkpoint %s: %s" % (fmt,
+                                                               out[fmt]))
+    return out
+
+
+def _zoo_side(name):
+    return 299 if name == "inceptionv3" else 224
+
+
+def _zoo_net(name, seed, device=None, init=None, rng=None):
+    """``get_model(name)`` (1000 classes), ``init`` (Xavier) drawn from
+    ``rng`` (a seeded generator on ``device``), shapes resolved by one
+    predict-mode forward at batch 1."""
+    import torch
+    from mxnet_tpu_torch import autograd, initializer, nd
+    from mxnet_tpu_torch.base import resolve_device
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    dev = resolve_device(device)
+    net = vision.get_model(name)
+    net.initialize(init or initializer.Xavier(), ctx=dev,
+                   rng=rng or torch.Generator(device=dev).manual_seed(seed))
+    side = _zoo_side(name)
+    with autograd.predict_mode():
+        net(nd.zeros((1, 3, side, side), ctx=dev))
+    return net
+
+
+def _zoo_train(name):
+    """Two Gluon SGD+momentum steps at batch 32 on the card: (losses,
+    parameters with grad_req != null whose gradient is all zeros)."""
+    import torch
+    from mxnet_tpu_torch import gluon, nd
+    net = _zoo_net(name, 3)
+    side = _zoo_side(name)
+    rng = np.random.RandomState(23)
+    x = nd.array(rng.rand(ZOO_TRAIN_BATCH, 3, side, side))
+    y = nd.array(rng.randint(0, 1000, ZOO_TRAIN_BATCH))
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(ZOO_SGD),
+                       kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = [float(_gluon_step(net, tr, loss_fn, x, y).mean().asscalar())
+              for _ in range(2)]
+    zero = [n for n, p in net.collect_params().items()
+            if p.grad_req != "null"
+            and not bool((p.tensor().grad != 0).any())]
+    torch.cuda.synchronize()
+    return losses, zero
+
+
+def _zoo_pretrained(name):
+    """``get_model(name, pretrained=True, root=...)`` from a plain
+    ``{name}.params`` and from a ``file://`` repo with a registered SHA-1;
+    both give logits bitwise those of the net that wrote the file."""
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon.model_zoo import model_store, vision
+    net = _zoo_net(name, 4)
+    side = _zoo_side(name)
+    x = nd.array(np.random.RandomState(5).rand(2, 3, side, side))
+    with autograd.predict_mode():
+        want = net(x).asnumpy()
+    out = {}
+    old_repo = os.environ.get("MXNET_GLUON_REPO")
+    with tempfile.TemporaryDirectory() as d:
+        net.save_parameters(os.path.join(d, name + ".params"))
+        with open(os.path.join(d, name + ".params"), "rb") as f:
+            sha1 = hashlib.sha1(f.read()).hexdigest()
+        model_store.register_model_sha1(name, sha1)
+        try:
+            repo = os.path.join(d, "repo", "gluon", "models")
+            os.makedirs(repo)
+            fname = "%s-%s.params" % (name, model_store.short_hash(name))
+            shutil.copy(os.path.join(d, name + ".params"),
+                        os.path.join(repo, fname))
+            os.environ["MXNET_GLUON_REPO"] = "file://%s/repo/" % d
+            for how, root in (("plain file", d),
+                              ("file:// repo", os.path.join(d, "cache"))):
+                again = vision.get_model(name, pretrained=True, root=root)
+                with autograd.predict_mode():
+                    got = again(x).asnumpy()
+                out[how] = bool(np.array_equal(got, want))
+            out["cached copy"] = os.path.exists(os.path.join(d, "cache",
+                                                             fname))
+        finally:
+            model_store._model_sha1.pop(name, None)
+            if old_repo is None:
+                os.environ.pop("MXNET_GLUON_REPO", None)
+            else:
+                os.environ["MXNET_GLUON_REPO"] = old_repo
+    if not all(out.values()):
+        raise RuntimeError("pretrained %s: %s" % (name, out))
+    return out
+
+
+def _zoo_sweep(bs):
+    """resnet50_v1 through ``benchmark_score`` in both layouts at batch
+    1-32: {layout: {batch: [images/s per round]}}, printed with each
+    layout's median and range."""
+    import gc
+    import torch
+    out = {"NCHW": {}, "NHWC": {}}
+    for b in (1, 2, 4, 8, 16, 32):
+        nets = {lay: bs.setup("resnet50_v1", b, (3, 224, 224), layout=lay)
+                for lay in out}
+        iters = {}
+        for lay, (net, x) in nets.items():
+            once = b / bs.rate(net, x, iters=3, warmup=2)
+            iters[lay] = max(5, int(ZOO_SWEEP_S / once))
+            out[lay][b] = []
+        for r in range(ZOO_SWEEP_ROUNDS):
+            for lay in (("NCHW", "NHWC") if r % 2 == 0 else
+                        ("NHWC", "NCHW")):
+                out[lay][b].append(bs.rate(*nets[lay], iters=iters[lay],
+                                           warmup=1))
+        med = {lay: float(np.median(out[lay][b])) for lay in out}
+        apart = (min(out["NHWC"][b]) > max(out["NCHW"][b])
+                 or max(out["NHWC"][b]) < min(out["NCHW"][b]))
+        print("phase 23: benchmark_score resnet50_v1 batch %2d, %d rounds of "
+              "~%.2f s (%d / %d forwards): NCHW median %.1f [%.1f-%.1f], "
+              "NHWC median %.1f [%.1f-%.1f] images/s, NHWC/NCHW %.4f, ranges "
+              "%s" % (b, ZOO_SWEEP_ROUNDS, ZOO_SWEEP_S, iters["NCHW"],
+                      iters["NHWC"], med["NCHW"], min(out["NCHW"][b]),
+                      max(out["NCHW"][b]), med["NHWC"], min(out["NHWC"][b]),
+                      max(out["NHWC"][b]), med["NHWC"] / med["NCHW"],
+                      "apart" if apart else "overlap"))
+        del nets
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_init_seconds():
+    """{name: (parameters, s drawn on the card from a torch.Generator, s
+    drawn on the host from a RandomState)}, each through ``_zoo_net`` (the
+    init and the first forward that resolves the shapes), synchronized."""
+    import gc
+    import torch
+    out = {}
+    for name in ZOO_INIT_NAMES:
+        secs = []
+        for rng in (None, np.random.RandomState(0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net = _zoo_net(name, 0, rng=rng)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            count = sum(p.tensor().numel()
+                        for p in net.collect_params().values())
+            del net
+            gc.collect()
+        out[name] = (count, secs[0], secs[1])
+        print("phase 23: %s (%d parameters) initialized to its first "
+              "forward: %.3f s drawn on the card (torch.Generator), %.3f s "
+              "drawn on the host (RandomState) and copied"
+              % (name, count, secs[0], secs[1]))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo():
+    """Phase 23: every zoo name through ``benchmark_score.score`` on the
+    card, one net per family trained two steps, held against the CPU in
+    float64 and loaded through ``pretrained=True``; no B1-B10 launch."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    from mxnet_tpu_torch.tools import benchmark_score as bs
+
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    rates, drawn = {}, 0
+    for name in sorted(vision._MODELS):
+        side = _zoo_side(name)
+        rates[name] = []
+        for b in (1, 32):
+            net, x = bs.setup(name, b, (3, side, side))
+            rates[name].append(bs.rate(net, x, ZOO_ITERS, ZOO_WARMUP))
+            drawn += sum(p.tensor().numel()
+                         for p in net.collect_params().values())
+            del net, x
+        print("phase 23: benchmark_score %-17s %dx%d: batch 1 %9.1f "
+              "images/s, batch 32 %9.1f images/s"
+              % (name, side, side, rates[name][0], rates[name][1]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 23: %d names scored (%d timed forwards after %d warm-up "
+          "each, the tool's 20 / 5 cut for time; smoke readings, spread not "
+          "measured) in %.1f s, %d parameters initialized"
+          % (len(rates), ZOO_ITERS, ZOO_WARMUP, time.perf_counter() - t0,
+             drawn))
+    RUNS["phase 23 sweep"] = _zoo_sweep(bs)
+    RUNS["phase 23 init"] = _zoo_init_seconds()
+    for name in ZOO_FAMILIES:
+        losses, zero = _zoo_train(name)
+        print("phase 23: %s two Gluon steps at batch %d: losses %s, "
+              "parameters with an all-zero gradient: %s"
+              % (name, ZOO_TRAIN_BATCH, ["%.4f" % v for v in losses], zero))
+        if not np.isfinite(losses).all() or zero:
+            raise RuntimeError("%s training: losses %s, zero gradients %s"
+                               % (name, losses, zero))
+        gc.collect()
+        torch.cuda.empty_cache()
+    he = initializer.Xavier(rnd_type="gaussian", factor_type="in",
+                            magnitude=2)
+    for name in ZOO_FAMILIES:
+        net = _zoo_net(name, 6, init=he)
+        arrays = _arrays_of(net)
+        side = _zoo_side(name)
+        x = np.random.RandomState(7).rand(2, 3, side, side)
+        got = {}
+        for dev in (None, "cpu"):
+            n64 = from_jax_params(vision.get_model(name), arrays, device=dev
+                                  or "cuda")
+            n64.cast("float64")
+            got[dev] = _predict(n64, x, dev)
+        diff = float(np.abs(got[None] - got["cpu"]).max())
+        scale = float(np.abs(got["cpu"]).max())
+        print("phase 23: %s card vs CPU, float64 logits at batch 2: max "
+              "|diff| %.3g (tol %g x the largest |logit|, %.3g)"
+              % (name, diff, ZOO_F64_TOL, scale))
+        if not diff <= ZOO_F64_TOL * scale:
+            raise RuntimeError("%s card vs CPU float64 logits %.3g"
+                               % (name, diff))
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("squeezenet1.1", "resnet50_v2"):
+        print("phase 23: %s pretrained=True, logits bitwise the saving "
+              "net's: %s" % (name, _zoo_pretrained(name)))
+    launched = _hand_launches()
+    print("phase 23: B1-B10 launches over the phase: %s (none)" % launched)
+    if launched:
+        raise RuntimeError("the zoo launched hand kernels: %s" % launched)
+    RUNS["phase 23"] = rates
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4054,6 +4710,12 @@ def main():
         phase_benches()
         phase_gluon_train()
         phase_gluon_parity()
+        launches = phase_nhwc_train(profile="--profile" in sys.argv)
+        for k in opt_kernels:
+            if k["name"] == "fused_sgd_momentum":
+                k["launches_bf16_nhwc"] = launches
+        phase_nhwc_parity()
+        phase_zoo()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,21 +1,30 @@
-"""ResNet v1: the port of ``ResNetV1``, ``BasicBlockV1``, ``BottleneckV1``
-and ``resnet18/34/50_v1`` from
-``mxnet_tpu/gluon/model_zoo/vision/resnet.py``.
+"""ResNet v1 and v2: the port of
+``mxnet_tpu/gluon/model_zoo/vision/resnet.py`` (``BasicBlockV1/V2``,
+``BottleneckV1/V2``, ``ResNetV1/V2``, depths 18/34/50/101/152,
+``thumbnail``, ``layout``, ``pretrained``).
 
 The structure, and with it every module and parameter name, is the
 reference's — including what differs from torchvision's ResNet: the
 first conv and the two 1×1 convs of every ``BottleneckV1`` body have
 ``in_channels=0`` (initialized at the first forward) and those 1×1 body
 convs carry a bias (``Conv2D`` defaults to ``use_bias=True``).
-ResNet v2 and the deeper depths are ROADMAP.md queue A, item 1.
+``layout="NHWC"`` runs every block channels-last (``(O, kh, kw, I)``
+weights, ``BatchNorm(axis=-1)``).  ``pretrained=True`` loads
+``model_store.get_model_file`` onto ``ctx`` (default: the CUDA device
+unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
 
-__all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
-           "resnet34_v1", "resnet50_v1", "get_resnet"]
+__all__ = [
+    "ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
+    "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
+    "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
+    "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
+    "get_resnet",
+]
 
 
 def _conv3x3(channels, stride, in_channels, layout="NCHW"):
@@ -92,6 +101,71 @@ class BottleneckV1(HybridBlock):
         return F.Activation(x + residual, act_type="relu")
 
 
+class BasicBlockV2(HybridBlock):
+    r"""BasicBlock from ResNet v2 (pre-activation)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = _bn(layout)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = _bn(layout)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels, layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    r"""Bottleneck from ResNet v2 (pre-activation)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        self.bn1 = _bn(layout)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.bn2 = _bn(layout)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout)
+        self.bn3 = _bn(layout)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels, layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv3(x)
+        return x + residual
+
+
 class ResNetV1(HybridBlock):
     r"""ResNet v1 model (reference vision/resnet.py ResNetV1)."""
 
@@ -136,31 +210,86 @@ class ResNetV1(HybridBlock):
         return x
 
 
+class ResNetV2(HybridBlock):
+    r"""ResNet v2 model (pre-activation)."""
+
+    def __init__(self, block, layers, channels, classes=1000, thumbnail=False,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(_bn(layout, scale=False, center=False))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(_bn(layout))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels))
+                in_channels = channels[i + 1]
+            self.features.add(_bn(layout))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels=0):
+        layer = nn.HybridSequential(prefix="stage%d_" % stage_index)
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, layout=self._layout,
+                            prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                layout=self._layout, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
 # depth -> (block-kind, per-stage layer counts, per-stage channels)
 resnet_spec = {
     18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
     34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
     50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
 }
-resnet_block_versions = {"basic_block": BasicBlockV1,
-                         "bottle_neck": BottleneckV1}
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
 
 
-def get_resnet(version, num_layers, pretrained=False, **kwargs):
-    if version != 1:
-        raise NotImplementedError("ResNet v%d is not ported yet (ROADMAP.md "
-                                  "queue A, item 1)" % version)
-    if num_layers not in resnet_spec:
-        raise NotImplementedError(
-            "resnet%d_v1 is not ported yet (ROADMAP.md queue A, item 1); "
-            "ported depths: %s" % (num_layers, sorted(resnet_spec)))
-    if pretrained:
-        raise NotImplementedError("pretrained weights: the port has no "
-                                  "model store; carry weights over with "
-                                  "gluon.utils.from_jax_params")
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    assert num_layers in resnet_spec, \
+        "Invalid number of layers: %d. Options are %s" % (
+            num_layers, str(list(resnet_spec.keys())))
     block_type, layers, channels = resnet_spec[num_layers]
-    return ResNetV1(resnet_block_versions[block_type], layers, channels,
-                    **kwargs)
+    assert 1 <= version <= 2, "Invalid resnet version: %d." % version
+    resnet_class = resnet_net_versions[version - 1]
+    block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_parameters(get_model_file(
+            "resnet%d_v%d" % (num_layers, version), root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):
@@ -173,3 +302,31 @@ def resnet34_v1(**kwargs):
 
 def resnet50_v1(**kwargs):
     return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

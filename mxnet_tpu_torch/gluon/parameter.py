@@ -7,7 +7,8 @@ a plain tensor for auxiliary state (BatchNorm moving statistics).  Shapes
 with a 0 stay unknown until the first forward infers them (deferred
 initialization).  Initial values are drawn on the host from the
 ``numpy.random.RandomState`` passed as ``rng`` (``initializer.py``) and
-copied to the device, so a draw does not depend on the device.
+copied to the device, so a draw does not depend on the device; or, from
+a ``torch.Generator``, on that generator's device.
 
 Once initialized, the tensor is also registered on the ``nn.Module``
 that owns the attribute (``_parameters`` or ``_buffers``), so
@@ -141,11 +142,16 @@ class Parameter:
         self._finish_init(init, device, default_init, rng)
 
     def _finish_init(self, init, device, default_init, rng):
-        arr = np.empty(self._shape, dtype=_host_dtype(self.dtype))
+        if isinstance(rng, torch.Generator):
+            arr = torch.empty(self._shape, device=rng.device,
+                              dtype=_torch_dtype(_host_dtype(self.dtype)))
+        else:
+            arr = np.empty(self._shape, dtype=_host_dtype(self.dtype))
         chosen = init or self.init or default_init
         initializer.create(chosen)(initializer.InitDesc(self.name), arr, rng)
-        self._init_impl(torch.from_numpy(arr).to(
-            device=device, dtype=_torch_dtype(self.dtype)))
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(arr)
+        self._init_impl(arr.to(device=device, dtype=_torch_dtype(self.dtype)))
 
     def _init_impl(self, data):
         if self._data is not None:

@@ -1,7 +1,8 @@
 """Gluon utilities: the port of ``mxnet_tpu/gluon/utils.py``
 (``split_data``, ``split_and_load``, ``clip_global_norm``,
-``check_sha1``; ``download`` raises, the port fetching nothing), and the
-carrying of a reference block's weights into the port's block.
+``check_sha1``, ``get_repo_url``, and ``download`` of ``file://`` URLs —
+the port fetches nothing over a network, so ``http(s)://`` raises), and
+the carrying of a reference block's weights into the port's block.
 
 :func:`from_jax_params` takes ``{name: numpy array}`` as the reference's
 ``collect_params()`` gives it (every parameter's ``.data()._data`` turned
@@ -17,7 +18,12 @@ from __future__ import annotations
 
 import hashlib
 import math
+import os
 import re
+import shutil
+import tempfile
+import urllib.parse
+import urllib.request
 import warnings
 
 import numpy as np
@@ -27,7 +33,7 @@ from ..base import MXNetError, resolve_device
 from ..ndarray import NDArray
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "download", "from_jax_params", "relative_names"]
+           "get_repo_url", "download", "from_jax_params", "relative_names"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -76,11 +82,60 @@ def check_sha1(filename, sha1_hash):
     return sha1.hexdigest() == sha1_hash
 
 
-def download(url, path=None, overwrite=False, sha1_hash=None, **kwargs):
-    """The port fetches nothing over the network: place the file locally
-    and open it by path."""
-    raise MXNetError("gluon.utils.download(%r): the port does not fetch "
-                     "files; place the file locally" % (url,))
+def get_repo_url():
+    """The repo of hosted files, ``$MXNET_GLUON_REPO`` if set, with a
+    trailing slash (reference: ``gluon/utils.py`` ``get_repo_url``)."""
+    repo = os.environ.get(
+        "MXNET_GLUON_REPO",
+        "https://apache-mxnet.s3-accelerate.dualstack.amazonaws.com/")
+    return repo if repo.endswith("/") else repo + "/"
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             **kwargs):
+    """Copy the ``file://`` ``url`` to ``path`` (a file, a directory, or
+    the URL's last part here), unless a file already there passes
+    ``sha1_hash``; returns the file's name.  The copy goes through a
+    temporary file in the target's directory, so a failed one leaves
+    nothing behind, and is tried ``retries + 1`` times; a copy that fails
+    its SHA-1 check, or a missing source, raises ``IOError`` after the
+    last (reference: ``mxnet_tpu/gluon/utils.py:82-89``).  Any other
+    scheme raises :class:`MXNetError` before anything is tried: the port
+    fetches nothing over a network."""
+    parts = urllib.parse.urlsplit(url)
+    if parts.scheme != "file" or parts.netloc not in ("", "localhost"):
+        raise MXNetError("gluon.utils.download(%r): the port fetches only "
+                         "file:// URLs of this host; place the file "
+                         "locally" % (url,))
+    source = urllib.request.url2pathname(parts.path)
+    if path is None:
+        fname = url.split("/")[-1]
+    elif os.path.isdir(path):
+        fname = os.path.join(path, url.split("/")[-1])
+    else:
+        fname = path
+    if os.path.exists(fname) and not overwrite and (
+            not sha1_hash or check_sha1(fname, sha1_hash)):
+        return fname
+    dirname = os.path.dirname(os.path.abspath(os.path.expanduser(fname)))
+    os.makedirs(dirname, exist_ok=True)
+    for attempt in range(retries + 1):
+        try:
+            fd, tmp = tempfile.mkstemp(dir=dirname)
+            try:
+                with os.fdopen(fd, "wb") as out, open(source, "rb") as src:
+                    shutil.copyfileobj(src, out)
+                shutil.move(tmp, fname)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            if sha1_hash and not check_sha1(fname, sha1_hash):
+                raise IOError("downloaded file %r sha1 mismatch: expected "
+                              "%s" % (fname, sha1_hash))
+            return fname
+        except Exception as e:
+            if attempt == retries:
+                raise IOError("failed to download %r: %s" % (url, e)) from e
 
 
 def _prefix_pattern(prefix):

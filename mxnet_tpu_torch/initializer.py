@@ -4,23 +4,29 @@ The same registry and name rules (``:40-66``): a parameter named
 ``*weight`` gets the chosen init, ``*bias`` / ``*beta`` /
 ``running_mean`` zeros, ``*gamma`` / ``running_var`` ones.
 
-An initializer fills a host numpy ``float32`` array; the parameter then
-copies it to its device.  The reference draws from numpy's global RNG;
-the port draws the same formulas from the ``numpy.random.RandomState``
-its caller passes (``rng=``), never from a global generator, so one shape
-and one seed give a draw bitwise equal to the reference's after
-``np.random.seed`` of the same seed.
+An initializer fills a float32 array in place.  The reference draws
+from numpy's global RNG; the port draws the same formulas from the
+generator its caller passes (``rng=``), never from a global one:
+
+- a ``numpy.random.RandomState``: a host numpy array, which the
+  parameter then copies to its device; one shape and one seed give a
+  draw bitwise equal to the reference's after ``np.random.seed`` of the
+  same seed;
+- a ``torch.Generator``: a tensor on the generator's device, drawn there
+  (:class:`TorchDraws`), so a large model is initialized on the card
+  without a pass through the host.
 """
 from __future__ import annotations
 
 import json
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier", "TorchDraws"]
 
 _REG = {}
 
@@ -34,10 +40,29 @@ class InitDesc(str):
         return ret
 
 
+class TorchDraws:
+    """A ``torch.Generator`` behind the two draws of ``RandomState`` the
+    initializers make: float32 tensors on the generator's device."""
+
+    def __init__(self, generator):
+        self.generator = generator
+
+    def uniform(self, low, high, shape):
+        return torch.empty(shape, device=self.generator.device).uniform_(
+            float(low), float(high), generator=self.generator)
+
+    def normal(self, loc, scale, shape):
+        return torch.empty(shape, device=self.generator.device).normal_(
+            float(loc), float(scale), generator=self.generator)
+
+
 def _need_rng(rng, who):
     if rng is None:
         raise MXNetError("%s draws random numbers: pass rng="
-                         "numpy.random.RandomState(seed)" % who)
+                         "numpy.random.RandomState(seed) or a "
+                         "torch.Generator" % who)
+    if isinstance(rng, torch.Generator):
+        return TorchDraws(rng)
     return rng
 
 
@@ -46,7 +71,9 @@ class Initializer:
         self._kwargs = kwargs
 
     def __call__(self, desc, arr, rng=None):
-        """Fill the numpy array ``arr`` in place by the name rules."""
+        """Fill ``arr`` in place by the name rules: a numpy array from a
+        ``RandomState``, a tensor on its device from a
+        ``torch.Generator``."""
         if not isinstance(desc, InitDesc):
             desc = InitDesc(desc)
         init = desc.attrs.get("__init__", "")

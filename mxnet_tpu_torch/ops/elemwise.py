@@ -149,11 +149,20 @@ def cast(data, dtype="float32"):
     return data.to(torch_dtype(dtype))
 
 
+def _clip(data, lo, hi):
+    """``min(max(data, lo), hi)`` whose gradient at ``data == lo`` or
+    ``hi`` is 0.5, as ``jnp.clip``'s is (torch's ``maximum`` / ``minimum``
+    split a tie's gradient; ``clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(data, data.new_tensor(lo)),
+                         data.new_tensor(hi))
+
+
 @register("clip")
 def clip(data, a_min=0.0, a_max=1.0):
     """Clamp into [a_min, a_max] (reference: src/operator/tensor/
-    matrix_op.cc clip)."""
-    return torch.clamp(data, a_min, a_max)
+    matrix_op.cc clip; the gradient at the bounds is the reference's,
+    ``_clip``)."""
+    return _clip(data, a_min, a_max)
 
 
 @register("add_n", arg_names=["args"], aliases=("ElementWiseSum", "_sum"))
@@ -169,4 +178,4 @@ def add_n(*args):
 def hard_sigmoid(data, alpha=0.2, beta=0.5):
     """clip(alpha*x + beta, 0, 1) (reference: src/operator/tensor/
     elemwise_unary_op_basic.cc:109)."""
-    return torch.clamp(data * alpha + beta, 0, 1)
+    return _clip(data * alpha + beta, 0, 1)

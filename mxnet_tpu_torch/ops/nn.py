@@ -35,8 +35,8 @@ import torch.nn.functional as TF
 from ..precision import torch_dtype
 from .registry import register
 
-__all__ = ["FullyConnected", "Convolution", "Pooling", "BatchNorm",
-           "Activation", "Flatten", "SoftmaxOutput", "softmax",
+__all__ = ["FullyConnected", "Convolution", "Deconvolution", "Pooling",
+           "BatchNorm", "Activation", "Flatten", "SoftmaxOutput", "softmax",
            "log_softmax", "softmin", "softmax_cross_entropy", "LayerNorm",
            "InstanceNorm", "LeakyReLU", "Dropout"]
 
@@ -88,6 +88,50 @@ def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 stride=_tup(stride, nsp),
                 padding=_tup(pad, nsp) if pad else (0,) * nsp,
                 dilation=_tup(dilate, nsp), groups=int(num_group))
+
+
+def _deconv_optional(params):
+    """The symbolic front end makes no bias input unless ``no_bias`` is
+    False (the reference's default is True)."""
+    return ("bias",) if params.get("no_bias", True) else ()
+
+
+@register("Deconvolution", arg_names=["data", "weight", "bias"],
+          optional_args=_deconv_optional)
+def Deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0, num_group=1,
+                  workspace=512, no_bias=True, cudnn_tune=None,
+                  cudnn_off=False, layout=None):
+    """Transposed convolution with ``(C_in, C_out/group, *kernel)`` weights
+    in every layout (the channels-last layouts change the data's only,
+    ``mxnet_tpu/ops/nn.py:128-131``).  The output is the reference's
+    input-dilated convolution: ``(n - 1) * stride + (k - 1) * dilate + 1
+    - 2 * pad + adj`` per spatial dim, taken from torch's unpadded
+    transposed convolution by cropping ``pad`` on the low side and
+    ``pad - adj`` on the high side (zeros where that is negative), so any
+    ``adj`` works, not only ``adj < stride``.  ``target_shape`` is taken
+    and ignored, as the reference's is."""
+    nsp = len(kernel)
+    if layout in _CHANNELS_LAST:
+        return _last(Deconvolution(
+            _first(data), weight, bias, kernel=kernel, stride=stride,
+            dilate=dilate, pad=pad, adj=adj, num_filter=num_filter,
+            num_group=num_group, no_bias=no_bias))
+    pad = _tup(pad, nsp) if pad else (0,) * nsp
+    adj = _tup(adj, nsp) if adj else (0,) * nsp
+    deconv = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
+              3: TF.conv_transpose3d}[nsp]
+    out = deconv(data, weight, None, stride=_tup(stride, nsp),
+                 groups=int(num_group), dilation=_tup(dilate, nsp))
+    for i, (p, a) in enumerate(zip(pad, adj)):
+        size = out.shape[2 + i] - 2 * p + a
+        out = out.narrow(2 + i, p, min(size, out.shape[2 + i] - p))
+        if out.shape[2 + i] < size:
+            tail = [0, 0] * (nsp - 1 - i) + [0, size - out.shape[2 + i]]
+            out = TF.pad(out, tail)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * nsp)
+    return out
 
 
 def full_pad(sizes, kernel, stride, pad):

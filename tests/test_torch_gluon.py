@@ -240,10 +240,16 @@ def test_from_jax_params_raises_on_missing_extra_and_shape():
 
 
 def test_unported_layouts_and_models_raise():
+    """Every layout and every zoo name is ported now: channels-last
+    layers and resnet101_v1 build; what is still unported raises, naming
+    its ROADMAP item, and an unknown model name raises ValueError."""
+    conv = gluon.nn.Conv2D(4, 3, layout="NHWC", in_channels=2)
+    assert conv.weight.shape == (4, 3, 3, 2)
+    assert isinstance(vision.get_model("resnet101_v1"), vision.ResNetV1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gluon.nn.Conv2D(4, 3, layout="NHWC")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vision.get_model("resnet101_v1")
+        gluon.contrib.nn.SparseEmbedding(10, 4)
+    with pytest.raises(ValueError):
+        vision.get_model("resnet7_v1")
     assert isinstance(vision.get_model("resnet18_v1", classes=10),
                       vision.ResNetV1)
 

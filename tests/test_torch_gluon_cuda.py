@@ -10,7 +10,9 @@ An NDArray and a block's parameters are created on the card when no
 launches none of the port's hand kernels (B1-B10): the reference's
 Gluon update goes per parameter through ``sgd_mom_update`` and reaches
 no ``pallas_call``.  Without a card the same entry points raise (the
-CPU half of that rule is in ``tests/test_torch_ndarray.py``).
+CPU half of that rule is in ``tests/test_torch_ndarray.py``).  A
+channels-last ``Conv2D`` runs on cuDNN with no layout transpose, and its
+OHWI weight's gradient comes back in the weight's own layout.
 """
 import numpy as np
 import pytest
@@ -85,3 +87,46 @@ def test_trainer_step_launches_no_hand_kernel(card):
     w = net.collect_params()[net.prefix + "dense0_weight"]
     assert w.grad().context.type == "cuda" and w.grad().asnumpy().any()
     assert not np.array_equal(w.data().asnumpy(), w0)
+
+
+# cuDNN's layout transposes, by kernel name
+TRANSPOSES = ("nchwtonhwc", "nhwctonchw", "transpose")
+
+
+@pytest.mark.cuda
+def test_nhwc_conv_runs_channels_last_without_transposes(card):
+    """A channels-last ``Conv2D`` on the card: the output is contiguous
+    NHWC (channels-last strides as the NCHW view cuDNN sees), no layout
+    transpose kernel runs in its forward and backward, and the OHWI
+    weight's gradient has the weight's shape and strides."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    conv = gluon.nn.Conv2D(64, 3, padding=1, layout="NHWC", in_channels=64)
+    conv.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+    rng = np.random.RandomState(4)
+    x = nd.array(rng.rand(8, 28, 28, 64))
+    head = nd.array(rng.randn(8, 28, 28, 64))
+
+    def step():
+        with autograd.record():
+            y = conv(x)
+            total = (y * head).sum()
+        total.backward()
+        return y
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = step()
+        torch.cuda.synchronize()
+    names = [e.key.lower() for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert names, "the profiler recorded no device kernel"
+    assert not [n for n in names if any(t in n for t in TRANSPOSES)], names
+    out = y._data
+    assert out.shape == (8, 28, 28, 64) and out.is_contiguous()
+    assert out.movedim(-1, 1).is_contiguous(
+        memory_format=torch.channels_last)
+    w = conv.weight.tensor()
+    assert w.shape == (64, 3, 3, 64) and w.grad.shape == w.shape
+    assert w.grad.is_contiguous() and w.grad.stride() == w.stride()
