@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-three phases; any failure exits non-zero and prints no result line.
+Twenty-five phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -386,6 +386,44 @@ Twenty-three phases; any failure exits non-zero and prints no result line.
     repo with a registered SHA-1: logits bitwise the saving net's.
     Every B1-B10 counter stays at 0 over the phase, as the reference's
     zoo reaches no ``pallas_call``.
+24. **The op set and ``nd.random``.** (a) Every deterministic op the
+    seeded-RNG slice ported (``mxnet_tpu_torch.tools.op_cases.CASES``:
+    one case per function of ``ops/init.py``, the rest of ``matrix``,
+    ``indexing``, ``reduce``, ``elemwise`` and ``nn``, the update ops,
+    the repaired ``SoftmaxOutput``) at a model's sizes, forward and
+    backward from a seeded head gradient, on the card against the CPU
+    through ``test_utils.check_consistency([cuda, cpu])``: index and
+    integer outputs exact, floats within 1e-5 of the largest magnitude;
+    the ops held (with their aliases) and the worst error per reference
+    file.  (b) Every sampler of ``nd.random`` and ``_sample_*``,
+    ``OP_DRAWS`` (2^24) draws on the card: mean and variance within 6
+    standard errors of the law's, a KS statistic (continuous) or a
+    chi-squared (discrete) under the alpha = 0.001 limit, ``shuffle`` a
+    permutation; one ``mx.random.seed`` twice bitwise, a ``get_state``
+    / ``set_state`` round trip bitwise, two successive draws differ;
+    ms per 2^24 uniform and normal draws (CUDA events).
+25. **ResNet-50 through every optimizer.** ``resnet50_v1`` (NCHW, f32),
+    phase 21's data and recipe at phase 5's batch: (a) ``gluon.Trainer``
+    with each optimizer of ``OPT25`` (the thirteen the slice ported,
+    RMSProp plain and centered, with ``sgd`` and ``adam`` as baselines),
+    each from the same initial weights: 1 warm-up and 2 timed steps,
+    images/s, peak memory, the update's device ms a step (CUDA events
+    around ``Trainer.step``); losses finite, every parameter moved (but
+    the zero-initialized ones under LBSGD and Ftrl, whose rules may hold
+    them at zero), no B1-B10 launch.  (b) ``DataParallelTrainer`` with
+    each elementwise optimizer, exact SGD (momentum 0.9) and Adam, 2
+    steps each: B1
+    (``fused_sgd_momentum``) and B3 (``fused_adam``) launched steps x
+    buckets for those two and no hand kernel for any other; LBSGD and
+    DCASGD raise ``ValueError``; SGLD from one ``mx.random.seed`` twice
+    bitwise at ``engine.bulk(1)`` and ``engine.bulk(4)`` (cuDNN
+    deterministic).  (c) One update of every optimizer on the card
+    against the CPU over resnet50_v1's 193 trainable arrays in float64
+    with seeded gradients: within 1e-12 of each array's largest
+    magnitude (SGLD: its noise held to N(0, lr) instead).  (d)
+    ``vgg16`` at batch 64, 2 Gluon SGD steps through its Dropout, twice
+    from one ``mx.random.seed`` bitwise equal (cuDNN deterministic), a
+    third seed different.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -4646,6 +4684,322 @@ def phase_zoo():
     RUNS["phase 23"] = rates
 
 
+# -- slice 18: the op set, the seeded RNG and every optimizer ---------------
+OP_DRAWS = 1 << 24
+# label -> (registered name, optimizer parameters) of phase 25
+OPT25 = {
+    "sgd": ("sgd", GLUON_SGD),
+    "adam": ("adam", {"learning_rate": 1e-3, "wd": 1e-4}),
+    "signum": ("signum", {"learning_rate": 1e-4, "momentum": 0.9}),
+    "ftml": ("ftml", {"learning_rate": 1e-3}),
+    "lbsgd": ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    "dcasgd": ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    "nag": ("nag", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}),
+    "sgld": ("sgld", {"learning_rate": 1e-5}),
+    "adagrad": ("adagrad", {"learning_rate": 0.01}),
+    "rmsprop": ("rmsprop", {"learning_rate": 1e-3}),
+    "rmsprop_centered": ("rmsprop", {"learning_rate": 1e-3,
+                                     "centered": True}),
+    "adadelta": ("adadelta", {}),
+    "ftrl": ("ftrl", {"learning_rate": 0.1}),
+    "adamax": ("adamax", {}),
+    "nadam": ("nadam", {"learning_rate": 1e-3}),
+    "test": ("test", {}),
+}
+OPT25_WARMUP, OPT25_TIMED = 1, 2
+OPT25_DPT_STEPS = 2
+# the reference's elementwise set, which DataParallelTrainer takes
+OPT25_ELEMENTWISE = ("sgd", "nag", "signum", "ftml", "sgld", "adam",
+                     "adagrad", "rmsprop", "rmsprop_centered", "adadelta",
+                     "ftrl", "adamax", "nadam")
+OPT25_F64_TOL = 1e-12
+DROPOUT_BATCH = 64
+
+
+def phase_ops():
+    """Phase 24: every new op on the card against the CPU, the samplers
+    against their laws, the seed checks."""
+    import torch
+    from mxnet_tpu_torch.tools import op_cases
+    t0 = time.monotonic()
+    worst, cases = {}, {}
+    for case in op_cases.CASES:
+        err, arrays = op_cases.run_case(case, "cuda")
+        worst[case.file] = max(worst.get(case.file, 0.0), err)
+        cases.setdefault(case.file, set()).add(case.name)
+    t_ops = time.monotonic() - t0
+    names = op_cases.held_names({c.name for c in op_cases.CASES})
+    for f in sorted(worst):
+        held = op_cases.held_names(cases[f])
+        print("phase 24: ops/%s.py: %d ops held card vs CPU (%s), worst "
+              "error %.3g of the largest magnitude" % (
+                  f, len(held), ", ".join(held), worst[f]))
+    print("phase 24: %d op names held forward and backward through "
+          "check_consistency([cuda, cpu]) in %.1f s (limit: index outputs "
+          "exact, floats %.0e)" % (len(names), t_ops, op_cases.REL_TOL))
+    t0 = time.monotonic()
+    rows = op_cases.sampler_checks("cuda", OP_DRAWS)
+    for r in rows:
+        print("phase 24: sampler %s" % json.dumps(r))
+    seeds = op_cases.seed_checks("cuda")
+    ms = op_cases.draw_ms("cuda", OP_DRAWS)
+    print("phase 24: %d samplers held to their laws at %d draws each on "
+          "the card in %.1f s; seeds %s; ms per 2^24 draws: uniform %.5f, "
+          "normal %.5f" % (len(rows), OP_DRAWS, time.monotonic() - t0,
+                           seeds, ms["uniform"], ms["normal"]))
+    RUNS["phase 24"] = dict(ops=len(names), samplers=len(rows), ms=ms)
+    torch.cuda.empty_cache()
+
+
+def _snapshot(net):
+    return {n: p.tensor().detach().clone()
+            for n, p in net.collect_params().items()}
+
+
+def _restore(net, snap):
+    import torch
+    with torch.no_grad():
+        for n, p in net.collect_params().items():
+            p.tensor().copy_(snap[n])
+
+
+def _opt25_gluon(net, snap, label, x, y, batch):
+    """(a): one optimizer's Gluon steps from the snapshot; returns the
+    row it prints."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    name, params = OPT25[label]
+    _restore(net, snap)
+    tr = gluon.Trainer(net.collect_params(), name, dict(params),
+                       kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    losses, times, update_ms = [], [], []
+    for _ in range(OPT25_WARMUP + OPT25_TIMED):
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        tr.step(batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        update_ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss.mean().asscalar()))
+    launched = _hand_launches()
+    # a zero-initialized parameter (BatchNorm's beta) may stay at zero
+    # under LBSGD, whose LARS scale is its norm, and under Ftrl, whose L1
+    # term holds it while |z| <= lamda1: the rules' own, as the reference's
+    still = [n for n, p in net.collect_params().items()
+             if p.grad_req != "null" and torch.equal(p.tensor(), snap[n])
+             and not (name in ("lbsgd", "ftrl") and not bool(snap[n].any()))]
+    if not np.isfinite(losses).all() or still or launched:
+        raise RuntimeError("phase 25 (a) %s: losses %r, parameters that did "
+                           "not move %s, hand-kernel launches %s"
+                           % (label, losses, still[:5], launched))
+    timed = np.asarray(times[OPT25_WARMUP:])
+    return dict(optimizer=label, images_s=batch * OPT25_TIMED
+                / (timed.sum() / 1e3),
+                update_ms=float(np.mean(update_ms[OPT25_WARMUP:])),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                losses=[round(v, 5) for v in losses])
+
+
+def _opt25_dpt(net, snap, label, x, y, depth=1, seed=None):
+    """(b): one optimizer through DataParallelTrainer from the snapshot:
+    (losses, the hand-kernel launches, the parameters after)."""
+    import torch
+    from mxnet_tpu_torch import engine, gluon
+    from mxnet_tpu_torch import random as mxr
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    name, params = OPT25[label]
+    _restore(net, snap)
+    if seed is not None:
+        mxr.seed(seed)
+    tr = DataParallelTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                             name, dict(params))
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    with engine.bulk(depth):
+        losses = [tr.step(x, y) for _ in range(OPT25_DPT_STEPS)]
+    losses = [float(v) for v in losses]
+    launched = _hand_launches()
+    if not np.isfinite(losses).all():
+        raise RuntimeError("phase 25 (b) %s: losses %r" % (label, losses))
+    return losses, launched, len(tr._groups), {
+        n: p.tensor().detach().clone()
+        for n, p in net.collect_params().items()}
+
+
+def _opt25_f64(net):
+    """(c): one update of every optimizer over the net's parameter arrays
+    in float64, on the card and on the CPU; returns {label: worst error
+    relative to each array's largest magnitude}."""
+    import torch
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch import random as mxr
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    rng = np.random.RandomState(25)
+    w64 = [p.tensor().detach().double().cpu() for p in params]
+    g64 = [torch.from_numpy(rng.randn(*w.shape)) for w in w64]
+    out = {}
+    for label, (name, kw) in OPT25.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            mxr.seed(25)
+            up = topt.get_updater(topt.create(name, **kw))
+            ws = [w.to(dev, copy=True) for w in w64]
+            for i, (w, g) in enumerate(zip(ws, g64)):
+                up(i, g.to(dev), w)
+            got[dev] = ws
+        if label == "sgld":
+            lr = kw["learning_rate"]
+            r = torch.cat([((a.cpu() - (w - lr / 2 * g)) / lr ** 0.5)
+                           .reshape(-1) for a, w, g in
+                           zip(got["cuda"], w64, g64)])
+            n = r.numel()
+            z_mean = float(r.mean()) * n ** 0.5
+            z_var = (float(r.var()) - 1.0) / (2.0 / n) ** 0.5
+            if abs(z_mean) > 6 or abs(z_var) > 6:
+                raise RuntimeError("phase 25 (c): SGLD noise off N(0, lr): "
+                                   "z %.2f / %.2f" % (z_mean, z_var))
+            out[label] = "noise z %.2f / %.2f" % (z_mean, z_var)
+            continue
+        worst = max(float((a.cpu() - b).abs().max())
+                    / max(float(b.abs().max()), 1e-300)
+                    for a, b in zip(got["cuda"], got["cpu"]))
+        if not worst <= OPT25_F64_TOL:
+            raise RuntimeError("phase 25 (c): %s card vs CPU %.3g"
+                               % (label, worst))
+        out[label] = worst
+    return out, len(params)
+
+
+def _dropout_run(seed, x, y):
+    """(d): vgg16 (fixed weights from a card generator) trained 2 Gluon
+    SGD steps after ``mx.random.seed(seed)``; its parameters."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch import random as mxr
+    net = _zoo_net("vgg16", 3)
+    mxr.seed(seed)
+    tr = gluon.Trainer(net.collect_params(), "sgd", dict(ZOO_SGD),
+                       kvstore="device")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = [float(_gluon_step(net, tr, loss_fn, x, y).mean().asscalar())
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    return losses, [p.tensor().detach().clone()
+                    for p in net.collect_params().values()]
+
+
+def phase_optimizers():
+    """Phase 25: ResNet-50 v1 through every optimizer on both trainer
+    tiers, card against CPU updates, Dropout from a seed.  Returns the B1
+    / B3 launches of (b)."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    t_phase = time.monotonic()
+    batch = RUNS["phase 21"]["batch"]
+    rng = np.random.RandomState(21)
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), rng=np.random.RandomState(0))
+    x = nd.array(rng.rand(batch, 3, 224, 224))
+    y = nd.array(rng.randint(0, 1000, batch))
+    net(x[:1])
+    snap = _snapshot(net)
+    rows = [_opt25_gluon(net, snap, label, x, y, batch) for label in OPT25]
+    base = {r["optimizer"]: r for r in rows}
+    for r in rows:
+        print("phase 25 (a): Gluon %-16s %8.1f images/s (%.3f of sgd), "
+              "update %.3f ms a step, peak %.2f GiB, losses %s" % (
+                  r["optimizer"], r["images_s"],
+                  r["images_s"] / base["sgd"]["images_s"], r["update_ms"],
+                  r["peak_gib"], r["losses"]))
+    t_a = time.monotonic() - t_phase
+    fused = {}
+    for label in OPT25_ELEMENTWISE:
+        losses, launched, groups, _ = _opt25_dpt(net, snap, label, x, y)
+        exact = {"sgd": "fused_sgd_momentum", "adam": "fused_adam"}
+        want = {exact[label]: OPT25_DPT_STEPS * groups} \
+            if label in exact else {}
+        if launched != want:
+            raise RuntimeError("phase 25 (b) %s: hand-kernel launches %s, "
+                               "want %s" % (label, launched, want))
+        if label in exact:
+            fused[exact[label]] = launched[exact[label]]
+        print("phase 25 (b): DataParallelTrainer %-16s losses %s, %d "
+              "groups, hand kernels %s" % (label, ["%.5f" % v for v in losses],
+                                           groups, launched or "none"))
+    for label in ("lbsgd", "dcasgd"):
+        try:
+            _opt25_dpt(net, snap, label, x, y)
+        except ValueError as e:
+            print("phase 25 (b): %s refused: %s" % (label, str(e)[:90]))
+        else:
+            raise RuntimeError("phase 25 (b): %s did not raise" % label)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_opt25_dpt(net, snap, "sgld", x, y, depth, seed=181)
+                for depth in (1, 4)]
+        other = _opt25_dpt(net, snap, "sgld", x, y, 1, seed=182)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(runs[0][3][n], runs[1][3][n]) for n in runs[0][3])
+    differs = any(not torch.equal(runs[0][3][n], other[3][n])
+                  for n in runs[0][3])
+    print("phase 25 (b): SGLD from one seed, bulk(1) vs bulk(4): bitwise %s; "
+          "another seed differs %s" % (same, differs))
+    if not (same and differs):
+        raise RuntimeError("phase 25 (b): SGLD repeat bitwise %s, another "
+                           "seed differs %s" % (same, differs))
+    t_b = time.monotonic() - t_phase - t_a
+    errs, arrays = _opt25_f64(net)
+    print("phase 25 (c): one float64 update over resnet50_v1's %d parameter "
+          "arrays, card vs CPU (limit %.0e of each array's largest): %s"
+          % (arrays, OPT25_F64_TOL, {k: v if isinstance(v, str)
+                                      else float("%.3g" % v)
+                                      for k, v in errs.items()}))
+    del net, snap, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.monotonic() - t_phase - t_a - t_b
+    drng = np.random.RandomState(25)
+    dx = nd.array(drng.rand(DROPOUT_BATCH, 3, 224, 224))
+    dy = nd.array(drng.randint(0, 1000, DROPOUT_BATCH))
+    torch.backends.cudnn.deterministic = True
+    try:
+        a_l, a_p = _dropout_run(5, dx, dy)
+        b_l, b_p = _dropout_run(5, dx, dy)
+        c_l, c_p = _dropout_run(6, dx, dy)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    same = a_l == b_l and all(torch.equal(u, v) for u, v in zip(a_p, b_p))
+    differs = any(not torch.equal(u, v) for u, v in zip(a_p, c_p))
+    print("phase 25 (d): vgg16 batch %d, 2 SGD steps through Dropout: seed 5 "
+          "twice bitwise %s (losses %s), seed 6 differs %s (losses %s)"
+          % (DROPOUT_BATCH, same, a_l, differs, c_l))
+    if not (same and differs):
+        raise RuntimeError("phase 25 (d): Dropout repeat bitwise %s, other "
+                           "seed differs %s" % (same, differs))
+    print("phase 25: %.1f s ((a) %.1f, (b) %.1f, (c) %.1f, (d) %.1f)" % (
+        time.monotonic() - t_phase, t_a, t_b, t_c,
+        time.monotonic() - t_phase - t_a - t_b - t_c))
+    RUNS["phase 25"] = dict(rows=rows)
+    return fused
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4716,6 +5070,11 @@ def main():
                 k["launches_bf16_nhwc"] = launches
         phase_nhwc_parity()
         phase_zoo()
+        phase_ops()
+        launches = phase_optimizers()
+        for k in opt_kernels:
+            if k["name"] in launches:
+                k["launches_phase25"] = launches[k["name"]]
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -26,20 +26,24 @@ serving of a Symbol/Module ResNet — ``ops.registry``, ``ndarray``,
 ``qmm_requant`` kernel; and the Gluon imperative training path —
 ``ndarray`` arithmetic, ``autograd``, ``gluon.Trainer``, ``kvstore``
 ('local' / 'device'), ``metric`` and ``serialization``, which runs the
-reference's per-parameter update and none of the hand kernels.
-ROADMAP.md lists the rest.
+reference's per-parameter update and none of the hand kernels; and the
+rest of the op set with the seeded global RNG (``_rng``, ``random``,
+``nd.random``, ``ops.random``), every optimizer of the reference and
+``test_utils``.  ROADMAP.md lists the rest.
 
 The reference's top-level names load on first use: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
-``mx.optimizer``, ``mx.init`` (``initializer``), ``mx.cpu()`` and
-``mx.gpu()``.
+``mx.optimizer``, ``mx.init`` (``initializer``), ``mx.random``,
+``mx.sym``, ``mx.test_utils``, ``mx.cpu()`` and ``mx.gpu()``.
 """
 import importlib
 
 _LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
          "gluon": "gluon", "metric": "metric", "kvstore": "kvstore",
          "optimizer": "optimizer", "init": "initializer",
-         "initializer": "initializer", "serialization": "serialization"}
+         "initializer": "initializer", "serialization": "serialization",
+         "random": "random", "sym": "symbol", "symbol": "symbol",
+         "test_utils": "test_utils"}
 
 
 def __getattr__(name):

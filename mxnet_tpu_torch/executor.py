@@ -8,7 +8,9 @@ Where the reference compiles one XLA program per input signature, the
 port records the signatures it has executed (argument and auxiliary
 shapes and dtypes, and the train flag) in :meth:`jit_cache_keys`, so the
 serving layer's contract — no new signature after warm-up — reads the
-same.  ``backward`` is ROADMAP.md queue A, item 4; device lists (a mesh)
+same.  A random op draws from the seeded generator of the bound device
+(``_rng``), in graph order, as the reference's executor draws from its
+key.  ``backward`` is ROADMAP.md queue A, item 4; device lists (a mesh)
 and ``group2ctx`` are items 6-7.
 """
 from __future__ import annotations
@@ -128,6 +130,8 @@ class Executor:
                 else:
                     if op.needs_train:
                         params = dict(params, _train=bool(is_train))
+                    if not ins and "ctx" in op.fn_params:
+                        params = dict(params, ctx=self._device)
                     outs = op.fn(*(env[k] for k in ins), **params)
                     if not isinstance(outs, tuple):
                         outs = (outs,)

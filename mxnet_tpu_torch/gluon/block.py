@@ -206,8 +206,9 @@ class Block(torch.nn.Module):
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False, rng=None):
         """Initialize every parameter on ``ctx`` (default: CUDA unless the
-        caller asks for the CPU), drawing from the
-        ``numpy.random.RandomState`` ``rng``."""
+        caller asks for the CPU), drawing from ``rng``: a
+        ``numpy.random.RandomState``, a ``torch.Generator``, or numpy's
+        global RNG when None (seeded by ``mx.random.seed``)."""
         from .. import initializer
         self.collect_params().initialize(init or initializer.Uniform(), ctx,
                                          verbose, force_reinit, rng=rng)

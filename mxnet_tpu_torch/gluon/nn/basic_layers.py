@@ -3,10 +3,11 @@
 Layers that behave differently in training (``BatchNorm``, ``Dropout``)
 read :meth:`Block._train_flag`: ``autograd.is_training()`` when called on
 NDArrays, ``nn.Module``'s mode when called on tensors.  ``Dropout``
-draws its masks from the ``torch.Generator`` it is given (torch's
-default generator of the data's device when none is), so a run is
-repeatable from one seed; its masks are not the reference's (a JAX
-PRNG stream), only their law is.
+draws its masks from the ``torch.Generator`` it is given, or from the
+seeded generator of the data's device (``_rng``, reseeded by
+``mx.random.seed``) when none is, so a run is repeatable from one seed;
+its masks are not the reference's (a JAX PRNG stream), only their law
+is.
 """
 from __future__ import annotations
 

@@ -6,9 +6,11 @@ A parameter holds one torch tensor on one device: a leaf
 a plain tensor for auxiliary state (BatchNorm moving statistics).  Shapes
 with a 0 stay unknown until the first forward infers them (deferred
 initialization).  Initial values are drawn on the host from the
-``numpy.random.RandomState`` passed as ``rng`` (``initializer.py``) and
-copied to the device, so a draw does not depend on the device; or, from
-a ``torch.Generator``, on that generator's device.
+``numpy.random.RandomState`` passed as ``rng`` (``initializer.py``), or
+from numpy's global RNG when none is (the reference's source, seeded by
+``mx.random.seed``), and copied to the device, so a draw does not depend
+on the device; or, from a ``torch.Generator``, on that generator's
+device.
 
 Once initialized, the tensor is also registered on the ``nn.Module``
 that owns the attribute (``_parameters`` or ``_buffers``), so
@@ -125,7 +127,8 @@ class Parameter:
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, rng=None):
         """Initialize on ``ctx`` (default: :func:`current_context`, CUDA
-        unless the caller asks for the CPU), drawing from ``rng``."""
+        unless the caller asks for the CPU), drawing from ``rng`` (numpy's
+        global RNG when None)."""
         default_init = default_init or initializer.Uniform()
         if self._data is not None and not force_reinit:
             return

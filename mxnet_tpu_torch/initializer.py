@@ -4,10 +4,12 @@ The same registry and name rules (``:40-66``): a parameter named
 ``*weight`` gets the chosen init, ``*bias`` / ``*beta`` /
 ``running_mean`` zeros, ``*gamma`` / ``running_var`` ones.
 
-An initializer fills a float32 array in place.  The reference draws
-from numpy's global RNG; the port draws the same formulas from the
-generator its caller passes (``rng=``), never from a global one:
+An initializer fills a float32 array in place, drawing the reference's
+formulas from the generator its caller passes (``rng=``):
 
+- none: numpy's global RNG, as the reference's initializers draw; after
+  ``mx.random.seed(s)`` (which seeds it) a draw is bitwise the
+  reference's after its ``mx.random.seed(s)``;
 - a ``numpy.random.RandomState``: a host numpy array, which the
   parameter then copies to its device; one shape and one seed give a
   draw bitwise equal to the reference's after ``np.random.seed`` of the
@@ -57,10 +59,9 @@ class TorchDraws:
 
 
 def _need_rng(rng, who):
+    """The draws of ``rng``: numpy's global RNG when None."""
     if rng is None:
-        raise MXNetError("%s draws random numbers: pass rng="
-                         "numpy.random.RandomState(seed) or a "
-                         "torch.Generator" % who)
+        return np.random
     if isinstance(rng, torch.Generator):
         return TorchDraws(rng)
     return rng

@@ -4,8 +4,8 @@ for inference: ``bind``, ``init_params`` / ``set_params`` /
 
 One device: ``context`` (CUDA unless it names the CPU) is resolved at
 ``bind``.  Random initialization draws from the ``numpy.random.RandomState``
-passed as ``init_params(..., rng=)`` (the port's initializers never use a
-global generator).  Training is ROADMAP.md queue A, item 4; device lists
+passed as ``init_params(..., rng=)``, or from numpy's global RNG (seeded
+by ``mx.random.seed``) when none is, as the reference's does.  Training is ROADMAP.md queue A, item 4; device lists
 and ``group2ctxs`` are items 6-7.
 """
 from __future__ import annotations

@@ -2,8 +2,12 @@
 of ``mxnet_tpu/ndarray/``).  Functions are generated from the op
 registry (``register.py``); ``nd.contrib.<op>`` holds the ``_contrib_*``
 ops without their prefix.  The creation helpers, ``save`` / ``load``
-(``serialization.py``) and ``waitall`` mirror the reference's.  Sparse
-arrays and ``nd.random`` are ROADMAP.md queue A, items 10 and 1(b)."""
+(``serialization.py``) and ``waitall`` mirror the reference's.
+``nd.random`` holds the samplers of ``ops/random.py`` under the
+reference's public names (``mxnet_tpu/ndarray/__init__.py:121-183``),
+with ``randn`` and ``seed``; a draw lands on ``ctx`` (the card unless
+the caller asks for the CPU).  Sparse arrays are ROADMAP.md queue A,
+item 10."""
 from __future__ import annotations
 
 import sys
@@ -18,7 +22,7 @@ from .register import populate as _populate
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "invoke", "imperative_invoke", "np_dtype",
-           "torch_dtype", "waitall", "save", "load", "contrib"]
+           "torch_dtype", "waitall", "save", "load", "contrib", "random"]
 
 _reg.load_all()
 contrib = types.ModuleType(__name__ + ".contrib")
@@ -76,3 +80,67 @@ def load(fname, ctx=None):
     (the CUDA device by default)."""
     from ..serialization import load_ndarrays
     return load_ndarrays(fname, ctx=ctx)
+
+
+# random namespace ----------------------------------------------------------
+random = types.ModuleType(__name__ + ".random")
+sys.modules[random.__name__] = random
+
+# each public sampler's leading scalar parameters, in the order a
+# positional call gives them
+_POSITIONAL = {
+    "uniform": ("low", "high", "shape"),
+    "normal": ("loc", "scale", "shape"),
+    "gamma": ("alpha", "beta", "shape"),
+    "exponential": ("lam", "shape"),
+    "poisson": ("lam", "shape"),
+    "negative_binomial": ("k", "p", "shape"),
+    "generalized_negative_binomial": ("mu", "alpha", "shape"),
+    "randint": ("low", "high", "shape"),
+    "multinomial": (),
+    "shuffle": (),
+}
+
+
+def _rand_fn(op_name, pub_name):
+    op = _reg.get(op_name)
+
+    def fn(*args, **kwargs):
+        if args and not isinstance(args[0], NDArray):
+            for v, k in zip(args, _POSITIONAL[pub_name]):
+                kwargs.setdefault(k, v)
+            args = ()
+        return invoke(op, args, kwargs)
+
+    fn.__name__ = pub_name
+    fn.__doc__ = op.doc
+    return fn
+
+
+for _pub, _opn in [
+        ("uniform", "_random_uniform"), ("normal", "_random_normal"),
+        ("gamma", "_random_gamma"), ("exponential", "_random_exponential"),
+        ("poisson", "_random_poisson"),
+        ("negative_binomial", "_random_negative_binomial"),
+        ("generalized_negative_binomial",
+         "_random_generalized_negative_binomial"),
+        ("randint", "_random_randint"),
+        ("multinomial", "_sample_multinomial"), ("shuffle", "_shuffle")]:
+    setattr(random, _pub, _rand_fn(_opn, _pub))
+
+
+def _randn(*shape, ctx=None, dtype=None):
+    """Standard normal draws of ``shape``."""
+    return random.normal(0.0, 1.0, shape=shape, dtype=dtype or "float32",
+                         ctx=ctx)
+
+
+def _seed(seed_state, ctx="all"):
+    """``mx.random.seed``: reseed every device's generator and numpy's
+    global RNG (``_rng.seed``)."""
+    from .. import _rng
+    _rng.seed(seed_state)
+
+
+random.randn = _randn
+random.seed = _seed

@@ -517,6 +517,8 @@ def invoke(op, args, kwargs, out=None):
     out = params.pop("out", out)
     inputs = _inputs(op, args, params)
     nds = [a for a in inputs if isinstance(a, NDArray)]
+    if not inputs and "ctx" in op.fn_params:
+        params["ctx"] = _device(params.get("ctx"))
     device = nds[0]._data.device if nds else current_context()
     raw = [_tensor(a, device) for a in inputs]
     if op.needs_train:
@@ -524,6 +526,9 @@ def invoke(op, args, kwargs, out=None):
     with torch.set_grad_enabled(autograd.is_recording()):
         outs = op.fn(*raw, **params)
     outs = outs if isinstance(outs, tuple) else (outs,)
+    for in_idx, out_idx in op.mutates.items():
+        if isinstance(inputs[in_idx], NDArray):
+            inputs[in_idx]._set_data(outs[out_idx])
     fixed = any(a._fixed for a in nds)
     out_nds = [NDArray(o.clone() if fixed and o._is_view() else o)
                for o in outs[:op.n_outputs(params)]]

@@ -7,8 +7,10 @@ from .ndarray import NDArray, _device, invoke
 
 
 def _make_op_func(op, name):
+    takes_ctx = "ctx" in op.fn_params
+
     def fn(*args, **kwargs):
-        ctx = kwargs.pop("ctx", None)
+        ctx = None if takes_ctx else kwargs.pop("ctx", None)
         out = invoke(op, args, kwargs)
         if ctx is not None and isinstance(out, NDArray):
             out = NDArray(out._data.to(_device(ctx)))

@@ -4,7 +4,10 @@
 Each op is one torch call under the reference's name.  Binary ops take
 numpy broadcasting, as the reference's do; comparisons and logical ops
 return the left operand's dtype (1.0 / 0.0), not bool.  ``round`` and
-``rint`` round half to even, as ``jnp.round`` does.
+``rint`` round half to even, as ``jnp.round`` does.  The
+``_scatter_*`` ops keep a sparse array's storage in the reference; on
+dense arrays, the only ones the port has (sparse storage is ROADMAP.md
+queue A, item 10), they are the plain scalar and elementwise ops.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch.nn.functional as TF
 
 from .registry import register
 
-__all__ = ["cast", "clip", "add_n", "hard_sigmoid", "block_grad"]
+__all__ = ["cast", "clip", "add_n", "hard_sigmoid", "block_grad",
+           "grad_add", "identity_with_attr_like_rhs"]
 
 
 def _binary(name, fn, aliases=()):
@@ -179,3 +183,21 @@ def hard_sigmoid(data, alpha=0.2, beta=0.5):
     """clip(alpha*x + beta, 0, 1) (reference: src/operator/tensor/
     elemwise_unary_op_basic.cc:109)."""
     return _clip(data * alpha + beta, 0, 1)
+
+
+@register("_grad_add", arg_names=["lhs", "rhs"])
+def grad_add(lhs, rhs):
+    """lhs + rhs: the gradient-accumulation node of ``grad_req="add"``
+    (reference: elemwise_binary_op_basic.cc _grad_add)."""
+    return lhs + rhs
+
+
+@register("_identity_with_attr_like_rhs", arg_names=["lhs", "rhs"])
+def identity_with_attr_like_rhs(lhs, rhs):
+    """lhs, carrying rhs's storage attributes in the reference."""
+    return lhs
+
+
+_scalar("_scatter_plus_scalar", lambda data, scalar=0.0: data + scalar)
+_scalar("_scatter_minus_scalar", lambda data, scalar=0.0: data - scalar)
+_binary("_scatter_elemwise_div", torch.div)

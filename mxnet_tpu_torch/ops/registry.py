@@ -9,12 +9,17 @@ symbolic front end reads (the nnvm op attributes of the reference):
 - ``num_outputs``: int or ``callable(params) -> int``;
 - ``optional_args``: tensor slots the symbolic front end does not
   auto-create when absent (a tuple, or ``callable(params) -> names``);
-- ``needs_train``: the op takes a ``_train`` flag.
+- ``needs_train``: the op takes a ``_train`` flag;
+- ``mutates``: input index -> output index written back into that input
+  by ``nd`` (the optimizer updates' state, the reference's
+  ``FMutateInputs``).
 
 Attributes stored as strings (``"(1, 1)"``, ``"True"``, as a graph loaded
 from JSON carries them) are read back by :func:`canonicalize`.  The
-reference's gradient, mutation and registry-lint metadata are left out:
-the port's executor runs forward only (ROADMAP.md queue A, item 4).
+reference's gradient and registry-lint metadata are left out: an op's
+gradient is torch's autograd of its function (or the ``autograd.Function``
+it defines), and the port's executor runs forward only (ROADMAP.md queue
+A, item 4).
 """
 from __future__ import annotations
 
@@ -29,13 +34,17 @@ _OPS = {}
 
 class Op:
     __slots__ = ("name", "fn", "arg_names", "aux", "num_outputs",
-                 "needs_train", "optional_args", "fn_params", "doc")
+                 "needs_train", "optional_args", "fn_params", "doc",
+                 "mutates")
 
     def __init__(self, name, fn, arg_names=None, aux=None, num_outputs=1,
-                 needs_train=False, optional_args=(), doc=None):
+                 needs_train=False, optional_args=(), doc=None,
+                 mutates=None):
         self.name = name
         self.fn = fn
-        self.arg_names = list(arg_names) if arg_names else ["data"]
+        self.arg_names = list(arg_names) if arg_names is not None \
+            else ["data"]
+        self.mutates = dict(mutates) if mutates else {}
         self.aux = dict(aux) if aux else {}
         self.num_outputs = num_outputs
         self.needs_train = needs_train
@@ -62,12 +71,12 @@ class Op:
 
 
 def register(name, *, arg_names=None, aux=None, num_outputs=1, aliases=(),
-             needs_train=False, optional_args=(), doc=None):
+             needs_train=False, optional_args=(), doc=None, mutates=None):
     """Decorator registering a torch function as operator ``name``."""
 
     def deco(fn):
         op = Op(name, fn, arg_names, aux, num_outputs, needs_train,
-                optional_args, doc)
+                optional_args, doc, mutates)
         for n in (name,) + tuple(aliases):
             _OPS[n] = op
         return fn
@@ -81,7 +90,9 @@ def get(name):
     except KeyError:
         raise KeyError("operator %r is not registered in the port (have %d "
                        "ops; the rest of the op set is ROADMAP.md queue A, "
-                       "item 1(b))" % (name, len(_OPS))) from None
+                       "items 10 (contrib, linalg, control flow, image, "
+                       "RNN and sparse ops) and 8 (flash_attention))"
+                       % (name, len(_OPS))) from None
 
 
 def list_ops():
@@ -110,8 +121,8 @@ def canonicalize_kwargs(kwargs):
 
 
 # the modules whose imports fill the table
-_OP_MODULES = ("nn", "elemwise", "reduce", "matrix", "indexing",
-               "quantization", "pallas_kernels")
+_OP_MODULES = ("nn", "elemwise", "reduce", "matrix", "indexing", "init",
+               "random", "optimizer_ops", "quantization", "pallas_kernels")
 
 
 def load_all():

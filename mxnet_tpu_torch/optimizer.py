@@ -1,13 +1,20 @@
 """Optimizers: the port of ``mxnet_tpu/optimizer.py`` — ``Optimizer``
-(``:26-120``), ``SGD`` (``:149-200``), ``Adam`` (``:377-430``),
-``register`` and ``create``.
+(``:26-120``), every optimizer the reference registers (``:149-604``:
+SGD, Signum, FTML, LBSGD, DCASGD, NAG, SGLD, Adam, AdaGrad, RMSProp
+plain and centered, AdaDelta, Ftrl, Adamax, Nadam and Test), ``register``
+and ``create``.
 
-``update(index, weight, grad, state)`` applies the unfused rule of
-``ops/optimizer_ops.py`` and writes the result into ``weight`` and
-``state`` in place.  The trainer's fused path
-(``ops.fused_optimizer.fused_optimizer_update``) reads the same
-attributes.  The reference's other optimizers are not ported yet
-(ROADMAP.md queue A, item 1): :func:`create` names that item for them.
+``update(index, weight, grad, state)`` applies the reference's rule and
+writes the result into ``weight`` and ``state`` in place: through the
+update ops of ``ops/optimizer_ops.py`` where the reference calls its ops
+(SGD, Signum, FTML, Adam, AdaGrad, RMSProp, Ftrl), else in torch
+arithmetic that follows the reference's line by line.  The trainer's
+fused path (``ops.fused_optimizer.fused_optimizer_update``) reads the
+same attributes, and takes SGD and Adam only, by exact type (NAG and
+LBSGD subclass SGD and stay off it).  SGLD draws its noise from the
+seeded generator of the weight's device (``_rng``).  Nadam's
+``m_schedule`` compounds once per ``update`` call, that is once per
+parameter per step, as on the reference's Gluon route.
 
 :class:`Updater` (``get_updater``, ``:618-666``) applies an optimizer per
 index with lazily created states, as the Gluon ``Trainer`` and the
@@ -20,11 +27,14 @@ class too, which only its own package can load).
 float16 weight gets an f32 master copy in its state,
 ``(master, inner_state)``; ``update_multi_precision`` runs the update on
 the master with the gradient widened to f32 and writes the master,
-rounded, back into the weight.  For SGD that is the reference's
-``mp_sgd_update`` / ``mp_sgd_mom_update`` arithmetic.
+rounded, back into the weight.  SGD and its subclasses run SGD's rule
+there, as the reference's ``mp_sgd_update`` / ``mp_sgd_mom_update``
+do (so NAG and LBSGD under ``multi_precision`` step as SGD, as in the
+reference).
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as np
@@ -33,14 +43,12 @@ import torch
 from .base import MXNetError
 from .ops import optimizer_ops as ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "register", "create",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
+           "SGLD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "Test", "ccSGD", "Updater", "register",
+           "create", "get_updater"]
 
 _REG = {}
-
-# the reference's other registered optimizers, not ported yet
-_UNPORTED = ("signum", "ftml", "lbsgd", "dcasgd", "nag", "sgld", "adagrad",
-             "rmsprop", "adadelta", "ftrl", "adamax", "nadam", "test")
 
 
 class Optimizer:
@@ -84,10 +92,6 @@ class Optimizer:
         key = name.lower()
         if key in _REG:
             return _REG[key](**kwargs)
-        if key in _UNPORTED:
-            raise NotImplementedError(
-                "optimizer %r is not ported yet: ROADMAP.md queue A, item 1 "
-                "(the other optimizers); ported: %s" % (name, sorted(_REG)))
         raise MXNetError("Cannot find optimizer %r. Registered: %s"
                          % (name, sorted(_REG)))
 
@@ -154,6 +158,16 @@ class Optimizer:
     def _clip_arg(self):
         return -1.0 if self.clip_gradient is None else self.clip_gradient
 
+    def _prep_grad(self, grad):
+        """``rescale_grad * grad`` clipped to ``clip_gradient`` (the
+        reference's ``_prep_grad``: any clip that is not None applies)."""
+        g = grad * self.rescale_grad if self.rescale_grad != 1.0 else grad
+        if self.clip_gradient is not None:
+            c = self.clip_gradient
+            g = torch.minimum(torch.maximum(g, g.new_tensor(-c)),
+                              g.new_tensor(c))
+        return g
+
 
 class _Mults:
     __slots__ = ("lr_mult", "wd_mult")
@@ -210,6 +224,176 @@ class SGD(Optimizer):
             nw = ops.sgd_update(weight, grad, **kw)
         _write(weight, nw)
 
+    def _apply(self, w, g, mom, lr, wd):
+        """The reference's functional SGD core (``SGD._apply``)."""
+        g = self._prep_grad(g) + wd * w
+        if mom is None:
+            return w - lr * g, None
+        new_mom = self.momentum * mom - lr * g
+        return w + new_mom, new_mom
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if self.multi_precision and _is_low_precision(weight.dtype):
+            master, mom = state
+            SGD.update(self, index, master, grad.to(torch.float32), mom)
+            _write(weight, master.to(weight.dtype))
+        else:
+            self.update(index, weight, grad, state)
+
+
+def _zeros(weight, dtype=None):
+    return torch.zeros(weight.shape, dtype=dtype or weight.dtype,
+                       device=weight.device)
+
+
+@register
+class Signum(Optimizer):
+    """signSGD, or Signum with momentum (reference: optimizer.py Signum,
+    ``signsgd_update`` / ``signum_update``)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip_arg())
+        if state is not None:
+            nw, nm = ops.signum_update(weight, grad, state,
+                                       momentum=self.momentum,
+                                       wd_lh=self.wd_lh, **kw)
+            _write(state, nm)
+        else:
+            nw = ops.signsgd_update(weight, grad, **kw)
+        _write(weight, nw)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (reference: optimizer.py FTML,
+    ``ftml_update``); state ``(d, v, z)``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        d, v, z = state
+        nw, nd_, nv, nz = ops.ftml_update(
+            weight, grad, d, v, z, lr=lr, wd=wd, t=t, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon,
+            rescale_grad=self.rescale_grad, clip_grad=self._clip_arg())
+        for dst, src in ((d, nd_), (v, nv), (z, nz), (weight, nw)):
+            _write(dst, src)
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: the gradient scaled by the layer's LARS ratio
+    ``|w| / (|g| + wd |w|)`` clipped to [0, 10], then SGD's rule
+    (reference: optimizer.py LBSGD).  Its norms run over each whole
+    parameter, so ``DataParallelTrainer`` refuses it, as the
+    reference's does."""
+
+    def __init__(self, momentum=0.9, warmup_strategy="linear",
+                 warmup_epochs=5, batch_scale=1, updates_per_epoch=32,
+                 begin_epoch=0, num_epochs=60, **kwargs):
+        super().__init__(momentum=momentum, **kwargs)
+
+    def update(self, index, weight, grad, state):
+        wnorm = torch.linalg.vector_norm(weight)
+        gnorm = torch.linalg.vector_norm(grad * self.rescale_grad)
+        lars = torch.where(gnorm > 0,
+                           wnorm / (gnorm + self.wd * wnorm + 1e-9),
+                           torch.ones_like(wnorm))
+        lars = torch.clamp(lars, 0.0, 10.0)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        nw, nm = self._apply(weight, grad * lars, state, lr, wd)
+        _write(weight, nw)
+        if state is not None:
+            _write(state, nm)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.py
+    DCASGD); state ``(momentum or None, previous weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = weight.detach().clone()
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_zeros(weight), prev)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._prep_grad(grad) + wd * weight
+        mom, prev = state
+        comp = g + self.lamda * g * g * (weight - prev)
+        if mom is not None:
+            m = self.momentum * mom - lr * comp
+            _write(mom, m)
+            nw = weight + m
+        else:
+            nw = weight - lr * comp
+        _write(prev, weight)
+        _write(weight, nw)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD (reference: optimizer.py NAG)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._prep_grad(grad) + wd * weight
+        if state is not None:
+            m = self.momentum * state + g
+            _write(state, m)
+            nw = weight - lr * (g + self.momentum * m)
+        else:
+            nw = weight - lr * g
+        _write(weight, nw)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics: half a gradient step plus
+    Normal(0, lr) noise drawn from the seeded generator of the weight's
+    device (reference: optimizer.py SGLD)."""
+
+    def update(self, index, weight, grad, state):
+        from . import _rng
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._prep_grad(grad) + wd * weight
+        noise = torch.randn(weight.shape, dtype=weight.dtype,
+                            device=weight.device,
+                            generator=_rng.next_generator(weight.device))
+        _write(weight, weight - lr / 2 * g + noise * math.sqrt(lr))
+
 
 @register
 class Adam(Optimizer):
@@ -238,6 +422,200 @@ class Adam(Optimizer):
         _write(m, nm)
         _write(v, nv)
         _write(weight, nw)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference: optimizer.py AdaGrad; the dense form of
+    ``_sparse_adagrad_update``, ``ops.optimizer_ops.adagrad_update``)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        nw, nh = ops.adagrad_update(
+            weight, grad, state, lr=lr, wd=wd, epsilon=self.float_stable_eps,
+            rescale_grad=self.rescale_grad, clip_gradient=self._clip_arg())
+        _write(state, nh)
+        _write(weight, nw)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (state ``(n,)``) or centered (``(n, g, delta)``)
+    (reference: optimizer.py RMSProp, ``rmsprop_update`` /
+    ``rmspropalex_update``)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros(weight), _zeros(weight), _zeros(weight))
+        return (_zeros(weight),)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        kw = dict(lr=lr, wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip_arg(),
+                  clip_weights=-1.0 if not self.clip_weights
+                  else self.clip_weights)
+        if self.centered:
+            outs = ops.rmspropalex_update(weight, grad, *state,
+                                          gamma2=self.gamma2, **kw)
+        else:
+            outs = ops.rmsprop_update(weight, grad, *state, **kw)
+        for dst, src in zip(state, outs[1:]):
+            _write(dst, src)
+        _write(weight, outs[0])
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: optimizer.py AdaDelta); float32 state
+    ``(acc_g, acc_delta)``; no learning rate."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        g = self._prep_grad(grad) + wd * weight
+        acc_g, acc_delta = state
+        ag = self.rho * acc_g + (1 - self.rho) * g * g
+        delta = torch.sqrt(acc_delta + self.epsilon) \
+            / torch.sqrt(ag + self.epsilon) * g
+        ad = self.rho * acc_delta + (1 - self.rho) * delta * delta
+        _write(acc_g, ag)
+        _write(acc_delta, ad)
+        _write(weight, weight - delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference: optimizer.py Ftrl, ``ftrl_update``);
+    float32 state ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        z, n = state
+        nw, nz, nn_ = ops.ftrl_update(
+            weight, grad, z, n, lr=lr, wd=wd, lamda1=self.lamda1,
+            beta=self.beta, rescale_grad=self.rescale_grad,
+            clip_gradient=self._clip_arg())
+        _write(z, nz)
+        _write(n, nn_)
+        _write(weight, nw)
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam under the infinity norm (reference: optimizer.py
+    Adamax); float32 state ``(m, u)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        g = self._prep_grad(grad) + wd * weight
+        lr_t = lr / (1 - self.beta1 ** t)
+        m, u = state
+        m_t = self.beta1 * m + (1 - self.beta1) * g
+        u_t = torch.maximum(self.beta2 * u, torch.abs(g))
+        _write(m, m_t)
+        _write(u, u_t)
+        _write(weight, weight - lr_t * m_t / (u_t + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (reference: optimizer.py Nadam);
+    float32 state ``(m, v)``.  ``m_schedule`` compounds at every
+    ``update`` call (module docstring)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight, torch.float32), _zeros(weight, torch.float32))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        g = self._prep_grad(grad) + wd * weight
+        mom_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        mom_tp1 = self.beta1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
+                                                     * self.schedule_decay))
+        self.m_schedule = self.m_schedule * mom_t
+        sched_next = self.m_schedule * mom_tp1
+        m, v = state
+        g_prime = g / (1.0 - self.m_schedule)
+        m_t = self.beta1 * m + (1 - self.beta1) * g
+        v_t = self.beta2 * v + (1 - self.beta2) * g * g
+        m_prime = m_t / (1.0 - sched_next)
+        v_prime = v_t / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - mom_t) * g_prime + mom_tp1 * m_prime
+        _write(m, m_t)
+        _write(v, v_t)
+        _write(weight, weight - lr * m_bar
+               / (torch.sqrt(v_prime) + self.epsilon))
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w += rescale_grad * g``, and the
+    state holds the new weight."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight, torch.float32)
+
+    def update(self, index, weight, grad, state):
+        _write(weight, weight + grad * self.rescale_grad)
+        _write(state, weight)
+
+
+# the reference's alias
+ccSGD = SGD
 
 
 def _tensor(x):

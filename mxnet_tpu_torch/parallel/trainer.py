@@ -15,9 +15,12 @@ of one flat gradient buffer, zeroed each step rather than set to None
 (the ``gradient_as_bucket_view`` idiom): autograd accumulates into the
 buffer and the kernel updates the bucket in place, with no concatenation
 or split per step.  The reference concatenates instead
-(``trainer.py:1265-1280``); the numbers are the same.  Another optimizer
-keeps one group per parameter and the unfused route
-(``parallel.functional.functional_optimizer_update``).
+(``trainer.py:1265-1280``); the numbers are the same.  Another
+elementwise optimizer keeps one group per parameter and the unfused
+route (``parallel.functional.functional_optimizer_update``), in the
+parameters' order, so Nadam's schedule and SGLD's draws (from the seeded
+generator of the device, ``_rng``) follow the Gluon route's order.
+LBSGD and DCASGD, which read a whole parameter, raise ``ValueError``.
 
 **The mesh tier** (``mesh_plan=``, ``sequence_parallel=``, or a block
 with ``mesh_program``, as ``trainer.py:119-151``): a mesh-program block
@@ -76,6 +79,17 @@ from .functional import functional_optimizer_update
 from .mesh import MeshPlan
 
 __all__ = ["DataParallelTrainer"]
+
+# optimizers whose rule is per scalar (no norm or delta over a whole
+# parameter), as the reference's set (trainer.py:50-53); LBSGD and DCASGD
+# are not, and the reference's trainer fails on both (LBSGD reads its
+# traced learning rate as a float, DCASGD donates its previous weight
+# twice), so the port refuses them up front
+_ELEMENTWISE_OPTIMIZERS = {
+    "SGD", "NAG", "Signum", "FTML", "SGLD", "Adam", "AdaGrad", "RMSProp",
+    "AdaDelta", "Ftrl", "Adamax", "Nadam",
+}
+_PER_PARAMETER_OPTIMIZERS = {"LBSGD", "DCASGD"}
 
 
 def _unported(arg, item):
@@ -158,6 +172,13 @@ class DataParallelTrainer:
         self._loss = loss
         if isinstance(optimizer, str):
             optimizer = opt_mod.create(optimizer, **(optimizer_params or {}))
+        if type(optimizer).__name__ in _PER_PARAMETER_OPTIMIZERS:
+            raise ValueError(
+                "DataParallelTrainer needs a purely elementwise optimizer "
+                "(%s); got %s, whose update reads a whole parameter: train "
+                "it with gluon.Trainer"
+                % (", ".join(sorted(_ELEMENTWISE_OPTIMIZERS)),
+                   type(optimizer).__name__))
         self._opt = optimizer
         self._ready = False
         self._step_count = 0

@@ -1,7 +1,8 @@
 """``sym`` — symbolic graph composition, the port of
 ``mxnet_tpu/symbol/__init__.py``.  The op functions are generated from
 the same registry as ``nd``; ``sym.contrib.<op>`` holds the
-``_contrib_*`` ops without their prefix."""
+``_contrib_*`` ops without their prefix, and ``sym.random.<name>`` the
+``_random_*`` ops without theirs (``mxnet_tpu/symbol/__init__.py:31-53``)."""
 from __future__ import annotations
 
 import sys as _sys
@@ -12,7 +13,7 @@ from .symbol import (Symbol, Variable, var, Group, load_json, AttrScope,
                      NameManager, _sym_invoke)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load_json", "AttrScope",
-           "NameManager", "contrib"]
+           "NameManager", "contrib", "random"]
 
 _reg.load_all()
 
@@ -28,10 +29,15 @@ def _make_sym_func(op, name):
 
 contrib = _types.ModuleType(__name__ + ".contrib")
 _sys.modules[contrib.__name__] = contrib
+random = _types.ModuleType(__name__ + ".random")
+_sys.modules[random.__name__] = random
 _this = _sys.modules[__name__]
 for _name in _reg.list_ops():
     if _name.startswith("_contrib_"):
         setattr(contrib, _name[len("_contrib_"):],
+                _make_sym_func(_reg.get(_name), _name))
+    elif _name.startswith("_random_"):
+        setattr(random, _name[len("_random_"):],
                 _make_sym_func(_reg.get(_name), _name))
     elif not _name.startswith("_") and not hasattr(_this, _name):
         setattr(_this, _name, _make_sym_func(_reg.get(_name), _name))

@@ -404,6 +404,8 @@ def _infer_entry_shapes(heads, known_shapes, known_dtypes):
         if any(s is None for s in ins):
             ok = False
             continue
+        if not ins and "ctx" in op.fn_params:
+            params = dict(params, ctx=torch.device("meta"))
         try:
             with torch.no_grad():
                 out = op.fn(*ins, **params)

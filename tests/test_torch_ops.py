@@ -229,15 +229,19 @@ def test_xavier_draw_bitwise_equal_to_reference():
     tinit.Xavier()(tinit.InitDesc("conv0_weight"), got,
                    np.random.RandomState(123))
     assert np.array_equal(got, ref.asnumpy())
-    with pytest.raises(MXNetError, match="rng="):
-        tinit.Xavier()(tinit.InitDesc("w_weight"), got)
+    # without rng= the draw comes from numpy's global RNG, as the
+    # reference's does: the same seed gives the same bits
+    np.random.seed(123)
+    again = np.empty(shape, np.float32)
+    tinit.Xavier()(tinit.InitDesc("conv0_weight"), again)
+    assert np.array_equal(again, ref.asnumpy())
 
 
 def test_optimizer_registry_names_the_roadmap_item():
     from mxnet_tpu_torch import optimizer as topt
     assert type(topt.create("SGD", momentum=0.9)).__name__ == "SGD"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        topt.create("nag")
+    # every optimizer of the reference is ported: none names an item
+    assert type(topt.create("nag", momentum=0.9)).__name__ == "NAG"
     # multi_precision is ported: a bf16 weight gets an f32 master
     mp = topt.create("sgd", multi_precision=True, momentum=0.9)
     master, mom = mp.create_state_multi_precision(
