@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-five phases; any failure exits non-zero and prints no result line.
+Twenty-six phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -424,6 +424,50 @@ Twenty-five phases; any failure exits non-zero and prints no result line.
     ``vgg16`` at batch 64, 2 Gluon SGD steps through its Dropout, twice
     from one ``mx.random.seed`` bitwise equal (cuDNN deterministic), a
     third seed different.
+26. **The data pipeline.** (a) The probe: ``nproc``, ``python -c
+    'import cv2'`` and ``'import PIL'``, whether ``mxnet_tpu_torch._native``
+    builds (``jpeglib.h``, ``-ljpeg``; ``_native.available()`` must agree),
+    ``df -h /dev/shm`` and the native decoder's threads per worker
+    (``min(nproc, 16)``: ``ImageRecordIter`` takes ``preprocess_threads``
+    as the worker count); the most workers W and the ring depth that fit
+    ``P26_SHM_SHARE`` of the free ``/dev/shm`` (W x depth slots of one
+    38.5 MB batch).  (b) ``io.bench.run`` over a ``.rec`` of 3,328
+    records (13 batches of 256) packed from the JPEG fixtures of
+    ``tests/data/torch_io/`` (500 x 375), resize 256, crop 224: images/s
+    fed to the host at W = 0, 4, 8 ... up to the most that fit, over a
+    warm-up and a timed epoch, and the best W; W = 0 and W = best give the same
+    seeded uint8 stream, bitwise, and the first batch is bitwise an
+    in-process native decode of its records.  (c) The main path, phase 22
+    (c)'s recipe (``resnet50_v1(layout="NHWC")``,
+    ``DataParallelTrainer(dtype="bf16")``, SGD with momentum, inside
+    ``engine.bulk(4)``), fed by ``ImageRecordIter(resize=256, ImageNet
+    mean / std, seed=0, preprocess_threads=W)`` two ways: (c1)
+    ``device_tail=True`` (the iterator's ``DeviceFeedIter`` runs the tail,
+    to bf16 NHWC) and (c2) uint8 NHWC through ``PrefetchToDeviceIter``
+    into ``DataParallelTrainer(input_transform=make_device_tail(mean, std,
+    "bfloat16", "NHWC"))``; then the same trainer on device-resident
+    synthetic uint8 batches.  Each 2 warm-up and 10 timed steps (images/s
+    over the flushed window, step p50/p99, peak memory; the window is fed
+    in part from batches the workers decoded while the net was built),
+    the rest of that epoch, one whole epoch timed from an empty ring (the
+    sustained images/s) and a profiled window of 3 (the device's idle
+    share); the feed thread's seconds per
+    batch and the pipeline's stall share; every decoder in use printed and
+    held to the probe's; ``fused_sgd_momentum`` launched steps x buckets
+    times in each (the kernels line's ``launches_phase26``, counted from
+    0 at (c)); the tail on the card bitwise its plain CPU version on batch
+    0 in f32 and bf16, NHWC and NCHW; no worker initialised CUDA (each
+    worker checks after every batch).  (d) Gluon ResNet-50 (phase 21's
+    recipe) fed by ``DataLoader(batch_size=256, shuffle=True,
+    num_workers=W)``: ``ImageRecordDataset`` with ``RandomResizedCrop``,
+    ``RandomFlipLeftRight``, ``ToTensor`` and ``Normalize`` where OpenCV
+    is installed, else the native decoder's uint8 images through
+    ``ArrayDataset`` with ``ToTensor`` and ``Normalize``; 1 warm-up and 3
+    timed steps, images/s beside phase 21's, finite losses, no B1-B10
+    launch, a ``DataLoader`` probe whose workers report CUDA
+    uninitialised, and the rate of one batch-sized message through a
+    multiprocessing pipe from a worker (the loader's result path).  Without any decoder on the host, (b) is skipped and
+    (c) runs from seeded uint8 batches through ``NDArrayIter``, said so.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -5000,6 +5044,563 @@ def phase_optimizers():
     return fused
 
 
+# slice 19: the data pipeline (phase 26).  The .rec holds P26_RECORDS
+# records (13 batches of 256) cycling the 16 JPEG fixtures of
+# tests/data/torch_io/ (500 x 375); the main path's recipe is phase 22
+# (c)'s: NHWC bf16 DataParallelTrainer, SGD_PARAMS, engine.bulk(4)
+P26_RECORDS, P26_BATCH, P26_SIDE, P26_RESIZE = 3328, 256, 224, 256
+P26_WARMUP, P26_TIMED, P26_PROFILED = 2, 10, 3
+P26_GLUON_WARMUP, P26_GLUON_TIMED = 1, 3
+P26_DEPTH = 2            # the pipeline's ring: prefetch_buffer slots a worker
+P26_SHM_SHARE = 0.8      # of the free /dev/shm the ring may take
+P26_MEAN = (123.68, 116.28, 103.53)
+P26_STD = (58.395, 57.12, 57.375)
+P26_MEAN_STD = dict(mean_r=P26_MEAN[0], mean_g=P26_MEAN[1],
+                    mean_b=P26_MEAN[2], std_r=P26_STD[0], std_g=P26_STD[1],
+                    std_b=P26_STD[2])
+# Gluon's ToTensor scales to [0, 1]: the same normalization over 255
+P26_MEAN01 = tuple(m / 255 for m in P26_MEAN)
+P26_STD01 = tuple(s / 255 for s in P26_STD)
+P26_DEVICE = "cuda"
+
+
+def _p26_cuda_probe(samples):
+    """A DataLoader ``batchify_fn`` run in a worker: whether CUDA is
+    initialised there, and the worker's pid (module-level, so the worker
+    imports it)."""
+    import os
+    import torch
+    return np.array([int(torch.cuda.is_initialized()), os.getpid()])
+
+
+def _p26_pipe_send(conn, nbytes):
+    """A child's end of ``_p26_pipe_rate``: a marker, then ``nbytes``."""
+    payload = bytes(nbytes)
+    conn.send_bytes(b"go")
+    conn.send_bytes(payload)
+    conn.close()
+
+
+def _p26_pipe_rate():
+    """Bytes/s of one batch-sized message through a multiprocessing pipe
+    from a worker process (the DataLoader's result path)."""
+    from mxnet_tpu_torch.io.pipeline import _mp_context
+    ctx = _mp_context()
+    nbytes = P26_BATCH * 3 * P26_SIDE * P26_SIDE * 4
+    reader, writer = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_p26_pipe_send, args=(writer, nbytes))
+    proc.start()
+    writer.close()
+    reader.recv_bytes()
+    t0 = time.perf_counter()
+    got = len(reader.recv_bytes())
+    dt = time.perf_counter() - t0
+    proc.join(timeout=60)
+    if got != nbytes:
+        raise RuntimeError("the pipe carried %d of %d bytes" % (got, nbytes))
+    return nbytes / dt
+
+
+def _p26_probe():
+    """What the host offers the pipeline: cores, OpenCV, PIL, libjpeg (the
+    native decoder's build) and /dev/shm."""
+    import os
+    import shutil
+    from mxnet_tpu_torch import _native
+    out = {"nproc": os.cpu_count(),
+           "affinity": len(os.sched_getaffinity(0))}
+    for mod in ("cv2", "PIL"):
+        r = subprocess.run([sys.executable, "-c",
+                            "import %s; print(%s.__version__)" % (mod, mod)],
+                           capture_output=True, text=True, timeout=120)
+        out[mod] = r.stdout.strip() if r.returncode == 0 else None
+        print("phase 26 (a): python -c 'import %s': %s" % (
+            mod, "version " + out[mod] if out[mod] else "fails: "
+            + (r.stderr.strip().splitlines() or ["?"])[-1]))
+    out["jpeglib_h"] = os.path.exists("/usr/include/jpeglib.h")
+    out["native"] = _native.available()
+    print("phase 26 (a): nproc %d (affinity %d); /usr/include/jpeglib.h %s;"
+          " mxnet_tpu_torch._native builds: %s (%s)%s"
+          % (out["nproc"], out["affinity"], out["jpeglib_h"], out["native"],
+             _native.library_path(),
+             "" if out["native"] else ": " + str(_native._BUILD_ERROR)))
+    usage = shutil.disk_usage("/dev/shm")
+    out["shm_free"] = usage.free
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                        text=True, timeout=60).stdout.strip()
+    print("phase 26 (a): df -h /dev/shm: %s" % " | ".join(df.splitlines()))
+    print("phase 26 (a): %s" % (
+        "native decode threads per worker %d (min(nproc, 16); "
+        "ImageRecordIter takes preprocess_threads as the worker count)"
+        % _native.default_threads() if out["native"] else
+        "no native decoder: ImageIter decodes with OpenCV where it is "
+        "installed, one image at a time per worker"))
+    return out
+
+
+def _p26_ring(probe):
+    """(most workers, ring depth) that fit the free /dev/shm: W x depth
+    slots of one batch each."""
+    slot = P26_BATCH * P26_SIDE * P26_SIDE * 3 + P26_BATCH * 4
+    budget = P26_SHM_SHARE * probe["shm_free"]
+    for depth in range(P26_DEPTH, 0, -1):
+        most = min(probe["affinity"], int(budget // (depth * slot)))
+        if most >= 1:
+            break
+    print("phase 26 (a): ring slot %.1f MB; %.0f MB of /dev/shm free; up to "
+          "%d workers at depth %d (%.0f MB)"
+          % (slot / 1e6, probe["shm_free"] / 1e6, max(most, 0), depth,
+             max(most, 0) * depth * slot / 1e6))
+    return max(most, 0), depth
+
+
+def _p26_pipe(rec, idx, workers, depth, **kw):
+    """The pipeline over the phase's records: resize 256, center crop 224,
+    seed 0, no shuffle (``kw`` adds dtype / layout)."""
+    from mxnet_tpu_torch.io.pipeline import ImagePipelineIter
+    return ImagePipelineIter(num_workers=workers, prefetch_buffer=depth,
+                             seed=0, path_imgrec=rec, path_imgidx=idx,
+                             batch_size=P26_BATCH,
+                             data_shape=(3, P26_SIDE, P26_SIDE),
+                             resize=P26_RESIZE, **kw)
+
+
+def _p26_decode(bufs, native):
+    """The records' images decoded in this process, as the pipeline's
+    chain does: the native decoder, else OpenCV through the augmenters'
+    functions (resize-short 256, center crop 224)."""
+    from mxnet_tpu_torch import _native, image
+    if native:
+        out, fails = _native.decode_batch(bufs, P26_SIDE, P26_SIDE, 3,
+                                          resize_short=P26_RESIZE)
+        if fails:
+            raise RuntimeError("%d native decode failures" % fails)
+        return out
+    imgs = []
+    for b in bufs:
+        img = image.resize_short(image.imdecode(b).asnumpy(), P26_RESIZE)
+        imgs.append(image.center_crop(img, (P26_SIDE, P26_SIDE))[0])
+    return np.stack(imgs)
+
+
+def _p26_host_checks(rec, idx, best, depth, native):
+    """W = 0 and W = best bitwise over the epoch; the first batch bitwise
+    an in-process decode of its records by the same decoder.  Returns the
+    first batch (uint8 NHWC)."""
+    from mxnet_tpu_torch import recordio
+    kw = dict(dtype="uint8", layout="NHWC")
+    w0 = _p26_pipe(rec, idx, 0, depth, **kw)
+    wb = _p26_pipe(rec, idx, best, depth, **kw)
+    first, n = None, 0
+    try:
+        for a, b in zip(w0, wb):
+            a, b = a.data[0].asnumpy(), b.data[0].asnumpy()
+            if not np.array_equal(a, b):
+                raise RuntimeError("W=0 and W=%d differ at batch %d"
+                                   % (best, n))
+            if first is None:
+                first = a
+            n += 1
+    finally:
+        wb.close()
+    if n != P26_RECORDS // P26_BATCH:
+        raise RuntimeError("%d batches in the epoch, want %d"
+                           % (n, P26_RECORDS // P26_BATCH))
+    r = recordio.MXIndexedRecordIO(idx, rec, "r")
+    bufs = [recordio.unpack(r.read_idx(i))[1] for i in range(P26_BATCH)]
+    r.close()
+    if not np.array_equal(first, _p26_decode(bufs, native)):
+        raise RuntimeError("the first batch is not the in-process decode")
+    print("phase 26 (b): W=0 and W=%d give the same seeded stream, bitwise "
+          "(%d batches of %d); the first batch is bitwise an in-process "
+          "%s decode of records 0-%d"
+          % (best, n, P26_BATCH, "native" if native else "OpenCV",
+             P26_BATCH - 1))
+    return first
+
+
+def _p26_tail_check(first):
+    """The tail on the card against its plain version on the CPU."""
+    import torch
+    from mxnet_tpu_torch.io import make_device_tail
+    host = torch.from_numpy(first)
+    for dtype in ("float32", "bfloat16"):
+        for layout in ("NHWC", "NCHW"):
+            tail = make_device_tail(P26_MEAN, P26_STD, dtype, layout)
+            got = tail(host.to(P26_DEVICE)).cpu()
+            want = tail(host)
+            if not torch.equal(got, want):
+                raise RuntimeError("the tail on the card (%s, %s) is not "
+                                   "bitwise its plain version: max |d| %g"
+                                   % (dtype, layout, float(
+                                       (got.float() - want.float()).abs()
+                                       .max())))
+            print("phase 26 (c): tail %s %s on the card bitwise its plain "
+                  "CPU version over batch 0 (%s)"
+                  % (dtype, layout, tuple(got.shape)))
+
+
+def _p26_next(it):
+    """The next batch, starting a new epoch at the end of one."""
+    try:
+        return it.next()
+    except StopIteration:
+        it.reset()
+        return it.next()
+
+
+def _p26_idle(step, n):
+    """The device's idle share over ``n`` calls of ``step`` (a profiler
+    window), or None where it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _p26_sync()
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if P26_DEVICE == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        _p26_sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return None if busy <= 0 else 1 - busy / wall_us
+
+
+def _p26_sync():
+    import torch
+    if P26_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p26_train(label, it=None, transform=None, synth=None):
+    """``P26_WARMUP`` + ``P26_TIMED`` steps of phase 22 (c)'s trainer fed
+    by the iterator ``it`` (or, ``synth``, device-resident batches in
+    turn), inside ``engine.bulk(4)``, then a profiled window of
+    ``P26_PROFILED`` steps.  Returns the rates and counts."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import engine, initializer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    net = vision.resnet50_v1(layout="NHWC")
+    net.initialize(initializer.Xavier(), ctx=P26_DEVICE,
+                   rng=np.random.RandomState(0))
+    tr = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(SGD_PARAMS), dtype="bf16",
+                             input_transform=transform, device=P26_DEVICE)
+    turn = [0]
+
+    def step(b=None):
+        if synth is not None:
+            turn[0] += 1
+            x, y = synth[turn[0] % len(synth)]
+        else:
+            b = b or _p26_next(it)
+            x, y = b.data[0], b.label[0]
+        return tr.step(x, y)
+
+    fo.reset_launch_counts()
+    if P26_DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, marks = [], []
+    with engine.bulk(4):
+        for _ in range(P26_WARMUP):
+            losses.append(step())
+        tr.flush()
+        t0 = time.perf_counter()
+        for _ in range(P26_TIMED):
+            losses.append(step())
+            marks.append(time.perf_counter())
+        tr.flush()
+        t1 = time.perf_counter()
+        # the sustained rate: the window above is fed in part from batches
+        # decoded while the net was built, so finish this epoch, then time
+        # one whole epoch from an empty ring
+        while synth is None:
+            try:
+                b = it.next()
+            except StopIteration:
+                it.reset()
+                break
+            losses.append(step(b))
+        ts = time.perf_counter()
+        for _ in range(P26_RECORDS // P26_BATCH):
+            losses.append(step())
+        tr.flush()
+        sustained = P26_BATCH * (P26_RECORDS // P26_BATCH) / (
+            time.perf_counter() - ts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if P26_DEVICE == "cuda" else float("nan")
+        idle = _p26_idle(lambda: losses.append(step()), P26_PROFILED)
+        tr.flush()
+    launches = fo.launch_counts()["fused_sgd_momentum"]
+    steps, buckets = len(losses), len(tr._groups)
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise RuntimeError("phase 26 (%s): losses %r" % (label, losses))
+    if P26_DEVICE == "cuda" and launches != steps * buckets:
+        raise RuntimeError("phase 26 (%s): fused_sgd_momentum launched %d "
+                           "times, want %d steps x %d buckets"
+                           % (label, launches, steps, buckets))
+    gaps = np.diff([t0] + marks) * 1e3
+    out = dict(images_s=P26_BATCH * P26_TIMED / (t1 - t0),
+               sustained=sustained, p50=float(np.percentile(gaps, 50)),
+               p99=float(np.percentile(gaps, 99)), peak_gib=peak, idle=idle,
+               launches=launches, steps=steps, buckets=buckets,
+               losses=losses)
+    base = getattr(it, "base", None)
+    if it is not None and hasattr(it, "stats"):
+        snap = it.stats.snapshot()
+        out["feed_s_per_batch"] = snap["worker_busy_s"] / max(
+            1, snap["batches"])
+        out["feed_stall_pct"] = snap["stall_pct"]
+    if base is not None and hasattr(base, "stats"):
+        snap = base.stats.snapshot()
+        out["decode_stall_pct"] = snap["stall_pct"]
+        out["decode_utilization"] = snap["worker_utilization"]
+        out["respawns"] = snap["respawns"]
+    if base is not None and hasattr(base, "close"):
+        base.close()
+    print("phase 26 (%s): %.1f images/s over the %d-step window, %.1f "
+          "sustained over a whole epoch, step p50 %.2f ms, p99 %.2f ms, "
+          "peak %.2f GiB, idle share %s, fused_sgd_momentum %d (= %d steps "
+          "x %d bucket); losses %s%s"
+          % (label, out["images_s"], P26_TIMED, sustained, out["p50"],
+             out["p99"], peak,
+             "not measured" if idle is None else "%.4f" % idle, launches,
+             steps, buckets, ["%.4f" % v for v in losses[:3]],
+             "".join(", %s %.5g" % (k, out[k]) for k in (
+                 "feed_s_per_batch", "feed_stall_pct", "decode_stall_pct",
+                 "decode_utilization") if k in out)))
+    del tr, net, it
+    gc.collect()
+    if P26_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p26_gluon(rec, idx, probe, workers):
+    """(d): Gluon ResNet-50 (phase 21's recipe) fed by ``DataLoader(...,
+    batch_size=256, shuffle=True, num_workers=workers)`` over the records
+    (``ImageRecordDataset`` with the augmenting transforms where OpenCV is
+    installed, else the native decoder's uint8 images through
+    ``ArrayDataset`` with ``ToTensor`` and ``Normalize``)."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import gluon, initializer, recordio
+    from mxnet_tpu_torch.gluon import data
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    n_steps = P26_GLUON_WARMUP + P26_GLUON_TIMED
+    norm = [T.ToTensor(), T.Normalize(P26_MEAN01, P26_STD01)]
+    if probe["cv2"]:
+        ds = data.vision.ImageRecordDataset(rec).transform_first(T.Compose(
+            [T.RandomResizedCrop(P26_SIDE), T.RandomFlipLeftRight()] + norm))
+        what = ("ImageRecordDataset + RandomResizedCrop, "
+                "RandomFlipLeftRight, ToTensor, Normalize (OpenCV)")
+    else:
+        n = n_steps * P26_BATCH
+        r = recordio.MXIndexedRecordIO(idx, rec, "r")
+        recs = [recordio.unpack(r.read_idx(i)) for i in range(n)]
+        r.close()
+        if probe["native"]:
+            imgs = _p26_decode([s for _, s in recs], True)
+            what = "no OpenCV: the native decoder's uint8 images"
+        else:
+            imgs = np.random.RandomState(26).randint(
+                0, 256, (n, P26_SIDE, P26_SIDE, 3)).astype(np.uint8)
+            what = "no decoder on this host: seeded uint8 images"
+        labels = np.array([h.label for h, _ in recs], np.float32)
+        ds = data.ArrayDataset(imgs, labels).transform_first(
+            T.Compose(norm))
+        what += " + ArrayDataset, ToTensor, Normalize"
+    loader = data.DataLoader(ds, batch_size=P26_BATCH, shuffle=True,
+                             num_workers=workers)
+    probe_loader = data.DataLoader(data.SimpleDataset(list(range(
+        2 * workers))), 1, batchify_fn=_p26_cuda_probe,
+        num_workers=workers)
+    try:
+        probes = list(probe_loader)
+        if any(p[0] for p in probes):
+            raise RuntimeError("a DataLoader worker initialised CUDA: %r"
+                               % probes)
+        net = vision.resnet50_v1()
+        net.initialize(initializer.Xavier(), ctx=P26_DEVICE,
+                       rng=np.random.RandomState(0))
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD),
+                           kvstore="device")
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        for m in _hand_counters():
+            m.reset_launch_counts()
+        batches = iter(loader)
+        losses = []
+        for i in range(n_steps):
+            if i == P26_GLUON_WARMUP:
+                _p26_sync()
+                t0 = time.perf_counter()
+            x, y = next(batches)
+            if x.context.type != P26_DEVICE:
+                raise RuntimeError("a DataLoader batch on %s" % x.context)
+            losses.append(float(_gluon_step(net, tr, loss_fn, x, y)
+                                .mean().asscalar()))
+        _p26_sync()
+        ips = P26_BATCH * P26_GLUON_TIMED / (time.perf_counter() - t0)
+        launched = _hand_launches()
+    finally:
+        loader.shutdown()
+        probe_loader.shutdown()
+    if launched:
+        raise RuntimeError("phase 26 (d) launched hand kernels: %s"
+                           % launched)
+    if not np.isfinite(losses).all():
+        raise RuntimeError("phase 26 (d): losses %r" % losses)
+    pipe = _p26_pipe_rate()
+    beside = RUNS.get("phase 21", {}).get("images_s")
+    print("phase 26 (d): Gluon resnet50_v1 NCHW f32 fed by DataLoader(batch "
+          "%d, shuffle, num_workers=%d) over %s: %.1f images/s over %d "
+          "steps after %d (phase 21's synthetic batch in this call: %s); "
+          "losses %s; B1-B10 launches none; %d DataLoader workers probed, "
+          "none initialised CUDA"
+          % (P26_BATCH, workers, what, ips, P26_GLUON_TIMED,
+             P26_GLUON_WARMUP, "not run" if beside is None
+             else "%.1f images/s, ratio %.4f" % (beside, ips / beside),
+             ["%.4f" % v for v in losses], len({p[1] for p in probes})))
+    print("phase 26 (d): one %.1f MB float32 batch through a "
+          "multiprocessing pipe from a worker process (the DataLoader's "
+          "result path): %.1f MB/s, %.3f s a batch"
+          % (P26_BATCH * 3 * P26_SIDE ** 2 * 4 / 1e6, pipe / 1e6,
+             P26_BATCH * 3 * P26_SIDE ** 2 * 4 / pipe))
+    del net, tr, loader, ds
+    gc.collect()
+    if P26_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ips
+
+
+def phase_data_pipeline():
+    """Phase 26: the data pipeline on the card.  Returns B1's launches on
+    the main path (c)."""
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import _native, io
+    from mxnet_tpu_torch.io import bench, make_device_tail
+    t_phase = time.monotonic()
+    probe = _p26_probe()
+    if _native.available() != probe["native"]:
+        raise RuntimeError("_native.available() disagrees with the probe")
+    most, depth = _p26_ring(probe)
+    decoder = "native" if probe["native"] else \
+        "cv2" if probe["cv2"] else None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p26_")
+    try:
+        rec, idx = bench.fixture_rec(P26_RECORDS, tmp)
+        best, first = 0, None
+        if decoder is not None:
+            curve = sorted({0, most} | {w for w in (4, 8, 16)
+                                        if w <= most})
+            t0 = time.monotonic()
+            feed = bench.run(P26_RECORDS, P26_BATCH, P26_SIDE, curve,
+                             resize=P26_RESIZE)
+            print("phase 26 (b): %s" % json.dumps(feed))
+            each = "%d native decode threads" % _native.default_threads() \
+                if decoder == "native" else "OpenCV, one image at a time"
+            for w in curve:
+                print("phase 26 (b): W=%d (depth %d, %s each): %.1f "
+                      "images/s fed to the host over a timed epoch of %d "
+                      "after a warm-up epoch"
+                      % (w, depth, each,
+                         feed["pipeline_worker_scaling"][str(w)],
+                         P26_RECORDS))
+            best = feed["pipeline_best_workers"]
+            print("phase 26 (b): best W=%d at %.1f images/s; legacy float "
+                  "path %.1f; raw native decode %s images/s (%.1f s)"
+                  % (best, feed["pipeline_fed_imgs_per_sec"],
+                     feed["pipeline_fed_legacy_imgs_per_sec"],
+                     feed.get("pipeline_decode_imgs_per_sec", "n/a"),
+                     time.monotonic() - t0))
+            first = _p26_host_checks(rec, idx, best, depth,
+                                     decoder == "native")
+        else:
+            print("phase 26 (b): no decoder on this host (no libjpeg build,"
+                  " no OpenCV): the host feed is not measured; (c) runs "
+                  "from seeded uint8 batches through NDArrayIter")
+            first = np.random.RandomState(26).randint(
+                0, 256, (P26_BATCH, P26_SIDE, P26_SIDE, 3)).astype(np.uint8)
+        _p26_tail_check(first)
+        tail = make_device_tail(P26_MEAN, P26_STD, "bfloat16", "NHWC")
+
+        def records(**kw):
+            it = io.ImageRecordIter(
+                path_imgrec=rec, path_imgidx=idx, batch_size=P26_BATCH,
+                data_shape=(3, P26_SIDE, P26_SIDE), resize=P26_RESIZE,
+                layout="NHWC", seed=0, preprocess_threads=best,
+                prefetch_buffer=depth, **kw)
+            pipe = getattr(it, "base", it)
+            used = "native" if pipe._template._native_tail is not None \
+                else "cv2"
+            if used != decoder:
+                raise RuntimeError("the iterator decodes with %s; the "
+                                   "probe found %s" % (used, decoder))
+            print("phase 26 (c): ImageRecordIter(%s) decodes with %s, "
+                  "W=%d, depth %d" % (", ".join(sorted(kw)), used, best,
+                                      depth))
+            return it
+
+        def fallback():
+            return io.NDArrayIter(np.concatenate([first] * 4), np.arange(
+                4 * P26_BATCH, dtype=np.float32) % 1000, P26_BATCH)
+
+        from mxnet_tpu_torch.ops import fused_optimizer as fo
+        fo.reset_launch_counts()
+        runs = {}
+        if decoder is not None:
+            runs["c1"] = _p26_train("c1", records(
+                device_tail=True, dtype="bfloat16", **P26_MEAN_STD))
+            runs["c2"] = _p26_train("c2", io.PrefetchToDeviceIter(
+                records(dtype="uint8"), depth=depth), tail)
+        else:
+            runs["c1"] = _p26_train("c1", io.DeviceFeedIter(
+                fallback(), transform=tail))
+            runs["c2"] = _p26_train("c2", io.PrefetchToDeviceIter(
+                fallback()), tail)
+        gen = torch.Generator(device=P26_DEVICE).manual_seed(26)
+        synth = [(torch.randint(0, 256, first.shape, dtype=torch.uint8,
+                                device=P26_DEVICE, generator=gen),
+                  torch.randint(0, 1000, (P26_BATCH,), device=P26_DEVICE,
+                                generator=gen).float()) for _ in range(2)]
+        runs["synthetic"] = _p26_train("synthetic", transform=tail,
+                                       synth=synth)
+        launches = sum(r["launches"] for r in runs.values())
+        syn = runs["synthetic"]
+        for k in ("c1", "c2"):
+            print("phase 26 (c): %s %.1f images/s (window) and %.1f "
+                  "(sustained) against the device-resident synthetic uint8 "
+                  "feed's %.1f and %.1f (ratios %.4f, %.4f); idle share %s "
+                  "against %s"
+                  % (k, runs[k]["images_s"], runs[k]["sustained"],
+                     syn["images_s"], syn["sustained"],
+                     runs[k]["images_s"] / syn["images_s"],
+                     runs[k]["sustained"] / syn["sustained"],
+                     runs[k]["idle"], syn["idle"]))
+        if decoder is not None:
+            if any(r.get("respawns") for r in runs.values()):
+                raise RuntimeError("pipeline workers respawned in (c)")
+            print("phase 26 (c): no pipeline worker initialised CUDA "
+                  "(each checks after every batch; none failed)")
+        _p26_gluon(rec, idx, probe, max(1, best))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 26: B1 launches %d over (c); %.1f s"
+          % (launches, time.monotonic() - t_phase))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5075,6 +5676,10 @@ def main():
         for k in opt_kernels:
             if k["name"] in launches:
                 k["launches_phase25"] = launches[k["name"]]
+        launches = phase_data_pipeline()
+        for k in opt_kernels:
+            if k["name"] == "fused_sgd_momentum":
+                k["launches_phase26"] = launches
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

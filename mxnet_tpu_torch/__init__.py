@@ -29,12 +29,16 @@ serving of a Symbol/Module ResNet — ``ops.registry``, ``ndarray``,
 reference's per-parameter update and none of the hand kernels; and the
 rest of the op set with the seeded global RNG (``_rng``, ``random``,
 ``nd.random``, ``ops.random``), every optimizer of the reference and
-``test_utils``.  ROADMAP.md lists the rest.
+``test_utils``; and the data pipeline — ``recordio``, the native libjpeg
+decoder (``_native``), ``image``, the record and pipeline iterators of
+``io`` with the device tail, and ``gluon.data``.  ROADMAP.md lists the
+rest.
 
 The reference's top-level names load on first use: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
 ``mx.optimizer``, ``mx.init`` (``initializer``), ``mx.random``,
-``mx.sym``, ``mx.test_utils``, ``mx.cpu()`` and ``mx.gpu()``.
+``mx.sym``, ``mx.test_utils``, ``mx.io``, ``mx.image``, ``mx.recordio``,
+``mx.profiler``, ``mx.cpu()`` and ``mx.gpu()``.
 """
 import importlib
 
@@ -43,7 +47,8 @@ _LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
          "optimizer": "optimizer", "init": "initializer",
          "initializer": "initializer", "serialization": "serialization",
          "random": "random", "sym": "symbol", "symbol": "symbol",
-         "test_utils": "test_utils"}
+         "test_utils": "test_utils", "io": "io", "image": "image",
+         "recordio": "recordio", "profiler": "profiler"}
 
 
 def __getattr__(name):

@@ -8,9 +8,13 @@ stream, behind a ring of ``depth`` slots, so the trainer's step finds its
 batch already there (``DataParallelTrainer.step`` uses a tensor on its
 device as it is).  :meth:`hbm_bound_bytes` reports the ring's cap on
 device memory, ``depth x batch_bytes``, from the batch descriptors.
+``transform`` (a device tail, ``io/device_tail.py``) runs on the data on
+the card, on the feed's side stream, as in ``DeviceFeedIter``; give
+``data_desc`` its output's geometry so ``batch_bytes`` counts what stays
+on the card.
 
 ``sharding`` (a data-parallel batch layout) is ROADMAP.md queue A, item 6,
-and ``transform`` (the device tail) item 3: both raise.
+and raises.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ __all__ = ["PrefetchToDeviceIter"]
 
 class PrefetchToDeviceIter(DeviceFeedIter):
     """Prefetch host batches onto ``device`` through a ``depth``-slot
-    ring (default device: the card; ``device="cpu"`` hands host tensors
-    over)."""
+    ring (default device: the current context, the card unless
+    ``context.use("cpu")``; on the CPU host tensors are handed over)."""
 
     def __init__(self, base, sharding=None, depth=2, transform=None,
                  data_desc=None, device=None):

@@ -59,9 +59,15 @@ skipped steps (``precision.record_loss_scale``); ``engine.flush()`` and
 the exit of ``engine.bulk`` call it.  Dispatch order never changes, so
 every window size gives bitwise-equal losses and parameters.
 
-The data-mesh, kvstore, ZeRO, model-axis, pipeline, gradient
-accumulation and input-transform tiers of the reference raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+**The input transform** (``input_transform=``, ``trainer.py:314-317,
+407-412``): a callable on the batch tensor, typically
+``io.make_device_tail`` (normalize, cast, layout), applied on the device
+first in every step, so the first step's deferred-init probe sees its
+output too; the mesh tier refuses it, as the reference does.
+
+The data-mesh, kvstore, ZeRO, model-axis, pipeline and gradient
+accumulation tiers of the reference raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -129,6 +135,8 @@ class DataParallelTrainer:
         ``model_parallel > 1`` raises (item 7).
     dtype : ``None`` / ``"float32"``, or ``"bf16"`` for bfloat16 compute
         over f32 masters (module docstring).
+    input_transform : callable(tensor) -> tensor applied to each batch on
+        the device before the block sees it (module docstring).
     device : where the step runs; ``None`` means CUDA (raising without a
         card), ``"cpu"`` the host.
     """
@@ -146,10 +154,10 @@ class DataParallelTrainer:
                 ("kvstore", kvstore, "6 (distributed data parallel)"),
                 ("zero", zero or None, "6 (ZeRO-1)"),
                 ("grad_accum", None if grad_accum in (None, 1)
-                 else grad_accum, "6 (distributed data parallel)"),
-                ("input_transform", input_transform, "3 (data pipeline)")):
+                 else grad_accum, "6 (distributed data parallel)")):
             if val is not None:
                 _unported(arg, item)
+        self._input_transform = input_transform
         self._dtype = _precision.resolve_dtype(dtype)
         self._reduced = _precision.is_reduced(self._dtype)
         # the mesh tier (trainer.py:125-138): a plan routes a
@@ -166,6 +174,10 @@ class DataParallelTrainer:
                 "mesh-program block (mxnet_tpu_torch.transformer."
                 "TransformerLM); %r does not implement mesh_program()"
                 % type(block).__name__)
+        if plan is not None and input_transform is not None:
+            raise ValueError(
+                "input_transform does not apply to the mesh tier: the mesh "
+                "program owns its own feed")
         self._plan = None if plan is None else plan.on_one_device()
         self._device = resolve_device(device)
         self._block = block
@@ -197,9 +209,20 @@ class DataParallelTrainer:
             # deferred shapes (the reference's autograd.pause() pass)
             was = block.training
             block.train(False)
+            x0 = data[:1]
             try:
                 with torch.no_grad():
-                    block(data[:1])
+                    if self._reduced:
+                        # as the step runs it: a bf16 batch (an input
+                        # transform's output) meets bf16 casts of the
+                        # parameters
+                        from ..gluon.block import compute_dtype
+                        if x0.is_floating_point():
+                            x0 = x0.to(self._dtype)
+                        with compute_dtype(self._dtype):
+                            block(x0)
+                    else:
+                        block(x0)
             finally:
                 block.train(was)
         params = block.collect_params()
@@ -314,6 +337,11 @@ class DataParallelTrainer:
         the oldest in-flight step."""
         x = _as_tensor(data, self._device)
         y = _as_tensor(label, self._device)
+        if self._input_transform is not None:
+            # first in the step, before the deferred-init probe of the
+            # first step too: the block only ever sees transformed batches
+            # (the host ships the narrow uint8 batch)
+            x = self._input_transform(x)
         if self._plan is not None:
             loss = self._step_mesh_tier(x, y)
         else:

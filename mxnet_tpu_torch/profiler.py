@@ -1,5 +1,5 @@
 """Profiler counters: the part of ``mxnet_tpu/profiler.py`` serving,
-the trainer's run-ahead ring and the device feed use.
+the trainer's run-ahead ring and the data pipeline use.
 
 ``serving/stats.py`` keeps its queue depth and recompile count in
 :class:`Counter` objects grouped by a :class:`Domain`, as the reference
@@ -62,15 +62,14 @@ class PipelineStats:
     (reference: ``profiler.PipelineStats``).
 
     The feed half: batches delivered, the reorder-queue depth, per-worker
-    busy time and the consumer's stall time (``DeviceFeedIter.stats``).
-    The dispatch half: ``on_dispatch`` (a step dispatched with ``inflight``
-    steps now unsynchronized) and ``on_backpressure`` (the dispatcher
-    blocked on its oldest in-flight step).  One thread-safe accumulator,
-    one :meth:`snapshot` with the reference's keys but its worker-respawn
-    counters (``respawns``, ``respawns_epoch``), which wait for a pipeline
-    that respawns workers (ROADMAP.md queue A, item 3); it is also a
-    collector of the telemetry registry (``mxtpu_pipeline_*`` gauges
-    labeled by name, held weakly)."""
+    busy time, the consumer's stall time and worker respawns
+    (``ImagePipelineIter.stats``, ``DeviceFeedIter.stats``).  The dispatch
+    half: ``on_dispatch`` (a step dispatched with ``inflight`` steps now
+    unsynchronized) and ``on_backpressure`` (the dispatcher blocked on its
+    oldest in-flight step).  One thread-safe accumulator, one
+    :meth:`snapshot` with the reference's keys; it is also a collector of
+    the telemetry registry (``mxtpu_pipeline_*`` gauges labeled by name,
+    held weakly)."""
 
     def __init__(self, num_workers=0, name="io.pipeline"):
         self._lock = threading.Lock()
@@ -80,6 +79,8 @@ class PipelineStats:
         self._stall_s = 0.0
         self._batches = 0
         self._depth_max = 0
+        self._respawns = 0
+        self._respawns_epoch = 0     # reset by on_epoch (the storm budget)
         self._num_workers = num_workers
         domain = Domain(name)
         self._counter = domain.new_counter("queue_depth")
@@ -107,6 +108,17 @@ class PipelineStats:
         with self._lock:
             self._stall_s += stall_s
 
+    def on_respawn(self):
+        with self._lock:
+            self._respawns += 1
+            self._respawns_epoch += 1
+
+    def on_epoch(self):
+        """Epoch boundary: reset the per-epoch respawn counter (the unit
+        of ``ImagePipelineIter``'s ``max_respawns`` storm budget)."""
+        with self._lock:
+            self._respawns_epoch = 0
+
     def on_dispatch(self, inflight):
         """A step was dispatched with ``inflight`` steps now
         unsynchronized (the run-ahead ring's depth at dispatch time)."""
@@ -124,7 +136,8 @@ class PipelineStats:
     def snapshot(self):
         """Aggregate view: ``worker_utilization`` is busy time over
         (workers x wall); ``stall_pct`` the share of wall time the
-        consumer waited for a batch; ``dispatched_steps``,
+        consumer waited for a batch; ``respawns`` (``respawns_epoch``)
+        the workers respawned in all (this epoch); ``dispatched_steps``,
         ``inflight_max`` and ``dispatch_stall_s`` the run-ahead ring's."""
         with self._lock:
             wall = max(1e-9, time.perf_counter() - self._t0)
@@ -139,6 +152,8 @@ class PipelineStats:
                 "stall_s": round(self._stall_s, 3),
                 "stall_pct": round(100.0 * self._stall_s / wall, 2),
                 "queue_depth_max": self._depth_max,
+                "respawns": self._respawns,
+                "respawns_epoch": self._respawns_epoch,
                 "dispatched_steps": self._dispatched,
                 "inflight_max": self._inflight_max,
                 "dispatch_stall_s": round(self._dispatch_stall_s, 3),

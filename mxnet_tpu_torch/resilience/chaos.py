@@ -1,7 +1,7 @@
 """Deterministic fault injection: replay a fault schedule.
 
 The PyTorch port's copy of ``mxnet_tpu/resilience/chaos.py``, holding
-the probe sites the serving path fires:
+the probe sites the serving path and the data pipeline fire:
 
 - **probe sites**: code at failure-relevant points calls
   ``chaos.maybe_inject("site.name", count, ctx=...)``.  When no schedule
@@ -35,6 +35,7 @@ __all__ = ["Fault", "ChaosSchedule", "ChaosError", "install", "uninstall",
 
 # every probe site shipped in mxnet_tpu_torch/, with its one-line contract
 SITES = {
+    "pipeline.dispatch": "per dispatched batch; ctx = (iter, wid, idx)",
     "serving.batch": "count = batch number; delay = runner stall",
     "serving.route": "count = routed-request ordinal; ctx = (model, tier)",
     "serving.swap": "fleet hot swap; ctx = model name",

@@ -10,8 +10,8 @@ both trainer tiers, f32 and bf16), and the depth-1 run is held to the
 reference's trainer at 1e-5 (the f32 tolerance of
 ``tests/test_torch_train.py``).  The ring never holds more than
 ``engine.bulk_size()`` steps, and ``dispatch_stats`` has the reference's
-keys but the worker-respawn counters, which wait for a pipeline that
-respawns workers (A3).  On the CPU a step has run when it returns, so
+keys, the worker-respawn counters among them (they count the data
+pipeline's respawns, A3, and stay 0 on a trainer).  On the CPU a step has run when it returns, so
 the ring holds the loss tensors in place of CUDA events; the
 ``cuda``-marked test holds the same on the card.
 """
@@ -38,7 +38,8 @@ from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
 BATCH, FEAT, NCLS = 16, 8, 4
 STEPS = 10
 TOL = 1e-5
-# the reference's snapshot keys the port leaves out until A3
+# the reference's snapshot keys the port left out until A3 ported the
+# pipeline that respawns workers
 RESPAWN_KEYS = {"respawns", "respawns_epoch"}
 
 
@@ -225,9 +226,9 @@ def test_backpressure_bounds_inflight_ring():
         engine.flush()
     assert not tr._inflight
     snap = tr.dispatch_stats.snapshot()
-    assert set(JaxPipelineStats(name="x").snapshot()) - set(snap) \
-        == RESPAWN_KEYS
-    assert set(snap) <= set(JaxPipelineStats(name="x").snapshot())
+    assert set(snap) == set(JaxPipelineStats(name="x").snapshot())
+    assert {k: snap[k] for k in RESPAWN_KEYS} == dict.fromkeys(RESPAWN_KEYS,
+                                                               0)
     assert snap["dispatched_steps"] == 12
     assert 1 <= snap["inflight_max"] <= 2
     assert snap["dispatch_stall_s"] >= 0.0
@@ -254,11 +255,17 @@ def test_pipeline_stats_snapshot_keys_match_reference():
         s.on_wait(0.001)
         s.on_dispatch(3)
         s.on_backpressure(0.002)
+        s.on_respawn()
+        s.on_respawn()
+        s.on_epoch()
+        s.on_respawn()
     a, b = mine.snapshot(), ref.snapshot()
-    assert set(b) - set(a) == RESPAWN_KEYS and set(a) <= set(b)
+    assert set(a) == set(b) and RESPAWN_KEYS <= set(a)
     for k in ("batches", "queue_depth_max", "dispatched_steps",
-              "inflight_max", "dispatch_stall_s", "stall_s"):
+              "inflight_max", "dispatch_stall_s", "stall_s", "respawns",
+              "respawns_epoch"):
         assert a[k] == b[k], k
+    assert (a["respawns"], a["respawns_epoch"]) == (3, 1)
 
 
 # -- the device feed ----------------------------------------------------------
@@ -306,15 +313,31 @@ def test_prefetch_hbm_bound_reported_and_batches_train():
 
 
 def test_device_feed_refusals_and_reset():
+    """``sharding`` (A6) still raises; ``transform`` and ``"roll_over"``
+    are ported (A3): the feed applies the transform to the data alone,
+    and ``roll_over`` gives the reference's batches over two epochs."""
     X, y = _data(n=4 * BATCH)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DeviceFeedIter(NDArrayIter(X, y, BATCH), transform=abs,
-                       device="cpu")
+    feed = DeviceFeedIter(NDArrayIter(-X, y, BATCH), transform=abs,
+                          device="cpu")
+    got = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in feed]
+    np.testing.assert_array_equal(np.concatenate([g[0] for g in got]), X)
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), y)
     with pytest.raises(NotImplementedError, match="item 6"):
         PrefetchToDeviceIter(NDArrayIter(X, y, BATCH), sharding=object(),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        NDArrayIter(X, y, BATCH, last_batch_handle="roll_over")
+    rolls = []
+    for it in (NDArrayIter(X[:-3], y[:-3], BATCH,
+                           last_batch_handle="roll_over"),
+               mx.io.NDArrayIter(X[:-3], y[:-3], BATCH,
+                                 last_batch_handle="roll_over")):
+        rolls.append([])
+        for _ in range(2):
+            rolls[-1] += [(b.data[0].asnumpy(), b.pad) for b in it]
+            it.reset()
+    assert len(rolls[0]) == len(rolls[1]) > 4
+    for (a, pa), (b, pb) in zip(*rolls):
+        np.testing.assert_array_equal(a, b)
+        assert pa == pb
     feed = DeviceFeedIter(NDArrayIter(X, y, BATCH), depth=2, device="cpu")
     assert len(list(feed)) == 4
     feed.reset()

@@ -187,6 +187,19 @@ def test_trainer_default_device_without_a_card_raises(monkeypatch):
     ("mesh_plan", {"model": 2}, "item 7"),
     ("grad_accum", 2, "item 6"), ("input_transform", abs, "item 3")])
 def test_unported_trainer_tiers_raise(arg, value, item):
+    if arg == "input_transform":
+        # ported by item 3 (A3): the transform runs on the batch first in
+        # every step, so a step on -x through abs is the step on x
+        x, y = _batches()[0]
+        losses = []
+        for kw, batch in (({arg: value}, -x), ({}, x)):
+            net = _make("port")
+            net.initialize(ctx="cpu", rng=np.random.RandomState(0))
+            tr = DataParallelTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                     "sgd", device="cpu", **kw)
+            losses.append(float(tr.step(batch, y)))
+        assert losses[0] == losses[1]
+        return
     with pytest.raises(NotImplementedError, match=item):
         DataParallelTrainer(_make("port"),
                             gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
