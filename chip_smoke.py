@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-six phases; any failure exits non-zero and prints no result line.
+Twenty-seven phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -468,6 +468,38 @@ Twenty-six phases; any failure exits non-zero and prints no result line.
     uninitialised, and the rate of one batch-sized message through a
     multiprocessing pipe from a worker (the loader's result path).  Without any decoder on the host, (b) is skipped and
     (c) runs from seeded uint8 batches through ``NDArrayIter``, said so.
+27. **Module training.** (a) ``tools/train_imagenet.main`` (the port of
+    ``examples/image_classification/train_imagenet.py``) on a JPEG
+    ``.rec`` of ``P27_RECORDS`` records made by ``io.bench.fixture_rec``:
+    ``get_symbol(1000, 50, "3,224,224")`` (the symbolic pre-activation
+    ResNet-50, f32 NCHW) through ``Module.fit``, batch 128 (the tool's
+    default; halved on out-of-memory, said so), one epoch, SGD momentum
+    0.9, wd 1e-4, ``MultiFactorScheduler``, ``Xavier(gaussian, in, 2)``,
+    ``Speedometer`` and ``do_checkpoint``, decoded by up to 8 workers
+    (``--data-nthreads``; OpenCV on the card's host): every loss finite,
+    images/s fed over steps 2 on (the host clock after a sync per
+    step).  ``Module.load`` of the checkpoint it wrote (parameters and
+    moving statistics bitwise the trained module's), ``score`` and
+    ``predict`` (finite rows summing to 1).  Then 2 + 10 timed
+    ``forward`` / ``backward`` / ``update`` on one fixed uint8 batch on
+    the card (cast to f32 by the executor's feed): images/s, the ms of
+    each stage between CUDA events, the device's idle share over 3 more
+    (``torch.profiler``), peak memory, losses finite and the last below
+    the first, beside phase 5's ``DataParallelTrainer`` f32 rate (no gain
+    claimed); the precision flags and the host's load average as found.  (b) The same symbol at batch 2 x 224^2,
+    weights drawn once: one ``forward_backward`` on the card and with
+    ``context="cpu"``, TF32 off: outputs within 1e-4, gradients within
+    10x the rounding floor a CPU run from weights one ulp up measures
+    (phase 6's rule; a one-ulp input change is normalized away by
+    ``bn_data``), fix_gamma's gamma a zero gradient; in float64 through
+    ``simple_bind(type_dict=...)``, outputs and gradients within 1e-4.
+    (c) ``tools/train_mnist.main``, MLP and LeNet, 3 epochs on the card
+    over idx files of a seeded learnable 10-class set: validation
+    accuracy above 0.8.  (d) ``BucketingModule`` (two keys sharing one
+    FC), ``SequentialModule`` (two modules, input gradients) and a
+    ``CustomOp`` softmax through ``nd.Custom`` under ``autograd``, on
+    the card against the CPU, TF32 off, within 1e-5.  No B1-B10 counter
+    moves over the phase.  Prints the phase's seconds and the script's.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -578,6 +610,7 @@ CONV_EDGES = [((3, 7, 9, 64), 96), ((1, 5, 5, 128), 200), ((2, 9, 11, 64), 64)]
 CONV_F32 = ((2, 28, 28, 512), 128)
 # the phases 5 and 8 numbers phases 18 and 19 print beside their own
 RUNS = {}
+T_START = time.monotonic()
 # slice 6: the mxgen kernels (B10) and codegen_bench (phases 15-16)
 GEN_TOL = 1e-5          # codegen.EQUIV_TOL: rtol = atol, ints/bools exact
 GEN_TIMED = 200
@@ -5601,6 +5634,449 @@ def phase_data_pipeline():
     return launches
 
 
+# -- slice 20: training through Symbol, Executor and Module ------------------
+P27_RECORDS, P27_BATCH, P27_SIDE = 1024, 128, 224   # 8 batches of the tool's
+P27_WARMUP, P27_TIMED = 2, 10
+P27_PARITY_BATCH = 2
+P27_OUT_TOL = 1e-4       # card vs CPU outputs, f32 TF32 off (phase 6's)
+P27_F64_TOL = 1e-4
+P27_SMALL_TOL = 1e-5     # (d): small nets, card vs CPU, TF32 off
+P27_MNIST_TRAIN, P27_MNIST_VAL, P27_MNIST_EPOCHS = 2048, 512, 3
+P27_ACC_BAR = 0.8        # the reference test's bar (tests/test_module.py:37)
+P27_DEVICE = "cuda"
+P27_MEAN = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94)
+
+
+def _p27_mnist_files(tmp):
+    """idx files (gzip) of a learnable 10-class set in the MNIST layout:
+    each class a seeded sparse 28 x 28 stroke mask (a fifth of the pixels,
+    MNIST's ink share), each image its class's mask with 30 % of its ink
+    dropped and 5 % of the pixels lit at random (the reference's
+    synthetic fallback draws random labels, which no net can learn)."""
+    import gzip
+    import os
+    import struct
+    masks = np.random.RandomState(27).rand(10, 28, 28) < 0.2
+    for stem, n, seed in (("train", P27_MNIST_TRAIN, 1),
+                          ("t10k", P27_MNIST_VAL, 2)):
+        r = np.random.RandomState(seed)
+        labels = r.randint(0, 10, n).astype(np.uint8)
+        ink = (masks[labels] & (r.rand(n, 28, 28) > 0.3)) \
+            | (r.rand(n, 28, 28) < 0.05)
+        imgs = (ink * 255).astype(np.uint8)
+        with gzip.open(os.path.join(tmp, stem + "-images-idx3-ubyte.gz"),
+                       "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28) + imgs.tobytes())
+        with gzip.open(os.path.join(tmp, stem + "-labels-idx1-ubyte.gz"),
+                       "wb") as f:
+            f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+
+
+def _p27_ce(prob, label):
+    """Mean cross-entropy of SoftmaxOutput's probabilities (a tensor)."""
+    import torch
+    lab = label.to(prob.device).long()
+    return -torch.log(prob[torch.arange(prob.shape[0], device=prob.device),
+                           lab].clamp_min(1e-30)).mean()
+
+
+def _p27_fit(tmp, rec, workers):
+    """(a): ``tools/train_imagenet.main`` on the records, one epoch, batch
+    halved on out-of-memory.  Returns (module, batch, prefix, stats)."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.tools import train_imagenet
+    batch = P27_BATCH
+    while True:
+        marks, losses = [], []
+
+        def stamp(param):
+            mod = param.locals["self"]
+            losses.append(float(_p27_ce(mod.get_outputs()[0]._data,
+                                        param.locals["data_batch"].label[0]
+                                        ._data)))
+            marks.append(time.perf_counter())
+        prefix = "%s/r50b%d" % (tmp, batch)
+        try:
+            t0 = time.perf_counter()
+            mod = train_imagenet.main(
+                ["--data-train", rec, "--num-layers", "50",
+                 "--image-shape", "3,%d,%d" % (P27_SIDE, P27_SIDE),
+                 "--num-classes", "1000", "--batch-size", str(batch),
+                 "--num-epochs", "1", "--num-examples", str(P27_RECORDS),
+                 "--model-prefix", prefix, "--data-nthreads", str(workers),
+                 "--ctx", "gpu" if P27_DEVICE == "cuda" else "cpu"],
+                batch_end_callback=stamp)
+            wall = time.perf_counter() - t0
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch <= 8:
+                raise
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch //= 2
+            print("phase 27 (a): out of memory, batch halved to %d"
+                  % batch)
+    if not np.isfinite(losses).all() or len(losses) != P27_RECORDS // batch:
+        raise RuntimeError("phase 27 (a): losses %r" % losses)
+    fed = batch * (len(marks) - 1) / (marks[-1] - marks[0])
+    print("phase 27 (a): tools/train_imagenet.py, ResNet-50 v2 (symbolic, "
+          "1000 classes, %d x %d), batch %d, %d JPEG records, %d decode "
+          "workers: %d steps in %.2f s (bind, Xavier init and checkpoint "
+          "included); fed %.1f images/s over steps 2-%d; losses %s"
+          % (P27_SIDE, P27_SIDE, batch, P27_RECORDS, workers, len(losses),
+             wall, fed, len(losses), ["%.4f" % v for v in losses]))
+    return mod, batch, prefix, dict(fed=fed, losses=losses)
+
+
+def _p27_reload(mod, batch, prefix, rec):
+    """(a): ``Module.load`` of the checkpoint the tool wrote, ``score``
+    and ``predict`` over the records (no augmentation)."""
+    from mxnet_tpu_torch import io, module
+    loaded = module.Module.load(prefix, 1, context=P27_DEVICE)
+    val = io.ImageRecordIter(path_imgrec=rec,
+                             data_shape=(3, P27_SIDE, P27_SIDE),
+                             batch_size=batch, resize=256, **P27_MEAN)
+    loaded.bind(val.provide_data, val.provide_label, for_training=False)
+    want_arg, want_aux = mod.get_params()
+    got_arg, got_aux = loaded.get_params()
+    for want, got in ((want_arg, got_arg), (want_aux, got_aux)):
+        for n in want:
+            if not bool((want[n]._data == got[n]._data).all()):
+                raise RuntimeError("phase 27 (a): %s differs after "
+                                   "Module.load" % n)
+    t0 = time.perf_counter()
+    acc = loaded.score(val, "acc")[0][1]
+    pred = loaded.predict(val, num_batch=2).asnumpy()
+    if pred.shape != (2 * batch, 1000) or not np.isfinite(pred).all() \
+            or not np.allclose(pred.sum(axis=1), 1.0, atol=1e-3):
+        raise RuntimeError("phase 27 (a): predict gave %s" % (pred.shape,))
+    print("phase 27 (a): Module.load(%s, 1): every parameter and moving "
+          "statistic bitwise the trained module's; score accuracy %.4f over "
+          "%d records, predict %s, rows sum to 1 (%.2f s)"
+          % (prefix.rsplit("/", 1)[-1], acc, P27_RECORDS, pred.shape,
+             time.perf_counter() - t0))
+
+
+def _p27_steps(mod, batch):
+    """(a): timed ``forward`` / ``backward`` / ``update`` on one fixed
+    uint8 batch on the card (cast to f32 by the executor's feed)."""
+    import torch
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ndarray import NDArray
+    gen = torch.Generator(device=P27_DEVICE).manual_seed(27)
+    x = torch.randint(0, 256, (batch, 3, P27_SIDE, P27_SIDE),
+                      dtype=torch.uint8, device=P27_DEVICE, generator=gen)
+    y = torch.randint(0, 1000, (batch,), device=P27_DEVICE,
+                      generator=gen).float()
+    db = DataBatch([NDArray(x)], [NDArray(y)])
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(P27_WARMUP + P27_TIMED)]
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, e in enumerate(ev):
+        if i == P27_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        e[0].record()
+        mod.forward(db, is_train=True)
+        e[1].record()
+        mod.backward()
+        e[2].record()
+        mod.update()
+        e[3].record()
+        outs.append(mod.get_outputs()[0]._data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def step():
+        mod.forward(db, is_train=True)
+        mod.backward()
+        mod.update()
+    idle = _p26_idle(step, 3)
+    losses = [float(_p27_ce(o, y)) for o in outs]
+    split = np.mean([[e[k].elapsed_time(e[k + 1]) for k in range(3)]
+                     for e in ev[P27_WARMUP:]], axis=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = batch * P27_TIMED / wall
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("phase 27 (a): synthetic losses %r" % losses)
+    p5 = RUNS.get("phase 5")
+    print("phase 27 (a): Module forward_backward + update on a fixed uint8 "
+          "batch of %d: %.1f images/s over %d steps (host clock), ms a "
+          "step between CUDA events forward %.3f / backward %.3f / update "
+          "%.3f, idle share %s over 3 more (profiler), peak %.2f GiB; "
+          "losses %s; phase 5's DataParallelTrainer f32 (batch %s, B1 "
+          "update) %s images/s"
+          % (batch, rate, P27_TIMED, split[0], split[1], split[2],
+             "not measured" if idle is None else "%.4f" % idle, peak,
+             ["%.4f" % v for v in losses],
+             p5["batch"] if p5 else "n/a",
+             "%.1f" % p5["images_s"] if p5 else "not run"))
+    return dict(images_s=rate, fwd_ms=split[0], bwd_ms=split[1],
+                upd_ms=split[2], peak_gib=peak, idle=idle)
+
+
+def _p27_parity():
+    """(b): one forward_backward of get_symbol(1000, 50, "3,224,224") at
+    batch 2, card vs CPU from the same weights."""
+    import torch
+    from mxnet_tpu_torch import initializer, io, module, nd
+    from mxnet_tpu_torch.tools.symbols import resnet
+    sym = resnet.get_symbol(1000, 50, "3,%d,%d" % (P27_SIDE, P27_SIDE))
+    shape = (P27_PARITY_BATCH, 3, P27_SIDE, P27_SIDE)
+    rng = np.random.RandomState(2)
+    x = rng.rand(*shape).astype(np.float32)
+    y = rng.randint(0, 1000, P27_PARITY_BATCH).astype(np.float32)
+    init = module.Module(sym, context="cpu")
+    init.bind([("data", shape)], [("softmax_label", y.shape)])
+    init.init_params(initializer.Xavier(rnd_type="gaussian",
+                                        factor_type="in", magnitude=2),
+                     rng=np.random.RandomState(1))
+    arg, aux = [{k: v.asnumpy() for k, v in d.items()}
+                for d in init.get_params()]
+    up = {k: np.nextafter(v, np.float32(np.inf)) for k, v in arg.items()}
+
+    def f32(ctx, weights):
+        mod = module.Module(sym, context=ctx)
+        mod.bind([("data", shape)], [("softmax_label", y.shape)])
+        mod.set_params(weights, aux)
+        mod.forward_backward(io.DataBatch([nd.array(x, ctx="cpu")],
+                                          [nd.array(y, ctx="cpu")]))
+        return (mod.get_outputs()[0].asnumpy(),
+                {k: v.asnumpy() for k, v in mod._exec.grad_dict.items()})
+
+    def f64(ctx):
+        exe = sym.simple_bind(ctx, grad_req="write", type_dict={
+            n: "float64" for n in sym.list_arguments()}, data=shape,
+            softmax_label=y.shape)
+        exe.copy_params_from(arg, aux)
+        exe.forward(is_train=True, data=x.astype(np.float64),
+                    softmax_label=y.astype(np.float64))
+        exe.backward()
+        return (exe.outputs[0].asnumpy(),
+                {k: v.asnumpy() for k, v in exe.grad_dict.items()
+                 if k not in ("data", "softmax_label")})
+
+    def worst(a, b):
+        return max((float(np.abs(a[n].astype(np.float64) - b[n]).max()), n)
+                   for n in a)
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        out_g, g_g = f32(P27_DEVICE, arg)
+        out_c, g_c = f32("cpu", arg)
+        _, g_u = f32("cpu", up)
+        out_g64, g_g64 = f64(P27_DEVICE)
+        out_c64, g_c64 = f64("cpu")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    d_out = float(np.abs(out_g - out_c).max())
+    d_g, at_g = worst(g_g, g_c)
+    d_u, at_u = worst(g_u, g_c)
+    d_out64 = float(np.abs(out_g64 - out_c64).max())
+    d_g64, at_g64 = worst(g_g64, g_c64)
+    print("phase 27 (b): ResNet-50 v2 batch %d, one forward_backward, TF32 "
+          "off: f32 outputs card vs CPU %.3g (tol %g); gradients %.3g (%s), "
+          "rounding floor %.3g (%s: the CPU run from weights one ulp up), "
+          "allowed %g x floor; f64 through type_dict: outputs %.3g, "
+          "gradients %.3g (%s) (tol %g); %.1f s"
+          % (P27_PARITY_BATCH, d_out, P27_OUT_TOL, d_g, at_g, d_u, at_u,
+             NOISE_FACTOR, d_out64, d_g64, at_g64, P27_F64_TOL,
+             time.perf_counter() - t0))
+    if d_out > P27_OUT_TOL:
+        raise RuntimeError("phase 27 (b): f32 outputs differ by %.3g"
+                           % d_out)
+    if d_g > max(NOISE_FACTOR * d_u, P27_OUT_TOL):
+        raise RuntimeError("phase 27 (b): f32 gradients differ by %.3g, "
+                           "more than %g x the floor %.3g"
+                           % (d_g, NOISE_FACTOR, d_u))
+    if d_out64 > P27_F64_TOL or d_g64 > P27_F64_TOL:
+        raise RuntimeError("phase 27 (b): f64 differs: outputs %.3g, "
+                           "gradients %.3g" % (d_out64, d_g64))
+    if g_g["bn_data_gamma"].any():
+        raise RuntimeError("phase 27 (b): fix_gamma's gamma got a gradient")
+
+
+def _p27_mnist(tmp):
+    """(c): tools/train_mnist.py, MLP and LeNet, on the card."""
+    from mxnet_tpu_torch.tools import train_mnist
+    _p27_mnist_files(tmp)
+    for net in ("mlp", "lenet"):
+        argv = ["--network", net, "--data-dir", tmp, "--num-epochs",
+                str(P27_MNIST_EPOCHS), "--batch-size", "64"] \
+            + ([] if P27_DEVICE == "cuda" else ["--cpu"])
+        t0 = time.perf_counter()
+        mod = train_mnist.main(argv)
+        wall = time.perf_counter() - t0
+        val = train_mnist.get_iters(train_mnist.parse_args(argv))[1]
+        acc = mod.score(val, "acc")[0][1]
+        print("phase 27 (c): train_mnist --network %s, %d epochs of %d "
+              "images on the card in %.2f s: validation accuracy %.4f "
+              "(bar %g)" % (net, P27_MNIST_EPOCHS, P27_MNIST_TRAIN, wall,
+                            acc, P27_ACC_BAR))
+        if not acc > P27_ACC_BAR:
+            raise RuntimeError("phase 27 (c): %s accuracy %.4f" % (net, acc))
+
+
+def _p27_small(ctx):
+    """(d) on ``ctx``: BucketingModule and SequentialModule steps and a
+    CustomOp softmax; returns numpy results."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    rng = np.random.RandomState(4)
+    w = (rng.randn(8, 12) * 0.3).astype(np.float32)
+    out = {}
+
+    def gen(key):
+        data = mx.sym.Variable("data")
+        net = mx.sym.FullyConnected(data, num_hidden=8, name="fcb")
+        return mx.sym.SoftmaxOutput(net, name="softmax"), ("data",), \
+            ("softmax_label",)
+    bm = mx.mod.BucketingModule(gen, default_bucket_key=10, context=ctx)
+    bm.bind([("data", (10, 12))], [("softmax_label", (10,))])
+    bm.init_params(arg_params={"fcb_weight": w,
+                               "fcb_bias": np.zeros(8, np.float32)})
+    bm.init_optimizer(optimizer_params={"learning_rate": 0.1,
+                                        "momentum": 0.9})
+    for key in (10, 6, 10):
+        x = rng.randn(key, 12).astype(np.float32)
+        lab = rng.randint(0, 8, key).astype(np.float32)
+        bm.forward(mx.io.DataBatch(
+            [nd.array(x, ctx="cpu")], [nd.array(lab, ctx="cpu")],
+            bucket_key=key, provide_data=[mx.io.DataDesc("data", x.shape)],
+            provide_label=[mx.io.DataDesc("softmax_label", lab.shape)]),
+            is_train=True)
+        bm.backward()
+        bm.update()
+    out["bucketing"] = bm.get_params()[0]["fcb_weight"].asnumpy()
+    d1 = mx.sym.Variable("data")
+    m1 = mx.mod.Module(mx.sym.Activation(mx.sym.FullyConnected(
+        d1, num_hidden=5, name="sa"), act_type="tanh"), label_names=None,
+        context=ctx)
+    m2 = mx.mod.Module(mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Variable("hidden"), num_hidden=3, name="sb"),
+        name="softmax"), data_names=["hidden"], context=ctx)
+    seq = mx.mod.SequentialModule().add(m1).add(m2, take_labels=True)
+    seq.bind([("data", (10, 6))], [("softmax_label", (10,))],
+             inputs_need_grad=True)
+    seq.init_params(arg_params={
+        "sa_weight": (rng.randn(5, 6) * 0.4).astype(np.float32),
+        "sa_bias": np.zeros(5, np.float32),
+        "sb_weight": (rng.randn(3, 5) * 0.4).astype(np.float32),
+        "sb_bias": np.zeros(3, np.float32)})
+    seq.init_optimizer(optimizer_params={"learning_rate": 0.2})
+    for _ in range(2):
+        seq.forward(mx.io.DataBatch(
+            [nd.array(rng.randn(10, 6).astype(np.float32), ctx="cpu")],
+            [nd.array(rng.randint(0, 3, 10).astype(np.float32),
+                      ctx="cpu")]), is_train=True)
+        seq.backward()
+        seq.update()
+    out["sequential"] = seq.get_outputs()[0].asnumpy()
+    out["sequential_in_grad"] = seq.get_input_grads()[0].asnumpy()
+    x = nd.array(rng.randn(6, 5).astype(np.float32), ctx=ctx)
+    lab = nd.array(rng.randint(0, 5, 6).astype(np.float32), ctx=ctx)
+    x.attach_grad()
+    with autograd.record():
+        prob = nd.Custom(x, lab, op_type="chip_smoke_softmax")
+    prob.backward()
+    out["custom"] = prob.asnumpy()
+    out["custom_grad"] = x.grad.asnumpy()
+    out["device"] = str(prob.context)
+    return out
+
+
+def _p27_register_softmax():
+    from mxnet_tpu_torch import nd, operator
+
+    @operator.register("chip_smoke_softmax")
+    class _Prop(operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return _Softmax()
+
+    class _Softmax(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], nd.softmax(in_data[0], axis=1))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            onehot = nd.one_hot(in_data[1], depth=out_data[0].shape[1])
+            self.assign(in_grad[0], req[0], out_data[0] - onehot)
+
+
+def phase_module_train():
+    """Phase 27: training through Symbol, Executor and Module."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.io import bench
+    t_phase = time.monotonic()
+    print("phase 27: precision flags as found: cudnn.allow_tf32=%s "
+          "matmul.allow_tf32=%s cudnn.benchmark=%s cudnn.deterministic=%s; "
+          "host load average %s over %d cores"
+          % (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             "/".join("%.2f" % v for v in os.getloadavg()),
+             os.cpu_count() or 0))
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p27_")
+    try:
+        rec, _ = bench.fixture_rec(P27_RECORDS, tmp)
+        workers = min(8, os.cpu_count() or 1)
+        mod, batch, prefix, fit = _p27_fit(tmp, rec, workers)
+        _p27_reload(mod, batch, prefix, rec)
+        steps = _p27_steps(mod, batch)
+        del mod
+        torch.cuda.empty_cache()
+        _p27_parity()
+        _p27_mnist(tmp)
+        _p27_register_softmax()
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            card, host = _p27_small(P27_DEVICE), _p27_small("cpu")
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        if card.pop("device").split(":")[0] != P27_DEVICE:
+            raise RuntimeError("phase 27 (d): the CustomOp ran off the card")
+        host.pop("device")
+        worst = {k: float(np.abs(card[k] - host[k]).max()) for k in card}
+        print("phase 27 (d): card vs CPU, TF32 off: %s (tol %g)"
+              % (", ".join("%s %.3g" % kv for kv in worst.items()),
+                 P27_SMALL_TOL))
+        if max(worst.values()) > P27_SMALL_TOL:
+            raise RuntimeError("phase 27 (d): %r" % worst)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = _hand_launches()
+    if launched:
+        raise RuntimeError("phase 27: hand kernels launched on the Module "
+                           "path: %r" % launched)
+    print("phase 27: B1-B10 launches 0 over the phase; fed %.1f images/s, "
+          "step %.1f images/s; %.1f s (the script so far %.1f s)"
+          % (fit["fed"], steps["images_s"], time.monotonic() - t_phase,
+             time.monotonic() - T_START))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5615,7 +6091,7 @@ def main():
         return 1
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                     torch.cuda.get_device_name(0)))
-    t_start = time.monotonic()
+    t_start = T_START
     try:
         kernel = phase_kernels()
         runner, host_params, counts = phase_serve()
@@ -5680,6 +6156,7 @@ def main():
         for k in opt_kernels:
             if k["name"] == "fused_sgd_momentum":
                 k["launches_phase26"] = launches
+        phase_module_train()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -31,29 +31,45 @@ rest of the op set with the seeded global RNG (``_rng``, ``random``,
 ``nd.random``, ``ops.random``), every optimizer of the reference and
 ``test_utils``; and the data pipeline — ``recordio``, the native libjpeg
 decoder (``_native``), ``image``, the record and pipeline iterators of
-``io`` with the device tail, and ``gluon.data``.  ROADMAP.md lists the
-rest.
+``io`` with the device tail, and ``gluon.data``; and training through
+Symbol, Executor and Module — ``Executor.backward``, the ``module``
+package (``Module.fit`` / ``score`` / ``predict``, ``BucketingModule``,
+``SequentialModule``), ``model`` (checkpoints, ``FeedForward``),
+``callback``, ``monitor`` and ``operator`` (``CustomOp`` through
+``nd.Custom``), with ``tools.train_mnist`` and ``tools.train_imagenet``.
+ROADMAP.md lists the rest.
 
 The reference's top-level names load on first use: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
 ``mx.optimizer``, ``mx.init`` (``initializer``), ``mx.random``,
 ``mx.sym``, ``mx.test_utils``, ``mx.io``, ``mx.image``, ``mx.recordio``,
-``mx.profiler``, ``mx.cpu()`` and ``mx.gpu()``.
+``mx.profiler``, ``mx.lr_scheduler``, ``mx.model``, ``mx.mod``
+(``module``), ``mx.callback``, ``mx.monitor``, ``mx.Monitor``,
+``mx.operator``, ``mx.MXNetError``, ``mx.cpu()`` and ``mx.gpu()``.
 """
 import importlib
 
 _LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
-         "gluon": "gluon", "metric": "metric", "kvstore": "kvstore",
+         "gluon": "gluon", "metric": "metric", "kvstore": "kvstore", "kv": "kvstore",
          "optimizer": "optimizer", "init": "initializer",
          "initializer": "initializer", "serialization": "serialization",
          "random": "random", "sym": "symbol", "symbol": "symbol",
          "test_utils": "test_utils", "io": "io", "image": "image",
-         "recordio": "recordio", "profiler": "profiler"}
+         "recordio": "recordio", "profiler": "profiler", "name": "name",
+         "lr_scheduler": "lr_scheduler", "model": "model", "mod": "module",
+         "module": "module", "callback": "callback", "monitor": "monitor",
+         "operator": "operator"}
 
 
 def __getattr__(name):
     if name in _LAZY:
         return importlib.import_module("." + _LAZY[name], __name__)
+    if name == "Monitor":
+        from .monitor import Monitor
+        return Monitor
+    if name == "MXNetError":
+        from .base import MXNetError
+        return MXNetError
     if name in ("cpu", "gpu", "current_context", "num_gpus"):
         from . import context
         return getattr(context, name)

@@ -220,11 +220,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 
 def get_symbol(x):
-    """The recorded graph as a Symbol: the port has no graph export of the
-    tape (ROADMAP.md queue A, item 4)."""
-    raise NotImplementedError(
-        "autograd.get_symbol is ROADMAP.md queue A, item 4 (Module "
-        "training and the symbolic backward)")
+    """The recorded graph as a Symbol: neither package exports the tape;
+    this raises as the reference's does."""
+    raise NotImplementedError("use mxnet_tpu_torch.symbol to build "
+                              "symbolic graphs")
 
 
 class Function:

@@ -1,7 +1,10 @@
-"""``mod`` — the Module API (the port of ``mxnet_tpu/module/``): inference
-through :class:`Module`; ``BucketingModule`` and ``SequentialModule`` are
-ROADMAP.md queue A, item 4."""
-from .base_module import BaseModule
+"""``mod`` — the Module API, the port of ``mxnet_tpu/module/``:
+``Module`` (training and inference on one device), ``BucketingModule``,
+``SequentialModule`` and the loops of ``BaseModule``."""
+from .base_module import BaseModule, BatchEndParam
 from .module import Module
+from .bucketing_module import BucketingModule
+from .sequential_module import SequentialModule
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "Module", "BucketingModule", "SequentialModule",
+           "BatchEndParam"]

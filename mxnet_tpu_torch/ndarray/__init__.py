@@ -3,6 +3,7 @@ of ``mxnet_tpu/ndarray/``).  Functions are generated from the op
 registry (``register.py``); ``nd.contrib.<op>`` holds the ``_contrib_*``
 ops without their prefix.  The creation helpers, ``save`` / ``load``
 (``serialization.py``) and ``waitall`` mirror the reference's.
+``nd.Custom`` runs a Python ``CustomOp`` (``operator.py``).
 ``nd.random`` holds the samplers of ``ops/random.py`` under the
 reference's public names (``mxnet_tpu/ndarray/__init__.py:121-183``),
 with ``randn`` and ``seed``; a draw lands on ``ctx`` (the card unless
@@ -22,7 +23,8 @@ from .register import populate as _populate
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "invoke", "imperative_invoke", "np_dtype",
-           "torch_dtype", "waitall", "save", "load", "contrib", "random"]
+           "torch_dtype", "waitall", "save", "load", "contrib", "random",
+           "Custom"]
 
 _reg.load_all()
 contrib = types.ModuleType(__name__ + ".contrib")
@@ -60,6 +62,13 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
         t = torch.repeat_interleave(t, int(repeat))
     return NDArray(t.to(dtype=torch_dtype(dtype or "float32"),
                         device=_device(ctx)))
+
+
+def Custom(*args, **kwargs):
+    """Run a Python ``CustomOp`` registered by ``operator.register``
+    (``operator.py``)."""
+    from ..operator import _custom_entry
+    return _custom_entry(*args, **kwargs)
 
 
 def waitall():

@@ -64,6 +64,11 @@ def torch_dtype(dtype):
     return torch.from_numpy(_np.zeros(0, dtype=_np.dtype(dtype))).dtype
 
 
+# eager monitor taps: fn(op_name, [NDArray outputs]) after every invoke
+# (monitor.Monitor.install_eager)
+_MONITOR_TAPS = []
+
+
 def _device(ctx):
     return current_context() if ctx is None else resolve_device(ctx)
 
@@ -532,6 +537,8 @@ def invoke(op, args, kwargs, out=None):
     fixed = any(a._fixed for a in nds)
     out_nds = [NDArray(o.clone() if fixed and o._is_view() else o)
                for o in outs[:op.n_outputs(params)]]
+    for tap in _MONITOR_TAPS:
+        tap(op.name, out_nds)
     if out is not None:
         dst = out if isinstance(out, (list, tuple)) else [out]
         for d, s in zip(dst, out_nds):

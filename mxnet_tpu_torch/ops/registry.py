@@ -18,8 +18,7 @@ Attributes stored as strings (``"(1, 1)"``, ``"True"``, as a graph loaded
 from JSON carries them) are read back by :func:`canonicalize`.  The
 reference's gradient and registry-lint metadata are left out: an op's
 gradient is torch's autograd of its function (or the ``autograd.Function``
-it defines), and the port's executor runs forward only (ROADMAP.md queue
-A, item 4).
+it defines), in the imperative path and in ``Executor.backward`` alike.
 """
 from __future__ import annotations
 

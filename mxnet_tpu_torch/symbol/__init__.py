@@ -9,11 +9,11 @@ import sys as _sys
 import types as _types
 
 from ..ops import registry as _reg
-from .symbol import (Symbol, Variable, var, Group, load_json, AttrScope,
-                     NameManager, _sym_invoke)
+from .symbol import (Symbol, Variable, var, Group, load, load_json,
+                     AttrScope, NameManager, _sym_invoke)
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "AttrScope",
-           "NameManager", "contrib", "random"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "AttrScope", "NameManager", "contrib", "random"]
 
 _reg.load_all()
 

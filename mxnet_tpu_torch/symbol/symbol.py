@@ -11,9 +11,13 @@ Where the reference infers shapes with ``jax.eval_shape`` per node, the
 port runs each op on ``meta`` tensors (shapes and dtypes, no data), with
 the same local rules for the parameter shapes an op derives from its data
 input.  :func:`graph_plan` orders the nodes for the eager executor
-(``executor.py``).  Gradients, the static-analysis reports (``lint``,
-``cost_report``, ``fusion_report``, ``shard_report``) and ``group2ctx``
-placement are not ported: they raise, naming their ROADMAP.md item.
+(``executor.py``), which takes the gradients too (``Executor.backward``;
+``Symbol.grad`` raises, as the reference's does).  The arithmetic and
+comparison operators, the method sugar (``sym.reshape(...)``) and
+composition by call build the reference's nodes.  The static-analysis
+reports (``lint``, ``cost_report``, ``fusion_report``, ``shard_report``)
+and ``group2ctx`` placement are not ported: they raise, naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 from ..ndarray.ndarray import torch_dtype
 from ..ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json",
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "NameManager", "AttrScope", "graph_plan"]
 
 
@@ -262,29 +266,158 @@ class Symbol:
         return "<Symbol %s>" % (name if name else
                                 ", ".join(self.list_outputs()))
 
+    def list_inputs(self):
+        return [n.name for n in self._nodes() if n.op is None]
+
+    def get_children(self):
+        kids = []
+        for node, _ in self._outputs:
+            kids.extend(node.inputs)
+        return Symbol(kids) if kids else None
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        return (Symbol([e]) for e in self._outputs)
+
+    def attr(self, key):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].attrs.get(key)
+        return None
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._outputs:
+            node.attrs.update({k: str(v) for k, v in kwargs.items()})
+
+    # -- composition -------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """Compose: a copy of this graph with the named free variables
+        replaced by other symbols (reference: Symbol.__call__)."""
+        if args:
+            raise TypeError("composition supports keyword arguments only")
+        mapping = {}
+        for name, s in kwargs.items():
+            if not isinstance(s, Symbol):
+                raise TypeError("can only compose with Symbols")
+            mapping[name] = s._outputs[0]
+        memo = {}
+
+        def clone(node):
+            if id(node) in memo:
+                return memo[id(node)]
+            if node.op is None and node.name in mapping:
+                sub = mapping[node.name][0]
+                memo[id(node)] = sub
+                return sub
+            new = _Node(node.op, node.name, node.attrs,
+                        [(clone(c), i) for c, i in node.inputs], node._is_aux)
+            memo[id(node)] = new
+            return new
+
+        return Symbol([(clone(n), i) for n, i in self._outputs])
+
+    # -- arithmetic sugar: the reference's ops, by name ---------------------
     def __add__(self, o):
-        if not isinstance(o, Symbol):
-            _not_ported("Symbol + scalar (_plus_scalar)", 4)
-        return _create("_plus", [self, o], {}, None)
+        return _binary(self, o, "_plus", "_plus_scalar")
+
+    def __radd__(self, o):
+        return self.__add__(o)
+
+    def __sub__(self, o):
+        return _binary(self, o, "_minus", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return _binary(self, o, None, "_rminus_scalar")
+
+    def __mul__(self, o):
+        return _binary(self, o, "_mul", "_mul_scalar")
+
+    def __rmul__(self, o):
+        return self.__mul__(o)
+
+    def __truediv__(self, o):
+        return _binary(self, o, "_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return _binary(self, o, None, "_rdiv_scalar")
+
+    def __pow__(self, o):
+        return _binary(self, o, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create("_neg", [self], {}, None)
+
+    def __eq__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return _binary(self, o, "_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return _binary(self, o, "_not_equal", "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, o):
+        return _binary(self, o, "_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return _binary(self, o, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return _binary(self, o, "_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return _binary(self, o, "_lesser_equal", "_lesser_equal_scalar")
 
     def __hash__(self):
         return id(self)
 
+    def __getattr__(self, name):
+        # method-style op calls (sym.reshape(...), sym.sum(...)), resolved
+        # from the registry as the reference's generated methods are
+        if name.startswith("_"):
+            raise AttributeError(name)
+        try:
+            op = _reg.get(name)
+        except KeyError:
+            raise AttributeError("Symbol has no attribute %r" % name) \
+                from None
+
+        def method(*args, **kwargs):
+            return _sym_invoke(op, name, (self,) + args, kwargs)
+        return method
+
     # -- shape / type inference -------------------------------------------
-    def infer_shape(self, **kwargs):
-        """``(arg_shapes, out_shapes, aux_shapes)`` from the named input
-        shapes, or three Nones when some shape stays unknown."""
+    def infer_shape(self, *args, **kwargs):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from the input shapes
+        (by name, or positionally in ``list_arguments`` order), or three
+        Nones when some shape stays unknown."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for each shape left
+        unknown."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
+        if args:
+            kwargs = dict(zip(self.list_arguments(), args), **kwargs)
         known = {k: tuple(v) for k, v in kwargs.items() if v is not None}
         shapes, ok = _infer_entry_shapes(self._outputs, known, {})
-        if not ok:
+        if not ok and not partial:
             return None, None, None
+
+        def shape(key):
+            s = shapes.get(key)
+            return None if s is None else tuple(s.shape)
+
         arg_shapes, aux_shapes = [], []
         for n in self._nodes():
             if n.op is None:
-                s = tuple(shapes[(id(n), 0)].shape)
-                (aux_shapes if n._is_aux else arg_shapes).append(s)
-        out_shapes = [tuple(shapes[(id(n), i)].shape)
-                      for n, i in self._outputs]
+                (aux_shapes if n._is_aux else arg_shapes).append(
+                    shape((id(n), 0)))
+        out_shapes = [shape((id(n), i)) for n, i in self._outputs]
         return arg_shapes, out_shapes, aux_shapes
 
     def infer_type(self, **kwargs):
@@ -335,8 +468,35 @@ class Symbol:
                       "framework": ["str", "mxnet_tpu"]},
         }, indent=2)
 
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
+    # -- evaluation / binding ----------------------------------------------
+    def eval(self, ctx=None, **kwargs):
+        return self.bind(ctx, kwargs).forward()
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        from ..executor import Executor
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    shared_arg_names=None, shared_exec=None,
+                    shared_buffer=None, lint=False, **kwargs):
+        """Allocate the arrays from the inferred shapes and bind
+        (reference: symbol.py:1289)."""
+        from ..executor import Executor
+        return Executor.simple_bind(self, ctx, grad_req=grad_req,
+                                    type_dict=type_dict, shapes=kwargs,
+                                    lint=lint)
+
     def grad(self, wrt):
-        _not_ported("Symbol.grad (the backward graph)", 4)
+        raise NotImplementedError(
+            "symbolic grad graphs are implicit: bind() records the graph "
+            "and Executor.backward takes its vjp")
 
     def lint(self, *args, **kwargs):
         _not_ported("Symbol.lint (mxlint)", 13)
@@ -503,6 +663,14 @@ def _sym_invoke(op, op_name, args, kwargs):
     return Symbol([(node, i) for i in range(n_out)])
 
 
+def _binary(lhs, rhs, op_name, scalar_op_name):
+    if isinstance(rhs, Symbol):
+        if op_name is None:
+            raise TypeError("unsupported operand order")
+        return _create(op_name, [lhs, rhs], {}, None)
+    return _create(scalar_op_name, [lhs], {"scalar": float(rhs)}, None)
+
+
 def _create(op_name, sym_args, params, name):
     kwargs = dict(params)
     if name is not None:
@@ -565,3 +733,9 @@ def load_json(json_str):
                      is_aux=i in aux_names)
         nodes.append(node)
     return Symbol([(nodes[ni], oi) for ni, oi, _ in g["heads"]])
+
+
+def load(fname):
+    """A Symbol from a JSON file written by either package's ``save``."""
+    with open(fname) as f:
+        return load_json(f.read())

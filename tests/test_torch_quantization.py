@@ -592,9 +592,9 @@ def test_unported_surface_names_its_roadmap_item():
     net = tsym.FullyConnected(data, num_hidden=2, name="fc")
     mod = Module(net, label_names=None, context="cpu")
     mod.bind([("data", (1, 4))], for_training=False)
-    for call in (mod.backward, mod.update, lambda: mod.fit(None)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            call()
+    with pytest.raises(NotImplementedError, match="items 6-7"):
+        Module(net, label_names=None, context="cpu",
+               group2ctxs={"g": "cpu"})
     with pytest.raises(NotImplementedError, match="items 6-7"):
         Executor.simple_bind(net, ctx=["cpu", "cpu"],
                              shapes={"data": (1, 4)})
