@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-seven phases; any failure exits non-zero and prints no result line.
+Twenty-eight phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -500,6 +500,37 @@ Twenty-seven phases; any failure exits non-zero and prints no result line.
     ``CustomOp`` softmax through ``nd.Custom`` under ``autograd``, on
     the card against the CPU, TF32 off, within 1e-5.  No B1-B10 counter
     moves over the phase.  Prints the phase's seconds and the script's.
+28. **LSTM + CTC.** (a) The ``RNN`` op (``ops/rnn.py``) on the card
+    (cuDNN through torch's fused RNN functions) against the CPU, TF32
+    off: every mode x 1 and 2 layers x one and two directions with
+    ``state_outputs``, and LSTM with the cell clip; outputs, final
+    states and the gradients of the data, the flat vector and both
+    states, each difference over the larger of 1 and the largest
+    magnitude: within 1e-10 in float64 and 1e-4 in float32 (cuDNN's f32
+    recurrence sits ~1e-5 off a float64 run, the CPU's under 1e-6; both
+    printed); the route counters show every case without clip or
+    dropout on the fused route.  (b) ``ctc_loss`` (``ops/contrib.py``),
+    both blank labels, lengths given and inferred: losses and the
+    gradients of the activations within 1e-10 in float64 and 1e-4 in
+    float32 (each beside its distance from a float64 CPU run); the CTC
+    kernels the profile names.  (c)
+    ``tools/train_ctc.main()`` at its defaults (the repo's config 3:
+    batch 16, two bi-LSTM layers of 64, 39 features, 28 symbols, buckets
+    40 / 80, Adam 2e-3, 60 batches): its seconds; the loss falls at both
+    bucket keys, both bound, one fused RNN call a batch.  (d) The same
+    ``sym_gen`` at ``P28_SPEECH`` (the tool's own flags at widths that
+    make the card work, not a published configuration), a fixed batch
+    at bucket 400: 2 + 10 steps, utterances/s and frames/s, forward /
+    backward / update ms between CUDA events, device ms by category
+    over 3 more (``torch.profiler``; the update in its own window), the
+    flat-weight copy timed alone, the idle share, peak memory.  (e) Three
+    ``gluon.Trainer`` steps of ``gluon.rnn.LSTM`` (2 layers,
+    bidirectional) + ``Dense`` under ``gluon.loss.CTCLoss`` on the card
+    against the CPU, and ``mx.rnn.FusedRNNCell`` against its unfused
+    ``LSTMCell`` stack on the card, TF32 off, within 1e-4 (cuDNN's f32
+    recurrence, as in (a)).  No B1-B10
+    counter moves over the phase.  Prints the flags as found, the
+    phase's seconds and the script's.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -531,6 +562,7 @@ card's name and power limit from
 ``nvidia-smi``, and as the last line ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import contextlib
 import json
 import re
 import subprocess
@@ -6077,6 +6109,463 @@ def phase_module_train():
              time.monotonic() - T_START))
 
 
+# -- slice 21: LSTM + CTC ----------------------------------------------------
+P28_DEVICE = "cuda"
+# card vs CPU, TF32 off, each difference over the larger of 1 and the
+# array's largest magnitude (_p28_err).  In float64 the card equals the
+# CPU within 1e-10: the same math.  In float32 the RNN and CTC are held
+# at 1e-4, the reference's own torch check: cuDNN's f32 recurrence sits
+# 0.7-2.9e-5 off a float64 run where the CPU's sits within 6.3e-7 (tanh /
+# sigmoid modes; relu 3e-7 on both); the CUDA CTC's float32 log-space
+# recursion at T 50 ~3e-5 (both printed)
+P28_RNN_F32_TOL = P28_CTC_F32_TOL = 1e-4
+P28_RNN_F64_TOL = 1e-10
+P28_OP_SHAPE = (10, 4, 12, 16)          # T, B, input, hidden of (a)
+P28_CTC_SHAPE = (50, 8, 29, 12)         # T, B, alphabet, label length of (b)
+# (d): the tool's own flags at widths that make the card work; not a
+# published configuration
+P28_SPEECH = ["--num-hidden", "1024", "--feat-dim", "161", "--batch-size",
+              "32", "--buckets", "200,400"]
+P28_WARMUP, P28_TIMED, P28_PROFILED = 2, 10, 3
+P28_GLUON_STEPS = 3
+# kernel-name fragments -> category, first match wins (cuDNN's RNN kernels
+# run their own GEMMs, which land under "gemm")
+P28_CATEGORIES = (
+    ("CTC", ("ctc",)),
+    ("cuDNN RNN", ("rnn", "lstm", "persist", "cudnn")),
+    ("gemm", ("gemm", "cutlass", "xmma", "sm90_")),
+    ("copies (the flat-weight copies among them)", ("copy", "cat")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+@contextlib.contextmanager
+def _p28_tf32_off():
+    """cuDNN's and cuBLAS's TF32 off inside, restored after."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _p28_err(got, want):
+    """The largest difference over the larger of 1 and the largest
+    magnitude (the op sweep's rule)."""
+    return float(np.abs(got - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def _p28_rnn_run(device, arrays, kw, dtype=None):
+    """Outputs and gradients (data, flat vector, states) of one RNN call
+    under seeded cotangents, in float32 or ``dtype``."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn
+    dtype = dtype or torch.float32
+    ts = [torch.tensor(a, device=device, dtype=dtype, requires_grad=True)
+          for a in arrays]
+    outs = rnn.rnn(*ts, state_outputs=True, **kw)
+    rng = np.random.RandomState(1)
+    cts = [torch.tensor(rng.randn(*o.shape), device=device, dtype=dtype)
+           for o in outs]
+    grads = torch.autograd.grad(outs, ts, cts)
+    return [t.detach().cpu().double().numpy()
+            for t in list(outs) + list(grads)]
+
+
+def _p28_rnn_op():
+    """(a): every mode x {1, 2} layers x {uni, bi}, and the clip route,
+    card against CPU in float32 and float64, each beside a float64 CPU
+    run."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn
+    T, B, I, H = P28_OP_SHAPE
+    cases = [(m, L, bi, {}) for m in ("lstm", "gru", "rnn_tanh", "rnn_relu")
+             for L in (1, 2) for bi in (False, True)]
+    clip = dict(lstm_state_clip_min=-0.2, lstm_state_clip_max=0.2,
+                lstm_state_clip_nan=True)
+    cases += [("lstm", 1, False, clip), ("lstm", 2, True, clip)]
+    worst = dict.fromkeys(("f32", "f64", "card_truth", "cpu_truth"), 0.0)
+    fused = loop = 0
+    with _p28_tf32_off():
+        for mode, L, bi, extra in cases:
+            rng = np.random.RandomState(L * 10 + bi)
+            d = 2 if bi else 1
+            n = rnn.rnn_param_size(H, I, L, mode, bi)
+            arrays = [rng.randn(T, B, I).astype(np.float32) * 2,
+                      (rng.randn(n) * 0.3).astype(np.float32),
+                      (rng.randn(L * d, B, H) * 0.5).astype(np.float32)]
+            if mode == "lstm":
+                arrays.append((rng.randn(L * d, B, H) * 0.5).astype(
+                    np.float32))
+            kw = dict(state_size=H, num_layers=L, mode=mode,
+                      bidirectional=bi, **extra)
+            rnn.reset_launch_counts()
+            card = _p28_rnn_run(P28_DEVICE, arrays, kw)
+            counts = rnn.launch_counts()
+            want = "loop" if extra else "fused"
+            if counts[want] != 1 or sum(counts.values()) != 1:
+                raise RuntimeError("phase 28 (a): %s L%d bi=%s took %r"
+                                   % (mode, L, bi, counts))
+            fused += counts["fused"]
+            loop += counts["loop"]
+            host = _p28_rnn_run("cpu", arrays, kw)
+            truth = _p28_rnn_run("cpu", arrays, kw, torch.float64)
+            card64 = _p28_rnn_run(P28_DEVICE, arrays, kw, torch.float64)
+            for key, got, want in (("f32", card, host),
+                                   ("f64", card64, truth),
+                                   ("card_truth", card, truth),
+                                   ("cpu_truth", host, truth)):
+                worst[key] = max([worst[key]] + [
+                    _p28_err(g, w) for g, w in zip(got, want)])
+    print("phase 28 (a): RNN op, %d cases (4 modes x 1-2 layers x uni/bi, "
+          "2 clip cases), card (cuDNN) vs CPU, TF32 off: outputs, final "
+          "states and gradients of data, parameters and states within "
+          "%.3g in float32 (tol %g) and %.3g in float64 (tol %g); against "
+          "a float64 CPU run the card's float32 sits at %.3g, the CPU's at "
+          "%.3g; routes fused %d, loop %d"
+          % (len(cases), worst["f32"], P28_RNN_F32_TOL, worst["f64"],
+             P28_RNN_F64_TOL, worst["card_truth"], worst["cpu_truth"],
+             fused, loop))
+    if worst["f32"] > P28_RNN_F32_TOL or worst["f64"] > P28_RNN_F64_TOL:
+        raise RuntimeError("phase 28 (a): %r" % worst)
+
+
+def _p28_ctc_run(device, x, lab, dl, ll, kw, dtype=None):
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    d = torch.tensor(x, device=device, dtype=dtype or torch.float32,
+                     requires_grad=True)
+    args = [torch.tensor(a, device=device) if a is not None else None
+            for a in (lab, dl, ll)]
+    loss = contrib.ctc_loss(d, *args, **kw)
+    (g,) = torch.autograd.grad(loss.sum(), d)
+    return (loss.detach().cpu().double().numpy(),
+            g.cpu().double().numpy())
+
+
+def _p28_ctc():
+    """(b): both blanks, lengths given and inferred, card against CPU;
+    the CTC kernels the profile names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    T, B, A, L = P28_CTC_SHAPE
+    worst = dict.fromkeys(("f32", "f64", "card_truth", "cpu_truth"), 0.0)
+    for blank in ("first", "last"):
+        for given in (False, True):
+            rng = np.random.RandomState(3)
+            x = rng.randn(T, B, A).astype(np.float32)
+            lo, hi = (1, A) if blank == "first" else (0, A - 1)
+            lab = rng.randint(lo, hi, (B, L)).astype(np.float32)
+            ll = rng.randint(1, L + 1, B).astype(np.float32)
+            for b in range(B):
+                lab[b, int(ll[b]):] = 0 if blank == "first" else -1
+            dl = rng.randint(T // 2, T + 1, B).astype(np.float32)
+            kw = dict(blank_label=blank, use_data_lengths=given,
+                      use_label_lengths=given)
+            args = (x, lab, dl if given else None, ll if given else None)
+            card = _p28_ctc_run(P28_DEVICE, *args, kw)
+            host = _p28_ctc_run("cpu", *args, kw)
+            card64 = _p28_ctc_run(P28_DEVICE, *args, kw, torch.float64)
+            truth = _p28_ctc_run("cpu", *args, kw, torch.float64)
+            for key, got, want in (("f32", card, host),
+                                   ("f64", card64, truth),
+                                   ("card_truth", card, truth),
+                                   ("cpu_truth", host, truth)):
+                worst[key] = max(worst[key], _p28_err(got[0], want[0]),
+                                 _p28_err(got[1], want[1]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(P28_PROFILED):
+            _p28_ctc_run(P28_DEVICE, *args, kw)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and "ctc" in e.key.lower()})
+    print("phase 28 (b): ctc_loss at T %d, batch %d, alphabet %d, labels "
+          "%d, both blanks, lengths given and inferred, card vs CPU: "
+          "losses and gradients of the activations within %.3g in float32 "
+          "(tol %g) and %.3g in float64 (tol %g); against a float64 CPU run "
+          "the card's float32 sits at %.3g, the CPU's at %.3g; the "
+          "profile's CTC kernels: %s"
+          % (T, B, A, L, worst["f32"], P28_CTC_F32_TOL, worst["f64"],
+             P28_RNN_F64_TOL, worst["card_truth"], worst["cpu_truth"],
+             "; ".join(_short_kernel(n) for n in names) or "none named"))
+    if worst["f32"] > P28_CTC_F32_TOL or worst["f64"] > P28_RNN_F64_TOL:
+        raise RuntimeError("phase 28 (b): %r" % worst)
+
+
+def _p28_train_defaults():
+    """(c): ``tools/train_ctc.main`` at its defaults on the card."""
+    from mxnet_tpu_torch.ops import rnn
+    from mxnet_tpu_torch.tools import train_ctc
+    keys, buckets = [], []
+
+    def seen(i, batch, mod):
+        keys.append(batch.bucket_key)
+        buckets[:] = sorted(mod._buckets)
+    rnn.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train_ctc.main([], batch_end_callback=seen)
+    secs = time.perf_counter() - t0
+    counts = rnn.launch_counts()
+    by_key = {}
+    for k, v in zip(keys, losses):
+        by_key.setdefault(k, []).append(v)
+    fell = {k: (np.mean(v[:5]), np.mean(v[-5:])) for k, v in by_key.items()}
+    print("phase 28 (c): train_ctc.main() at its defaults (batch 16, 2 "
+          "bi-LSTM layers of 64, 39 features, 28 symbols, buckets 40/80, "
+          "Adam 2e-3, 60 batches): %.2f s; buckets bound %s; loss per key, "
+          "first 5 -> last 5: %s; RNN routes %s"
+          % (secs, buckets, ", ".join("%d: %.3f -> %.3f" % (k, a, b)
+                                      for k, (a, b) in sorted(fell.items())),
+             counts))
+    if not np.isfinite(losses).all() or buckets != [40, 80] \
+            or any(b >= a for a, b in fell.values()) \
+            or counts["fused"] != len(losses):
+        raise RuntimeError("phase 28 (c): losses %r, buckets %r, routes %r"
+                           % (losses, buckets, counts))
+    return secs
+
+
+def _p28_speech():
+    """(d): the same sym_gen at speech-sized widths, fixed-batch steps on
+    the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.io import DataBatch, DataDesc
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.tools import train_ctc
+    args = train_ctc.parse_args(P28_SPEECH)
+    T = max(train_ctc.buckets_of(args))
+    B, F = args.batch_size, args.feat_dim
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mod = train_ctc.make_module(args)
+    gen = torch.Generator(device=P28_DEVICE).manual_seed(28)
+    x = torch.randn(B, T, F, device=P28_DEVICE, generator=gen)
+    lab = torch.randint(1, args.vocab, (B, train_ctc.MAX_LABEL),
+                        device=P28_DEVICE, generator=gen).float()
+    batch = DataBatch([NDArray(x)], [NDArray(lab)], bucket_key=T,
+                      provide_data=[DataDesc("data", (B, T, F))],
+                      provide_label=[DataDesc("label", tuple(lab.shape))])
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(P28_WARMUP + P28_TIMED)]
+    losses = []
+    for i, e in enumerate(ev):
+        if i == P28_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        e[0].record()
+        mod.forward(batch, is_train=True)
+        e[1].record()
+        mod.backward()
+        e[2].record()
+        mod.update()
+        e[3].record()
+        losses.append(mod.get_outputs()[0]._data.mean())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    split = np.mean([[e[k].elapsed_time(e[k + 1]) for k in range(3)]
+                     for e in ev[P28_WARMUP:]], axis=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    utt = B * P28_TIMED / wall
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("phase 28 (d): losses %r" % losses)
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(P28_PROFILED):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        return [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0], wall_us
+
+    def fwd_bwd():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+    kernels, wall_us = window(fwd_bwd)
+    upd, upd_wall_us = window(mod.update)
+    busy = sum(e.self_device_time_total for e in kernels)
+    upd_busy = sum(e.self_device_time_total for e in upd)
+    # the copy cuDNN makes of the flat vector's views, alone
+    from mxnet_tpu_torch.ops import rnn
+    flat = mod._curr_module._exec.arg_dict["lstm_parameters"]._data
+    views = [w for layer in rnn._unpack(flat, args.num_hidden, F, 2, "lstm",
+                                        True) for dw in layer for w in dw]
+    c0, c1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cat([w.reshape(-1) for w in views])
+    c0.record()
+    for _ in range(10):
+        torch.cat([w.reshape(-1) for w in views])
+    c1.record()
+    torch.cuda.synchronize()
+    copy_ms = c0.elapsed_time(c1) / 10
+    step_ms = float(sum(split))
+    if not kernels:
+        cats = "the profiler recorded no device time; not measured"
+        idle = step_idle = None
+    else:
+        acc = {}
+        for e in kernels:
+            c = _category(e.key, P28_CATEGORIES)
+            acc[c] = acc.get(c, 0.0) + e.self_device_time_total
+        acc["the update (its own window)"] = upd_busy
+        cats = "; ".join("%s %.3f" % (c, us / P28_PROFILED / 1e3)
+                         for c, us in sorted(acc.items(),
+                                             key=lambda kv: -kv[1]))
+        idle = 1 - (busy + upd_busy) / (wall_us + upd_wall_us)
+        # the profiler's window runs slower than the step (its cost per
+        # launch, ~6,000 launches a step): the busy time over the step's
+        # CUDA-event time too
+        step_idle = 1 - (busy + upd_busy) / P28_PROFILED / 1e3 / step_ms
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    ctc_names = sorted(_short_kernel(e.key) for e in kernels
+                       if _category(e.key, P28_CATEGORIES) == "CTC")
+    print("phase 28 (d): the tool's sym_gen at %s, bucket %d, fixed batch: "
+          "%.1f utterances/s, %.0f frames/s over %d steps (host clock); ms "
+          "a step between CUDA events forward %.3f / backward %.3f / update "
+          "%.3f; device ms a step by category: %s; the flat-weight copy "
+          "alone %.4f ms (%d views, %.1f MB); idle share %s over the "
+          "profiler's window, %s of the step's CUDA-event time; peak %.2f "
+          "GiB; losses %.3f -> %.3f; the CTC kernels there: %s"
+          % (" ".join(P28_SPEECH), T, utt, utt * T, P28_TIMED, split[0],
+             split[1], split[2], cats, copy_ms, len(views),
+             flat.numel() * 4 / 1e6,
+             "not measured" if idle is None else "%.4f" % idle,
+             "not measured" if step_idle is None else "%.4f" % step_idle,
+             peak, losses[0], losses[-1], "; ".join(ctc_names) or "none"))
+    for e in top:
+        print("phase 28 (d): kernel %9.3f ms a step x%-5d %s"
+              % (e.self_device_time_total / P28_PROFILED / 1e3,
+                 e.count // P28_PROFILED, e.key[:110]))
+    del mod
+    torch.cuda.empty_cache()
+    return dict(utt_s=utt, frames_s=utt * T, fwd_ms=split[0],
+                bwd_ms=split[1], upd_ms=split[2], idle=idle,
+                step_idle=step_idle, peak_gib=peak)
+
+
+def _p28_gluon_run(device):
+    """Three Trainer steps of a bidirectional LSTM + Dense under CTCLoss
+    from weights drawn on the host."""
+    import mxnet_tpu_torch as mx
+    rng = np.random.RandomState(4)
+    x = rng.randn(8, 30, 20).astype(np.float32)
+    lab = rng.randint(0, 10, (8, 6)).astype(np.float32)
+    lab[::2, 4:] = -1
+    net = mx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mx.gluon.rnn.LSTM(32, num_layers=2, layout="NTC",
+                                  bidirectional=True))
+        net.add(mx.gluon.nn.Dense(11, flatten=False))
+    net.initialize(mx.init.Xavier(), ctx=device,
+                   rng=np.random.RandomState(5))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.CTCLoss()
+    losses = []
+    for _ in range(P28_GLUON_STEPS):
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(x, ctx=device)),
+                           mx.nd.array(lab, ctx=device))
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss.asnumpy())
+    return losses, {k[len(net.prefix):]: p.data().asnumpy()
+                    for k, p in net.collect_params().items()}
+
+
+def _p28_cells(device):
+    """``mx.rnn.FusedRNNCell`` and its unfused ``LSTMCell`` stack bound
+    with the same weights: (fused outputs, unfused outputs)."""
+    import mxnet_tpu_torch as mx
+    B, T, I, H = 4, 12, 10, 24
+    x = np.random.RandomState(6).randn(B, T, I).astype(np.float32)
+    with mx.name.NameManager():
+        cell = mx.rnn.FusedRNNCell(H, num_layers=2, mode="lstm",
+                                   prefix="f_")
+        out, _ = cell.unroll(T, mx.sym.Variable("data"), layout="NTC")
+    ex = out.simple_bind(device, data=x.shape)
+    flat = (np.random.RandomState(7).randn(
+        *ex.arg_dict["f_parameters"].shape) * 0.2).astype(np.float32)
+    ex.copy_params_from({"f_parameters": mx.nd.array(flat, ctx="cpu")})
+    fused = ex.forward(data=x)[0].asnumpy()
+    stack = cell.unfuse()
+    with mx.name.NameManager():
+        sout, _ = stack.unroll(T, mx.sym.Variable("data"), layout="NTC",
+                               merge_outputs=True)
+    sex = sout.simple_bind(device, data=x.shape)
+    sex.copy_params_from(cell.unpack_weights(
+        {"f_parameters": mx.nd.array(flat, ctx="cpu")}))
+    return fused, sex.forward(data=x)[0].asnumpy()
+
+
+def _p28_gluon():
+    """(e): the Gluon route and the unfused cells, card against CPU."""
+    with _p28_tf32_off():
+        card, host = _p28_gluon_run(P28_DEVICE), _p28_gluon_run("cpu")
+        fused, unfused = _p28_cells(P28_DEVICE)
+    w_loss = max(_p28_err(c, h) for c, h in zip(card[0], host[0]))
+    w_par = max(_p28_err(card[1][k], v) for k, v in host[1].items())
+    w_cell = _p28_err(unfused, fused)
+    print("phase 28 (e): gluon.rnn.LSTM(32, 2 layers, bidirectional) + "
+          "Dense under gluon.loss.CTCLoss, %d Trainer steps (SGD momentum), "
+          "card vs CPU, TF32 off: losses %.3g, parameters %.3g; "
+          "mx.rnn.LSTMCell stack (unfuse) vs FusedRNNCell on the card %.3g "
+          "(tol %g: cuDNN's f32 recurrence, (a)); losses %s"
+          % (P28_GLUON_STEPS, w_loss, w_par, w_cell, P28_RNN_F32_TOL,
+             ["%.4f" % float(np.mean(v)) for v in card[0]]))
+    if max(w_loss, w_par, w_cell) > P28_RNN_F32_TOL:
+        raise RuntimeError("phase 28 (e): %r" % ((w_loss, w_par, w_cell),))
+
+
+def phase_rnn_ctc():
+    """Phase 28: LSTM + CTC."""
+    import os
+    import torch
+    t_phase = time.monotonic()
+    print("phase 28: precision flags as found: cudnn.allow_tf32=%s "
+          "matmul.allow_tf32=%s cudnn.benchmark=%s cudnn.deterministic=%s; "
+          "cuDNN %s; host load average %s"
+          % (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.version(),
+             "/".join("%.2f" % v for v in os.getloadavg())))
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    _p28_rnn_op()
+    _p28_ctc()
+    secs = _p28_train_defaults()
+    speech = _p28_speech()
+    _p28_gluon()
+    launched = _hand_launches()
+    if launched:
+        raise RuntimeError("phase 28: hand kernels launched on the LSTM + "
+                           "CTC path: %r" % launched)
+    RUNS["phase 28"] = dict(speech, defaults_s=secs)
+    print("phase 28: B1-B10 launches 0 over the phase; %.1f s (the script "
+          "so far %.1f s)" % (time.monotonic() - t_phase,
+                              time.monotonic() - T_START))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6157,6 +6646,7 @@ def main():
             if k["name"] == "fused_sgd_momentum":
                 k["launches_phase26"] = launches
         phase_module_train()
+        phase_rnn_ctc()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -36,8 +36,11 @@ Symbol, Executor and Module — ``Executor.backward``, the ``module``
 package (``Module.fit`` / ``score`` / ``predict``, ``BucketingModule``,
 ``SequentialModule``), ``model`` (checkpoints, ``FeedForward``),
 ``callback``, ``monitor`` and ``operator`` (``CustomOp`` through
-``nd.Custom``), with ``tools.train_mnist`` and ``tools.train_imagenet``.
-ROADMAP.md lists the rest.
+``nd.Custom``), with ``tools.train_mnist`` and ``tools.train_imagenet``;
+and LSTM + CTC — the ``RNN`` op (``ops.rnn``, cuDNN through torch's fused
+RNN functions), the CTC loss (``ops.contrib``), ``gluon.rnn``,
+``gluon.contrib.rnn``, ``gluon.loss.CTCLoss`` and ``rnn`` (``mx.rnn``),
+with ``tools.train_ctc``.  ROADMAP.md lists the rest.
 
 The reference's top-level names load on first use: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
@@ -45,7 +48,8 @@ The reference's top-level names load on first use: ``mx.nd``,
 ``mx.sym``, ``mx.test_utils``, ``mx.io``, ``mx.image``, ``mx.recordio``,
 ``mx.profiler``, ``mx.lr_scheduler``, ``mx.model``, ``mx.mod``
 (``module``), ``mx.callback``, ``mx.monitor``, ``mx.Monitor``,
-``mx.operator``, ``mx.MXNetError``, ``mx.cpu()`` and ``mx.gpu()``.
+``mx.operator``, ``mx.rnn``, ``mx.MXNetError``, ``mx.cpu()`` and
+``mx.gpu()``.
 """
 import importlib
 
@@ -58,7 +62,7 @@ _LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
          "recordio": "recordio", "profiler": "profiler", "name": "name",
          "lr_scheduler": "lr_scheduler", "model": "model", "mod": "module",
          "module": "module", "callback": "callback", "monitor": "monitor",
-         "operator": "operator"}
+         "operator": "operator", "rnn": "rnn"}
 
 
 def __getattr__(name):

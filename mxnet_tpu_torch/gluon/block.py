@@ -60,7 +60,7 @@ from ..ndarray import NDArray
 from ..ops import registry as _registry
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "compute_dtype"]
+__all__ = ["Block", "HybridBlock", "compute_dtype", "run_on_tensors"]
 
 _compute = threading.local()
 # the training flag of blocks called on NDArrays (None: nn.Module's mode)
@@ -271,7 +271,7 @@ class Block(torch.nn.Module):
             params[name].set_data(data, device=ctx)
 
     def __call__(self, *args, **kwargs):
-        if any(isinstance(a, NDArray) for a in args):
+        if _has_ndarray(args):
             return _call_on_ndarrays(self, args, kwargs)
         return super().__call__(*args, **kwargs)
 
@@ -285,26 +285,56 @@ class Block(torch.nn.Module):
         raise NotImplementedError
 
 
-def _call_on_ndarrays(block, args, kwargs):
-    """Run ``block`` on NDArray inputs (module docstring): a
-    ``HybridBlock`` on their tensors, recorded only while recording and
-    with autograd's training flag; a plain ``Block``'s ``forward`` on the
-    NDArrays themselves."""
-    if not isinstance(block, HybridBlock):
-        return block.forward(*args, **kwargs)
-    raw = [a._data if isinstance(a, NDArray) else a for a in args]
-    kw = {k: v._data if isinstance(v, NDArray) else v
-          for k, v in kwargs.items()}
+def _has_ndarray(args):
+    """Whether an NDArray is among ``args`` or inside a list or tuple of
+    them (a recurrent cell's states)."""
+    return any(isinstance(a, NDArray) or (isinstance(a, (list, tuple))
+                                          and _has_ndarray(a))
+               for a in args)
+
+
+def _unwrap(x):
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(v) for v in x)
+    return x
+
+
+def _wrap(x):
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (list, tuple)):
+        return [_wrap(v) for v in x]
+    return x
+
+
+def run_on_tensors(fn, args, kwargs):
+    """``fn`` on the tensors of NDArray arguments (lists and tuples of
+    them too), recorded only while recording and with autograd's training
+    flag (module docstring); its tensors come back as NDArrays, its lists
+    and tuples as lists."""
+    raw = _unwrap(args)
+    kw = {k: _unwrap(v) for k, v in kwargs.items()}
     prev = getattr(_nd_training, "value", None)
     _nd_training.value = autograd.is_training()
     try:
         with torch.set_grad_enabled(autograd.is_recording()):
-            out = torch.nn.Module.__call__(block, *raw, **kw)
+            out = fn(*raw, **kw)
     finally:
         _nd_training.value = prev
-    if isinstance(out, (list, tuple)):
-        return [NDArray(o) for o in out]
-    return NDArray(out)
+    return _wrap(out)
+
+
+def _call_on_ndarrays(block, args, kwargs):
+    """Run ``block`` on NDArray inputs (module docstring): a
+    ``HybridBlock`` on their tensors (:func:`run_on_tensors`); a plain
+    ``Block``'s ``forward`` on the NDArrays themselves."""
+    if not isinstance(block, HybridBlock):
+        return block.forward(*args, **kwargs)
+    return run_on_tensors(
+        lambda *a, **k: torch.nn.Module.__call__(block, *a, **k), args,
+        kwargs)
 
 
 _active_depth = threading.local()

@@ -1,5 +1,5 @@
 """``gluon.contrib`` of the port (reference: ``mxnet_tpu/gluon/contrib``):
-``nn``.  The reference's ``contrib.rnn`` is ROADMAP.md queue A, item 10."""
-from . import nn
+``nn`` and ``rnn``."""
+from . import nn, rnn
 
-__all__ = ["nn"]
+__all__ = ["nn", "rnn"]

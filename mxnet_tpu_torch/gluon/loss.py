@@ -1,8 +1,7 @@
 """Gluon losses: the port of ``mxnet_tpu/gluon/loss.py`` (L2, L1,
 SigmoidBCE, SoftmaxCE, KLDiv, Huber, Hinge, SquaredHinge, Logistic,
-Triplet).  A loss returns one value per sample (the mean over every axis
-but ``batch_axis``); the trainer takes the ``.mean()``.  ``CTCLoss``
-raises: it belongs to ROADMAP.md queue A, item 10."""
+Triplet, CTC).  A loss returns one value per sample (the mean over every
+axis but ``batch_axis``); the trainer takes the ``.mean()``."""
 from __future__ import annotations
 
 from .block import HybridBlock
@@ -124,11 +123,28 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
+    """Connectionist temporal classification over the contrib ``ctc_loss``
+    op, blank last (labels padded with -1): ``pred`` in ``layout`` NTC or
+    TNC, ``label`` in ``label_layout`` NT or TN, the lengths optional
+    (reference: loss.py CTCLoss)."""
+
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise NotImplementedError(
-            "CTCLoss (the contrib ctc_loss op) is ROADMAP.md queue A, "
-            "item 10")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._label_layout == "TN":
+            label = label.transpose(0, 1)
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths,
+                          use_data_lengths=pred_lengths is not None,
+                          use_label_lengths=label_lengths is not None,
+                          blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

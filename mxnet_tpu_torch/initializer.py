@@ -28,7 +28,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "TorchDraws"]
+           "Constant", "Uniform", "Normal", "Xavier", "LSTMBias", "FusedRNN",
+           "TorchDraws"]
 
 _REG = {}
 
@@ -70,6 +71,11 @@ def _need_rng(rng, who):
 class Initializer:
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON: what a variable's ``__init__``
+        attribute records and :func:`create` reads back."""
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr, rng=None):
         """Fill ``arr`` in place by the name rules: a numpy array from a
@@ -187,9 +193,41 @@ class Xavier(Initializer):
             arr[...] = rng.normal(0, scale, arr.shape)
 
 
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (i, f, g, o) at
+    ``forget_bias`` (reference: initializer.py LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, _, arr, rng):
+        num_hidden = arr.shape[0] // 4
+        arr[...] = 0.0
+        arr[num_hidden:2 * num_hidden] = self.forget_bias
+
+
+class FusedRNN(Initializer):
+    """The initializer a ``FusedRNNCell``'s flat parameter vector carries
+    in its ``__init__`` attribute: ``init`` (Uniform when None) over the
+    whole vector.  As the reference's, it is recorded with no arguments
+    (``dumps``), so a recreated one is Uniform, and ``forget_bias`` is
+    never applied (reference: initializer.py FusedRNN)."""
+
+    def __init__(self, init=None, num_hidden=0, num_layers=0, mode="lstm",
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__()
+        self._init = create(init) if init is not None else Uniform()
+
+    def _init_weight(self, desc, arr, rng):
+        self._init._init_weight(desc, arr, rng)
+
+
 register(Zero, "zeros")
 register(One, "ones")
 register(Constant)
 register(Uniform)
 register(Normal, "gaussian")
 register(Xavier)
+register(LSTMBias)
+register(FusedRNN)

@@ -166,11 +166,23 @@ def _softmax_label_shape(attrs, dshape):
     return tuple(dshape[:-1])
 
 
+def _rnn_param_shapes(attrs, dshape):
+    """The flat parameter vector and both states of the ``RNN`` op for
+    data of shape (seq_len, batch, input_size)."""
+    from ..ops import rnn as _rnn_ops
+    state = _rnn_ops.rnn_state_shape(attrs, dshape)
+    return {"parameters": (_rnn_ops.rnn_param_size(
+        int(attrs["state_size"]), dshape[2], int(attrs.get("num_layers", 1)),
+        attrs.get("mode", "lstm"), attrs.get("bidirectional", False)),),
+        "state": state, "state_cell": state}
+
+
 _LABEL_SHAPE_RULES = {"SoftmaxOutput": _softmax_label_shape}
 _PARAM_SHAPE_RULES = {
     "Convolution": _conv_param_shapes,
     "FullyConnected": _fc_param_shapes,
     "BatchNorm": _bn_param_shapes,
+    "RNN": _rnn_param_shapes,
 }
 
 # attrs consumed by the executor (placement / learning-rate metadata),
@@ -622,6 +634,8 @@ def _sym_invoke(op, op_name, args, kwargs):
     attr = kwargs.pop("attr", None)
     name = NameManager._current.get(name, op_name)
 
+    if op.arg_names == ["args"]:
+        return _sym_invoke_variadic(op, op_name, name, attr, args, kwargs)
     params = {}
     names = list(op.arg_names) + [op.aux[i] for i in sorted(op.aux)]
     slots = {}
@@ -659,6 +673,30 @@ def _sym_invoke(op, op_name, args, kwargs):
         if v is not None:
             attrs[k] = v
     node = _Node(op_name, name, attrs, entries)
+    n_out = op.n_outputs(_attr_params(op, attrs))
+    return Symbol([(node, i) for i in range(n_out)])
+
+
+def _sym_invoke_variadic(op, op_name, name, attr, args, kwargs):
+    """A node of an op over any number of inputs (``Concat``, ``stack``,
+    ``add_n``): every Symbol given, in order, lists flattened."""
+    flat = []
+    for a in args:
+        flat.extend(a if isinstance(a, (list, tuple)) else [a])
+    for a in flat:
+        if not isinstance(a, Symbol):
+            raise TypeError("%s expects Symbols, got %r" % (op_name, type(a)))
+    params = {}
+    for k, v in kwargs.items():
+        if isinstance(v, Symbol):
+            flat.append(v)
+        else:
+            params[k] = v
+    attrs = AttrScope._current.get(attr or {})
+    for k, v in params.items():
+        if v is not None:
+            attrs[k] = v
+    node = _Node(op_name, name, attrs, [a._outputs[0] for a in flat])
     n_out = op.n_outputs(_attr_params(op, attrs))
     return Symbol([(node, i) for i in range(n_out)])
 

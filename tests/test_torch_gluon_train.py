@@ -212,8 +212,14 @@ def test_loss_matches_reference(name, weighted):
 
 
 def test_ctc_loss_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        gluon.loss.CTCLoss()
+    """CTC, ROADMAP.md A10(a), is ported: ``CTCLoss`` computes the
+    reference's losses (``tests/test_torch_ctc.py`` holds the rest)."""
+    rng = np.random.RandomState(0)
+    pred = rng.randn(2, 6, 5).astype(np.float32)
+    label = np.array([[1, 2, -1], [3, 3, 0]], np.float32)
+    want = mx.gluon.loss.CTCLoss()(mx.nd.array(pred), mx.nd.array(label))
+    got = gluon.loss.CTCLoss()(nd.array(pred), nd.array(label))
+    _close(want.asnumpy(), got.asnumpy())
 
 
 # -- training ----------------------------------------------------------------
