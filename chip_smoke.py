@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-eight phases; any failure exits non-zero and prints no result line.
+Twenty-nine phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -531,6 +531,46 @@ Twenty-eight phases; any failure exits non-zero and prints no result line.
     recurrence, as in (a)).  No B1-B10
     counter moves over the phase.  Prints the flags as found, the
     phase's seconds and the script's.
+29. **Detection.** (a) Every op of ``ops/contrib.py``'s box, SSD and
+    RCNN families on the card against the CPU at the published sizes,
+    TF32 off, in float32 and float64: ``MultiBoxPrior`` over SSD300's six
+    maps (38^2 ... 1^2, MXNet ``example/ssd``'s ``ssd_300`` sizes, ratios
+    and steps: 8,732 anchors), ``MultiBoxTarget`` at batch 32 (21
+    classes, 1-20 seeded truths padded to 20, the training config's
+    thresholds, mining ratio 3), ``MultiBoxDetection`` at batch 32 (the
+    deploy settings: NMS 0.45, ``nms_topk`` 400, threshold 0.01),
+    ``box_nms`` over its rows at topk 400 and over all 8,732 rows,
+    ``bipartite_matching`` over 32 x 8,732 x 20 IoUs, ``Proposal`` at
+    Faster R-CNN's VGG16 test settings (38 x 63 at stride 16, 9 anchors:
+    21,546; 6,000 pre-NMS, 300 post, NMS 0.7, min size 16) and
+    ``MultiProposal`` at batch 2, ``ROIAlign`` forward and backward (300
+    rois over (1, 512, 38, 63), 7 x 7, sample_ratio 2, both ``aligned``).
+    Integer, index and keep outputs equal; floats within 1e-5 of the
+    larger of 1 and the largest magnitude in float32 and 1e-10 in
+    float64; an image whose decision flips in float32 is counted and
+    printed, is allowed only downstream of ``exp`` (the mining softmax,
+    the decodes) and must not flip in float64.  Each op's ms a call
+    (CUDA events), kernels and copies a call (profiler) and host syncs a
+    call (``torch.cuda.set_sync_debug_mode``, beside the NMS's own
+    counter).  (b) ``tools/train_ssd.main()`` at its defaults (the
+    repo's config 4): seconds, the loss falling, the detections kept;
+    then its step at batch 256 fed from 8 x 256 records through
+    ``ImageDetRecordIter``: images/s fed and on a decoded batch, forward
+    / target / loss / backward / update ms between CUDA events, device
+    ms by category and the idle share (profiler), peak memory.  (c) One
+    SSD step from the same weights, card against CPU, TF32 off: outputs
+    within 1e-4, ``MultiBoxTarget`` equal on the same inputs, gradients
+    within 10x the CPU's rounding floor (weights one ulp up).  (d)
+    ``tools/train_rcnn_lite.main()`` at its defaults after
+    ``mx.random.seed(P29_RCNN_SEED)``, its own asserts (head accuracy >=
+    0.8, recall >= 0.5), and the figures at ``P29_RCNN_SEEDS`` (ROADMAP.md
+    C9).  (e) ``ImageDetRecordIter`` over 256 detection records of the
+    JPEG fixtures, batch 32 at 300^2 with shuffle, rand_crop 0.5 and
+    mirror: batches/s, the first batch bitwise an in-process
+    ``ImageDetIter``'s from the same ``random`` seed, labels padded with
+    -1 rows to the estimated shape.  No B1-B10 counter moves over the
+    phase; whether PIL is on the host is printed.  Prints the phase's
+    seconds and the script's.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -6566,6 +6606,652 @@ def phase_rnn_ctc():
                               time.monotonic() - T_START))
 
 
+# -- slice 22: detection -----------------------------------------------------
+P29_DEVICE = "cuda"
+# card vs CPU, each difference over the larger of 1 and the array's
+# largest magnitude (_p28_err); integer, index and keep outputs equal
+P29_F32_TOL, P29_F64_TOL = 1e-5, 1e-10
+P29_WARMUP, P29_TIMED, P29_PROFILED = 2, 10, 3
+# SSD300 (MXNet example/ssd, symbol/symbol_factory.py, vgg16_reduced at
+# 300): six source maps, their sizes, ratios and steps; 8,732 anchors
+P29_SSD_MAPS = (38, 19, 10, 5, 3, 1)
+P29_SSD_SIZES = ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                 (.71, .79), (.88, .961))
+P29_SSD_RATIOS = ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+                  (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5))
+P29_SSD_STEPS = tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300))
+P29_ANCHORS = 8732
+# the training config's targets and the deploy config's detection
+# (example/ssd/symbol/symbol_builder.py), VOC's 20 classes + background
+P29_BATCH, P29_CLASSES, P29_MAX_OBJ = 32, 21, 20
+P29_TARGET = dict(overlap_threshold=0.5, ignore_label=-1.0,
+                  negative_mining_ratio=3.0, negative_mining_thresh=0.5,
+                  minimum_negative_samples=0,
+                  variances=(0.1, 0.1, 0.2, 0.2))
+P29_DETECT = dict(nms_threshold=0.45, nms_topk=400, threshold=0.01,
+                  force_suppress=False, variances=(0.1, 0.1, 0.2, 0.2))
+# Faster R-CNN's VGG16 test settings: a 600 x 1000 image at stride 16,
+# 9 anchors a position (21,546)
+P29_RPN_MAP = (38, 63)
+P29_RPN = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+               threshold=0.7, rpn_min_size=16, scales=(8, 16, 32),
+               ratios=(0.5, 1, 2), feature_stride=16)
+P29_ROI_DATA = (1, 512, 38, 63)
+# (b): the tool at batch 256 over 8 x 256 records
+P29_SSD_BIG = 256
+# (d): mx.random.seed of the RCNN run held to its asserts, and the seeds
+# printed beside it (the reference's bars do not hold at every seed,
+# ROADMAP.md C9)
+P29_RCNN_SEED, P29_RCNN_SEEDS = 2, (0, 1)
+# (e): detection records cycling the 16 JPEG fixtures (500 x 375)
+P29_DET_RECORDS, P29_DET_BATCH, P29_DET_SIDE = 256, 32, 300
+P29_CATEGORIES = (
+    ("gemm / convolution", ("gemm", "conv", "cutlass", "xmma", "sm90_",
+                            "implicit")),
+    ("sort", ("sort", "radix")),
+    ("copies", ("copy", "cat", "memcpy")),
+    ("reduction", ("reduce",)),
+    ("gather / scatter / index", ("gather", "scatter", "index")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _p29_ssd_anchors(device, dtype):
+    """The six SSD300 maps' anchors, concatenated: (1, 8732, 4)."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    outs = []
+    for side, sizes, ratios, step in zip(P29_SSD_MAPS, P29_SSD_SIZES,
+                                         P29_SSD_RATIOS, P29_SSD_STEPS):
+        x = torch.empty((1, 1, side, side), device=device, dtype=dtype)
+        outs.append(contrib.multibox_prior(x, sizes=sizes, ratios=ratios,
+                                           steps=(step, step)))
+    return torch.cat(outs, dim=1)
+
+
+def _p29_inputs():
+    """Seeded inputs of (a) as float64 numpy arrays (cast per run); the
+    decoded rows ``box_nms`` takes and the IoU matrix
+    ``bipartite_matching`` takes are made on the CPU in float64."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    rng = np.random.RandomState(29)
+    anc = _p29_ssd_anchors("cpu", torch.float64)
+    assert anc.shape == (1, P29_ANCHORS, 4), anc.shape
+    B, M = P29_BATCH, P29_MAX_OBJ
+    lab = np.full((B, M, 5), -1.0)
+    for b in range(B):
+        for m in range(rng.randint(1, M + 1)):
+            x0, y0 = rng.uniform(0, 0.8, 2)
+            lab[b, m] = [rng.randint(P29_CLASSES - 1), x0, y0,
+                         x0 + rng.uniform(0.05, 1 - x0),
+                         y0 + rng.uniform(0.05, 1 - y0)]
+    logits = rng.randn(B, P29_CLASSES, P29_ANCHORS) * 2
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob /= prob.sum(1, keepdims=True)
+    loc = rng.randn(B, P29_ANCHORS * 4) * 0.5
+    # MultiBoxDetection's rows before its NMS: [class, score, box], -1
+    # at or under the threshold
+    a = anc.numpy()[0]
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    l4 = loc.reshape(B, -1, 4)
+    cx = l4[..., 0] * 0.1 * aw + (a[:, 0] + a[:, 2]) / 2
+    cy = l4[..., 1] * 0.1 * ah + (a[:, 1] + a[:, 3]) / 2
+    w, h = np.exp(l4[..., 2] * 0.2) * aw, np.exp(l4[..., 3] * 0.2) * ah
+    rows = np.concatenate([
+        prob[:, 1:].argmax(1)[..., None], prob[:, 1:].max(1)[..., None],
+        np.clip(np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                         -1), 0, 1)], -1)
+    rows[rows[..., 1] <= 0.01] = -1
+    iou = contrib._box_iou_corner(anc.expand(B, -1, -1),
+                                  torch.from_numpy(lab[..., 1:5])).numpy()
+    H, W = P29_RPN_MAP
+    A = len(P29_RPN["scales"]) * len(P29_RPN["ratios"])
+    x1 = rng.uniform(0, 900, 300)
+    y1 = rng.uniform(0, 500, 300)
+    return dict(
+        anc=anc.numpy(), lab=lab, cls_pred=logits, prob=prob, loc=loc,
+        rows=rows, rows1=rows[:1], iou=iou,
+        rpn_cls=rng.rand(2, 2 * A, H, W), rpn_box=rng.randn(2, 4 * A, H, W)
+        * 0.2, info=np.array([[600, 1000, 1.0], [600, 1000, 1.0]]),
+        feat=rng.randn(*P29_ROI_DATA),
+        rois=np.stack([np.zeros(300), x1, y1, x1 + rng.uniform(16, 300, 300),
+                       y1 + rng.uniform(16, 300, 300)], 1),
+        roi_ct=rng.randn(300, P29_ROI_DATA[1], 7, 7))
+
+
+def _p29_cases():
+    """(name, fn(tensors) -> outputs, input keys, exact output indices,
+    whether a decision sits downstream of exp) of (a)."""
+    from mxnet_tpu_torch.ops import contrib
+    return [
+        ("MultiBoxPrior x6", lambda t: (_p29_ssd_anchors(
+            t[0].device, t[0].dtype),), ["anc"], (), False),
+        ("MultiBoxTarget", lambda t: contrib.multibox_target(
+            *t, **P29_TARGET), ["anc", "lab", "cls_pred"], (1, 2), True),
+        ("MultiBoxDetection", lambda t: (contrib.multibox_detection(
+            *t, **P29_DETECT),), ["prob", "loc", "anc"], (0,), True),
+        ("box_nms topk 400", lambda t: (contrib.box_nms(
+            t[0], overlap_thresh=0.45, valid_thresh=0.01, topk=400,
+            coord_start=2, score_index=1, id_index=0),), ["rows"], (0,),
+         False),
+        ("box_nms 8,732 rows (batch 1)", lambda t: (contrib.box_nms(
+            t[0], overlap_thresh=0.45, valid_thresh=0.01, coord_start=2,
+            score_index=1, id_index=0, force_suppress=True),), ["rows1"],
+         (0,), False),
+        ("bipartite_matching", lambda t: contrib.bipartite_matching(
+            t[0], threshold=1e-12), ["iou"], (0, 1), False),
+        ("Proposal", lambda t: contrib.proposal(
+            t[0][:1], t[1][:1], t[2][:1], output_score=True, **P29_RPN),
+         ["rpn_cls", "rpn_box", "info"], (0, 1), True),
+        ("MultiProposal (batch 2)", lambda t: contrib.proposal(
+            *t, output_score=True, **P29_RPN),
+         ["rpn_cls", "rpn_box", "info"], (0, 1), True),
+    ]
+
+
+def _p29_images(name, outs):
+    """Each output as (images, values): Proposal's rows regrouped by
+    image, the rest batch-first as they are."""
+    if name.startswith(("Proposal", "MultiProposal")):
+        n = 1 if name.startswith("Proposal") else 2
+        return [o.reshape(n, -1) for o in outs]
+    return [o.reshape(o.shape[0], -1) for o in outs]
+
+
+def _p29_exact(name, i, a):
+    """The part of output ``i`` (as images) held equal: integer, index and
+    keep values (a detection row's class and score, -1 where dropped; a
+    roi's batch index; Proposal's scores are an input's values)."""
+    if name.startswith(("MultiBoxDetection", "box_nms")):
+        return a.reshape(a.shape[0], -1, 6)[..., :2]
+    if name.startswith(("Proposal", "MultiProposal")) and i == 0:
+        return a.reshape(a.shape[0], -1, 5)[..., 0]
+    return a
+
+
+def _p29_compare(name, exact_idx, card, host):
+    """(images with a flipped decision, worst float difference over the
+    others) of one op's outputs, card against CPU."""
+    card, host = _p29_images(name, card), _p29_images(name, host)
+    flipped = np.zeros(card[0].shape[0], bool)
+    for i in exact_idx:
+        c, h = _p29_exact(name, i, card[i]), _p29_exact(name, i, host[i])
+        flipped |= (c != h).reshape(c.shape[0], -1).any(1)
+    worst = 0.0
+    for c, h in zip(card, host):
+        c, h = c[~flipped], h[~flipped]
+        if c.size:
+            worst = max(worst, _p28_err(c, h))
+    return np.nonzero(flipped)[0].tolist(), worst
+
+
+def _p29_time(fn, *args):
+    """(ms a call by CUDA events, kernel launches and copies a call by
+    the profiler, host syncs a call by torch's sync debug mode)."""
+    import warnings
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(P29_WARMUP):
+        fn(*args)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(P29_TIMED):
+        fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / P29_TIMED
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(P29_PROFILED):
+            fn(*args)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in ev if "memcpy" in e.key.lower()
+                 or "memset" in e.key.lower())
+    kernels = sum(e.count for e in ev) - copies
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's message for each synchronizing call (its one-time notice
+    # that the mode is a prototype is not one)
+    syncs = [str(w.message) for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    return ms, kernels / P29_PROFILED, copies / P29_PROFILED, syncs
+
+
+def _p29_ops():
+    """(a): every op of the slice at the published sizes, card against
+    CPU in float32 and float64, then timed on the card."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    inp = _p29_inputs()
+
+    def tensors(keys, device, dtype):
+        return [torch.tensor(inp[k], device=device, dtype=dtype)
+                for k in keys]
+    rows = []
+    with _p28_tf32_off():
+        for name, fn, keys, exact, after_exp in _p29_cases():
+            res = {}
+            for dt in (torch.float32, torch.float64):
+                got = {}
+                for dev in (P29_DEVICE, "cpu"):
+                    outs = fn(tensors(keys, dev, dt))
+                    got[dev] = [o.detach().cpu().double().numpy()
+                                for o in outs]
+                res[dt] = _p29_compare(name, exact, got[P29_DEVICE],
+                                       got["cpu"])
+            (flip32, err32), (flip64, err64) = res[torch.float32], \
+                res[torch.float64]
+            args = tensors(keys, P29_DEVICE, torch.float32)
+            contrib.reset_host_sync_counts()
+            ms, kernels, copies, msgs = _p29_time(fn, args)
+            syncs = len(msgs)
+            counted = sum(contrib.host_sync_counts().values()) / (
+                P29_WARMUP + P29_TIMED + P29_PROFILED + 1)
+            if syncs > counted:
+                print("phase 29 (a): %s: a sync besides the NMS's: %s"
+                      % (name, msgs[0][:300].replace("\n", " ")))
+            rows.append(dict(op=name, ms=ms, kernels=kernels, copies=copies,
+                             syncs=syncs, nms_syncs=counted,
+                             flips32=len(flip32), flips64=len(flip64),
+                             err32=err32, err64=err64))
+            print("phase 29 (a): %-27s %9.4f ms a call; %6.1f kernels, "
+                  "%4.1f copies, %d host syncs a call (sync debug mode; "
+                  "the NMS counter %.1f); card vs CPU: f32 %.3g over the "
+                  "images with no flip, %d image(s) with a flipped "
+                  "decision; f64 %.3g, %d flipped"
+                  % (name, ms, kernels, copies, syncs, counted, err32,
+                     len(flip32), err64, len(flip64)))
+            if flip64 or err64 > P29_F64_TOL or err32 > P29_F32_TOL \
+                    or (flip32 and not after_exp):
+                raise RuntimeError("phase 29 (a): %s: f32 flips %r (%.3g), "
+                                   "f64 flips %r (%.3g)"
+                                   % (name, flip32, err32, flip64, err64))
+        rows.append(_p29_roi_align(inp))
+    return rows
+
+
+def _p29_roi_align(inp):
+    """(a): ROIAlign forward and backward, both ``aligned`` values."""
+    import torch
+    from mxnet_tpu_torch.ops import contrib
+    worst = {}
+    for aligned in (False, True):
+        kw = dict(pooled_size=(7, 7), spatial_scale=1.0 / 16,
+                  sample_ratio=2, aligned=aligned)
+        for dt in (torch.float32, torch.float64):
+            got = []
+            for dev in (P29_DEVICE, "cpu"):
+                d = torch.tensor(inp["feat"], device=dev, dtype=dt,
+                                 requires_grad=True)
+                r = torch.tensor(inp["rois"], device=dev, dtype=dt)
+                out = contrib.roi_align(d, r, **kw)
+                (g,) = torch.autograd.grad(
+                    out, d, torch.tensor(inp["roi_ct"], device=dev,
+                                         dtype=dt))
+                got.append([out.detach().cpu().double().numpy(),
+                            g.cpu().double().numpy()])
+            key = "f32" if dt == torch.float32 else "f64"
+            worst[key] = max([worst.get(key, 0.0)] + [
+                _p28_err(c, h) for c, h in zip(*got)])
+    d = torch.tensor(inp["feat"], device=P29_DEVICE, dtype=torch.float32,
+                     requires_grad=True)
+    r = torch.tensor(inp["rois"], device=P29_DEVICE, dtype=torch.float32)
+    ct = torch.tensor(inp["roi_ct"], device=P29_DEVICE, dtype=torch.float32)
+    kw = dict(pooled_size=(7, 7), spatial_scale=1.0 / 16, sample_ratio=2)
+    fwd = _p29_time(lambda: contrib.roi_align(d, r, **kw))
+    out = contrib.roi_align(d, r, **kw)
+    bwd = _p29_time(lambda: torch.autograd.grad(out, d, ct,
+                                                retain_graph=True))
+    print("phase 29 (a): ROIAlign 300 rois over %s, 7 x 7, sample_ratio 2: "
+          "forward %.4f ms (%.1f kernels), backward %.4f ms (%.1f kernels), "
+          "%d / %d host syncs; card vs CPU, both aligned values, outputs "
+          "and data gradients: f32 %.3g, f64 %.3g"
+          % (P29_ROI_DATA, fwd[0], fwd[1], bwd[0], bwd[1], len(fwd[3]),
+             len(bwd[3]), worst["f32"], worst["f64"]))
+    if worst["f32"] > P29_F32_TOL or worst["f64"] > P29_F64_TOL:
+        raise RuntimeError("phase 29 (a): ROIAlign %r" % worst)
+    return dict(op="ROIAlign", ms=fwd[0], bwd_ms=bwd[0], kernels=fwd[1],
+                bwd_kernels=bwd[1], syncs=len(fwd[3]) + len(bwd[3]),
+                err32=worst["f32"], err64=worst["f64"])
+
+
+def _p29_ctx():
+    """The tools' flags for P29_DEVICE: none on the card (their default),
+    ``--ctx cpu`` in a rehearsal on the host."""
+    return [] if P29_DEVICE == "cuda" else ["--ctx", "cpu"]
+
+
+def _p29_ssd_defaults():
+    """(b): ``tools/train_ssd.main()`` at its defaults on the card."""
+    from mxnet_tpu_torch.ops import contrib
+    from mxnet_tpu_torch.tools import train_ssd
+    contrib.reset_host_sync_counts()
+    t0 = time.perf_counter()
+    losses, kept = train_ssd.main(_p29_ctx())
+    secs = time.perf_counter() - t0
+    print("phase 29 (b): train_ssd.main() at its defaults (BASELINE config "
+          "4: batch 16, 2 classes, 80 batches, SGD lr 0.05 momentum 0.9, "
+          "jpeg %s): %.2f s; loss %.4f at step 0 -> %.4f at step %d (mean "
+          "of the last 10 %.4f); %d detections kept on the inference "
+          "batch's image 0; NMS host syncs %r"
+          % (train_ssd.jpeg_encoder(), secs, losses[0], losses[-1],
+             len(losses) - 1, float(np.mean(losses[-10:])), len(kept),
+             contrib.host_sync_counts()))
+    if not np.isfinite(losses).all() or not np.mean(losses[-10:]) \
+            < losses[0]:
+        raise RuntimeError("phase 29 (b): losses %r" % losses)
+    return secs, losses
+
+
+def _p29_ssd_big(tmp):
+    """(b): the tool's step at batch 256, fed from a .rec of 8 x 256
+    records through ImageDetRecordIter: images/s, the stage split between
+    CUDA events, the idle share and peak memory."""
+    import os
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.tools import train_ssd
+    args = train_ssd.parse_args(["--batch-size", str(P29_SSD_BIG)]
+                                + _p29_ctx())
+    rec, idx = train_ssd.pack_det_records(
+        os.path.join(tmp, "ssd"), P29_SSD_BIG * 8, args.num_classes,
+        np.random.RandomState(0), train_ssd.jpeg_encoder())
+    stages = ("forward", "target", "loss", "backward", "update")
+    steps = P29_WARMUP + P29_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with use(P29_DEVICE):
+        it = train_ssd.make_iter(rec, idx, P29_SSD_BIG)
+        ex, updater = train_ssd.bind(args, torch.device(P29_DEVICE))
+        gen = train_ssd.batches(it, P29_SSD_BIG)
+        ev = []
+        losses = []
+        for i in range(steps):
+            if i == P29_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            x, y = next(gen)
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(len(stages) + 1)]
+            marks[0].record()
+            seen = iter(marks[1:])
+            losses.append(train_ssd.train_step(
+                ex, updater, x, y, marks=lambda s: next(seen).record()))
+            ev.append(marks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        split = np.mean([[m[k].elapsed_time(m[k + 1])
+                          for k in range(len(stages))]
+                         for m in ev[P29_WARMUP:]], axis=0)
+        fed = P29_SSD_BIG * P29_TIMED / wall
+        # the device's idle share over fed steps, and the step alone on
+        # one batch already on the host
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(P29_PROFILED):
+                x, y = next(gen)
+                train_ssd.train_step(ex, updater, x, y)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t1) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels)
+        x, y = next(gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(P29_TIMED):
+            train_ssd.train_step(ex, updater, x, y)
+        torch.cuda.synchronize()
+        alone = P29_SSD_BIG * P29_TIMED / (time.perf_counter() - t2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    acc = {}
+    for e in kernels:
+        c = _category(e.key, P29_CATEGORIES)
+        acc[c] = acc.get(c, 0.0) + e.self_device_time_total
+    cats = "; ".join("%s %.3f" % (c, us / P29_PROFILED / 1e3) for c, us in
+                     sorted(acc.items(), key=lambda kv: -kv[1])) \
+        or "the profiler recorded no device time; not measured"
+    idle = 1 - busy / wall_us if kernels else None
+    print("phase 29 (b): the tool's step at batch %d over %d records "
+          "(ImageDetRecordIter, shuffle + mirror, decoded in its prefetch "
+          "thread): %.1f images/s fed over %d steps (host clock), %.1f "
+          "images/s on one batch already decoded; ms a step between CUDA "
+          "events %s; device ms a step by category %s; idle share %s over "
+          "%d fed steps; peak %.3f GiB; losses %.4f -> %.4f"
+          % (P29_SSD_BIG, P29_SSD_BIG * 8, fed, P29_TIMED, alone,
+             " / ".join("%s %.3f" % (s, v) for s, v in zip(stages, split)),
+             cats, "not measured" if idle is None else "%.4f" % idle,
+             P29_PROFILED, peak, losses[0], losses[-1]))
+    if not np.isfinite(losses).all():
+        raise RuntimeError("phase 29 (b): losses %r" % losses)
+    return dict(fed=fed, alone=alone, split=dict(zip(stages, split)),
+                idle=idle, peak=peak)
+
+
+def _p29_ssd_parity():
+    """(c): one SSD step from the same bound weights, card against CPU,
+    TF32 off: outputs, MultiBoxTarget on the same inputs, gradients
+    against the CPU's rounding floor (weights one ulp up)."""
+    import torch
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ops import contrib
+    from mxnet_tpu_torch.tools import train_ssd
+    args = train_ssd.parse_args(["--batch-size", "8"])
+    rng = np.random.RandomState(5)
+    x = rng.rand(8, 3, train_ssd.SIDE, train_ssd.SIDE).astype(np.float32)
+    lab = np.full((8, 2, 5), -1.0, np.float32)
+    for b in range(8):
+        for m in range(1 + b % 2):
+            x0, y0 = rng.uniform(0.05, 0.5, 2)
+            lab[b, m] = [rng.randint(2), x0, y0, x0 + 0.3, y0 + 0.3]
+    cpu_ex, _ = train_ssd.bind(args, torch.device("cpu"))
+    w = {n: (rng.randn(*a.shape) * 0.1).astype(np.float32)
+         for n, a in cpu_ex.arg_dict.items() if n != "data"}
+    up = {n: np.nextafter(v, np.float32(np.inf)) for n, v in w.items()}
+
+    def run(device, weights, targets=None):
+        ex, _ = train_ssd.bind(args, torch.device(device))
+        for n, v in weights.items():
+            ex.arg_dict[n][:] = v
+        anc, cp, lp = ex.forward(is_train=True, data=x)
+        if targets is None:
+            targets = [t._data for t in nd.contrib.MultiBoxTarget(
+                anc, nd.array(lab, ctx=device), cp, negative_mining_ratio=3.0)]
+        cpt = cp._data.detach().requires_grad_()
+        lpt = lp._data.detach().requires_grad_()
+        tg = [t.to(device) for t in targets]
+        loss = train_ssd.ssd_loss(cpt, lpt, *tg)
+        gc, gl = torch.autograd.grad(loss, (cpt, lpt))
+        ex.backward(out_grads=[nd.zeros(anc.shape, ctx=device),
+                               nd.NDArray(gc), nd.NDArray(gl)])
+        return ([o.asnumpy() for o in (anc, cp, lp)], targets,
+                {n: ex.grad_dict[n].asnumpy() for n in weights})
+
+    with _p28_tf32_off():
+        out_c, tg_c, g_c = run("cpu", w)
+        out_g, _, g_g = run(P29_DEVICE, w, tg_c)
+        _, _, g_u = run("cpu", up, tg_c)
+        # MultiBoxTarget on the CPU's outputs, on both devices
+        on_card = contrib.multibox_target(
+            *[torch.tensor(a, device=P29_DEVICE) for a in
+              (out_c[0], lab, out_c[1])], negative_mining_ratio=3.0)
+    d_out = max(_p28_err(a, b) for a, b in zip(out_g, out_c))
+    on_card = [t.cpu().numpy() for t in on_card]
+    tg_c = [t.numpy() for t in tg_c]
+    # loc_mask and cls_target equal; loc_target (a log and divisions)
+    # within the float rule of (a)
+    flips = [int((a != b).sum()) for a, b in zip(on_card, tg_c)]
+    d_loc = _p28_err(on_card[0], tg_c[0])
+    d_g = max((float(np.abs(g_g[n] - g_c[n]).max()), n) for n in g_c)
+    d_u = max((float(np.abs(g_u[n] - g_c[n]).max()), n) for n in g_c)
+    print("phase 29 (c): one SSD step at batch 8, TF32 off: executor "
+          "outputs card vs CPU %.3g (tol %g); MultiBoxTarget on the same "
+          "inputs: entries differing (loc_target, loc_mask, cls_target) "
+          "%s, loc_target within %.3g (tol %g); gradients %.3g (%s) "
+          "against the rounding floor %.3g (%s: the CPU run from weights "
+          "one ulp up), allowed %g x floor"
+          % (d_out, P27_OUT_TOL, flips, d_loc, P29_F32_TOL, d_g[0], d_g[1],
+             d_u[0], d_u[1], NOISE_FACTOR))
+    if d_out > P27_OUT_TOL or any(flips[1:]) or d_loc > P29_F32_TOL or \
+            d_g[0] > max(NOISE_FACTOR * d_u[0], P27_OUT_TOL):
+        raise RuntimeError("phase 29 (c): outputs %.3g, target flips %r "
+                           "(loc %.3g), gradients %r vs floor %r"
+                           % (d_out, flips, d_loc, d_g, d_u))
+
+
+def _p29_rcnn():
+    """(d): ``tools/train_rcnn_lite.main()`` at its defaults on the card,
+    its own asserts; the seeds of C9 beside it."""
+    import contextlib
+    import io as _io
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.tools import train_rcnn_lite
+    mx.random.seed(P29_RCNN_SEED)
+    t0 = time.perf_counter()
+    losses, acc, recall = train_rcnn_lite.main(_p29_ctx())
+    secs = time.perf_counter() - t0
+    others = []
+    for seed in P29_RCNN_SEEDS:
+        mx.random.seed(seed)
+        buf = _io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_rcnn_lite.main(_p29_ctx())
+            ok = "passes"
+        except AssertionError:
+            ok = "fails"
+        line = [ln for ln in buf.getvalue().splitlines()
+                if "head accuracy" in ln][0]
+        others.append("seed %d: %s (%s)" % (seed, line.split(": ", 1)[1],
+                                             ok))
+    print("phase 29 (d): train_rcnn_lite.main() at its defaults (60 steps, "
+          "batch 8, Adam 2e-3) after mx.random.seed(%d): %.2f s; loss %.4f "
+          "-> %.4f; head accuracy %.3f (bar 0.8), proposal recall@0.3 %.3f "
+          "(bar 0.5); the other seeds: %s"
+          % (P29_RCNN_SEED, secs, losses[0], losses[-1], acc, recall,
+             "; ".join(others)))
+    return secs
+
+
+def _p29_det_records(tmp):
+    """(rec, idx) of P29_DET_RECORDS detection records cycling the JPEG
+    fixtures, 1-5 seeded boxes each."""
+    import os
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.io import bench
+    jpegs = bench.fixture_jpegs()
+    rng = np.random.RandomState(7)
+    rec, idx = os.path.join(tmp, "det.rec"), os.path.join(tmp, "det.idx")
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(P29_DET_RECORDS):
+        label = [2.0, 5.0]
+        for _ in range(rng.randint(1, 6)):
+            x0, y0 = rng.uniform(0, 0.7, 2)
+            label += [float(rng.randint(20)), x0, y0,
+                      x0 + rng.uniform(0.1, 0.3), y0 + rng.uniform(0.1, 0.3)]
+        w.write_idx(i, recordio.pack(recordio.IRHeader(
+            len(label), np.asarray(label, np.float32), i, 0),
+            jpegs[i % len(jpegs)]))
+    w.close()
+    return rec, idx
+
+
+def _p29_iter(tmp):
+    """(e): ImageDetRecordIter on the host: batches/s over an epoch; the
+    first batch bitwise an in-process ImageDetIter's from the same seed;
+    labels padded with -1 to the estimated shape."""
+    import random
+    from mxnet_tpu_torch import io
+    from mxnet_tpu_torch.image.detection import ImageDetIter
+    rec, idx = _p29_det_records(tmp)
+    kw = dict(path_imgrec=rec, path_imgidx=idx, batch_size=P29_DET_BATCH,
+              data_shape=(3, P29_DET_SIDE, P29_DET_SIDE), shuffle=True,
+              rand_crop=0.5, rand_mirror=True)
+    random.seed(29)
+    t0 = time.perf_counter()
+    it = io.ImageDetRecordIter(**kw)
+    first = it.next()
+    n = 1
+    for _ in it:
+        n += 1
+    rate = n / (time.perf_counter() - t0)
+    random.seed(29)
+    want = ImageDetIter(**kw).next()
+    same = all(np.array_equal(a.asnumpy(), b.asnumpy()) for a, b in
+               ((first.data[0], want.data[0]), (first.label[0],
+                                                want.label[0])))
+    lab = first.label[0].asnumpy()
+    shape = it.provide_label[0].shape
+    # each image's objects (kept, or ejected by the crop: class -1) first,
+    # then rows of -1 to the estimated shape
+    pad = (lab == -1).all(-1)
+    padded = bool(pad.any() and all(
+        not pad[i, np.argmax(pad[i]):].size or pad[i, np.argmax(pad[i]):]
+        .all() for i in range(lab.shape[0]) if pad[i].any()))
+    print("phase 29 (e): ImageDetRecordIter over %d records (the 16 JPEG "
+          "fixtures, 500 x 375, 1-5 boxes), batch %d at %d^2, shuffle, "
+          "rand_crop 0.5, rand_mirror: %.2f batches/s (%.1f images/s) over "
+          "%d batches, decoded in its prefetch thread; first batch bitwise "
+          "an in-process ImageDetIter's from the same seed: %s; labels %s, "
+          "padding rows all -1: %s"
+          % (P29_DET_RECORDS, P29_DET_BATCH, P29_DET_SIDE, rate,
+             rate * P29_DET_BATCH, n, same, shape, padded))
+    if not same or not padded or tuple(lab.shape) != tuple(shape) \
+            or shape[1:] != (5, 5):
+        raise RuntimeError("phase 29 (e): same %s, padded %s, label shape "
+                           "%r / %r" % (same, padded, lab.shape, shape))
+    return rate
+
+
+def phase_detection():
+    """Phase 29: detection."""
+    import shutil
+    import tempfile
+    t_phase = time.monotonic()
+    try:
+        import PIL  # noqa: F401
+        pil = "present"
+    except ImportError:
+        pil = "missing: (b) packs with recordio.pack_img (OpenCV)"
+    print("phase 29: PIL on this host %s" % pil)
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    rows = _p29_ops()
+    secs, _ = _p29_ssd_defaults()
+    tmp = tempfile.mkdtemp(prefix="p29_")
+    try:
+        big = _p29_ssd_big(tmp)
+        _p29_ssd_parity()
+        rcnn = _p29_rcnn()
+        rate = _p29_iter(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = _hand_launches()
+    if launched:
+        raise RuntimeError("phase 29: hand kernels launched on the "
+                           "detection path: %r" % launched)
+    RUNS["phase 29"] = dict(ops=rows, ssd_defaults_s=secs, ssd_big=big,
+                            rcnn_s=rcnn, det_iter_batches_s=rate)
+    print("phase 29: B1-B10 launches 0 over the phase; %.1f s (the script "
+          "so far %.1f s)" % (time.monotonic() - t_phase,
+                              time.monotonic() - T_START))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6647,6 +7333,7 @@ def main():
                 k["launches_phase26"] = launches
         phase_module_train()
         phase_rnn_ctc()
+        phase_detection()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -14,8 +14,8 @@ on a side stream, optionally through a device-side ``transform``
 (``io/device_tail.py``: normalize, cast and layout on the card, so the
 host ships raw uint8 NHWC); :class:`~.prefetch.PrefetchToDeviceIter` is
 its training form.  :func:`ImageRecordIter` assembles the record route
-the way the C++ iterator's kwargs ask.  ``ImageDetRecordIter`` (detection
-records) is ROADMAP.md queue A, item 10.
+the way the C++ iterator's kwargs ask; :func:`ImageDetRecordIter` the
+detection route over ``image.detection.ImageDetIter``.
 """
 from __future__ import annotations
 
@@ -814,12 +814,39 @@ class CSRBatch:
 
 def ImageDetRecordIter(**kwargs):
     """Detection record iterator (reference: src/io/
-    iter_image_det_recordio.cc; ``io/__init__.py:759``).  It runs over
-    ``image/detection.py`` (``ImageDetIter``), which comes with SSD:
-    ROADMAP.md queue A, item 10."""
-    raise NotImplementedError(
-        "ImageDetRecordIter needs image/detection.py (ImageDetIter), "
-        "ROADMAP.md queue A, item 10 (A10)")
+    iter_image_det_recordio.cc; ``mxnet_tpu/io/__init__.py:759-791``):
+    ``image.detection.ImageDetIter`` with the C iterator's kwargs mapped
+    (``mean_r/g/b``, ``std_r/g/b``, ``round_batch``), behind a
+    :class:`PrefetchingIter` of ``prefetch_buffer`` batches.  Decoding
+    runs in-process, as in the reference."""
+    from ..image.detection import ImageDetIter
+    mean = None
+    if any(k in kwargs for k in ("mean_r", "mean_g", "mean_b")):
+        mean = _np.array([kwargs.pop("mean_r", 0.0),
+                          kwargs.pop("mean_g", 0.0),
+                          kwargs.pop("mean_b", 0.0)], dtype=_np.float32)
+    std = None
+    if any(k in kwargs for k in ("std_r", "std_g", "std_b")):
+        std = _np.array([kwargs.pop("std_r", 1.0),
+                         kwargs.pop("std_g", 1.0),
+                         kwargs.pop("std_b", 1.0)], dtype=_np.float32)
+    threads = kwargs.pop("preprocess_threads", None)
+    if threads:
+        # the detection pipeline decodes in-process (boxes ride the labels
+        # through augmenters the worker pool does not ship); say so once
+        # instead of silently eating the knob
+        _warn_once(
+            "ImageDetRecordIter: preprocess_threads=%s is not yet wired "
+            "to the multi-process pipeline for detection records; "
+            "decoding runs in-process (prefetch_buffer is honored)"
+            % threads)
+    prefetch = max(1, int(kwargs.pop("prefetch_buffer", 2)))
+    if kwargs.pop("round_batch", True):
+        kwargs.setdefault("last_batch_handle", "pad")
+    else:
+        kwargs.setdefault("last_batch_handle", "keep")
+    return PrefetchingIter(ImageDetIter(mean=mean, std=std, **kwargs),
+                           depth=prefetch)
 
 
 class MNISTIter(DataIter):

@@ -59,7 +59,15 @@ def _run(m, make, inputs, call, tmp, tag, train=True):
     seeded weighting of every output; returns (outputs, grads of inputs
     and parameters, .params path)."""
     m.random.seed(0)
-    net = make(m)
+    # a fresh global block counter: cells made outside a name scope (the
+    # bidirectional pair) are named by it, and other tests in the process
+    # may have advanced the two packages' counters unequally
+    scope = m.gluon.block._BlockScope
+    saved, scope._global_counter = scope._global_counter, {}
+    try:
+        net = make(m)
+    finally:
+        scope._global_counter = saved
     net.initialize(m.init.Xavier())
     xs = [m.nd.array(a) for a in inputs]
     xs[0].attach_grad()

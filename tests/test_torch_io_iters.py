@@ -9,7 +9,8 @@ raw idx files), ``ResizeIter``, ``PrefetchingIter`` and
 the in-process pipeline and, with ``device_tail=True``, its device feed,
 here onto the CPU: the tail is held to the reference's ``jax.jit`` tail in
 ``test_torch_io_pipeline.py``).  Host iterators yield CPU NDArrays.
-``ImageDetRecordIter`` raises, naming ROADMAP.md queue A, item 10.
+``ImageDetRecordIter`` runs here over a detection ``.rec``; its parity
+with the reference is ``test_torch_image_det.py``.
 """
 import gzip
 import struct
@@ -218,10 +219,26 @@ def test_image_record_iter_device_tail_on_the_cpu(tmp_path):
         np.testing.assert_array_equal(g[1][0], w[1][0])
 
 
-def test_image_det_record_iter_raises_naming_a10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        io.ImageDetRecordIter(path_imgrec="x.rec", batch_size=2,
-                              data_shape=(3, 8, 8))
+def test_image_det_record_iter_raises_naming_a10(tmp_path):
+    """``ImageDetRecordIter`` no longer raises (ROADMAP.md A10(b) is
+    ported): over records whose header holds one detection object each it
+    yields CPU batches with (batch, 1, 5) labels, padded by the last
+    record at the tail."""
+    rng = np.random.RandomState(3)
+    rec, idx = str(tmp_path / "det.rec"), str(tmp_path / "det.idx")
+    wr = jmx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(6):
+        label = np.array([2, 5, i % 2, 0.1, 0.2, 0.6, 0.7], np.float32)
+        wr.write_idx(i, jmx.recordio.pack_img(
+            jmx.recordio.IRHeader(0, label, i, 0), cases.image(rng)))
+    wr.close()
+    it = io.ImageDetRecordIter(path_imgrec=rec, path_imgidx=idx,
+                               batch_size=4, data_shape=(3, 28, 28))
+    got = _epochs(it, 1)
+    assert [b[2] for b in got] == [0, 2]
+    assert got[0][0][0].shape == (4, 3, 28, 28)
+    assert got[0][1][0].shape == (4, 1, 5)
+    np.testing.assert_allclose(got[1][1][0][1, 0], [1, 0.1, 0.2, 0.6, 0.7])
 
 
 def test_device_feeds_with_transform_on_the_cpu():

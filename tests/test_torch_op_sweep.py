@@ -46,21 +46,13 @@ HERE = PORTED[::2]
 A10_CONTRIB = {
     "AdaptiveAvgPooling2D", "BilinearResize2D",
     "DeformableConvolution", "DeformablePSROIPooling",
-    "IdentityAttachKLSparseReg", "MultiBoxDetection", "MultiBoxPrior",
-    "MultiBoxTarget", "MultiProposal", "PSROIPooling", "Proposal",
-    "ROIAlign", "SparseEmbedding", "_contrib_AdaptiveAvgPooling2D",
-    "_contrib_BilinearResize2D",
+    "IdentityAttachKLSparseReg", "PSROIPooling", "SparseEmbedding",
+    "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
     "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-    "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-    "_contrib_MultiBoxTarget", "_contrib_MultiProposal",
-    "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_ROIAlign",
-    "_contrib_SparseEmbedding", "_contrib_bipartite_matching",
-    "_contrib_box_iou", "_contrib_box_nms", "_contrib_count_sketch",
-    "_contrib_div_sqrt_dim", "_contrib_fft",
-    "_contrib_getnnz", "_contrib_ifft", "_contrib_multibox_detection",
-    "_contrib_multibox_prior", "_contrib_multibox_target",
-    "_contrib_quadratic", "bipartite_matching", "box_nms", "count_sketch",
-    "fft", "ifft", "khatri_rao", "quadratic"}
+    "_contrib_PSROIPooling", "_contrib_SparseEmbedding",
+    "_contrib_count_sketch", "_contrib_div_sqrt_dim", "_contrib_fft",
+    "_contrib_getnnz", "_contrib_ifft", "_contrib_quadratic",
+    "count_sketch", "fft", "ifft", "khatri_rao", "quadratic"}
 A10_LINALG = {p + n for p in ("_linalg_", "linalg_") for n in (
     "det", "extractdiag", "extracttrian", "gelqf", "gemm", "gemm2",
     "inverse", "makediag", "potrf", "potri", "slogdet", "sumlogdiag",
@@ -75,7 +67,7 @@ LEFT = (A10_CONTRIB | A10_LINALG | A10_CONTROL_FLOW | A10_IMAGE
 
 
 def test_registry_leaves_exactly_the_a10_and_a8_names():
-    assert len(LEFT) == 89
+    assert len(LEFT) == 69
     assert set(jreg.list_ops()) - set(treg.list_ops()) == LEFT
     assert set(treg.list_ops()) <= set(jreg.list_ops())
     for name in sorted(A10_SPARSE - {"_sparse_retain", "cast_storage",
