@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-nine phases; any failure exits non-zero and prints no result line.
+Thirty phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -571,6 +571,40 @@ Twenty-nine phases; any failure exits non-zero and prints no result line.
     -1 rows to the estimated shape.  No B1-B10 counter moves over the
     phase; whether PIL is on the host is printed.  Prints the phase's
     seconds and the script's.
+30. **Sparse storage** (A10(c); no hand kernel: the reference's sparse
+    code reaches no ``pallas_call``).  (a) At Avazu's shapes (MXNet
+    ``example/sparse/linear_classification`` on avazu-app: a CSR batch of
+    8,192 rows over 1,000,001 columns, 15 seeded nonzeros a row): ``dot``
+    with a (1,000,001, 1) and a (1,000,001, 64) rhs, plain and
+    ``transpose_a``, each beside ``torch.sparse.mm`` on the same CSR;
+    ``cast_storage`` of the transposed product to row_sparse and of a
+    1,024 x 65,536 dense slice to csr; ``retain`` to the batch's unique
+    rows; ``add_rsp``; the row-sparse SGD (with and without momentum),
+    Adam and AdaGrad updates; the registered ``_sparse_adagrad_update``,
+    ``cast_storage`` (capacity 0) and ``_sparse_retain``.  Card against
+    CPU in float32 and float64 (indices, indptr and nnz equal; floats
+    within 1e-5 / 1e-10 of the larger of 1 and the largest magnitude),
+    then ms a call (CUDA events), kernels a call (profiler) and host
+    syncs a call (``torch.cuda.set_sync_debug_mode``): fails where an op
+    syncs more than the reference does (once for ``cast_storage`` and
+    ``add_rsp``, else never).  (b) ``tools/train_sparse_linear.main()``
+    at its defaults, the example's assert inside; then its step at
+    Avazu's width over 32 batches of 8,192 from a LibSVM file written in
+    bulk from the seed: samples/s, the file's and the parse's seconds,
+    the iterator's batch assembly, each part of the step between CUDA
+    events (``STEP_PARTS``), host syncs a step, device ms by category and
+    the idle share (profiler), peak memory.  (c) One step at that width,
+    card against CPU from the same weights, TF32 off: scores within
+    1e-5, the row-sparse gradient's indices equal and values within
+    1e-5, the weight after the update within 1e-6.  (d)
+    ``tools/train_wide_deep.main()`` and ``tools/matrix_fact.main()`` at
+    their defaults with their asserts; matrix factorization at
+    MovieLens-10M's id ranges (71,569 users, 65,135 items, rank 128), 200
+    batches of 256 synthetic ratings: samples/s and the Adam update's ms
+    a step.  (e) ``Embedding(sparse_grad=True)`` and
+    ``contrib.nn.SparseEmbedding``, one step each, card against CPU:
+    outputs, dense gradients and weights within 1e-5.  No B1-B10 counter
+    moves over the phase.  Prints the phase's seconds and the script's.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -7252,6 +7286,638 @@ def phase_detection():
                               time.monotonic() - T_START))
 
 
+
+# -- slice 23: sparse storage ------------------------------------------------
+P30_DEVICE = "cuda"
+# card vs CPU, each difference over the larger of 1 and the array's
+# largest magnitude (_p28_err); indices, indptr, nnz and masks equal
+P30_F32_TOL, P30_F64_TOL = 1e-5, 1e-10
+P30_WEIGHT_TOL, P30_GLUON_TOL = 1e-6, 1e-5
+# MXNet example/sparse/linear_classification on LibSVM's avazu-app
+# (train.py's defaults): 1,000,001 features, batch 8,192; 15 nonzeros a
+# row (122,880 a batch)
+P30_FEATURES, P30_BATCH, P30_NNZ = 1000001, 8192, 15
+P30_WIDE = 64                  # the second rhs width of (a)'s dot
+P30_CSR_SLICE = (1024, 65536)  # (a)'s dense -> csr cast
+P30_BATCHES = 32               # (b) at Avazu's width
+P30_WARMUP, P30_PROFILED = 2, 3
+# MovieLens-10M's id ranges and MXNet example/sparse/
+# matrix_factorization's rank 128; 200 batches of 256 synthetic ratings
+P30_USERS, P30_ITEMS, P30_RANK = 71569, 65135, 128
+P30_MF_BATCHES, P30_MF_BATCH = 200, 256
+# host syncs a call the reference has too: the data-dependent sizes
+P30_SYNCS = {"cast_storage row_sparse": 1, "cast_storage csr": 1,
+             "add_rsp": 1}
+P30_CATEGORIES = (
+    ("sort / scan", ("sort", "radix", "scan")),
+    ("gather / scatter / index", ("gather", "scatter", "index")),
+    ("copies", ("copy", "cat", "memcpy")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _p30_ctx():
+    """The tools' flags for P30_DEVICE (none on the card, their
+    default)."""
+    return [] if P30_DEVICE == "cuda" else ["--ctx", "cpu"]
+
+
+def _p30_csr_host(rows, features, nnz, seed):
+    """(values f64, column indices, indptr) of a seeded CSR batch with
+    ``nnz`` sorted, distinct columns a row."""
+    rng = np.random.RandomState(seed)
+    cols = np.sort(rng.randint(0, features - nnz + 1, (rows, nnz)), 1) \
+        + np.arange(nnz)
+    return (rng.randn(rows * nnz), cols.reshape(-1),
+            np.arange(rows + 1, dtype=np.int64) * nnz)
+
+
+def _p30_syncs(fn):
+    """(fn's result, torch's messages for each synchronizing call in
+    it)."""
+    import warnings
+    import torch
+    if P30_DEVICE != "cuda":
+        return fn(), []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+
+
+def _p30_inputs():
+    """(a)'s seeded inputs as numpy: the batch, the rhs of each dot, two
+    error vectors, the batch's unique rows, the dense slice."""
+    vals, cols, indptr = _p30_csr_host(P30_BATCH, P30_FEATURES, P30_NNZ, 30)
+    rng = np.random.RandomState(31)
+    m, n = P30_CSR_SLICE
+    sl = np.zeros((m, n))
+    r = np.repeat(np.arange(m), P30_NNZ)
+    c, v = cols[:m * P30_NNZ], vals[:m * P30_NNZ]
+    sl[r[c < n], c[c < n]] = v[c < n]
+    return dict(vals=vals, cols=cols, indptr=indptr,
+                w1=rng.randn(P30_FEATURES, 1) * 0.1,
+                w64=rng.randn(P30_FEATURES, P30_WIDE) * 0.1,
+                e1=rng.randn(P30_BATCH, 1) * 1e-3,
+                e64=rng.randn(P30_BATCH, P30_WIDE) * 1e-3,
+                e2=rng.randn(P30_BATCH, 1) * 1e-3,
+                rows=np.unique(cols), slice=sl)
+
+
+def _p30_arrays(inp, dev, dtype):
+    """(a)'s arrays on ``dev`` in ``dtype``, and the gradients the later
+    ops take."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ndarray import sparse
+
+    def a(x, dt=dtype):
+        return nd.array(x, ctx=dev, dtype=dt)
+    t = {k: a(inp[k]) for k in ("w1", "w64", "e1", "e64", "e2", "slice")}
+    t["x"] = sparse.CSRNDArray(a(inp["vals"]), a(inp["cols"], "int64"),
+                               a(inp["indptr"], "int64"),
+                               (P30_BATCH, P30_FEATURES))
+    t["rows"] = a(inp["rows"], "int64")
+    t["g1"] = sparse.dot(t["x"], t["e1"], transpose_a=True)
+    t["g2"] = sparse.dot(t["x"], t["e2"], transpose_a=True)
+    t["rsp"] = sparse.retain(sparse.cast_storage(t["g1"], "row_sparse"),
+                             t["rows"])
+    t["rsp2"] = sparse.retain(sparse.cast_storage(t["g2"], "row_sparse"),
+                              t["rows"])
+    return t
+
+
+def _p30_update(name, kw):
+    """make(arrays) -> run: ``run()`` applies one row-sparse update of
+    optimizer ``name`` to a copy of w1 and its states (made once) and
+    returns [weight, states...]."""
+    from mxnet_tpu_torch import optimizer
+
+    def make(t):
+        opt = optimizer.create(name, **kw)
+        w = t["w1"]._data.clone()
+        state = opt.create_state(0, w)
+        states = [s for s in (state if isinstance(state, tuple)
+                              else (state,)) if s is not None]
+
+        def run():
+            opt.update(0, w, t["rsp"], state)
+            return [w] + states
+        return run
+    return make
+
+
+def _p30_cases():
+    """(name, make(arrays) -> run, indices of the outputs held equal) of
+    (a); ``run()`` returns the op's outputs (tensors or NDArrays), its
+    inputs made by ``make``."""
+    from mxnet_tpu_torch.ndarray import sparse
+    from mxnet_tpu_torch.ops import registry
+
+    def parts(s):
+        return [s.indices, s.data] if s.stype == "row_sparse" \
+            else [s.indices, s.indptr, s.data]
+
+    def retain(t):
+        c1 = sparse.cast_storage(t["g1"], "row_sparse")
+        return lambda: parts(sparse.retain(c1, t["rows"]))
+    cast0 = registry.get("cast_storage").fn
+    retain0 = registry.get("_sparse_retain").fn
+    adagrad0 = registry.get("_sparse_adagrad_update").fn
+    return [
+        ("dot (1,000,001 x 1)", lambda t: lambda: [
+            sparse.dot(t["x"], t["w1"])], ()),
+        ("dot (1,000,001 x 64)", lambda t: lambda: [
+            sparse.dot(t["x"], t["w64"])], ()),
+        ("dot^T (8,192 x 1)", lambda t: lambda: [sparse.dot(
+            t["x"], t["e1"], transpose_a=True)], ()),
+        ("dot^T (8,192 x 64)", lambda t: lambda: [sparse.dot(
+            t["x"], t["e64"], transpose_a=True)], ()),
+        ("cast_storage row_sparse", lambda t: lambda: parts(
+            sparse.cast_storage(t["g1"], "row_sparse")), (0,)),
+        ("cast_storage csr", lambda t: lambda: parts(
+            sparse.cast_storage(t["slice"], "csr")), (0, 1)),
+        ("retain", retain, (0,)),
+        ("add_rsp", lambda t: lambda: parts(t["rsp"] + t["rsp2"]), (0,)),
+        ("sgd (row_sparse)", _p30_update("sgd", dict(learning_rate=0.1)),
+         ()),
+        ("sgd momentum (row_sparse)", _p30_update("sgd", dict(
+            learning_rate=0.1, momentum=0.9, wd=1e-4)), ()),
+        ("adam (row_sparse)", _p30_update("adam", dict(
+            learning_rate=0.01, rescale_grad=0.5)), ()),
+        ("adagrad (row_sparse)", _p30_update("adagrad", dict(
+            learning_rate=0.1, wd=1e-4)), ()),
+        ("_sparse_adagrad_update", lambda t: (
+            lambda h: lambda: list(adagrad0(t["w1"]._data, t["g1"]._data,
+                                            h, lr=0.1, wd=1e-4)))(
+            t["w1"]._data.abs()), ()),
+        ("cast_storage op (capacity 0)", lambda t: lambda: list(cast0(
+            t["g1"]._data, stype="row_sparse")), (1, 2)),
+        ("_sparse_retain op", lambda t: lambda: list(retain0(
+            t["rsp"].data._data, t["rsp"].indices._data,
+            t["rows"]._data)), (1,)),
+    ]
+
+
+def _p30_host(o):
+    import torch
+    if isinstance(o, torch.Tensor):
+        return o.detach().cpu().double().numpy()
+    return o.asnumpy().astype(np.float64)
+
+
+def _p30_library(t):
+    """torch.sparse.mm on the same CSR: ms a call of each dot of (a) (the
+    transposed ones through the CSR's transpose, or its COO form where
+    that is refused), beside the largest difference from the port's."""
+    import torch
+    from mxnet_tpu_torch.ndarray import sparse
+    x = t["x"]
+    csr = torch.sparse_csr_tensor(x.indptr._data, x.indices._data,
+                                  x.data._data, x.shape)
+    coo_t = csr.to_sparse_coo().t().coalesce()
+    out = {}
+    for name, rhs, trans in (("dot (1,000,001 x 1)", "w1", False),
+                             ("dot (1,000,001 x 64)", "w64", False),
+                             ("dot^T (8,192 x 1)", "e1", True),
+                             ("dot^T (8,192 x 64)", "e64", True)):
+        r = t[rhs]._data
+        form = "csr"
+        try:
+            fn = (lambda: torch.sparse.mm(csr.t(), r)) if trans \
+                else (lambda: torch.sparse.mm(csr, r))
+            got = fn()
+        except (RuntimeError, NotImplementedError):
+            form = "coo^T"
+            fn = lambda: torch.sparse.mm(coo_t, r)  # noqa: E731
+            got = fn()
+        want = sparse.dot(x, t[rhs], transpose_a=trans)._data
+        err = _p28_err(_p30_host(got), _p30_host(want))
+        out[name] = (_p29_time(fn)[0], form, err)
+    return out
+
+
+def _p30_ops():
+    """(a): every op of the slice at Avazu's shapes, card against CPU in
+    float32 and float64, then timed on the card."""
+    inp = _p30_inputs()
+    cases = _p30_cases()
+    worst = {}
+    with _p28_tf32_off():
+        for dt, tol in ((np.float32, P30_F32_TOL), (np.float64, P30_F64_TOL)):
+            arrs = {dev: _p30_arrays(inp, dev, dt)
+                    for dev in (P30_DEVICE, "cpu")}
+            for name, make, exact in cases:
+                card = [_p30_host(o) for o in make(arrs[P30_DEVICE])()]
+                host = [_p30_host(o) for o in make(arrs["cpu"])()]
+                bad = [i for i in exact
+                       if not np.array_equal(card[i], host[i])]
+                err = max([_p28_err(c, h) for i, (c, h) in
+                           enumerate(zip(card, host)) if i not in exact]
+                          + [0.0])
+                worst.setdefault(name, {})[dt] = err
+                if bad or err > tol:
+                    raise RuntimeError("phase 30 (a): %s (%s): outputs %r "
+                                       "differ, float error %.3g"
+                                       % (name, np.dtype(dt).name, bad,
+                                          err))
+            if dt == np.float32:
+                t32 = arrs[P30_DEVICE]
+            del arrs
+    lib = _p30_library(t32)
+    rows, over = [], []
+    for name, make, exact in cases:
+        ms, kernels, copies, msgs = _p29_time(make(t32))
+        allowed = P30_SYNCS.get(name, 0)
+        if len(msgs) > allowed:
+            over.append((name, len(msgs), msgs[0][:200]))
+        row = dict(op=name, ms=ms, kernels=kernels, copies=copies,
+                   syncs=len(msgs), err32=worst[name][np.float32],
+                   err64=worst[name][np.float64])
+        libtxt = ""
+        if name in lib:
+            row["library_ms"], form, lerr = lib[name]
+            libtxt = "; torch.sparse.mm (%s) %.4f ms, %.3g from the port's" \
+                % (form, row["library_ms"], lerr)
+        rows.append(row)
+        print("phase 30 (a): %-29s %9.4f ms a call; %6.1f kernels, %4.1f "
+              "copies, %d host syncs a call (allowed %d); card vs CPU f32 "
+              "%.3g, f64 %.3g%s"
+              % (name, ms, kernels, copies, len(msgs), allowed,
+                 row["err32"], row["err64"], libtxt))
+    if over:
+        raise RuntimeError("phase 30 (a): host syncs beyond the "
+                           "reference's: %r" % over)
+    return rows
+
+
+def _p30_linear_defaults():
+    """(b): ``tools/train_sparse_linear.main()`` at its defaults on the
+    card, the example's assert inside."""
+    from mxnet_tpu_torch.tools import train_sparse_linear
+    t0 = time.perf_counter()
+    acc, probs, weight = train_sparse_linear.main(_p30_ctx())
+    secs = time.perf_counter() - t0
+    print("phase 30 (b): train_sparse_linear.main() at its defaults "
+          "(BASELINE config 5: 1,000 features, 20 nonzeros a row, 100 "
+          "batches of 64, SGD lr 1.0 in the store): %.2f s; running "
+          "accuracy %.3f (the example's bar 0.7); %d weights moved"
+          % (secs, acc, int(np.count_nonzero(weight))))
+    return secs, acc
+
+
+def _p30_write_libsvm(path, rows, features, nnz, seed):
+    """The example's LibSVM data (a planted linear rule, ``%.5f``
+    values) at ``rows`` x ``features``, drawn in bulk from ``seed``: the
+    example's writer permutes all the features once a row."""
+    vals, cols, _ = _p30_csr_host(rows, features, nnz, seed)
+    w_true = np.random.RandomState(seed + 1).randn(features) \
+        .astype(np.float32)
+    vals = vals.astype(np.float32).reshape(rows, nnz)
+    cols = cols.reshape(rows, nnz)
+    table = np.empty((rows, 1 + 2 * nnz))
+    table[:, 0] = (w_true[cols] * vals).sum(1) > 0
+    table[:, 1::2] = cols
+    table[:, 2::2] = vals
+    np.savetxt(path, table, fmt="%g" + " %d:%.5f" * nnz)
+
+
+def _p30_cycle(it):
+    while True:
+        for batch in it:
+            yield batch
+        it.reset()
+
+
+def _p30_linear_wide(tmp):
+    """(b): the tool's step at Avazu's width: 32 batches of 8,192 rows
+    from a LibSVM file; samples/s, the parse, the step's parts between
+    CUDA events, host syncs a step, the idle share, peak memory."""
+    import os
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import io, nd
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.tools import train_sparse_linear as tsl
+    path = os.path.join(tmp, "avazu_width.libsvm")
+    t0 = time.perf_counter()
+    _p30_write_libsvm(path, P30_BATCH * P30_BATCHES, P30_FEATURES, P30_NNZ,
+                      34)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = io.LibSVMIter(data_libsvm=path, data_shape=(P30_FEATURES,),
+                       batch_size=P30_BATCH)
+    parse_s = time.perf_counter() - t0
+    gen = _p30_cycle(it)
+    parts = tsl.STEP_PARTS
+    timed = P30_BATCHES - P30_WARMUP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with use(P30_DEVICE) as dev:
+        kv = tsl.make_store("local", P30_FEATURES, 1.0)
+        w_local = nd.zeros((P30_FEATURES, 1))
+        ev, correct, assembly = [], 0, []
+        for i in range(P30_BATCHES):
+            if i == P30_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            t_batch = time.perf_counter()
+            batch = next(gen)
+            assembly.append(time.perf_counter() - t_batch)
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(len(parts) + 1)]
+            marks[0].record()
+            seen = iter(marks[1:])
+            p, y = tsl.train_step(kv, w_local, batch, dev,
+                                  marks=lambda part: next(seen).record())
+            if i >= P30_WARMUP:
+                correct += int(((p > 0.5) == (y > 0.5)).sum())
+            ev.append(marks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        split = np.mean([[m[k].elapsed_time(m[k + 1])
+                          for k in range(len(parts))]
+                         for m in ev[P30_WARMUP:]], axis=0)
+        _, msgs = _p30_syncs(lambda: tsl.train_step(kv, w_local, next(gen),
+                                                    dev))
+        # the host's share of "to device": the batch's unique rows, then
+        # the CSR's three copies to the card (host clock)
+        x_host = next(gen).data[0]
+        t1 = time.perf_counter()
+        np.unique(x_host.indices.asnumpy())
+        unique_ms = 1e3 * (time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x_host.as_in_context(dev)
+        torch.cuda.synchronize()
+        copy_ms = 1e3 * (time.perf_counter() - t1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(P30_PROFILED):
+                tsl.train_step(kv, w_local, next(gen), dev)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t1) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = sum(e.self_device_time_total for e in kernels)
+    acc = {}
+    for e in kernels:
+        c = _category(e.key, P30_CATEGORIES)
+        acc[c] = acc.get(c, 0.0) + e.self_device_time_total
+    cats = "; ".join("%s %.3f" % (c, us / P30_PROFILED / 1e3) for c, us in
+                     sorted(acc.items(), key=lambda kv: -kv[1])) \
+        or "the profiler recorded no device time; not measured"
+    idle = 1 - busy / wall_us if kernels else None
+    rate = P30_BATCH * timed / wall
+    where = {}
+    for m in msgs:
+        key = m.split("\n")[0][:80]
+        where[key] = where.get(key, 0) + 1
+    print("phase 30 (b): the tool's step at Avazu's width (%d x %d, %d "
+          "nonzeros a row): file written in %.2f s (%d rows, vectorised, "
+          "from the seed), LibSVMIter's parse %.2f s; %.1f samples/s over "
+          "%d steps (host clock, the host's batch assembly included); the "
+          "iterator's batch assembly %.3f ms a step (host clock); ms a "
+          "step between CUDA events %s (to device: the batch's np.unique "
+          "%.3f ms, the CSR's copy %.3f ms, host clock); host syncs a step "
+          "%d; device ms a "
+          "step by category %s; idle share %s over %d steps; peak %.3f GiB; "
+          "running accuracy %.3f over the timed steps"
+          % (P30_BATCH, P30_FEATURES, P30_NNZ, write_s, P30_BATCH *
+             P30_BATCHES, parse_s, rate, timed,
+             1e3 * float(np.mean(assembly[P30_WARMUP:])),
+             " / ".join("%s %.3f" % (s, v) for s, v in zip(parts, split)),
+             unique_ms, copy_ms, len(msgs), cats,
+             "not measured" if idle is None else "%.4f" % idle,
+             P30_PROFILED, peak,
+             correct / (P30_BATCH * timed)))
+    print("phase 30 (b): where a step syncs: %r" % where)
+    return dict(rate=rate, parse_s=parse_s, write_s=write_s,
+                assembly_ms=1e3 * float(np.mean(assembly[P30_WARMUP:])),
+                unique_ms=unique_ms, copy_ms=copy_ms,
+                split=dict(zip(parts, split)), syncs=len(msgs), idle=idle,
+                peak=peak)
+
+
+def _p30_linear_parity():
+    """(c): one step at Avazu's width from the same weights, card against
+    CPU: scores, the row-sparse gradient, the weight after the update."""
+    from mxnet_tpu_torch import kvstore, nd, optimizer
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.io import DataBatch
+    from mxnet_tpu_torch.ndarray import sparse
+    from mxnet_tpu_torch.tools import train_sparse_linear as tsl
+    vals, cols, indptr = _p30_csr_host(P30_BATCH, P30_FEATURES, P30_NNZ, 32)
+    rng = np.random.RandomState(33)
+    w0 = (rng.randn(P30_FEATURES, 1) * 0.1).astype(np.float32)
+    y = (rng.rand(P30_BATCH) > 0.5).astype(np.float32)
+    rows = np.unique(cols)
+    batch = DataBatch([sparse.CSRNDArray(
+        nd.array(vals, ctx="cpu"), nd.array(cols, ctx="cpu", dtype="int64"),
+        nd.array(indptr, ctx="cpu", dtype="int64"),
+        (P30_BATCH, P30_FEATURES))], [nd.array(y, ctx="cpu")])
+    got = {}
+    with _p28_tf32_off():
+        for dev in (P30_DEVICE, "cpu"):
+            with use(dev) as d:
+                x = batch.data[0].as_in_context(d)
+                score = sparse.dot(x, nd.array(w0)).asnumpy()[:, 0]
+                p = 1.0 / (1.0 + np.exp(-score))
+                err = ((p - y) / len(y)).astype(np.float32)[:, None]
+                grad = sparse.retain(sparse.cast_storage(sparse.dot(
+                    x, nd.array(err), transpose_a=True), "row_sparse"),
+                    nd.array(rows, dtype="int64"))
+                kv = kvstore.create("local")
+                kv.init("weight", nd.array(w0))
+                kv.set_optimizer(optimizer.create("sgd", learning_rate=1.0))
+                p2, _ = tsl.train_step(kv, nd.zeros((P30_FEATURES, 1)),
+                                       batch, d)
+                weight = nd.zeros((P30_FEATURES, 1))
+                kv.pull("weight", out=weight)
+                got[dev] = (score, grad.indices.asnumpy(),
+                            grad.data.asnumpy(), p2, weight.asnumpy())
+    c, h = got[P30_DEVICE], got["cpu"]
+    d_score = _p28_err(c[0], h[0])
+    same_idx = np.array_equal(c[1], h[1])
+    d_grad = _p28_err(c[2], h[2])
+    d_p = _p28_err(c[3], h[3])
+    d_w = _p28_err(c[4], h[4])
+    moved = int((h[4] != w0).sum())
+    print("phase 30 (c): one step at Avazu's width from the same weights, "
+          "card vs CPU: scores %.3g (tol %g), the row-sparse gradient's %d "
+          "indices equal %s, its values %.3g (tol %g), the step's "
+          "probabilities %.3g, the weight after the update %.3g (tol %g; "
+          "%d weights moved)"
+          % (d_score, P30_F32_TOL, len(c[1]), same_idx, d_grad, P30_F32_TOL,
+             d_p, d_w, P30_WEIGHT_TOL, moved))
+    if d_score > P30_F32_TOL or not same_idx or d_grad > P30_F32_TOL or \
+            d_p > P30_F32_TOL or d_w > P30_WEIGHT_TOL or not moved:
+        raise RuntimeError("phase 30 (c): scores %.3g, indices %s, gradient "
+                           "%.3g, p %.3g, weight %.3g"
+                           % (d_score, same_idx, d_grad, d_p, d_w))
+
+
+def _p30_gluon_tools():
+    """(d): ``tools/train_wide_deep.main()`` and ``tools/matrix_fact.main()``
+    at their defaults, their asserts inside."""
+    from mxnet_tpu_torch.tools import matrix_fact, train_wide_deep
+    t0 = time.perf_counter()
+    acc, losses = train_wide_deep.main(_p30_ctx())
+    wd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mses = matrix_fact.main(_p30_ctx())
+    mf_s = time.perf_counter() - t0
+    print("phase 30 (d): train_wide_deep.main() at its defaults (4 fields "
+          "of 50 ids, 120 batches of 64, Adam 0.01): %.2f s, loss %.4f -> "
+          "%.4f, running accuracy %.3f (bar 0.75); matrix_fact.main() at "
+          "its defaults (200 users, 150 items, rank 8, 12 epochs of 32 "
+          "batches, Adam 0.02): %.2f s, mse %.4f -> %.4f (bar 0.3x)"
+          % (wd_s, losses[0], losses[-1], acc, mf_s, mses[0], mses[-1]))
+    return wd_s, mf_s
+
+
+def _p30_mf_wide():
+    """(d): matrix factorization at MovieLens-10M's id ranges: samples/s
+    and the Adam update's ms a step."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, init, nd
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.tools import matrix_fact
+    n = P30_MF_BATCHES * P30_MF_BATCH
+    users, items, ratings = matrix_fact.synthetic_ratings(
+        P30_USERS, P30_ITEMS, P30_RANK, n, np.random.RandomState(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with use(P30_DEVICE):
+        net = matrix_fact.MFBlock(P30_USERS, P30_ITEMS, P30_RANK)
+        net.initialize(init.Normal(0.05), rng=np.random.RandomState(1))
+        net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 0.02})
+        loss_fn = gluon.loss.L2Loss()
+        # the ratings go to the card once; each batch is a slice there
+        u_all = nd.array(users.astype(np.float32))
+        i_all = nd.array(items.astype(np.float32))
+        r_all = nd.array(ratings)
+        losses, upd = [], []
+        for s in range(P30_MF_BATCHES):
+            if s == P30_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            sel = slice(s * P30_MF_BATCH, (s + 1) * P30_MF_BATCH)
+            with autograd.record():
+                loss = loss_fn(net(u_all[sel], i_all[sel]), r_all[sel])
+            loss.backward()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            trainer.step(P30_MF_BATCH)
+            e[1].record()
+            upd.append(e)
+            losses.append(loss.mean())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rate = P30_MF_BATCH * (P30_MF_BATCHES - P30_WARMUP) / wall
+    upd_ms = float(np.mean([a.elapsed_time(b) for a, b in
+                            upd[P30_WARMUP:]]))
+    first = 2 * float(losses[0].asscalar())
+    last = 2 * float(np.mean([v.asscalar() for v in losses[-10:]]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # each user is in under one rating here: the example's recipe
+    # overfits (the error is printed, not held)
+    print("phase 30 (d): matrix factorization at MovieLens-10M's id ranges "
+          "(%d users, %d items, rank %d; MXNet example/sparse/"
+          "matrix_factorization), %d batches of %d synthetic ratings, Adam "
+          "0.02: %.1f samples/s over %d steps (host clock); the Adam "
+          "update %.3f ms a step (CUDA events, %d parameters: both tables "
+          "and biases, dense); mse %.4f at the first batch -> %.4f (the "
+          "last 10); peak %.3f GiB"
+          % (P30_USERS, P30_ITEMS, P30_RANK, P30_MF_BATCHES, P30_MF_BATCH,
+             rate, P30_MF_BATCHES - P30_WARMUP, upd_ms,
+             (P30_USERS + P30_ITEMS) * (P30_RANK + 1), first, last, peak))
+    if not np.isfinite([first, last]).all():
+        raise RuntimeError("phase 30 (d): mse %r -> %r" % (first, last))
+    return dict(rate=rate, update_ms=upd_ms, peak=peak)
+
+
+def _p30_embeddings():
+    """(e): ``Embedding(sparse_grad=True)`` and ``SparseEmbedding``, one
+    step each, card against CPU: outputs, the dense gradients, the
+    updated weights."""
+    from mxnet_tpu_torch import autograd, gluon, init, nd
+    from mxnet_tpu_torch.context import use
+    rng = np.random.RandomState(35)
+    x = rng.randint(0, 1000, (64, 8)).astype(np.float32)
+    head = rng.randn(64, 8, 32).astype(np.float32)
+    worst = {}
+    for kind, make in (
+            ("Embedding(sparse_grad=True)",
+             lambda: gluon.nn.Embedding(1000, 32, sparse_grad=True)),
+            ("contrib.nn.SparseEmbedding",
+             lambda: gluon.contrib.nn.SparseEmbedding(1000, 32))):
+        got = {}
+        for dev in (P30_DEVICE, "cpu"):
+            with use(dev) as d:
+                blk = make()
+                blk.initialize(init.Uniform(0.5), ctx=d,
+                               rng=np.random.RandomState(36))
+                tr = gluon.Trainer(blk.collect_params(), "sgd",
+                                   {"learning_rate": 0.5})
+                with autograd.record():
+                    out = blk(nd.array(x))
+                    loss = (out * nd.array(head)).sum()
+                loss.backward()
+                grad = blk.weight.grad().asnumpy().copy()
+                tr.step(1)
+                got[dev] = (out.asnumpy(), grad, blk.weight.data().asnumpy())
+        worst[kind] = max(_p28_err(c, h) for c, h in zip(got[P30_DEVICE],
+                                                         got["cpu"]))
+    print("phase 30 (e): one step card vs CPU (64 x 8 ids over 1,000 x 32): "
+          "outputs, dense gradients and updated weights within %s (tol %g)"
+          % ("; ".join("%s %.3g" % kv for kv in worst.items()),
+             P30_GLUON_TOL))
+    if max(worst.values()) > P30_GLUON_TOL:
+        raise RuntimeError("phase 30 (e): %r" % worst)
+
+
+def phase_sparse():
+    """Phase 30: sparse storage."""
+    import shutil
+    import tempfile
+    t_phase = time.monotonic()
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    rows = _p30_ops()
+    defaults_s, acc = _p30_linear_defaults()
+    tmp = tempfile.mkdtemp(prefix="p30_")
+    try:
+        wide = _p30_linear_wide(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _p30_linear_parity()
+    tools_s = _p30_gluon_tools()
+    mf = _p30_mf_wide()
+    _p30_embeddings()
+    launched = _hand_launches()
+    if launched:
+        raise RuntimeError("phase 30: hand kernels launched on the sparse "
+                           "path: %r" % launched)
+    RUNS["phase 30"] = dict(ops=rows, linear_defaults_s=defaults_s,
+                            linear_wide=wide, gluon_tools_s=tools_s, mf=mf)
+    print("phase 30: B1-B10 launches 0 over the phase; %.1f s (the script "
+          "so far %.1f s)" % (time.monotonic() - t_phase,
+                              time.monotonic() - T_START))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7334,6 +8000,7 @@ def main():
         phase_module_train()
         phase_rnn_ctc()
         phase_detection()
+        phase_sparse()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,7 @@
 """``gluon.contrib.nn``: the port of ``mxnet_tpu/gluon/contrib/nn.py``
-(``Concurrent``, ``HybridConcurrent``, ``Identity``).  ``SparseEmbedding``
-needs row_sparse gradients, which the port does not have: it raises,
-naming ROADMAP.md queue A, item 10."""
+(``Concurrent``, ``HybridConcurrent``, ``Identity``, ``SparseEmbedding``).
+``SparseEmbedding``'s weight is marked ``grad_stype="row_sparse"``; as in
+the reference, that is a flag only: its gradient and update are dense."""
 from __future__ import annotations
 
 from ... import ndarray as nd
@@ -29,10 +29,25 @@ class Identity(HybridBlock):
 
 
 class SparseEmbedding(Block):
-    """An embedding over a row_sparse weight (reference:
-    ``gluon/contrib/nn.py:31``)."""
+    """An embedding whose weight's gradient is marked row_sparse
+    (reference: ``gluon/contrib/nn.py:31-55``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "contrib.nn.SparseEmbedding: row_sparse gradients are "
-            "ROADMAP.md queue A, item 10")
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse")
+
+    def forward(self, x):
+        return nd.Embedding(x, self.weight.data(),
+                            input_dim=self._input_dim,
+                            output_dim=self._output_dim, sparse_grad=True)
+
+    def __repr__(self):
+        return "SparseEmbedding(%d -> %d)" % (self._input_dim,
+                                              self._output_dim)

@@ -290,17 +290,16 @@ class LayerNorm(_Norm):
 class Embedding(HybridBlock):
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True): sparse gradients are "
-                "ROADMAP.md queue A, item 10")
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
+        # sparse_grad marks the weight's gradient row_sparse, a flag only:
+        # the gradient is dense and the update dense, as in the reference
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
-                init=weight_initializer, dtype=dtype)
+                init=weight_initializer, dtype=dtype,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

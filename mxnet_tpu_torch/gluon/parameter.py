@@ -78,6 +78,10 @@ class Parameter:
         self.grad_req = grad_req if differentiable else "null"
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        # storage types are recorded, as in the reference; data and
+        # gradient stay dense
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self._shape,

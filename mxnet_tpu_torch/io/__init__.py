@@ -29,7 +29,7 @@ import torch
 
 from ..base import resolve_device
 from ..context import current_context
-from ..ndarray import NDArray, array as _nd_array
+from ..ndarray import NDArray, array as _nd_array, sparse
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "DeviceFeedIter", "PrefetchToDeviceIter",
@@ -766,50 +766,12 @@ class LibSVMIter(DataIter):
             indptr[i + 1] = indptr[i] + len(idx)
         cols = _np.concatenate(cols) if cols else _np.zeros(0, _np.int64)
         vals = _np.concatenate(vals) if vals else _np.zeros(0, _np.float32)
-        data = CSRBatch(
+        data = sparse.CSRNDArray(
             _nd_array(vals, ctx="cpu"), _nd_array(cols, ctx="cpu",
                                                   dtype="int64"),
             _nd_array(indptr, ctx="cpu", dtype="int64"),
             (len(take), self._feat_dim))
         return DataBatch([data], [_nd_array(labs, ctx="cpu")], pad=pad)
-
-
-class CSRBatch:
-    """The CSR data of one :class:`LibSVMIter` batch: ``data``,
-    ``indices`` and ``indptr`` CPU NDArrays and the dense ``shape``, with
-    the reference's ``CSRNDArray`` surface a batch consumer reads
-    (``stype``, ``todense``, ``asnumpy``).  The sparse NDArray itself and
-    its ops (``ndarray/sparse.py``) are ROADMAP.md queue A, item 10."""
-
-    stype = "csr"
-
-    def __init__(self, data, indices, indptr, shape):
-        self.data = data
-        self.indices = indices
-        self.indptr = indptr
-        self.shape = tuple(shape)
-
-    @property
-    def dtype(self):
-        return self.data.dtype
-
-    @property
-    def context(self):
-        return self.data.context
-
-    def asnumpy(self):
-        m, n = self.shape
-        out = _np.zeros((m, n), self.data.dtype)
-        indptr = self.indptr.asnumpy()
-        rows = _np.repeat(_np.arange(m), _np.diff(indptr))
-        # duplicate column entries of a row add, as the reference's
-        # scatter-add densification does
-        _np.add.at(out, (rows, self.indices.asnumpy()), self.data.asnumpy())
-        return out
-
-    def todense(self):
-        return _nd_array(self.asnumpy(), ctx=self.context,
-                         dtype=self.data.dtype)
 
 
 def ImageDetRecordIter(**kwargs):

@@ -13,6 +13,14 @@ caller's.  (``mxnet_tpu``'s store runs a pickled copy, which a Gluon
 ``Trainer`` never updates; ROADMAP.md section C.)  2-bit gradient
 compression with error feedback is the reference's arithmetic.
 
+Row-sparse values (``ndarray.sparse.RowSparseNDArray``): a push of
+several sums them over the union of their rows; the store's updater
+takes the sum as it is (the optimizers update those rows alone), and a
+store without one keeps it densified.  :meth:`KVStore.row_sparse_pull`
+gives a row-sparse ``out`` the stored rows at the unique ``row_ids`` and
+a dense ``out`` a copy of the whole stored array (never an alias: the
+store updates in place).
+
 One process is one worker (``rank`` 0 of ``num_workers`` 1).  The
 ``dist_*`` types raise: distributed data parallel is ROADMAP.md queue A,
 item 6.
@@ -24,6 +32,7 @@ import torch
 from . import optimizer as opt
 from .base import MXNetError
 from .ndarray import NDArray
+from .ndarray.sparse import RowSparseNDArray
 from . import ndarray as nd
 
 __all__ = ["KVStore", "create"]
@@ -59,21 +68,35 @@ class KVStore:
                 raise MXNetError("key %r already initialized" % (k,))
             self._store[k] = v if isinstance(v, NDArray) else nd.array(v)
 
+    @staticmethod
+    def _merge(vlist):
+        """The sum of one key's values (the reference's ``Comm::Reduce``):
+        an NDArray, or a RowSparseNDArray over the union of the rows."""
+        if isinstance(vlist[0], RowSparseNDArray):
+            merged = vlist[0]
+            for other in vlist[1:]:
+                merged = merged + other
+            return merged
+        merged = vlist[0]._data
+        for other in vlist[1:]:
+            merged = merged + other._data.to(merged.device)
+        return NDArray(merged)
+
     def push(self, key, value, priority=0):
         for k, v in zip(*_key_value(key, value)):
-            vlist = list(v) if isinstance(v, (list, tuple)) else [v]
-            merged = vlist[0]._data
-            for other in vlist[1:]:
-                merged = merged + other._data.to(merged.device)
+            merged = self._merge(list(v) if isinstance(v, (list, tuple))
+                                 else [v])
             if self._compression is not None:
-                merged = self._compress(k, merged)
+                merged = NDArray(self._compress(k, merged._data))
             stored = self._store.get(k)
             if stored is None:
                 raise MXNetError("key %r not initialized" % (k,))
             if self._updater is not None:
-                self._updater(k, NDArray(merged), stored)
+                self._updater(k, merged, stored)
             else:
-                stored._set_data(merged.to(stored.context, copy=True))
+                if isinstance(merged, RowSparseNDArray):
+                    merged = merged.todense()
+                stored._set_data(merged._data.to(stored.context, copy=True))
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         for k, o in zip(*_key_value(key, out)):
@@ -82,6 +105,35 @@ class KVStore:
                 if dst._data is not stored._data:
                     dst._set_data(stored._data.detach().to(dst.context,
                                                            copy=True))
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull the rows ``row_ids`` (reference: kvstore.h:195
+        PullRowSparse): into a RowSparseNDArray ``out``, the stored rows at
+        the unique ids, sorted; into a dense ``out``, the whole stored
+        array.  ``row_ids`` is one NDArray for every ``out`` or a list,
+        one per ``out``."""
+        if row_ids is None:
+            raise ValueError("row_sparse_pull requires row_ids")
+        rid_list = list(row_ids) if isinstance(row_ids, (list, tuple)) \
+            else [row_ids]
+        for k, o in zip(*_key_value(key, out)):
+            stored = self._store[k]
+            olist = list(o) if isinstance(o, (list, tuple)) else [o]
+            rids = rid_list if len(rid_list) == len(olist) \
+                else rid_list * len(olist)
+            for dst, rid in zip(olist, rids):
+                if not isinstance(dst, RowSparseNDArray):
+                    dst._set_data(stored._data.detach().to(dst.context,
+                                                           copy=True))
+                    continue
+                if rid._data.device != stored._data.device:
+                    raise MXNetError("row_ids on %s for a value on %s"
+                                     % (rid._data.device,
+                                        stored._data.device))
+                idx = torch.unique(rid._data.long())
+                dst.data = NDArray(stored._data.detach().index_select(0, idx))
+                dst.indices = NDArray(idx)
+                dst._shape = stored.shape
 
     def set_updater(self, updater):
         self._updater = updater

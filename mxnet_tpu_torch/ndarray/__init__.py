@@ -7,8 +7,8 @@ ops without their prefix.  The creation helpers, ``save`` / ``load``
 ``nd.random`` holds the samplers of ``ops/random.py`` under the
 reference's public names (``mxnet_tpu/ndarray/__init__.py:121-183``),
 with ``randn`` and ``seed``; a draw lands on ``ctx`` (the card unless
-the caller asks for the CPU).  Sparse arrays are ROADMAP.md queue A,
-item 10."""
+the caller asks for the CPU).  ``nd.sparse`` holds the row-sparse and
+CSR arrays (``sparse.py``); ``zeros(stype=)`` makes one."""
 from __future__ import annotations
 
 import sys
@@ -20,11 +20,12 @@ from ..ops import registry as _reg
 from .ndarray import (NDArray, _device, array, concatenate, empty,
                       imperative_invoke, invoke, np_dtype, torch_dtype)
 from .register import populate as _populate
+from . import sparse
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "invoke", "imperative_invoke", "np_dtype",
            "torch_dtype", "waitall", "save", "load", "contrib", "random",
-           "Custom"]
+           "Custom", "sparse"]
 
 _reg.load_all()
 contrib = types.ModuleType(__name__ + ".contrib")
@@ -36,7 +37,9 @@ def _shape(shape):
     return tuple(shape) if isinstance(shape, (list, tuple)) else (shape,)
 
 
-def zeros(shape, ctx=None, dtype=None, **kwargs):
+def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
+    if stype not in (None, "default"):
+        return sparse.zeros(stype, _shape(shape), ctx=ctx, dtype=dtype)
     return NDArray(torch.zeros(_shape(shape),
                                dtype=torch_dtype(dtype or "float32"),
                                device=_device(ctx)))

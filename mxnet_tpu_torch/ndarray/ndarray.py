@@ -188,14 +188,17 @@ class NDArray:
         return NDArray(t.clone() if self._fixed else t)
 
     def tostype(self, stype):
-        if stype == "default":
+        """This array in storage type ``stype`` (``"default"``,
+        ``"row_sparse"`` or ``"csr"``; ``sparse.cast_storage``)."""
+        if stype == self.stype:
             return self
-        raise NotImplementedError(
-            "sparse storage is ROADMAP.md queue A, item 10")
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Make this array a variable with a zeroed gradient buffer."""
+        """Make this array a variable with a zeroed gradient buffer; the
+        buffer is dense whatever ``stype`` asks, as in the reference."""
         autograd._mark(self, grad_req)
         if grad_req != "null":
             self._data.grad = torch.zeros_like(self._data)

@@ -1,10 +1,11 @@
 """contrib ops of the port: the CTC loss, the box family (``box_iou``,
 ``box_nms``, ``bipartite_matching``), the SSD family (``MultiBoxPrior``,
 ``MultiBoxTarget``, ``MultiBoxDetection``) and the two-stage detector's
-``Proposal`` / ``MultiProposal`` and ``ROIAlign`` of
-``mxnet_tpu/ops/contrib.py`` (``:27-369,459-518,580-728``).  The file's
-other ops (deformable convolution, PS ROI pooling, the FFTs and the rest)
-are ROADMAP.md queue A, item 10(d).
+``Proposal`` / ``MultiProposal`` and ``ROIAlign``, and the sparse
+helpers ``getnnz`` and ``SparseEmbedding`` of ``mxnet_tpu/ops/contrib.py``
+(``:27-369,452-518,580-728,812-819``).  The file's other ops (deformable
+convolution, PS ROI pooling, the FFTs and the rest) are ROADMAP.md queue
+A, item 10(d).
 
 **CTC.** The reference runs the log-space forward recursion under
 ``lax.scan`` and differentiates through it; the port calls
@@ -70,7 +71,7 @@ from .registry import register
 __all__ = ["ctc_loss", "ctc_infeasible", "box_iou", "box_nms",
            "bipartite_matching", "multibox_prior", "multibox_target",
            "multibox_detection", "roi_align", "proposal", "host_sync_counts",
-           "reset_host_sync_counts"]
+           "reset_host_sync_counts", "getnnz", "sparse_embedding"]
 
 # the loss of a row with no alignment: the reference's -(-1e30)
 NO_ALIGNMENT_LOSS = 1e30
@@ -710,3 +711,23 @@ def bipartite_matching(data, is_ascend=False, threshold=1e-12, topk=-1):
         s[rows, :, c] = torch.where(ok[:, None], s.new_full((), bad),
                                     s[rows, :, c])
     return row_m.reshape(lead + (N,)), col_m.reshape(lead + (M,))
+
+
+# ---------------------------------------------------------------------------
+# the sparse helpers (reference: src/operator/contrib/nnz.cc and
+# src/operator/tensor/indexing_op.cc SparseEmbedding)
+# ---------------------------------------------------------------------------
+@register("_contrib_getnnz", arg_names=["data"])
+def getnnz(data, axis=None):
+    """The count of nonzero entries (over ``axis``, or all), int64."""
+    nz = (data != 0).to(torch.int64)
+    return nz.sum() if axis is None else nz.sum(dim=axis)
+
+
+@register("_contrib_SparseEmbedding", arg_names=["data", "weight"],
+          aliases=("SparseEmbedding",))
+def sparse_embedding(data, weight, input_dim=0, output_dim=0,
+                     dtype="float32", deterministic=False):
+    """Rows of a row-sparse weight table by integer index: ``Embedding``'s
+    forward (its gradient is dense here, as in the reference)."""
+    return weight[data.to(device=weight.device, dtype=torch.long)]

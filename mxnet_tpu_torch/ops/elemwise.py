@@ -5,9 +5,9 @@ Each op is one torch call under the reference's name.  Binary ops take
 numpy broadcasting, as the reference's do; comparisons and logical ops
 return the left operand's dtype (1.0 / 0.0), not bool.  ``round`` and
 ``rint`` round half to even, as ``jnp.round`` does.  The
-``_scatter_*`` ops keep a sparse array's storage in the reference; on
-dense arrays, the only ones the port has (sparse storage is ROADMAP.md
-queue A, item 10), they are the plain scalar and elementwise ops.
+``_scatter_*`` ops keep a sparse array's storage in MXNet; an op here
+takes dense tensors (sparse arrays live in ``ndarray/sparse.py``), on
+which they are the plain scalar and elementwise ops.
 """
 from __future__ import annotations
 

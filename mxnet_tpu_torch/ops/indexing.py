@@ -1,7 +1,8 @@
-"""Indexing operators: the port of ``mxnet_tpu/ops/indexing.py`` (all but
-``sparse_retain``, ROADMAP.md queue A, item 10) and of the reference's
-``_getitem`` (``mxnet_tpu/ndarray/ndarray.py:430``).  Indices are read
-as integers (float indices are truncated, as the reference's
+"""Indexing operators: the port of ``mxnet_tpu/ops/indexing.py`` and of
+the reference's ``_getitem`` (``mxnet_tpu/ndarray/ndarray.py:430``).
+``sparse_retain`` here is the dense form (the other rows zeroed); the
+row-sparse one is ``_sparse_retain`` (``ops/sparse_ops.py``).  Indices
+are read as integers (float indices are truncated, as the reference's
 ``astype(int32)`` does); ``clip`` mode clamps them into range, ``wrap``
 takes them modulo the axis.  Where ``scatter_nd`` / ``_scatter_set_nd``
 meet one index twice, MXNet leaves the result undefined: one of the
@@ -15,7 +16,8 @@ from .registry import register
 
 __all__ = ["embedding", "take", "pick", "one_hot", "where", "batch_take",
            "gather_nd", "scatter_nd", "scatter_set_nd", "sequence_mask",
-           "sequence_last", "sequence_reverse", "getitem"]
+           "sequence_last", "sequence_reverse", "sparse_retain_dense",
+           "getitem"]
 
 
 def _long(t, device):
@@ -167,6 +169,17 @@ def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
     src = src.reshape(src.shape + (1,) * (data.dim() - 2)).expand(
         data.shape)
     return data.gather(0, src)
+
+
+@register("sparse_retain", arg_names=["data", "indices"])
+def sparse_retain_dense(data, indices):
+    """``data`` with every row not in ``indices`` zeroed (reference:
+    src/operator/tensor/sparse_retain.cc, on a dense array)."""
+    mask = torch.zeros(data.shape[0], dtype=torch.bool,
+                       device=data.device).index_fill_(
+                           0, _long(indices, data.device), True)
+    return torch.where(mask.reshape((-1,) + (1,) * (data.dim() - 1)), data,
+                       0)
 
 
 @register("_getitem")

@@ -1,5 +1,6 @@
 """Optimizer update rules as registered operators: the port of
-``mxnet_tpu/ops/optimizer_ops.py`` (the 11 dense update ops, ``:43-205``).
+``mxnet_tpu/ops/optimizer_ops.py`` (the 11 dense update ops and
+``_sparse_adagrad_update``, ``:43-217``).
 
 Each rule is a plain torch function returning ``(new_weight,
 *new_states)`` that mutates nothing; registered under the reference's
@@ -11,11 +12,10 @@ The clip convention is the reference's: ``clip_gradient`` None or
 negative disables clipping.  The ``mp_*`` rules keep the float32 master
 weight as an input and return the weight rounded from it.
 
-``_sparse_adagrad_update`` / ``sparse_adagrad_update`` act on row-sparse
-gradients, and sparse storage is ROADMAP.md queue A, item 10: they are
-not registered, and :func:`sparse_adagrad_update` raises.  AdaGrad's
-dense update is :func:`adagrad_update`, the reference's dense fallback
-of that op.
+``_sparse_adagrad_update`` / ``sparse_adagrad_update`` is, as in the
+reference, AdaGrad's rule on dense tensors (every row updated); a
+row-sparse gradient takes the row-wise path of ``optimizer.AdaGrad``,
+which reads and writes only the rows it holds.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ from .registry import register
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
            "mp_sgd_mom_update", "signsgd_update", "signum_update",
            "adam_update", "rmsprop_update", "rmspropalex_update",
-           "ftrl_update", "ftml_update", "adagrad_update",
-           "sparse_adagrad_update"]
+           "ftrl_update", "ftml_update", "sparse_adagrad_update"]
 
 
 def _clip(g, c):
@@ -176,22 +175,15 @@ def ftml_update(weight, grad, d, v, z, lr=None, beta1=0.6, beta2=0.999,
     return -new_z / d_t, d_t, new_v, new_z
 
 
-def adagrad_update(weight, grad, history, lr=None, epsilon=1e-7, wd=0.0,
-                   rescale_grad=1.0, clip_gradient=-1.0):
-    """AdaGrad over a dense gradient: the reference's dense form of
-    ``_sparse_adagrad_update`` (``optimizer_ops.py:193-205``).  Returns
-    ``(new_weight, new_history)``."""
+@register("_sparse_adagrad_update",
+          arg_names=["weight", "grad", "history"], mutates={2: 1},
+          aliases=("sparse_adagrad_update",))
+def sparse_adagrad_update(weight, grad, history, lr=None, epsilon=1e-7,
+                          wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """AdaGrad over a dense gradient (``optimizer_ops.py:207-217``).
+    Returns ``(new_weight, new_history)``."""
     g = _clip(rescale_grad * grad, clip_gradient)
     if wd:
         g = g + wd * weight
     new_hist = history + torch.square(g)
     return weight - lr * g / (torch.sqrt(new_hist) + epsilon), new_hist
-
-
-def sparse_adagrad_update(*args, **kwargs):
-    """Row-sparse AdaGrad: sparse storage is ROADMAP.md queue A, item
-    10."""
-    raise NotImplementedError(
-        "_sparse_adagrad_update / sparse_adagrad_update update row-sparse "
-        "gradients: sparse storage is ROADMAP.md queue A, item 10 (the "
-        "dense rule is optimizer_ops.adagrad_update)")

@@ -89,8 +89,8 @@ def get(name):
     except KeyError:
         raise KeyError("operator %r is not registered in the port (have %d "
                        "ops; the rest of the op set is ROADMAP.md queue A, "
-                       "items 10 (contrib, linalg, control flow, image "
-                       "and sparse ops) and 8 (flash_attention))"
+                       "items 10 (contrib, linalg, control flow and "
+                       "image ops) and 8 (flash_attention))"
                        % (name, len(_OPS))) from None
 
 
@@ -122,7 +122,7 @@ def canonicalize_kwargs(kwargs):
 # the modules whose imports fill the table
 _OP_MODULES = ("nn", "elemwise", "reduce", "matrix", "indexing", "init",
                "random", "optimizer_ops", "quantization", "pallas_kernels",
-               "rnn", "contrib")
+               "rnn", "contrib", "sparse_ops")
 
 
 def load_all():

@@ -23,6 +23,14 @@ tuple}`` as the reference's does, so a states file either package writes
 loads in the other (``dump_optimizer=True`` pickles the optimizer's
 class too, which only its own package can load).
 
+A row-sparse gradient (``ndarray.sparse.RowSparseNDArray``) takes the
+lazy row-wise update of SGD (``:176-183``, ``:214-228``), Adam
+(``:404-417``) and AdaGrad (``:443-458``): only the rows it holds of the
+weight and the state are read or written.  Where it holds a row twice,
+the weight takes both steps and the state the last one, as the
+reference's ``.at[].add`` / ``.at[].set`` give it on the CPU; the port
+writes that last value explicitly, so the card gives it too.
+
 ``multi_precision=True`` (``:60-75``, ``:124-211``): a bfloat16 or
 float16 weight gets an f32 master copy in its state,
 ``(master, inner_state)``; ``update_multi_precision`` runs the update on
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .ndarray.sparse import BaseSparseNDArray, RowSparseNDArray
 from .ops import optimizer_ops as ops
 
 __all__ = ["Optimizer", "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
@@ -196,6 +205,30 @@ def _write(dst, src):
         dst.copy_(src)
 
 
+def _rows_of(grad, weight):
+    """(int64 row indices, rows) of a row-sparse gradient, on the weight's
+    device (raises on another)."""
+    idx, rows = grad.indices._data, grad.data._data
+    if idx.device != weight.device or rows.device != weight.device:
+        raise MXNetError("row-sparse gradient on %s for a weight on %s"
+                         % (rows.device, weight.device))
+    return idx.long(), rows
+
+
+def _last_occurrence(idx):
+    """For each position of ``idx``, the position of the last occurrence
+    of its index."""
+    sorted_idx, order = torch.sort(idx, stable=True)
+    return order[torch.searchsorted(sorted_idx, idx, right=True) - 1]
+
+
+def _set_rows(dst, idx, rows, last):
+    """``dst[idx] = rows`` where the last of a repeated index wins
+    (``last`` from :func:`_last_occurrence`): every occurrence writes that
+    last value, so no device leaves the choice open."""
+    dst.index_copy_(0, idx, rows.index_select(0, last))
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (reference: optimizer.py SGD,
@@ -214,6 +247,9 @@ class SGD(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
+        if isinstance(grad, RowSparseNDArray):
+            self._sparse_update(weight, grad, state, lr, wd)
+            return
         kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
                   clip_gradient=self._clip_arg())
         if state is not None:
@@ -232,13 +268,27 @@ class SGD(Optimizer):
         new_mom = self.momentum * mom - lr * g
         return w + new_mom, new_mom
 
+    def _sparse_update(self, weight, grad, state, lr, wd):
+        """The lazy row-wise rule (reference: ``_sparse_sgd_update``,
+        optimizer_op-inl.h SGDUpdateRspRspImpl)."""
+        idx, g = _rows_of(grad, weight)
+        with torch.no_grad():
+            upd = self._prep_grad(g) + wd * weight.index_select(0, idx)
+            if state is None:
+                weight.index_add_(0, idx, -lr * upd)
+                return
+            m_rows = self.momentum * state.index_select(0, idx) - lr * upd
+            _set_rows(state, idx, m_rows, _last_occurrence(idx))
+            weight.index_add_(0, idx, m_rows)
+
     def update_multi_precision(self, index, weight, grad, state):
-        if self.multi_precision and _is_low_precision(weight.dtype):
+        if self.multi_precision and _is_low_precision(weight.dtype) \
+                and not isinstance(grad, RowSparseNDArray):
             master, mom = state
             SGD.update(self, index, master, grad.to(torch.float32), mom)
             _write(weight, master.to(weight.dtype))
         else:
-            self.update(index, weight, grad, state)
+            super().update_multi_precision(index, weight, grad, state)
 
 
 def _zeros(weight, dtype=None):
@@ -415,6 +465,19 @@ class Adam(Optimizer):
         # the bias-corrected rate into the adam_update rule, as the
         # reference optimizer does (optimizer.py Adam.update)
         lr_t = lr * ((1 - self.beta2 ** t) ** 0.5) / (1 - self.beta1 ** t)
+        if isinstance(grad, RowSparseNDArray):
+            idx, g = _rows_of(grad, weight)
+            b1, b2 = self.beta1, self.beta2
+            with torch.no_grad():
+                g = self._prep_grad(g) + wd * weight.index_select(0, idx)
+                m_rows = b1 * m.index_select(0, idx) + (1 - b1) * g
+                v_rows = b2 * v.index_select(0, idx) + (1 - b2) * g * g
+                last = _last_occurrence(idx)
+                _set_rows(m, idx, m_rows, last)
+                _set_rows(v, idx, v_rows, last)
+                weight.index_add_(0, idx, -lr_t * m_rows
+                                  / (torch.sqrt(v_rows) + self.epsilon))
+            return
         nw, nm, nv = ops.adam_update(
             weight, grad, m, v, lr=lr_t, wd=wd, beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon,
@@ -426,8 +489,8 @@ class Adam(Optimizer):
 
 @register
 class AdaGrad(Optimizer):
-    """AdaGrad (reference: optimizer.py AdaGrad; the dense form of
-    ``_sparse_adagrad_update``, ``ops.optimizer_ops.adagrad_update``)."""
+    """AdaGrad (reference: optimizer.py AdaGrad): a dense gradient through
+    the ``_sparse_adagrad_update`` op's rule, a row-sparse one row-wise."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -439,7 +502,18 @@ class AdaGrad(Optimizer):
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
-        nw, nh = ops.adagrad_update(
+        if isinstance(grad, RowSparseNDArray):
+            idx, g = _rows_of(grad, weight)
+            with torch.no_grad():
+                g = self._prep_grad(g)
+                if wd:
+                    g = g + wd * weight.index_select(0, idx)
+                h_rows = state.index_select(0, idx) + g * g
+                _set_rows(state, idx, h_rows, _last_occurrence(idx))
+                weight.index_add_(0, idx, -lr * g / (
+                    torch.sqrt(h_rows) + self.float_stable_eps))
+            return
+        nw, nh = ops.sparse_adagrad_update(
             weight, grad, state, lr=lr, wd=wd, epsilon=self.float_stable_eps,
             rescale_grad=self.rescale_grad, clip_gradient=self._clip_arg())
         _write(state, nh)
@@ -619,7 +693,8 @@ ccSGD = SGD
 
 
 def _tensor(x):
-    return getattr(x, "_data", x)
+    """The torch tensor of an NDArray; a sparse array as it is."""
+    return x if isinstance(x, BaseSparseNDArray) else getattr(x, "_data", x)
 
 
 def _to_numpy(s):

@@ -19,10 +19,15 @@ Two on-disk formats, told apart by their magic on load:
    buffers — the default, since it keeps bfloat16 (its raw 16-bit words,
    dtype name ``"bfloat16"``).
 
-Sparse records raise on both sides (ROADMAP.md queue A, item 10).  The
-constants and the JSON layout are the reference's, so a file either
-package writes from the same values is the same bytes, and each loads
-the other's.
+Sparse arrays: the dmlc stream holds them as MXNet's V2 sparse records
+(storage type 1 = row_sparse with its row indices, 2 = csr with indptr
+then column indices; the storage shape before the shape, the aux arrays'
+type flags and shapes before the data, the aux data after it; the aux
+arrays always int64) and loads them as ``RowSparseNDArray`` /
+``CSRNDArray``; ``MXTPUND1`` holds them densified, as the reference's
+does.  The constants and the JSON layout are the reference's, so a file
+either package writes from the same values is the same bytes, and each
+loads the other's.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ _MAGIC = b"MXTPUND1"
 _MXNET_LIST_MAGIC = 0x112
 _NDARRAY_V2_MAGIC = 0xF993FAC9
 _NDARRAY_V1_MAGIC = 0xF993FAC8
-_STYPE_DEFAULT = 0
+_STYPE_DEFAULT, _STYPE_ROW_SPARSE, _STYPE_CSR = 0, 1, 2
 _MX_FLAG_TO_NP = {0: "float32", 1: "float64", 2: "float16", 3: "uint8",
                   4: "int32", 5: "int8", 6: "int64", 7: "bool"}
 _NP_TO_MX_FLAG = {v: k for k, v in _MX_FLAG_TO_NP.items()}
@@ -46,8 +51,12 @@ _KCPU = 1
 
 
 def _tensor(v):
-    """The host tensor of an NDArray, tensor or array-like."""
+    """The host tensor of an NDArray (a sparse one densified), tensor or
+    array-like."""
     from .ndarray import NDArray
+    from .ndarray.sparse import BaseSparseNDArray
+    if isinstance(v, BaseSparseNDArray):
+        v = v.todense()
     if isinstance(v, NDArray):
         v = v._data
     if isinstance(v, torch.Tensor):
@@ -73,10 +82,10 @@ def save_ndarrays(fname, data, format="mxtpu"):
         names, values = None, list(data)
     else:
         names, values = None, [data]
-    tensors = [_tensor(v) for v in values]
     if format == "mxnet":
-        _save_mxnet(fname, tensors, names)
+        _save_mxnet(fname, values, names)
         return
+    tensors = [_tensor(v) for v in values]
     raws = [_raw(t) for t in tensors]
     index = {"names": names,
              "arrays": [{"shape": list(t.shape), "dtype": dt}
@@ -116,8 +125,25 @@ def load_ndarrays(fname, ctx=None):
                 "not an NDArray params file (neither %s nor MXNet list "
                 "magic 0x%x): %r" % (_MAGIC.decode(), _MXNET_LIST_MAGIC,
                                      fname))
-    arrays = [None if t is None else NDArray(t.to(dev)) for t in tensors]
+    arrays = [_on_device(t, dev) for t in tensors]
     return arrays if not names else dict(zip(names, arrays))
+
+
+def _on_device(t, dev):
+    """A loaded record as an NDArray on ``dev``: a tensor, a sparse
+    record ``(stype, shape, data, aux)`` or None (an empty record)."""
+    from .ndarray import NDArray
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    if t is None:
+        return None
+    if not isinstance(t, tuple):
+        return NDArray(t.to(dev))
+    stype, shape, data, aux = t
+    parts = [NDArray(a.to(dev)) for a in [data] + aux]
+    if stype == _STYPE_ROW_SPARSE:
+        return RowSparseNDArray(parts[0], parts[1], shape)
+    # csr: aux 0 = indptr, aux 1 = column indices
+    return CSRNDArray(parts[0], parts[2], parts[1], shape)
 
 
 def _load_mxtpu(f):
@@ -176,16 +202,24 @@ def _load_mxnet_one(f):
         (type_flag,) = struct.unpack("<i", _read(f, 4))
         return _read_data(f, shape, type_flag)
     (stype,) = struct.unpack("<i", _read(f, 4))
-    if stype != _STYPE_DEFAULT:
-        raise NotImplementedError(
-            "storage type %d: sparse arrays are ROADMAP.md queue A, item 10"
-            % stype)
+    nad = {_STYPE_DEFAULT: 0, _STYPE_ROW_SPARSE: 1, _STYPE_CSR: 2}.get(stype)
+    if nad is None:
+        raise ValueError("unknown storage type %d in params file" % stype)
+    sshape = _read_tshape(f) if nad else None
     shape = _read_tshape(f)
     if not shape:
         return None
     _read(f, 8)
     (type_flag,) = struct.unpack("<i", _read(f, 4))
-    return _read_data(f, shape, type_flag)
+    aux = []
+    for _ in range(nad):
+        (aux_flag,) = struct.unpack("<i", _read(f, 4))
+        aux.append((aux_flag, _read_tshape(f)))
+    data = _read_data(f, sshape if nad else shape, type_flag)
+    if not nad:
+        return data
+    return (stype, tuple(shape), data,
+            [_read_data(f, ashape, aflag) for aflag, ashape in aux])
 
 
 def _load_mxnet(f):
@@ -204,7 +238,16 @@ def _load_mxnet(f):
     return names, tensors
 
 
-def _save_mxnet_one(f, t):
+def _save_mxnet_one(f, v):
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    if isinstance(v, RowSparseNDArray):
+        stype, t, aux = _STYPE_ROW_SPARSE, _tensor(v.data), [v.indices]
+    elif isinstance(v, CSRNDArray):
+        stype, t, aux = _STYPE_CSR, _tensor(v.data), [v.indptr, v.indices]
+    else:
+        stype, t, aux = _STYPE_DEFAULT, _tensor(v), []
+    shape = tuple(v.shape) if aux else None
+    aux = [_tensor(a).to(torch.int64) for a in aux]
     if t.dim() == 0:
         t = t.reshape(1)
     if t.dtype == torch.bool:
@@ -217,19 +260,26 @@ def _save_mxnet_one(f, t):
                         "format; cast explicitly before saving with "
                         "format='mxnet'" % dt)
     f.write(struct.pack("<I", _NDARRAY_V2_MAGIC))
-    f.write(struct.pack("<i", _STYPE_DEFAULT))
-    _write_tshape(f, t.shape)
+    f.write(struct.pack("<i", stype))
+    if aux:
+        _write_tshape(f, t.shape)  # the storage shape
+    _write_tshape(f, shape or t.shape)
     f.write(struct.pack("<ii", _KCPU, 0))
     f.write(struct.pack("<i", _NP_TO_MX_FLAG[dt]))
+    for a in aux:
+        f.write(struct.pack("<i", _NP_TO_MX_FLAG["int64"]))
+        _write_tshape(f, a.shape)
     f.write(buf)
+    for a in aux:
+        f.write(_raw(a)[1])
 
 
-def _save_mxnet(fname, tensors, names):
+def _save_mxnet(fname, values, names):
     with open(fname, "wb") as f:
         f.write(struct.pack("<QQ", _MXNET_LIST_MAGIC, 0))
-        f.write(struct.pack("<Q", len(tensors)))
-        for t in tensors:
-            _save_mxnet_one(f, t)
+        f.write(struct.pack("<Q", len(values)))
+        for v in values:
+            _save_mxnet_one(f, v)
         f.write(struct.pack("<Q", len(names) if names else 0))
         for name in names or []:
             b = name.encode("utf-8")

@@ -7,10 +7,12 @@ and :func:`check_consistency`, which runs one function on each device of
 card and the CPU take the place of the reference's TPU and CPU
 (``require_distinct=True`` asks for both and fails if the legs land on
 one device type).  :func:`rand_ndarray` draws from numpy's global RNG,
-so ``mx.random.seed`` repeats it; sparse storage types raise (ROADMAP.md
-queue A, item 10).  :func:`download` copies local paths and ``file://``
-URLs only, as ``gluon.utils.download`` does: the port fetches nothing
-over a network.
+so ``mx.random.seed`` repeats it; ``stype="row_sparse"`` / ``"csr"``
+casts that draw, whose uniform values are never zero, as the
+reference's does (``density`` is ignored there too).  :func:`download`
+copies local paths and ``file://`` URLs only, as
+``gluon.utils.download`` does: the port fetches nothing over a
+network.
 """
 from __future__ import annotations
 
@@ -65,13 +67,10 @@ def almost_equal(a, b, rtol=1e-5, atol=1e-20):
 
 def rand_ndarray(shape, stype="default", density=None, dtype=None, ctx=None):
     """Uniform [-1, 1) draws of ``shape`` from numpy's global RNG, as an
-    NDArray on ``ctx``."""
-    if stype != "default":
-        raise NotImplementedError(
-            "rand_ndarray(stype=%r): sparse storage is ROADMAP.md queue A, "
-            "item 10" % (stype,))
+    NDArray of storage type ``stype`` on ``ctx``."""
     arr = np.random.uniform(-1, 1, size=shape).astype(dtype or np.float32)
-    return nd.array(arr, ctx=ctx, dtype=arr.dtype)
+    out = nd.array(arr, ctx=ctx, dtype=arr.dtype)
+    return out if stype == "default" else out.tostype(stype)
 
 
 def rand_shape_2d(dim0=10, dim1=10):

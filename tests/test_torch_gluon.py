@@ -246,8 +246,9 @@ def test_unported_layouts_and_models_raise():
     conv = gluon.nn.Conv2D(4, 3, layout="NHWC", in_channels=2)
     assert conv.weight.shape == (4, 3, 3, 2)
     assert isinstance(vision.get_model("resnet101_v1"), vision.ResNetV1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gluon.contrib.nn.SparseEmbedding(10, 4)
+    sparse = gluon.contrib.nn.SparseEmbedding(10, 4)
+    assert sparse.weight.shape == (10, 4)
+    assert sparse.weight._grad_stype == "row_sparse"
     with pytest.raises(ValueError):
         vision.get_model("resnet7_v1")
     assert isinstance(vision.get_model("resnet18_v1", classes=10),

@@ -20,6 +20,7 @@ import pytest
 
 import mxnet_tpu as jmx
 from mxnet_tpu_torch import context, io
+from mxnet_tpu_torch.ndarray import sparse
 from mxnet_tpu_torch.io import (DeviceFeedIter, NDArrayIter,
                                 PrefetchToDeviceIter, make_device_tail)
 
@@ -118,7 +119,9 @@ def test_libsvm_iter_matches_reference(tmp_path, case):
         kw.update(num_parts=2, part_index=1)
     it, jt = io.LibSVMIter(**kw), jmx.io.LibSVMIter(**kw)
     assert it.provide_data == jt.provide_data
-    assert it.next().data[0].indptr.dtype == np.int64
+    first = it.next().data[0]
+    assert isinstance(first, sparse.CSRNDArray)
+    assert first.indptr.dtype == np.int64
     it.reset()
     _same_epochs(_libsvm_epochs(it) + _libsvm_epochs(it),
                  _libsvm_epochs(jt) + _libsvm_epochs(jt))

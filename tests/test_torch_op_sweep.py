@@ -46,40 +46,55 @@ HERE = PORTED[::2]
 A10_CONTRIB = {
     "AdaptiveAvgPooling2D", "BilinearResize2D",
     "DeformableConvolution", "DeformablePSROIPooling",
-    "IdentityAttachKLSparseReg", "PSROIPooling", "SparseEmbedding",
+    "IdentityAttachKLSparseReg", "PSROIPooling",
     "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
     "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-    "_contrib_PSROIPooling", "_contrib_SparseEmbedding",
-    "_contrib_count_sketch", "_contrib_div_sqrt_dim", "_contrib_fft",
-    "_contrib_getnnz", "_contrib_ifft", "_contrib_quadratic",
-    "count_sketch", "fft", "ifft", "khatri_rao", "quadratic"}
+    "_contrib_PSROIPooling", "_contrib_count_sketch",
+    "_contrib_div_sqrt_dim", "_contrib_fft", "_contrib_ifft",
+    "_contrib_quadratic", "count_sketch", "fft", "ifft", "khatri_rao",
+    "quadratic"}
 A10_LINALG = {p + n for p in ("_linalg_", "linalg_") for n in (
     "det", "extractdiag", "extracttrian", "gelqf", "gemm", "gemm2",
     "inverse", "makediag", "potrf", "potri", "slogdet", "sumlogdiag",
     "syevd", "syrk", "trmm", "trsm")}
 A10_CONTROL_FLOW = {"_histogram", "_square_sum", "histogram", "square_sum"}
 A10_IMAGE = {"_image_normalize", "_image_to_tensor"}
-A10_SPARSE = {"_sparse_retain", "cast_storage", "sparse_retain",
-              "_sparse_adagrad_update", "sparse_adagrad_update"}
 A8_FLASH = {"flash_attention", "_contrib_flash_attention"}
 LEFT = (A10_CONTRIB | A10_LINALG | A10_CONTROL_FLOW | A10_IMAGE
-        | A10_SPARSE | A8_FLASH)
+        | A8_FLASH)
+# ported by A10(c), sparse: held in tests/test_torch_sparse.py
+SPARSE = {"_sparse_retain", "cast_storage", "sparse_retain",
+          "_sparse_adagrad_update", "sparse_adagrad_update",
+          "_contrib_SparseEmbedding", "SparseEmbedding", "_contrib_getnnz"}
 
 
 def test_registry_leaves_exactly_the_a10_and_a8_names():
-    assert len(LEFT) == 69
+    assert len(LEFT) == 61
     assert set(jreg.list_ops()) - set(treg.list_ops()) == LEFT
     assert set(treg.list_ops()) <= set(jreg.list_ops())
-    for name in sorted(A10_SPARSE - {"_sparse_retain", "cast_storage",
-                                     "sparse_retain"}):
+    assert SPARSE <= set(treg.list_ops())
+    for name in sorted(LEFT):
         with pytest.raises(KeyError, match="items 10"):
             treg.get(name)
 
 
 def test_sparse_adagrad_update_names_item_10():
-    from mxnet_tpu_torch.ops import optimizer_ops
-    with pytest.raises(NotImplementedError, match="item 10"):
-        optimizer_ops.sparse_adagrad_update(None, None, None)
+    """``_sparse_adagrad_update`` / ``sparse_adagrad_update`` (item 10(c)):
+    the port's op against the reference's, wd, rescale and clip on."""
+    rng = np.random.RandomState(SEED)
+    w, g = rng.randn(4, 3).astype(np.float32), rng.randn(4, 3)
+    h = rng.rand(4, 3).astype(np.float32)
+    kw = dict(lr=0.05, epsilon=1e-7, wd=0.01, rescale_grad=0.5,
+              clip_gradient=0.4)
+    for name in ("_sparse_adagrad_update", "sparse_adagrad_update"):
+        want = jreg.get(name).fn(jnp.asarray(w), jnp.asarray(g, jnp.float32),
+                                 jnp.asarray(h), **kw)
+        got = treg.get(name).fn(torch.from_numpy(w),
+                                torch.from_numpy(g.astype(np.float32)),
+                                torch.from_numpy(h), **kw)
+        assert treg.get(name).mutates == {2: 1}
+        for wa, ga in zip(want, got):
+            held(name, np.asarray(wa), ga.numpy())
 
 
 def run_both(name, case):

@@ -47,8 +47,12 @@ def test_draws_match_reference_after_one_numpy_seed():
            tu.rand_shape_nd(3))
     assert want[0].tobytes() == got[0].tobytes()
     assert want[1] == got[1] and tuple(want[2]) == tuple(got[2])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tu.rand_ndarray((2, 2), stype="csr")
+    np.random.seed(3)
+    want = jtu.rand_ndarray((2, 2), stype="csr")
+    np.random.seed(3)
+    got = tu.rand_ndarray((2, 2), stype="csr")
+    assert got.stype == "csr"
+    assert want.asnumpy().tobytes() == got.asnumpy().tobytes()
 
 
 def test_check_numeric_gradient_passes_and_catches_a_wrong_gradient():
