@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Thirty phases; any failure exits non-zero and prints no result line.
+Thirty-one phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -605,6 +605,44 @@ Thirty phases; any failure exits non-zero and prints no result line.
     ``contrib.nn.SparseEmbedding``, one step each, card against CPU:
     outputs, dense gradients and weights within 1e-5.  No B1-B10 counter
     moves over the phase.  Prints the phase's seconds and the script's.
+31. **The rest of the op set and contrib/** (A10(d), A10(e); no hand
+    kernel: the reference's code there reaches no ``pallas_call``).
+    (a) Every name the slice registers (59, each alias through its
+    op): the linalg ops at a batch of 32 matrices of 1,024 x 1,024 (the
+    CPU computes the first 8, against which the card's first 8 are held),
+    ``count_sketch`` and the FFTs at compact bilinear pooling's sizes
+    (25,088 x 512 -> 8,192; the CPU computes the FFTs' first 1,568 rows),
+    the rest at the reference's op-sweep shapes with a batch of 256; card
+    against CPU, forward and gradients, float32
+    (TF32 off) and float64: f64 within 1e-10, f32 elementwise within
+    1e-6 and the rest within 10 times the float32 floor the phase
+    measures (CPU float32 against CPU float64), integer outputs,
+    histogram counts and determinant signs equal; ``gelqf`` and
+    ``syevd`` held after taking the CPU's sign a row, and by their
+    sign-free residuals; then ms a call, kernels a call and host syncs a
+    call: fails on any sync but ``syevd``'s one (torch's ``eigh`` reads
+    cuSOLVER's status).  (b) ``tools/train_ae.main()`` at its defaults
+    with its asserts; the sparse autoencoder at MNIST's stacked widths
+    (784-500-500-2000-10, the KL penalty on the code, batch 256 of seeded
+    pixels): samples/s, the idle share, peak memory, the KL backward's
+    ms.  (c) A Deformable R-FCN head at its published sizes: the 3 x 3
+    deformable convolution 512 -> 512 (dilation 2) on the 38 x 63 map with
+    4 deformable groups and with 1, PS RoI pooling and its deformable form
+    on the 1,029- and 392-channel maps over 300 RoIs; forward and
+    backward card against CPU as (a), ms of each, the im2col's bytes.
+    (d) An LSTM as ``nd.contrib.foreach`` over ``gluon.rnn.LSTMCell`` at
+    phase 28 (d)'s widths against the fused ``RNN`` op on the same
+    weights (1e-4 f32, 1e-10 f64: outputs, final states, gradients),
+    both timed; ``while_loop`` and ``cond`` with one host sync a test of
+    the condition and one a ``cond``.  (e) A GloVe-format file of
+    100,000 tokens x 300 from the seed through ``CustomEmbedding``, a
+    ``Vocabulary`` and a Gluon ``Embedding`` on the card (lookups
+    bitwise); ``DataLoaderIter`` feeding ``Module.fit`` for an epoch;
+    the old ``contrib.autograd`` API card against CPU;
+    ``LogMetricsCallback``'s writer gate.  No B1-B10 counter moves over
+    the phase.  Phases 7 and 17 re-time a (kernel, head dim) pair whose
+    chosen design missed, both designs in turns, and fail only if it
+    misses again.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -1949,9 +1987,24 @@ def _flash_dim_sweep(torch, pk, gen, design_hops):
             % (name, ms[(name, "wgmma")], ms[(name, "simt")],
                ms[(name, "simt")] / ms[(name, "wgmma")], chosen[name])
             for name in FLASH_KERNELS)))
-        wrong += ["%s at D = %d" % (name, d) for name in FLASH_KERNELS
-                  if ms[(name, chosen[name])] > min(ms[(name, "wgmma")],
-                                                    ms[(name, "simt")])]
+        for name in FLASH_KERNELS:
+            if ms[(name, chosen[name])] <= min(ms[(name, "wgmma")],
+                                               ms[(name, "simt")]):
+                continue
+            # one timing outlier must not sink the run: time both
+            # designs of this pair again, interleaved, and fail only if
+            # the chosen one is still the slower
+            bwd = _flash_bwd_args([c[:3] + (d,) + c[4:]
+                                   for c in FLASH_PATH], gen)
+            again = {x: sum(h) for x, h in _design_hops(bwd, name).items()}
+            del bwd
+            torch.cuda.empty_cache()
+            print("phase 7: head dim %d %s missed (wgmma %.5f / simt %.5f "
+                  "ms); re-timed: wgmma %.5f / simt %.5f ms, flash_design "
+                  "%s" % (d, name, ms[(name, "wgmma")], ms[(name, "simt")],
+                          again["wgmma"], again["simt"], chosen[name]))
+            if again[chosen[name]] > min(again.values()):
+                wrong.append("%s at D = %d" % (name, d))
     if wrong:
         raise RuntimeError("flash_design chose the slower design for %s"
                            % ", ".join(wrong))
@@ -3448,9 +3501,24 @@ def _flash_bf16_dim_sweep(torch, pk, gen, path_ms):
             % (n, ms[(n, "wgmma_bf16")], ms[(n, "bf16")],
                ms[(n, "bf16")] / ms[(n, "wgmma_bf16")], chosen[n])
             for n in names)))
-        wrong += ["%s at D = %d" % (n, d) for n in names
-                  if ms[(n, chosen[n])] > min(ms[(n, x)]
-                                              for x in BF16_DESIGNS)]
+        for n in names:
+            if ms[(n, chosen[n])] <= min(ms[(n, x)] for x in BF16_DESIGNS):
+                continue
+            # re-time the missed pair, both designs interleaved, before
+            # failing (one timing outlier must not sink the run)
+            args = _flash_bf16_args([c[:3] + (d,) + c[4:]
+                                     for c in FLASH_PATH], gen)
+            again = {x: sum(h) for x, h in _design_hops(
+                args, n, designs=BF16_DESIGNS).items()}
+            del args
+            torch.cuda.empty_cache()
+            print("phase 17: head dim %d %s missed (wgmma_bf16 %.5f / bf16 "
+                  "%.5f ms); re-timed: wgmma_bf16 %.5f / bf16 %.5f ms, "
+                  "flash_design %s"
+                  % (d, n, ms[(n, "wgmma_bf16")], ms[(n, "bf16")],
+                     again["wgmma_bf16"], again["bf16"], chosen[n]))
+            if again[chosen[n]] > min(again.values()):
+                wrong.append("%s at D = %d" % (n, d))
     if wrong:
         raise RuntimeError("flash_design chose the slower bf16 design for %s"
                            % ", ".join(wrong))
@@ -7333,12 +7401,12 @@ def _p30_csr_host(rows, features, nnz, seed):
             np.arange(rows + 1, dtype=np.int64) * nnz)
 
 
-def _p30_syncs(fn):
+def _p30_syncs(fn, device=None):
     """(fn's result, torch's messages for each synchronizing call in
-    it)."""
+    it) on ``device`` (P30_DEVICE by default)."""
     import warnings
     import torch
-    if P30_DEVICE != "cuda":
+    if (device or P30_DEVICE) != "cuda":
         return fn(), []
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -7918,6 +7986,895 @@ def phase_sparse():
                               time.monotonic() - T_START))
 
 
+# -- slice 24: the rest of the op set and contrib/ ---------------------------
+P31_DEVICE = "cuda"
+# card vs CPU, each difference over the larger of 1 and the array's
+# largest magnitude (_p28_err): float64 within 1e-10; float32 elementwise
+# ops within 1e-6, and reductions, GEMMs and factorizations within
+# P31_FLOOR_FACTOR times the float32 rounding floor the phase measures (the
+# CPU's float32 result against its float64 one) where that is above
+# 1e-6; integer outputs, histogram counts and determinant signs equal
+P31_F64_TOL, P31_F32_TOL, P31_FLOOR_FACTOR = 1e-10, 1e-6, 10
+# (a): a batch of 32 matrices of 1,024 x 1,024; the card computes all 32
+# and the CPU the first P31_HELD of them, against which the card's first
+# P31_HELD are held (each matrix's outputs and gradients are its own)
+P31_LINALG, P31_HELD = (32, 1024), 8
+# compact bilinear pooling (Gao et al., CVPR 2016): VGG-16 conv5_3's 512
+# channels at 28 x 28 for a batch of 32 (25,088 rows), sketched to 8,192
+P31_CBP = (25088, 512, 8192)
+# the reference's op-sweep shapes with their batch axis at 256
+P31_BATCH = 256
+# host syncs a call beyond none: torch.linalg.eigh reads cuSOLVER's status
+# back (torch has no eigh without that check)
+P31_SYNCS = {"syevd": 1}
+# a timed window of about this many seconds, 2 to 10 calls
+P31_TIME_S = 0.2
+# (b): the widths of upstream MXNet's MNIST stacked autoencoder
+# (example/autoencoder/mnist_sae.py: 784-500-500-2000-10), the KL penalty
+# on the 10-wide code, batch 256 of synthetic pixels
+P31_SAE = dict(hidden=(500, 500, 2000), code=10, dim=784)
+P31_SAE_BATCH, P31_SAE_WARMUP, P31_SAE_STEPS, P31_SAE_PROFILED = \
+    256, 5, 50, 10
+# (c): Deformable R-FCN (Dai et al., ICCV 2017), ResNet-101 on a 600 x 1000
+# image: res5's 3 x 3 deformable convolution 512 -> 512 (dilation 2, pad 2)
+# on the 38 x 63 map, 300 RoIs, 21 classes and 8 box outputs at 7 x 7 bins
+P31_RFCN_MAP, P31_RFCN_IMAGE = (38, 63), (600, 1000)
+P31_RFCN_CH, P31_RFCN_ROIS, P31_RFCN_P = 512, 300, 7
+P31_RFCN_CLASSES, P31_RFCN_BOX = 21, 8
+# (d): phase 28 (d)'s widths (frames, batch, features, hidden) and its
+# tolerances (cuDNN's f32 recurrence sits up to 2.9e-5 off)
+P31_LSTM = (200, 32, 161, 1024)
+# (e): GloVe 6B-300d's width, the vocabulary cut for the write's time;
+# the corpus the Vocabulary counts, and the Gluon lookup's batch
+P31_GLOVE, P31_CORPUS, P31_LOOKUP = (100000, 300), 200000, 4096
+P31_FIT = (4096, 784, 256)   # DataLoaderIter -> Module.fit: rows, width, batch
+# the 21 contrib names of the slice (the linalg, control-flow and image
+# names are those their modules register)
+P31_CONTRIB = (
+    "AdaptiveAvgPooling2D", "BilinearResize2D", "DeformableConvolution",
+    "DeformablePSROIPooling", "IdentityAttachKLSparseReg", "PSROIPooling",
+    "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
+    "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
+    "_contrib_PSROIPooling", "_contrib_count_sketch",
+    "_contrib_div_sqrt_dim", "_contrib_fft", "_contrib_ifft",
+    "_contrib_quadratic", "count_sketch", "fft", "ifft", "khatri_rao",
+    "quadratic")
+
+
+class _P31Case:
+    """One op on seeded inputs: ``make(inp)`` -> numpy inputs (floats in
+    float64, cast per run), ``diff`` the inputs differentiated, ``exact``
+    the outputs held equal, ``elem`` an elementwise op (float32 within
+    1e-6), ``sign`` "gelqf" / "syevd" for rows unique up to sign."""
+
+    def __init__(self, label, name, make, params=None, diff=(), exact=(),
+                 elem=False, sign=None, dtypes=(np.float32, np.float64),
+                 held=None):
+        self.label, self.name, self.make = label, name, make
+        self.params = params or {}
+        self.diff, self.exact, self.elem = diff, exact, elem
+        self.sign, self.dtypes, self.held = sign, dtypes, held
+
+
+def _p31_linalg_inputs():
+    """(a)'s matrices: SPD S = G G^T / n + I, its Cholesky factor, an SPD
+    Q diag(1 .. 5) Q^T with its eigenvalues evenly spaced (an
+    eigenvector, and the gradient through it, moves by eps / gap: a
+    Wishart's smallest gaps near 1e-4 at n = 1,024 leave two correct
+    float64 eigensolvers 1e-10 apart), a near-identity M = I + G / (2
+    sqrt n) (|det| near 1: finite in float32), Gaussians and a batch of
+    vectors."""
+    import torch
+    b, n = P31_LINALG
+    rng = np.random.RandomState(310)
+    g = rng.randn(b, n, n) / np.sqrt(n)
+    tg = torch.from_numpy(g)
+    spd = (tg @ tg.transpose(-1, -2) + torch.eye(n, dtype=tg.dtype))
+    q = torch.linalg.qr(torch.from_numpy(rng.randn(b, n, n)))[0]
+    eig = (q * torch.linspace(1.0, 5.0, n, dtype=q.dtype)) \
+        @ q.transpose(-1, -2)
+    return dict(spd=spd.numpy(), chol=torch.linalg.cholesky(spd).numpy(),
+                eig=((eig + eig.transpose(-1, -2)) / 2).numpy(),
+                m=np.eye(n) + 0.5 * rng.randn(b, n, n) / np.sqrt(n),
+                g=g, g2=rng.randn(b, n, n) / np.sqrt(n),
+                g3=rng.randn(b, n, n), v=rng.randn(b, n))
+
+
+def _p31_rois(rng, n, batch, side_h, side_w):
+    x1 = rng.uniform(0, side_w * 0.7, n)
+    y1 = rng.uniform(0, side_h * 0.7, n)
+    w = rng.uniform(side_w * 0.05, side_w * 0.3, n)
+    h = rng.uniform(side_h * 0.05, side_h * 0.3, n)
+    bidx = rng.randint(0, batch, n) if batch > 1 else np.zeros(n)
+    return np.stack([bidx, x1, y1, x1 + w, y1 + h], 1)
+
+
+def _p31_cases():
+    """(a): every op of the slice at real sizes."""
+    B = P31_BATCH
+    rows, cin, sk = P31_CBP
+    lin = {}
+
+    def L(key):
+        def make(_):
+            if not lin:
+                lin.update(_p31_linalg_inputs())
+            return [lin[k] for k in key.split(",")]
+        return make
+
+    def R(*shapes, seed=311, pos=False):
+        def make(_):
+            rng = np.random.RandomState(seed)
+            return [rng.rand(*s) if pos else rng.randn(*s) for s in shapes]
+        return make
+    rng = np.random.RandomState(312)
+    sketch_h = rng.randint(0, sk, cin).astype(np.float64)
+    sketch_s = rng.choice([-1.0, 1.0], cin)
+    edges = np.array([0.0, 0.2, 0.5, 0.9, 1.0])
+    hist = np.random.RandomState(313).rand(B, 20)
+    hist[:, :3] = [0.5, 0.9, 1.0]          # values on the edges
+    cases = [
+        _P31Case("gemm", "_linalg_gemm", L("g,g2,g3"),
+                 dict(alpha=2.0, beta=0.5), diff=(0, 1, 2)),
+        _P31Case("gemm2 (B^T)", "_linalg_gemm2", L("g,g2"),
+                 dict(transpose_b=True, alpha=0.5), diff=(0, 1)),
+        _P31Case("potrf", "_linalg_potrf", L("spd"), diff=(0,)),
+        _P31Case("potri", "_linalg_potri", L("chol"), diff=(0,)),
+        _P31Case("trmm", "_linalg_trmm", L("chol,g2"), dict(alpha=2.0),
+                 diff=(0, 1)),
+        _P31Case("trsm", "_linalg_trsm", L("chol,g3"), diff=(0, 1)),
+        _P31Case("trsm (right, A^T)", "_linalg_trsm", L("chol,g3"),
+                 dict(rightside=True, transpose=True), diff=(0, 1)),
+        _P31Case("sumlogdiag", "_linalg_sumlogdiag", L("spd"), diff=(0,)),
+        _P31Case("extractdiag", "_linalg_extractdiag", L("g"),
+                 dict(offset=1), diff=(0,), elem=True),
+        _P31Case("makediag", "_linalg_makediag", L("v"), dict(offset=-1),
+                 diff=(0,), elem=True),
+        _P31Case("extracttrian", "_linalg_extracttrian", L("g"), diff=(0,),
+                 elem=True),
+        _P31Case("syrk", "_linalg_syrk", L("g"), dict(alpha=1.5),
+                 diff=(0,)),
+        _P31Case("gelqf", "_linalg_gelqf", L("m"), diff=(0,), sign="gelqf"),
+        _P31Case("syevd", "_linalg_syevd", L("eig"), diff=(0,),
+                 sign="syevd"),
+        _P31Case("inverse", "_linalg_inverse", L("m"), diff=(0,)),
+        _P31Case("det", "_linalg_det", L("m"), diff=(0,)),
+        _P31Case("slogdet", "_linalg_slogdet", L("m"), diff=(0,),
+                 exact=(0,)),
+        _P31Case("count_sketch (CBP)", "_contrib_count_sketch",
+                 lambda _: [np.random.RandomState(314).randn(rows, cin),
+                            sketch_h, sketch_s], dict(out_dim=sk),
+                 diff=(0, 2)),
+        _P31Case("fft (CBP)", "_contrib_fft", R((rows, sk), seed=315),
+                 diff=(0,)),
+        _P31Case("ifft (CBP)", "_contrib_ifft", R((rows, 2 * sk), seed=316),
+                 diff=(0,)),
+        _P31Case("AdaptiveAvgPooling2D", "_contrib_AdaptiveAvgPooling2D",
+                 R((B, 2, 6, 6)), dict(output_size=3), diff=(0,)),
+        _P31Case("BilinearResize2D (up)", "_contrib_BilinearResize2D",
+                 R((B, 2, 4, 4)), dict(height=8, width=8), diff=(0,)),
+        _P31Case("BilinearResize2D (down)", "_contrib_BilinearResize2D",
+                 R((B, 2, 17, 23)), dict(height=9, width=11), diff=(0,)),
+        _P31Case("khatri_rao", "khatri_rao", R((B, 3), (4, 3)),
+                 diff=(0, 1), elem=True),
+        _P31Case("DeformableConvolution", "_contrib_DeformableConvolution",
+                 lambda _: (lambda r: [r.randn(B, 4, 9, 9),
+                                       r.randn(B, 18, 7, 7) * 0.7,
+                                       r.randn(6, 4, 3, 3), r.randn(6)])(
+                     np.random.RandomState(317)),
+                 dict(kernel=(3, 3), num_filter=6), diff=(0, 1, 2, 3)),
+        _P31Case("DeformablePSROIPooling", "_contrib_DeformablePSROIPooling",
+                 lambda _: (lambda r: [r.randn(B, 18, 12, 14),
+                                       _p31_rois(r, B, B, 48, 56),
+                                       r.randn(B, 2, 3, 3)])(
+                     np.random.RandomState(318)),
+                 dict(spatial_scale=0.25, output_dim=2, group_size=3,
+                      pooled_size=3, part_size=3, sample_per_part=2,
+                      trans_std=0.1), diff=(0, 2)),
+        _P31Case("PSROIPooling", "_contrib_PSROIPooling",
+                 lambda _: [np.random.RandomState(319).randn(B, 8, 8, 8),
+                            np.stack([np.arange(B), np.zeros(B),
+                                      np.zeros(B), np.full(B, 7.0),
+                                      np.full(B, 7.0)], 1)],
+                 dict(spatial_scale=1.0, output_dim=2, pooled_size=2),
+                 diff=(0,)),
+        _P31Case("div_sqrt_dim", "_contrib_div_sqrt_dim", R((B, 16)),
+                 diff=(0,), elem=True),
+        _P31Case("quadratic", "_contrib_quadratic", R((B, 4)),
+                 dict(a=1.0, b=2.0, c=3.0), diff=(0,), elem=True),
+        _P31Case("IdentityAttachKLSparseReg", "IdentityAttachKLSparseReg",
+                 R((B, 3), pos=True), diff=(0,)),
+        _P31Case("histogram (range)", "_histogram", lambda _: [hist],
+                 dict(bin_cnt=5, range=(0.0, 1.2)), exact=(0,)),
+        _P31Case("histogram (edges)", "_histogram",
+                 lambda _: [hist, edges], exact=(0,)),
+        _P31Case("histogram (data range)", "_histogram", R((B, 20)),
+                 dict(bin_cnt=7), exact=(0,)),
+        _P31Case("square_sum", "square_sum", R((B, 4)), dict(axis=1),
+                 diff=(0,)),
+        _P31Case("_image_to_tensor", "_image_to_tensor",
+                 lambda _: [np.random.RandomState(320).randint(
+                     0, 256, (B, 4, 5, 3)).astype(np.uint8)], elem=True,
+                 dtypes=(np.float32,)),
+        _P31Case("_image_normalize", "_image_normalize", R((B, 3, 4, 5)),
+                 dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)),
+                 diff=(0,), elem=True),
+    ]
+    for c in cases:
+        if c.name.startswith("_linalg_"):
+            c.held = P31_HELD
+        elif c.name in ("_contrib_fft", "_contrib_ifft"):
+            c.held = rows // 16       # 2 of the batch's 32 images
+    return cases
+
+
+def _p31_new_names():
+    """Every name the slice registers: the linalg, control-flow and image
+    modules' and the 21 contrib names."""
+    from mxnet_tpu_torch.ops import registry
+    mods = {"mxnet_tpu_torch.ops.linalg", "mxnet_tpu_torch.ops.control_flow",
+            "mxnet_tpu_torch.ops.image_ops"}
+    return sorted({n for n in registry.list_ops()
+                   if registry.get(n).fn.__module__ in mods}
+                  | set(P31_CONTRIB))
+
+
+def _p31_ct(shape, k, held):
+    """A seeded cotangent for an output of ``shape``: where the case's
+    rows are held in part (``held``), one item's broadcast over the rows;
+    else full for matrices and smaller arrays, one row broadcast over a
+    wide 2-D output."""
+    if held:
+        tail = shape[1:]
+    else:
+        tail = shape[-2:] if len(shape) >= 3 or np.prod(shape) <= 1 << 24 \
+            else shape[-1:]
+    return np.random.RandomState(330 + k).randn(*tail) if tail else \
+        np.float64(np.random.RandomState(330 + k).randn())
+
+
+def _p31_run(case, arrays, device, dtype, keep=None):
+    """One case's float outputs and input gradients as host float64
+    numpy (the gradient of sum(out * ct), or of sum(cos(out)) where rows
+    are unique up to sign), their first ``keep`` rows where given."""
+    import torch
+    from mxnet_tpu_torch.ops import registry
+    fn = registry.get(case.name).fn
+    tdt = {np.float32: torch.float32, np.float64: torch.float64}[dtype]
+    xs = [torch.tensor(a, device=device,
+                       dtype=tdt if a.dtype == np.float64 else None)
+          for a in arrays]
+    for i in case.diff:
+        xs[i].requires_grad_(True)
+    out = fn(*xs, **case.params)
+    outs = list(out) if isinstance(out, tuple) else [out]
+    grads = []
+    if case.diff:
+        terms = [torch.cos(o).sum() if case.sign else
+                 (o * torch.tensor(_p31_ct(tuple(o.shape), k, case.held),
+                                   dtype=o.dtype, device=device)).sum()
+                 for k, o in enumerate(outs) if o.is_floating_point()
+                 and k not in case.exact]
+        grads = torch.autograd.grad(sum(terms), [xs[i] for i in case.diff])
+    host = [t.detach()[:keep].cpu().double().numpy()
+            for t in outs + list(grads)]
+    return host[:len(outs)], host[len(outs):]
+
+
+def _p31_align(case, outs, ref):
+    """``outs`` with each row's sign (L's matching column) set to the
+    reference's: gelqf's Q rows, syevd's eigenvector rows."""
+    if case.sign is None:
+        return outs
+    rows, want = (outs[1], ref[1]) if case.sign == "gelqf" \
+        else (outs[0], ref[0])
+    s = np.where(np.einsum("...ij,...ij->...i", rows, want) < 0, -1.0, 1.0)
+    if case.sign == "gelqf":
+        return [outs[0] * s[..., None, :], outs[1] * s[..., :, None]]
+    return [outs[0] * s[..., :, None], outs[1]]
+
+
+def _p31_signfree(case, outs, a):
+    """(A rebuilt, rows orthonormal) residuals over the larger of 1 and
+    the largest magnitude: L Q = A and Q Q^T = I, or U^T diag(w) U = A
+    and U U^T = I."""
+    if case.sign == "gelqf":
+        rebuilt, rows = outs[0] @ outs[1], outs[1]
+    else:
+        rebuilt, rows = np.swapaxes(outs[0], -1, -2) @ (
+            outs[1][..., :, None] * outs[0]), outs[0]
+    eye = np.broadcast_to(np.eye(rows.shape[-2]), rows.shape[:-1]
+                          + (rows.shape[-2],))
+    return (_p28_err(rebuilt, a),
+            _p28_err(rows @ np.swapaxes(rows, -1, -2), eye))
+
+
+def _p31_hold(case, arrays):
+    """Card against CPU in each dtype; returns {dtype: (worst error, its
+    tolerance)}.  float32's tolerance per array: 1e-6 for elementwise
+    ops, else P31_FLOOR_FACTOR times that array's float32 floor (CPU
+    float32 against CPU float64) where that is above 1e-6.  Where
+    ``case.held`` is set, the card runs every row and the CPU the first
+    ``held``, against which the card's first ``held`` are held."""
+    runs = {}
+    host_arrays = arrays if not case.held else [a[:case.held]
+                                                for a in arrays]
+    with _p28_tf32_off():
+        for dt in case.dtypes:
+            runs[(P31_DEVICE, dt)] = _p31_run(case, arrays, P31_DEVICE, dt,
+                                              case.held)
+            runs[("cpu", dt)] = _p31_run(case, host_arrays, "cpu", dt)
+    worst = {}
+    ref64 = runs.get(("cpu", np.float64))
+    for dt in case.dtypes:
+        card, host = runs[(P31_DEVICE, dt)], runs[("cpu", dt)]
+        c_out, h_out = _p31_align(case, card[0], host[0]), host[0]
+        bad = [k for k in case.exact
+               if not np.array_equal(c_out[k], h_out[k])]
+        if bad:
+            raise RuntimeError("phase 31: %s (%s): outputs %r differ"
+                               % (case.label, np.dtype(dt).name, bad))
+        pairs = [(c, h, k) for k, (c, h) in enumerate(zip(c_out, h_out))
+                 if k not in case.exact]
+        pairs += [(c, h, None) for c, h in zip(card[1], host[1])]
+        floors = [0.0] * len(pairs)
+        if dt == np.float32 and ref64 is not None and not case.elem:
+            r_out = _p31_align(case, ref64[0], h_out)
+            ref = [r for k, r in enumerate(r_out) if k not in case.exact] \
+                + ref64[1]
+            floors = [_p28_err(h, r) for (_, h, _), r in zip(pairs, ref)]
+        err, tol = 0.0, None
+        for i, ((c, h, k), fl) in enumerate(zip(pairs, floors)):
+            e = _p28_err(c, h)
+            t = P31_F64_TOL if dt == np.float64 else max(
+                P31_F32_TOL, P31_FLOOR_FACTOR * fl)
+            if e > t:
+                raise RuntimeError(
+                    "phase 31: %s (%s): %s: card vs CPU %.3g over %.3g "
+                    "(float32 floor %.3g)"
+                    % (case.label, np.dtype(dt).name,
+                       "output %d" % k if k is not None else
+                       "gradient %d" % (i - len(c_out) + len(case.exact)),
+                       e, t, fl))
+            if tol is None or e / t > err / tol:
+                err, tol = e, t
+        worst[dt] = (err, tol if tol is not None else 0.0)
+        if case.sign:
+            a = host_arrays[0]
+            cr, hr = _p31_signfree(case, card[0], a), \
+                _p31_signfree(case, host[0], a)
+            limit = P31_F64_TOL if dt == np.float64 else max(
+                P31_F32_TOL, P31_FLOOR_FACTOR * max(hr))
+            print("phase 31 (a): %s (%s) sign-free: card rebuilds A within "
+                  "%.3g and its rows are orthonormal within %.3g (CPU %.3g, "
+                  "%.3g)" % (case.label, np.dtype(dt).name, cr[0], cr[1],
+                             hr[0], hr[1]))
+            if max(cr) > limit:
+                raise RuntimeError("phase 31: %s sign-free residuals %r over "
+                                   "%.3g" % (case.label, cr, limit))
+    return worst
+
+
+def _p31_syncs(fn):
+    return _p30_syncs(fn, P31_DEVICE)
+
+
+def _p31_time(fn):
+    """(ms a call, kernel launches a call, host-sync messages of a call):
+    CUDA events over a window of about P31_TIME_S (2 to 10 calls), the
+    profiler over one call, torch's sync debug mode over one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    if P31_DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3, None, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = int(min(10, max(2, P31_TIME_S / max(time.perf_counter() - t0,
+                                             1e-6))))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / n
+    calls = 3 if ms < 50 else 1
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = sum(e.count for e in ev if "memcpy" not in e.key.lower()
+                  and "memset" not in e.key.lower())
+    return ms, kernels / calls, _p31_syncs(fn)[1]
+
+
+def _p31_forward(case, arrays):
+    """The case's forward on the card in float32, as a no-argument call."""
+    import torch
+    from mxnet_tpu_torch.ops import registry
+    fn = registry.get(case.name).fn
+    xs = [torch.tensor(a, device=P31_DEVICE,
+                       dtype=torch.float32 if a.dtype == np.float64 else None)
+          for a in arrays]
+    return lambda: fn(*xs, **case.params)
+
+
+def _p31_ops():
+    """(a): every new name, card against CPU, then timed on the card."""
+    import torch
+    from mxnet_tpu_torch.ops import registry
+    registry.load_all()
+    cases = _p31_cases()
+    names = _p31_new_names()
+    covered = {registry.get(c.name) for c in cases}
+    missing = [n for n in names if registry.get(n) not in covered]
+    if len(names) != 59 or missing:
+        raise RuntimeError("phase 31 (a): %d new names, not held: %r"
+                           % (len(names), missing))
+    rows = []
+    for case in cases:
+        t0 = time.monotonic()
+        arrays = case.make(None)
+        worst = _p31_hold(case, arrays)
+        ms, kernels, msgs = _p31_time(_p31_forward(case, arrays))
+        allowed = P31_SYNCS.get(case.label, 0)
+        if len(msgs) > allowed:
+            raise RuntimeError("phase 31 (a): %s syncs %d times a call "
+                               "(allowed %d): %s" % (case.label, len(msgs),
+                                                     allowed, msgs[0][:200]))
+        f32 = worst.get(np.float32, (0.0, 0.0))
+        f64 = worst.get(np.float64)
+        rows.append(dict(op=case.label, name=case.name, ms=ms,
+                         kernels=kernels, syncs=len(msgs), err32=f32[0],
+                         tol32=f32[1], err64=f64 and f64[0]))
+        print("phase 31 (a): %-26s %10.4f ms a call; %s kernels, %d host "
+              "syncs a call (allowed %d); card vs CPU f32 %.3g (tol %.3g)%s;"
+              " %.1f s" % (case.label, ms, kernels, len(msgs), allowed,
+                           f32[0], f32[1],
+                           "" if f64 is None else ", f64 %.3g" % f64[0],
+                           time.monotonic() - t0))
+        del arrays
+        if P31_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    print("phase 31 (a): all %d names of the slice held (%d ops, %d cases)"
+          % (len(names), len(covered), len(cases)))
+    return rows
+
+
+def _p31_sae():
+    """(b): ``train_ae.main()`` at its defaults, then the sparse
+    autoencoder at MNIST's stacked widths."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.ops import contrib
+    from mxnet_tpu_torch.tools import train_ae
+    t0 = time.monotonic()
+    base, final, plain, sparse = train_ae.main(
+        [] if P31_DEVICE == "cuda" else ["--ctx", "cpu"])
+    secs = time.monotonic() - t0
+    print("phase 31 (b): train_ae.main() at its defaults in %.1f s: "
+          "baseline %.4f -> %.4f, mean code plain %.3f sparse %.3f (its "
+          "asserts held)" % (secs, base, final, plain, sparse))
+    B = P31_SAE_BATCH
+    steps = P31_SAE_WARMUP + P31_SAE_STEPS + P31_SAE_PROFILED + 1
+    x_host = np.random.RandomState(321).rand(steps * B, P31_SAE["dim"]) \
+        .astype(np.float32)
+    sync = torch.cuda.synchronize if P31_DEVICE == "cuda" else (lambda: 0)
+    with use(P31_DEVICE):
+        mx.random.seed(321)
+        net = train_ae.AutoEncoder(sparse_reg=0.05, **P31_SAE)
+        net.initialize(mx.init.Xavier())
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-3})
+        l2 = mx.gluon.loss.L2Loss()
+        data = mx.nd.array(x_host)
+        batches = iter([data[i * B:(i + 1) * B] for i in range(steps)])
+        losses = []
+
+        def step():
+            x = next(batches)
+            with mx.autograd.record():
+                loss = l2(net(x), x).mean()
+            loss.backward()
+            trainer.step(B)
+            losses.append(loss)
+        for _ in range(P31_SAE_WARMUP):
+            step()
+        sync()
+        if P31_DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for _ in range(P31_SAE_STEPS):
+            step()
+        sync()
+        rate = P31_SAE_STEPS * B / (time.perf_counter() - t1)
+        idle = _p26_idle(step, P31_SAE_PROFILED) \
+            if P31_DEVICE == "cuda" else None
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+            if P31_DEVICE == "cuda" else 0.0
+        code = net.encode(data[:B])
+        mean_code = float(code.mean().asscalar())
+        first, last = float(losses[0].asscalar()), \
+            float(losses[-1].asscalar())
+        kl = contrib.identity_attach_kl_sparse_reg
+        xk = code._data.detach().clone().requires_grad_(True)
+        out = kl(xk, sparseness_target=0.05, penalty=0.05)
+        g = torch.ones_like(out)
+        kl_ms, kl_kernels, kl_syncs = _p31_time(
+            lambda: torch.autograd.grad(out, xk, g, retain_graph=True))
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise RuntimeError("phase 31 (b): the wide sparse autoencoder's "
+                           "loss went %r -> %r" % (first, last))
+    if kl_syncs:
+        raise RuntimeError("phase 31 (b): the KL backward syncs: %s"
+                           % kl_syncs[0][:200])
+    print("phase 31 (b): sparse autoencoder 784-500-500-2000-10 (KL on the "
+          "code), batch %d, Adam: %.1f samples/s over %d steps (host clock),"
+          " idle share %s over %d more (profiler), peak %.2f GiB, loss %.4f "
+          "-> %.4f, mean code %.4f (target 0.05); the KL backward %.4f ms "
+          "a call, %s kernels, %d host syncs"
+          % (B, rate, P31_SAE_STEPS,
+             "not measured" if idle is None else "%.4f" % idle,
+             P31_SAE_PROFILED, peak, first, last, mean_code, kl_ms,
+             kl_kernels, len(kl_syncs)))
+    return dict(defaults_s=secs, samples_s=rate, idle=idle, peak_gib=peak,
+                kl_backward_ms=kl_ms)
+
+
+def _p31_rfcn_cases():
+    """(c)'s ops at Deformable R-FCN's sizes."""
+    H, W = P31_RFCN_MAP
+    C, R, P = P31_RFCN_CH, P31_RFCN_ROIS, P31_RFCN_P
+    ih, iw = P31_RFCN_IMAGE
+
+    def conv(dg):
+        def make(_):
+            rng = np.random.RandomState(340 + dg)
+            return [rng.randn(1, C, H, W), rng.randn(1, 18 * dg, H, W) * 2.0,
+                    rng.randn(C, C, 3, 3) * np.sqrt(2.0 / (C * 9)),
+                    rng.randn(C) * 0.1]
+        return _P31Case("DeformableConvolution dg %d" % dg,
+                        "_contrib_DeformableConvolution", make,
+                        dict(kernel=(3, 3), pad=(2, 2), dilate=(2, 2),
+                             num_filter=C, num_deformable_group=dg),
+                        diff=(0, 1, 2, 3))
+
+    def pool(d, deform):
+        def make(_):
+            rng = np.random.RandomState(350 + d + deform)
+            xs = [rng.randn(1, d * P * P, H, W),
+                  _p31_rois(rng, R, 1, ih, iw)]
+            return xs + ([rng.randn(R, 2, P, P)] if deform else [])
+        kw = dict(spatial_scale=1 / 16, output_dim=d, pooled_size=P)
+        if deform:
+            kw.update(group_size=P, part_size=P, sample_per_part=4,
+                      trans_std=0.1)
+            return _P31Case("DeformablePSROIPooling %d x 7^2" % d,
+                            "_contrib_DeformablePSROIPooling", make, kw,
+                            diff=(0, 2))
+        return _P31Case("PSROIPooling %d x 7^2" % d, "_contrib_PSROIPooling",
+                        make, kw, diff=(0,))
+    return [conv(4), conv(1)] + [pool(d, f) for f in (False, True)
+                                 for d in (P31_RFCN_CLASSES, P31_RFCN_BOX)]
+
+
+def _p31_rfcn():
+    """(c): the Deformable R-FCN head, forward and backward, card against
+    CPU in float32 and float64, then timed on the card."""
+    import torch
+    from mxnet_tpu_torch.ops import registry
+    H, W = P31_RFCN_MAP
+    rows = []
+    for case in _p31_rfcn_cases():
+        arrays = case.make(None)
+        worst = _p31_hold(case, arrays)
+        fn = registry.get(case.name).fn
+        xs = [torch.tensor(a, device=P31_DEVICE, dtype=torch.float32)
+              for a in arrays]
+        for i in case.diff:
+            xs[i].requires_grad_(True)
+        out = fn(*xs, **case.params)
+        ct = torch.randn(out.shape, device=P31_DEVICE,
+                         generator=torch.Generator(P31_DEVICE).manual_seed(7))
+        with torch.no_grad():
+            fwd_ms, fwd_k, fwd_s = _p31_time(lambda: fn(*xs, **case.params))
+        bwd_ms, bwd_k, bwd_s = _p31_time(lambda: torch.autograd.grad(
+            out, [xs[i] for i in case.diff], ct, retain_graph=True))
+        extra = ""
+        if case.name == "_contrib_DeformableConvolution":
+            col = P31_RFCN_CH * 9 * H * W * 4
+            extra = "; deformed im2col %.1f MB (f32, and as much again " \
+                "for the gathered samples)" % (col / 1e6)
+        rows.append(dict(op=case.label, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                         err32=worst[np.float32][0],
+                         err64=worst[np.float64][0]))
+        print("phase 31 (c): %-34s forward %9.4f ms (%s kernels), backward "
+              "%9.4f ms (%s kernels), host syncs %d / %d; card vs CPU f32 "
+              "%.3g (tol %.3g), f64 %.3g%s"
+              % (case.label, fwd_ms, fwd_k, bwd_ms, bwd_k, len(fwd_s),
+                 len(bwd_s), worst[np.float32][0], worst[np.float32][1],
+                 worst[np.float64][0], extra))
+        if fwd_s or bwd_s:
+            raise RuntimeError("phase 31 (c): %s syncs: %s"
+                               % (case.label, (fwd_s + bwd_s)[0][:200]))
+        del xs, out, arrays
+        if P31_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _p31_lstm_run(dtype, arrays, cts):
+    """(fused RNN op's, foreach over LSTMCell's) outputs, final states and
+    gradients (data, h0, c0, the flat vector), host float64, and each
+    route's forward + backward as a call."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.ops import rnn
+    T, B, I, H = P31_LSTM
+    x, flat, h0, c0 = arrays
+    tdt = {np.float32: torch.float32, np.float64: torch.float64}[dtype]
+    dev = P31_DEVICE
+
+    def t(a, grad=True):
+        return torch.tensor(a, dtype=tdt, device=dev, requires_grad=grad)
+    ts = [t(x), t(flat), t(h0[None]), t(c0[None])]
+    ct = [t(c, False) for c in cts]
+
+    def fused():
+        outs = rnn.rnn(*ts, state_size=H, num_layers=1, mode="lstm",
+                       state_outputs=True)
+        return list(outs) + list(torch.autograd.grad(
+            outs, ts, [ct[0], ct[1][None], ct[2][None]]))
+    out, h_t, c_t, dx, dflat, dh0, dc0 = [
+        a.detach().cpu().double().numpy() for a in fused()]
+    got_f = [out, h_t[0], c_t[0], dx, dh0[0], dc0[0], dflat]
+    with use(dev):
+        cell = mx.gluon.rnn.LSTMCell(H, input_size=I)
+        cell.initialize(ctx=dev)
+        if dtype == np.float64:
+            cell.cast("float64")
+        sizes = [4 * H * I, 4 * H * H, 4 * H, 4 * H]
+        parts = np.split(flat, np.cumsum(sizes)[:-1])
+        params = [cell.i2h_weight, cell.h2h_weight, cell.i2h_bias,
+                  cell.h2h_bias]
+        for p, v, shape in zip(params, parts, [(4 * H, I), (4 * H, H),
+                                               (4 * H,), (4 * H,)]):
+            p.set_data(v.reshape(shape).astype(dtype))
+        nds = [mx.nd.array(a, dtype=np.dtype(dtype).name)
+               for a in (x, h0, c0)]
+        for a in nds:
+            a.attach_grad()
+        nct = [mx.nd.NDArray(c) for c in ct]
+
+        def looped():
+            with mx.autograd.record():
+                outs, (hT, cT) = mx.nd.contrib.foreach(
+                    lambda xt, st: cell(xt, st), nds[0], nds[1:])
+                loss = (outs * nct[0]).sum() + (hT * nct[1]).sum() \
+                    + (cT * nct[2]).sum()
+            loss.backward()
+            return [outs, hT, cT] + [a.grad for a in nds] + [
+                p.grad() for p in params]
+        got, msgs = _p31_syncs(looped)
+        got = [a.asnumpy().astype(np.float64) for a in got]
+    got_l = got[:6] + [np.concatenate([g.reshape(-1) for g in got[6:]])]
+    return got_f, got_l, fused, looped, msgs
+
+
+def _p31_control_flow():
+    """(d): an LSTM as nd.contrib.foreach over gluon.rnn.LSTMCell against
+    the fused RNN op on the same weights; while_loop and cond with their
+    host syncs."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.context import use
+    from mxnet_tpu_torch.ops import contrib
+    T, B, I, H = P31_LSTM
+    rng = np.random.RandomState(360)
+    arrays = [rng.randn(T, B, I), rng.uniform(-0.07, 0.07, 4 * H * (I + H + 2)),
+              rng.randn(B, H) * 0.1, rng.randn(B, H) * 0.1]
+    cts = [rng.randn(T, B, H), rng.randn(B, H), rng.randn(B, H)]
+    names = ["outputs", "h_T", "c_T", "d data", "d h0", "d c0", "d weights"]
+    with _p28_tf32_off():
+        for dtype, tol in ((np.float32, P28_RNN_F32_TOL),
+                           (np.float64, P28_RNN_F64_TOL)):
+            got_f, got_l, fused, looped, msgs = _p31_lstm_run(dtype, arrays,
+                                                              cts)
+            errs = [_p28_err(a, b) for a, b in zip(got_l, got_f)]
+            print("phase 31 (d): foreach over LSTMCell vs the fused RNN op "
+                  "(%s), T %d, batch %d, %d -> %d: %s (tol %g); host syncs "
+                  "in the foreach step %d"
+                  % (np.dtype(dtype).name, T, B, I, H, ", ".join(
+                      "%s %.3g" % kv for kv in zip(names, errs)), tol,
+                     len(msgs)))
+            if max(errs) > tol or msgs:
+                raise RuntimeError("phase 31 (d): %r %r" % (errs, msgs[:1]))
+            if dtype == np.float32:
+                f_ms = _p31_time(fused)[0]
+                l_ms = _p31_time(looped)[0]
+                print("phase 31 (d): forward + backward over %d frames: the "
+                      "fused op (cuDNN) %.3f ms, foreach %.3f ms (%.4f / "
+                      "%.4f ms a frame)" % (T, f_ms, l_ms, f_ms / T, l_ms / T))
+            del got_f, got_l, fused, looped
+            if P31_DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    contrib.reset_host_sync_counts()
+    with use(P31_DEVICE):
+        calls = []
+
+        def cond_fn(v):
+            calls.append(1)
+            return v < 1000
+
+        one, zero, five = (mx.nd.array([a]) for a in (1.0, 0.0, 5.0))
+        v, msgs = _p31_syncs(lambda: mx.nd.contrib.while_loop(
+            cond_fn, lambda v: v * 2, one))
+        iters = int(np.log2(float(v.asscalar())))
+        capped, msgs5 = _p31_syncs(lambda: mx.nd.contrib.while_loop(
+            lambda v: v < 1e9, lambda v: v + 1, zero, max_iterations=5))
+        r, msgs_c = _p31_syncs(lambda: mx.nd.contrib.cond(
+            one, lambda a: a * 2, lambda a: a * 3, [five]))
+        counted = contrib.host_sync_counts()
+    tests = len(calls)
+    expect = (tests, 5, 1) if P31_DEVICE == "cuda" else (0, 0, 0)
+    print("phase 31 (d): while_loop %d iterations, %d tests of its "
+          "condition, %d host syncs; capped at 5 iterations: %d syncs; cond: "
+          "%d sync; counted by the ops %r%s"
+          % (iters, tests, len(msgs), len(msgs5), len(msgs_c), counted,
+             "; first: %s" % msgs[0][:160] if msgs else ""))
+    if float(v.asscalar()) != 1024.0 or float(capped.asscalar()) != 5.0 \
+            or float(r.asscalar()) != 10.0 or iters != 10 or tests != 11:
+        raise RuntimeError("phase 31 (d): control flow results")
+    if (len(msgs), len(msgs5), len(msgs_c)) != expect or \
+            counted.get("while_loop", 0) != expect[0] + expect[1] or \
+            counted.get("cond", 0) != expect[2]:
+        raise RuntimeError("phase 31 (d): host syncs %r, counted %r, "
+                           "allowed one a test of the condition and one a "
+                           "cond: %r" % ((len(msgs), len(msgs5),
+                                          len(msgs_c)), counted, expect))
+
+
+def _p31_glove(tmp):
+    """(e): a GloVe-format file from the seed, loaded by CustomEmbedding,
+    a Vocabulary's vectors copied into a Gluon Embedding on the card;
+    lookups bitwise."""
+    import collections
+    import os
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.context import use
+    n, d = P31_GLOVE
+    rng = np.random.RandomState(370)
+    table = np.array(["%.3f" % (k / 1000.0) for k in range(-999, 1000)],
+                     dtype=object)
+    idx = rng.randint(0, len(table), (n, d))
+    path = os.path.join(tmp, "glove.txt")
+    t0 = time.monotonic()
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write("w%d %s\n" % (i, " ".join(table[idx[i]])))
+    write_s = time.monotonic() - t0
+    text = mx.contrib.text
+    with use(P31_DEVICE):
+        t0 = time.monotonic()
+        emb = text.CustomEmbedding(path)
+        load_s = time.monotonic() - t0
+        ids = np.minimum(rng.zipf(1.2, P31_CORPUS), n + n // 5) - 1
+        corpus = ["w%d" % i for i in ids]
+        vocab = text.Vocabulary(collections.Counter(corpus))
+        comp = text.CompositeEmbedding(vocab, [emb])
+        layer = mx.gluon.nn.Embedding(len(vocab), d)
+        layer.initialize(ctx=P31_DEVICE)
+        layer.weight.set_data(comp.idx_to_vec)
+        toks = corpus[:P31_LOOKUP]
+        out = layer(mx.nd.array(np.array(vocab.to_indices(toks),
+                                         np.float32))).asnumpy()
+        want = emb.get_vecs_by_tokens(toks).asnumpy()
+        device = emb.idx_to_vec._data.device.type
+    parsed = np.array([[float(v) for v in table[idx[int(t[1:])]]]
+                       if int(t[1:]) < n else [0.0] * d for t in toks],
+                      np.float32)
+    unknown = sum(int(t[1:]) >= n for t in toks)
+    print("phase 31 (e): GloVe-format file of %d tokens x %d (%.0f MB) "
+          "written in %.1f s, loaded by CustomEmbedding in %.1f s (vectors "
+          "on %s); Vocabulary of %d tokens from a %d-token corpus; %d "
+          "lookups (%d unknown) through gluon.nn.Embedding bitwise: %s"
+          % (n, d, os.path.getsize(path) / 1e6, write_s, load_s, device,
+             len(vocab), P31_CORPUS, len(toks), unknown,
+             np.array_equal(out, want) and np.array_equal(out, parsed)))
+    if not (np.array_equal(out, want) and np.array_equal(out, parsed)) \
+            or device != P31_DEVICE:
+        raise RuntimeError("phase 31 (e): embedding lookups differ")
+    return dict(write_s=write_s, load_s=load_s, vocab=len(vocab))
+
+
+def _p31_contrib(tmp):
+    """(e): DataLoaderIter into Module.fit, the old autograd API, the
+    tensorboard gate."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.context import use
+    rows, width, batch = P31_FIT
+    rng = np.random.RandomState(380)
+    x = rng.randn(rows, width).astype(np.float32)
+    y = (x[:, :8].sum(1) > 0).astype(np.float32)   # a planted direction
+    with use(P31_DEVICE):
+        sym = mx.sym
+        net = sym.SoftmaxOutput(sym.FullyConnected(sym.Activation(
+            sym.FullyConnected(sym.Variable("data"), num_hidden=128,
+                               name="fc1"), act_type="relu"),
+            num_hidden=2, name="fc2"), name="softmax")
+        it = mx.contrib.io.DataLoaderIter(mx.gluon.data.DataLoader(
+            mx.gluon.data.ArrayDataset(x, y), batch_size=batch))
+        mod = mx.mod.Module(net, context=P31_DEVICE)
+        mx.random.seed(380)
+        t0 = time.monotonic()
+        mod.fit(it, num_epoch=1, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.5},
+                initializer=mx.init.Xavier())
+        fit_s = time.monotonic() - t0
+        it.reset()
+        acc = dict(mod.score(it, "acc"))["accuracy"]
+    grads = {}
+    for dev in (P31_DEVICE, "cpu"):
+        with use(dev):
+            g, loss = mx.contrib.autograd.grad_and_loss(
+                lambda a: mx.nd.sum(a * a * a))(mx.nd.array(x[0]))
+            grads[dev] = (g[0].asnumpy(), float(loss.asscalar()))
+    gerr = _p28_err(grads[P31_DEVICE][0], grads["cpu"][0])
+    try:
+        mx.contrib.tensorboard.LogMetricsCallback(tmp)
+        writer = "a summary writer imports here"
+    except ImportError as e:
+        if "tensorboardX" not in str(e):
+            raise
+        writer = "no summary writer imports here: ImportError (%s)" % e
+    print("phase 31 (e): DataLoaderIter -> Module.fit, one epoch of %d x %d "
+          "in batches of %d: %.2f s, training accuracy after it %.4f; "
+          "contrib.autograd.grad_and_loss card vs CPU %.3g; "
+          "LogMetricsCallback: %s" % (rows, width, batch, fit_s, acc, gerr,
+                                      writer))
+    if acc < 0.8 or gerr > P31_F32_TOL:
+        raise RuntimeError("phase 31 (e): accuracy %r, autograd %r"
+                           % (acc, gerr))
+    return dict(fit_s=fit_s, accuracy=acc)
+
+
+def phase_rest_of_ops():
+    """Phase 31: the rest of the op set and contrib/."""
+    import shutil
+    import tempfile
+    t_phase = time.monotonic()
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    rows = _p31_ops()
+    sae = _p31_sae()
+    rfcn = _p31_rfcn()
+    _p31_control_flow()
+    tmp = tempfile.mkdtemp(prefix="p31_")
+    try:
+        glove = _p31_glove(tmp)
+        fit = _p31_contrib(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = _hand_launches()
+    if launched:
+        raise RuntimeError("phase 31: hand kernels launched on the slice's "
+                           "path: %r" % launched)
+    RUNS["phase 31"] = dict(ops=rows, sae=sae, rfcn=rfcn, glove=glove,
+                            fit=fit)
+    print("phase 31: B1-B10 launches 0 over the phase; %.1f s (the script "
+          "so far %.1f s)" % (time.monotonic() - t_phase,
+                              time.monotonic() - T_START))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8001,6 +8958,7 @@ def main():
         phase_rnn_ctc()
         phase_detection()
         phase_sparse()
+        phase_rest_of_ops()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

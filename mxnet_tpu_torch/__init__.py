@@ -40,7 +40,14 @@ package (``Module.fit`` / ``score`` / ``predict``, ``BucketingModule``,
 and LSTM + CTC — the ``RNN`` op (``ops.rnn``, cuDNN through torch's fused
 RNN functions), the CTC loss (``ops.contrib``), ``gluon.rnn``,
 ``gluon.contrib.rnn``, ``gluon.loss.CTCLoss`` and ``rnn`` (``mx.rnn``),
-with ``tools.train_ctc``.  ROADMAP.md lists the rest.
+with ``tools.train_ctc``; and the rest of the op set — ``ops.linalg``
+(``nd.linalg`` / ``sym.linalg``), ``ops.control_flow``
+(``nd.contrib.foreach`` / ``while_loop`` / ``cond``, the histogram),
+``ops.image_ops`` and the whole of ``ops.contrib`` (deformable
+convolution, PS RoI pooling, the FFTs, count sketch,
+``IdentityAttachKLSparseReg`` and the rest) — and ``contrib``
+(``text``, ``io``, ``autograd``, ``tensorboard``), with
+``tools.train_ae``.  ROADMAP.md lists the rest.
 
 The reference's top-level names load on first use: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.metric``, ``mx.kvstore``,
@@ -48,7 +55,8 @@ The reference's top-level names load on first use: ``mx.nd``,
 ``mx.sym``, ``mx.test_utils``, ``mx.io``, ``mx.image``, ``mx.recordio``,
 ``mx.profiler``, ``mx.lr_scheduler``, ``mx.model``, ``mx.mod``
 (``module``), ``mx.callback``, ``mx.monitor``, ``mx.Monitor``,
-``mx.operator``, ``mx.rnn``, ``mx.MXNetError``, ``mx.cpu()`` and
+``mx.operator``, ``mx.rnn``, ``mx.contrib``, ``mx.AttrScope``,
+``mx.MXNetError``, ``mx.cpu()`` and
 ``mx.gpu()``.
 """
 import importlib
@@ -62,7 +70,7 @@ _LAZY = {"nd": "ndarray", "ndarray": "ndarray", "autograd": "autograd",
          "recordio": "recordio", "profiler": "profiler", "name": "name",
          "lr_scheduler": "lr_scheduler", "model": "model", "mod": "module",
          "module": "module", "callback": "callback", "monitor": "monitor",
-         "operator": "operator", "rnn": "rnn"}
+         "operator": "operator", "rnn": "rnn", "contrib": "contrib"}
 
 
 def __getattr__(name):
@@ -74,6 +82,9 @@ def __getattr__(name):
     if name == "MXNetError":
         from .base import MXNetError
         return MXNetError
+    if name == "AttrScope":
+        from .attribute import AttrScope
+        return AttrScope
     if name in ("cpu", "gpu", "current_context", "num_gpus"):
         from . import context
         return getattr(context, name)

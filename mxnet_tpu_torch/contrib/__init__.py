@@ -1,5 +1,12 @@
-"""``contrib`` of the port: ``quantization`` (``quantize_model``); the
-rest of ``mxnet_tpu/contrib`` is ROADMAP.md queue A, item 10."""
+"""``mx.contrib`` of the port (the counterpart of
+``mxnet_tpu/contrib/``): ``text`` (vocabulary and token embeddings),
+``io`` (``DataLoaderIter``), ``autograd`` (the old API), ``quantization``
+(``quantize_model``) and ``tensorboard`` (``LogMetricsCallback``, gated
+on a summary writer being importable)."""
+from . import autograd
+from . import io
 from . import quantization
+from . import tensorboard
+from . import text
 
-__all__ = ["quantization"]
+__all__ = ["text", "io", "autograd", "quantization", "tensorboard"]

@@ -3,6 +3,10 @@ of ``mxnet_tpu/ndarray/``).  Functions are generated from the op
 registry (``register.py``); ``nd.contrib.<op>`` holds the ``_contrib_*``
 ops without their prefix.  The creation helpers, ``save`` / ``load``
 (``serialization.py``) and ``waitall`` mirror the reference's.
+``nd.linalg.<op>`` holds the ``_linalg_*`` ops without their prefix,
+and ``nd.contrib`` also the control flow of ``ops/control_flow.py``
+(``foreach``, ``while_loop``, ``cond``), as in
+``mxnet_tpu/ndarray/__init__.py:27-44``.
 ``nd.Custom`` runs a Python ``CustomOp`` (``operator.py``).
 ``nd.random`` holds the samplers of ``ops/random.py`` under the
 reference's public names (``mxnet_tpu/ndarray/__init__.py:121-183``),
@@ -24,13 +28,20 @@ from . import sparse
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "invoke", "imperative_invoke", "np_dtype",
-           "torch_dtype", "waitall", "save", "load", "contrib", "random",
-           "Custom", "sparse"]
+           "torch_dtype", "waitall", "save", "load", "contrib", "linalg",
+           "random", "Custom", "sparse"]
 
 _reg.load_all()
 contrib = types.ModuleType(__name__ + ".contrib")
 sys.modules[contrib.__name__] = contrib
-_populate(sys.modules[__name__], contrib)
+linalg = types.ModuleType(__name__ + ".linalg")
+sys.modules[linalg.__name__] = linalg
+_populate(sys.modules[__name__], contrib, linalg)
+
+from ..ops.control_flow import cond, foreach, while_loop  # noqa: E402
+contrib.foreach = foreach
+contrib.while_loop = while_loop
+contrib.cond = cond
 
 
 def _shape(shape):

@@ -22,12 +22,16 @@ def _make_op_func(op, name):
     return fn
 
 
-def populate(target_module, contrib_module):
+def populate(target_module, contrib_module, linalg_module):
     """One function per registered op: public names on ``target_module``,
-    ``_contrib_*`` ones on ``contrib_module`` without the prefix."""
+    ``_contrib_*`` ones on ``contrib_module`` and ``_linalg_*`` ones on
+    ``linalg_module``, without the prefix."""
     for name in _reg.list_ops():
         if name.startswith("_contrib_"):
             setattr(contrib_module, name[len("_contrib_"):],
+                    _make_op_func(_reg.get(name), name))
+        elif name.startswith("_linalg_"):
+            setattr(linalg_module, name[len("_linalg_"):],
                     _make_op_func(_reg.get(name), name))
         elif not name.startswith("_") and not hasattr(target_module, name):
             setattr(target_module, name, _make_op_func(_reg.get(name), name))

@@ -1,11 +1,13 @@
-"""contrib ops of the port: the CTC loss, the box family (``box_iou``,
-``box_nms``, ``bipartite_matching``), the SSD family (``MultiBoxPrior``,
-``MultiBoxTarget``, ``MultiBoxDetection``) and the two-stage detector's
-``Proposal`` / ``MultiProposal`` and ``ROIAlign``, and the sparse
-helpers ``getnnz`` and ``SparseEmbedding`` of ``mxnet_tpu/ops/contrib.py``
-(``:27-369,452-518,580-728,812-819``).  The file's other ops (deformable
-convolution, PS ROI pooling, the FFTs and the rest) are ROADMAP.md queue
-A, item 10(d).
+"""contrib ops of the port, the whole of ``mxnet_tpu/ops/contrib.py``:
+the CTC loss, the box family (``box_iou``, ``box_nms``,
+``bipartite_matching``), the SSD family (``MultiBoxPrior``,
+``MultiBoxTarget``, ``MultiBoxDetection``), the two-stage detector's
+``Proposal`` / ``MultiProposal`` and ``ROIAlign``, the sparse helpers
+``getnnz`` and ``SparseEmbedding``, and the rest (adaptive pooling, the
+bilinear resize, count sketch, the FFTs, Khatri-Rao, deformable
+convolution, deformable and plain PS RoI pooling, ``div_sqrt_dim``,
+``quadratic`` and ``IdentityAttachKLSparseReg``).  None of them reaches
+a ``pallas_call`` in the reference; they map to torch calls.
 
 **CTC.** The reference runs the log-space forward recursion under
 ``lax.scan`` and differentiates through it; the port calls
@@ -71,7 +73,11 @@ from .registry import register
 __all__ = ["ctc_loss", "ctc_infeasible", "box_iou", "box_nms",
            "bipartite_matching", "multibox_prior", "multibox_target",
            "multibox_detection", "roi_align", "proposal", "host_sync_counts",
-           "reset_host_sync_counts", "getnnz", "sparse_embedding"]
+           "reset_host_sync_counts", "getnnz", "sparse_embedding",
+           "adaptive_avg_pooling2d", "bilinear_resize2d", "count_sketch",
+           "fft", "ifft", "khatri_rao", "deformable_convolution",
+           "deformable_psroi_pooling", "psroi_pooling", "div_sqrt_dim",
+           "quadratic", "identity_attach_kl_sparse_reg"]
 
 # the loss of a row with no alignment: the reference's -(-1e30)
 NO_ALIGNMENT_LOSS = 1e30
@@ -138,7 +144,8 @@ _host_syncs = {}
 
 def host_sync_counts():
     """{op: host synchronizations on the card} since the last reset: the
-    greedy NMS's one transfer of its suppression bits a call."""
+    greedy NMS's one transfer of its suppression bits a call, and
+    ``control_flow``'s reads of a loop condition or a predicate."""
     return dict(_host_syncs)
 
 
@@ -731,3 +738,271 @@ def sparse_embedding(data, weight, input_dim=0, output_dim=0,
     """Rows of a row-sparse weight table by integer index: ``Embedding``'s
     forward (its gradient is dense here, as in the reference)."""
     return weight[data.to(device=weight.device, dtype=torch.long)]
+
+
+# ---------------------------------------------------------------------------
+# the rest of the contrib ops (reference: mxnet_tpu/ops/contrib.py:375-449,
+# 521-577, 736-877)
+# ---------------------------------------------------------------------------
+def _div(a, v):
+    """``a / v`` with ``v`` a 0-d tensor of ``a``'s dtype on its device: a
+    true division on the card too (a Python divisor becomes a
+    multiplication by its reciprocal there)."""
+    return a / a.new_full((), float(v))
+
+
+def _pair(v):
+    return (int(v), int(v)) if isinstance(v, (int, float)) \
+        else tuple(int(i) for i in v)
+
+
+@register("_contrib_AdaptiveAvgPooling2D", arg_names=["data"],
+          aliases=("AdaptiveAvgPooling2D",))
+def adaptive_avg_pooling2d(data, output_size=(1, 1)):
+    """Adaptive average pooling (reference:
+    src/operator/contrib/adaptive_avg_pooling.cc): bin ``i`` of ``o``
+    spans ``floor(i n / o)`` to ``ceil((i + 1) n / o)``, as
+    ``F.adaptive_avg_pool2d``'s bins do."""
+    return TF.adaptive_avg_pool2d(data, _pair(output_size))
+
+
+@register("_contrib_BilinearResize2D", arg_names=["data"],
+          aliases=("BilinearResize2D",))
+def bilinear_resize2d(data, height=1, width=1, scale_height=None,
+                      scale_width=None):
+    """Bilinear resize as the reference computes it
+    (``jax.image.resize(method="linear")``): half-pixel sampling,
+    antialiased where a side shrinks.  Upstream MXNet's op aligns the
+    corners (ROADMAP.md C12)."""
+    n, c, h, w = data.shape
+    if scale_height is not None:
+        height = int(round(h * scale_height))
+        width = int(round(w * scale_width))
+    size = (int(height), int(width))
+    if data.device.type == "meta":
+        return data.new_empty((n, c) + size)
+    return TF.interpolate(data, size=size, mode="bilinear",
+                          align_corners=False, antialias=True)
+
+
+@register("_contrib_count_sketch", arg_names=["data", "h", "s"],
+          aliases=("count_sketch",))
+def count_sketch(data, h, s, out_dim=0, processing_batch_size=32):
+    """Count sketch (reference: contrib/count_sketch.cu): column ``j`` of
+    ``data``, times ``s[j]``, added into output column ``h[j]``."""
+    n, in_dim = data.shape
+    hh = h.detach().reshape(-1)[:in_dim].to(torch.int64)
+    vals = data * s.reshape(-1)[:in_dim][None, :]
+    return data.new_zeros((n, int(out_dim))).index_add(1, hh, vals)
+
+
+@register("_contrib_fft", arg_names=["data"], aliases=("fft",))
+def fft(data, compute_size=128):
+    """FFT over the last axis, real and imaginary parts interleaved
+    (reference: contrib/fft.cu; ``compute_size`` is ignored)."""
+    out = torch.fft.fft(data, dim=-1)
+    inter = torch.stack([out.real, out.imag], dim=-1)
+    return inter.reshape(data.shape[:-1] + (data.shape[-1] * 2,)) \
+        .to(data.dtype)
+
+
+@register("_contrib_ifft", arg_names=["data"], aliases=("ifft",))
+def ifft(data, compute_size=128):
+    """The inverse FFT's real part from the interleaved layout
+    (reference: contrib/ifft.cc)."""
+    n = data.shape[-1] // 2
+    comp = data.reshape(data.shape[:-1] + (n, 2))
+    z = torch.complex(comp[..., 0], comp[..., 1])
+    return torch.fft.ifft(z, dim=-1).real.to(data.dtype)
+
+
+@register("khatri_rao", arg_names=["args"])
+def khatri_rao(*args):
+    """Column-wise Khatri-Rao product (reference: contrib/krprod.cc)."""
+    out = args[0]
+    for m in args[1:]:
+        out = torch.einsum("ik,jk->ijk", out, m).reshape(-1, out.shape[1])
+    return out
+
+
+@register("_contrib_DeformableConvolution",
+          arg_names=["data", "offset", "weight", "bias"],
+          aliases=("DeformableConvolution",))
+def deformable_convolution(data, offset, weight, bias=None, kernel=(3, 3),
+                           stride=(1, 1), dilate=(1, 1), pad=(0, 0),
+                           num_filter=0, num_group=1, num_deformable_group=1,
+                           workspace=1024, no_bias=False, layout=None):
+    """Deformable convolution v1 (reference:
+    contrib/deformable_convolution.cc).
+
+    ``offset`` (N, 2 dg kh kw, OH, OW) is laid out [dg, kh, kw, {y, x}].
+    The deformed im2col is a bilinear gather (zero outside, the rule of
+    ``_bilinear_gather``) of each deformable group's channels only, then
+    one GEMM, grouped by ``num_group``."""
+    N, C, H, W = data.shape
+    kh, kw = _pair(kernel)
+    sh, sw = _pair(stride)
+    dh, dw = _pair(dilate)
+    ph, pw = _pair(pad)
+    OH = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    OW = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    F = int(num_filter)
+    if data.device.type == "meta":
+        return data.new_empty((N, F, OH, OW))
+    dg, G = int(num_deformable_group), int(num_group)
+    cpg, K, L = C // dg, kh * kw, OH * OW
+    dev = data.device
+    off = offset.reshape(N, dg, kh, kw, 2, OH, OW)
+    # integer sample positions (exact), then the offsets added in the
+    # data's dtype: (kh, 1, OH, 1) and (1, kw, 1, OW)
+    by = ((torch.arange(OH, device=dev) * sh - ph)[None, None, :, None]
+          + (torch.arange(kh, device=dev) * dh)[:, None, None, None])
+    bx = ((torch.arange(OW, device=dev) * sw - pw)[None, None, None, :]
+          + (torch.arange(kw, device=dev) * dw)[None, :, None, None])
+    gy = by.to(data.dtype) + off[:, :, :, :, 0]       # (N, dg, kh, kw, OH, OW)
+    gx = bx.to(data.dtype) + off[:, :, :, :, 1]
+    flat = data.reshape(N * dg, cpg, H * W).transpose(1, 2) \
+        .reshape(N * dg * H * W, cpg)
+    base = (torch.arange(N * dg, device=dev) * (H * W))[:, None]
+    vals = _bilinear_gather(flat, base, gy.reshape(N * dg, K * L),
+                            gx.reshape(N * dg, K * L), H, W)
+    col = vals.reshape(N, dg, K, L, cpg).permute(0, 1, 4, 2, 3) \
+        .reshape(N, G, C // G * K, L)
+    out = torch.matmul(weight.reshape(G, F // G, C // G * K), col)
+    out = out.reshape(N, F, OH, OW)
+    if bias is not None and not no_bias:
+        out = out + bias[None, :, None, None]
+    return out
+
+
+def _psroi_optional(params):
+    return ("trans",) if params.get("no_trans") else ()
+
+
+@register("_contrib_DeformablePSROIPooling",
+          arg_names=["data", "rois", "trans"],
+          aliases=("DeformablePSROIPooling",),
+          optional_args=_psroi_optional)
+def deformable_psroi_pooling(data, rois, trans=None, spatial_scale=1.0,
+                             output_dim=0, group_size=1, pooled_size=1,
+                             part_size=0, sample_per_part=1, trans_std=0.0,
+                             no_trans=False):
+    """Deformable position-sensitive RoI pooling (reference:
+    contrib/deformable_psroi_pooling.cc, R-FCN / Deformable ConvNets).
+
+    data (N, C, H, W), C = output_dim group_size^2; rois (R, 5); trans
+    (R, 2 classes, part, part), of which the reference reads the first
+    two channels.  Bin (d, i, j) of RoI r is the mean of
+    ``sample_per_part``^2 bilinear samples, each clipped into the map, of
+    its position-sensitive channel, displaced by ``trans`` times
+    ``trans_std`` and the RoI's size.  The reference samples all C
+    channels and then picks one a bin; only the picked channel is
+    gathered here (the same samples and mean, C / output_dim times less
+    memory).  Returns (R, output_dim, pooled_size, pooled_size)."""
+    N, C, H, W = data.shape
+    R = rois.shape[0]
+    P, G, D = int(pooled_size), int(group_size), int(output_dim)
+    part = int(part_size) or P
+    sp = int(sample_per_part)
+    if data.device.type == "meta":
+        return data.new_empty((R, D, P, P))
+    dev = data.device
+    bidx = rois[:, 0].detach().to(torch.int64)
+    x1 = rois[:, 1] * spatial_scale - 0.5
+    y1 = rois[:, 2] * spatial_scale - 0.5
+    x2 = (rois[:, 3] + 1.0) * spatial_scale - 0.5
+    y2 = (rois[:, 4] + 1.0) * spatial_scale - 0.5
+    floor = rois.new_full((), 0.1)
+    rw = torch.maximum(x2 - x1, floor)
+    rh = torch.maximum(y2 - y1, floor)
+    bin_w = _div(rw, P)[:, None, None, None, None]
+    bin_h = _div(rh, P)[:, None, None, None, None]
+    i = torch.arange(P, device=dev)
+    iy, ix = i[:, None].expand(P, P), i[None, :].expand(P, P)
+    sub = torch.arange(sp, device=dev, dtype=rois.dtype) + 0.5
+    ys = y1[:, None, None, None, None] + iy.to(rois.dtype)[
+        None, :, :, None, None] * bin_h
+    xs = x1[:, None, None, None, None] + ix.to(rois.dtype)[
+        None, :, :, None, None] * bin_w
+    if not no_trans and trans is not None:
+        py, px = (iy * part) // P, (ix * part) // P
+        off_x = trans[:, 0][:, py, px] * trans_std * rw[:, None, None]
+        off_y = trans[:, 1][:, py, px] * trans_std * rh[:, None, None]
+        ys = ys + off_y[..., None, None]
+        xs = xs + off_x[..., None, None]
+    ys = ys + sub[:, None] * _div(bin_h, sp)           # (R, P, P, sp, 1)
+    xs = xs + sub[None, :] * _div(bin_w, sp)           # (R, P, P, 1, sp)
+    ys, xs = torch.broadcast_tensors(ys, xs)
+    ys = torch.minimum(torch.maximum(ys, ys.new_zeros(())),
+                       ys.new_full((), H - 1))
+    xs = torch.minimum(torch.maximum(xs, xs.new_zeros(())),
+                       xs.new_full((), W - 1))
+    # the position-sensitive channel of each (d, i, j)
+    cidx = ((torch.arange(D, device=dev)[:, None, None] * G
+             + ((iy * G) // P)[None]) * G + ((ix * G) // P)[None]) % C
+    base = ((bidx[:, None, None, None] * C + cidx[None]) * (H * W))[..., None]
+    S = sp * sp
+    vals = _bilinear_gather(data.reshape(-1, 1), base,
+                            ys.reshape(R, 1, P, P, S),
+                            xs.reshape(R, 1, P, P, S), H, W)
+    return vals[..., 0].mean(dim=-1)
+
+
+@register("_contrib_PSROIPooling", arg_names=["data", "rois"],
+          aliases=("PSROIPooling",))
+def psroi_pooling(data, rois, spatial_scale=1.0, output_dim=0,
+                  pooled_size=1, group_size=0):
+    """Position-sensitive RoI pooling (reference:
+    src/operator/contrib/psroi_pooling.cc, R-FCN): the deformable op
+    without offsets, one sample a bin."""
+    g = int(group_size) or int(pooled_size)
+    return deformable_psroi_pooling(
+        data, rois, None, spatial_scale=spatial_scale,
+        output_dim=output_dim, group_size=g, pooled_size=pooled_size,
+        no_trans=True)
+
+
+@register("_contrib_div_sqrt_dim")
+def div_sqrt_dim(data):
+    """``data / sqrt(last dim)`` (reference: contrib/transformer.cc)."""
+    return _div(data, float(data.shape[-1]) ** 0.5)
+
+
+@register("_contrib_quadratic", aliases=("quadratic",))
+def quadratic(data, a=0.0, b=0.0, c=0.0):
+    """``a x^2 + b x + c`` (reference: contrib/quadratic_op.cc)."""
+    return a * data * data + b * data + c
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """The identity forward; the backward adds the KL sparseness
+    penalty's gradient, from the batch's mean activation clipped to
+    [1e-6, 1 - 1e-6]."""
+
+    @staticmethod
+    def forward(ctx, data, rho, penalty):
+        ctx.save_for_backward(data)
+        ctx.rho, ctx.penalty = rho, penalty
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, = ctx.saved_tensors
+        rho = ctx.rho
+        rho_hat = data.mean(dim=0).clamp(1e-6, 1 - 1e-6)
+        reg = ctx.penalty * (rho_hat.new_full((), -rho) / rho_hat
+                             + rho_hat.new_full((), 1 - rho)
+                             / (1 - rho_hat))
+        return g + reg.to(g.dtype), None, None
+
+
+@register("IdentityAttachKLSparseReg")
+def identity_attach_kl_sparse_reg(data, sparseness_target=0.1, penalty=0.001,
+                                  momentum=0.9):
+    """The identity, whose gradient gains ``penalty (-rho / rho_hat +
+    (1 - rho) / (1 - rho_hat))`` with ``rho_hat`` the batch's mean
+    activation (reference: src/operator/
+    identity_attach_KL_sparse_reg-inl.h, the sparse autoencoder).  As in
+    the reference, ``momentum`` is ignored and no moving average is kept
+    (upstream MXNet keeps one; ROADMAP.md C14)."""
+    return _KLSparseReg.apply(data, float(sparseness_target), float(penalty))

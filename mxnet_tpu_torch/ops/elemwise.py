@@ -73,8 +73,10 @@ for _n, _f in _COMPARE:
 
 def _t(d, scalar):
     """``scalar`` as a 0-dim tensor of ``d``'s dtype and device, for the
-    torch calls that take no python number on that side."""
-    return torch.tensor(scalar, dtype=d.dtype, device=d.device)
+    torch calls that take no python number on that side (a fill: a
+    tensor made from a Python number on the card would be a synchronizing
+    copy)."""
+    return d.new_full((), scalar)
 
 
 _scalar("_plus_scalar", lambda data, scalar=0.0: data + scalar)

@@ -1,8 +1,9 @@
 """``sym`` — symbolic graph composition, the port of
 ``mxnet_tpu/symbol/__init__.py``.  The op functions are generated from
 the same registry as ``nd``; ``sym.contrib.<op>`` holds the
-``_contrib_*`` ops without their prefix, and ``sym.random.<name>`` the
-``_random_*`` ops without theirs (``mxnet_tpu/symbol/__init__.py:31-53``);
+``_contrib_*`` ops without their prefix, ``sym.linalg.<op>`` the
+``_linalg_*`` ops, and ``sym.random.<name>`` the ``_random_*`` ops
+without theirs (``mxnet_tpu/symbol/__init__.py:29-53``);
 ``zeros`` is the reference's creation helper (``:56-57``), the recurrent
 cells' begin states."""
 from __future__ import annotations
@@ -15,7 +16,8 @@ from .symbol import (Symbol, Variable, var, Group, load, load_json,
                      AttrScope, NameManager, _sym_invoke)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "AttrScope", "NameManager", "contrib", "random", "zeros"]
+           "AttrScope", "NameManager", "contrib", "linalg", "random",
+           "zeros"]
 
 _reg.load_all()
 
@@ -31,12 +33,17 @@ def _make_sym_func(op, name):
 
 contrib = _types.ModuleType(__name__ + ".contrib")
 _sys.modules[contrib.__name__] = contrib
+linalg = _types.ModuleType(__name__ + ".linalg")
+_sys.modules[linalg.__name__] = linalg
 random = _types.ModuleType(__name__ + ".random")
 _sys.modules[random.__name__] = random
 _this = _sys.modules[__name__]
 for _name in _reg.list_ops():
     if _name.startswith("_contrib_"):
         setattr(contrib, _name[len("_contrib_"):],
+                _make_sym_func(_reg.get(_name), _name))
+    elif _name.startswith("_linalg_"):
+        setattr(linalg, _name[len("_linalg_"):],
                 _make_sym_func(_reg.get(_name), _name))
     elif _name.startswith("_random_"):
         setattr(random, _name[len("_random_"):],

@@ -13,7 +13,7 @@ spreads them over two workers); the gradients are
 ``tests/test_torch_op_sweep_grad.py`` and ``..._grad_b.py``.
 
 The registry test holds the reference's op names minus the port's to
-exactly the names ROADMAP.md leaves to items A10 and A8.
+exactly the names ROADMAP.md leaves to item A8 (A10 is whole).
 """
 import numpy as np
 import pytest
@@ -42,26 +42,9 @@ _X64 = {np.dtype(np.float32): np.dtype(np.float64),
 PORTED = [(n, i, c) for n, i, c in ALL_CASES if n in set(treg.list_ops())]
 HERE = PORTED[::2]
 
-# the reference's ops the port leaves to later items (ROADMAP.md A10 / A8)
-A10_CONTRIB = {
-    "AdaptiveAvgPooling2D", "BilinearResize2D",
-    "DeformableConvolution", "DeformablePSROIPooling",
-    "IdentityAttachKLSparseReg", "PSROIPooling",
-    "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
-    "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-    "_contrib_PSROIPooling", "_contrib_count_sketch",
-    "_contrib_div_sqrt_dim", "_contrib_fft", "_contrib_ifft",
-    "_contrib_quadratic", "count_sketch", "fft", "ifft", "khatri_rao",
-    "quadratic"}
-A10_LINALG = {p + n for p in ("_linalg_", "linalg_") for n in (
-    "det", "extractdiag", "extracttrian", "gelqf", "gemm", "gemm2",
-    "inverse", "makediag", "potrf", "potri", "slogdet", "sumlogdiag",
-    "syevd", "syrk", "trmm", "trsm")}
-A10_CONTROL_FLOW = {"_histogram", "_square_sum", "histogram", "square_sum"}
-A10_IMAGE = {"_image_normalize", "_image_to_tensor"}
+# the reference's ops the port leaves to a later item (ROADMAP.md A8)
 A8_FLASH = {"flash_attention", "_contrib_flash_attention"}
-LEFT = (A10_CONTRIB | A10_LINALG | A10_CONTROL_FLOW | A10_IMAGE
-        | A8_FLASH)
+LEFT = A8_FLASH
 # ported by A10(c), sparse: held in tests/test_torch_sparse.py
 SPARSE = {"_sparse_retain", "cast_storage", "sparse_retain",
           "_sparse_adagrad_update", "sparse_adagrad_update",
@@ -69,12 +52,12 @@ SPARSE = {"_sparse_retain", "cast_storage", "sparse_retain",
 
 
 def test_registry_leaves_exactly_the_a10_and_a8_names():
-    assert len(LEFT) == 61
+    assert len(LEFT) == 2
     assert set(jreg.list_ops()) - set(treg.list_ops()) == LEFT
     assert set(treg.list_ops()) <= set(jreg.list_ops())
     assert SPARSE <= set(treg.list_ops())
     for name in sorted(LEFT):
-        with pytest.raises(KeyError, match="items 10"):
+        with pytest.raises(KeyError, match="item 8"):
             treg.get(name)
 
 
