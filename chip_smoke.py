@@ -8875,6 +8875,571 @@ def phase_rest_of_ops():
                               time.monotonic() - T_START))
 
 
+# phase 32: in-process data parallelism, ZeRO-1, grad_accum,
+# sharded checkpoints; K in-process ranks on the one card
+P32_K, P32_BATCH, P32_WARM, P32_TIMED = 4, 256, 2, 6
+P32_PARITY_BATCH, P32_SMALL_BATCH = 16, 32
+P32_LM_PLAN = dict(data=2, sequence=2)
+P32_PLAIN_TOL, P32_CPU_RTOL = 1e-6, 1e-4
+# where the phase's path runs and the image side (224: ResNet-50's)
+P32_DEV, P32_SIDE = "cuda", 224
+
+
+def _p32_card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _p32_arrays(layout="NCHW"):
+    """Xavier weights of resnet50_v1 (seeded), made once on the host."""
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet50_v1(layout=layout)
+    net.initialize(initializer.Xavier(), ctx="cpu",
+                   rng=np.random.RandomState(0))
+    shape = (1, P32_SIDE, P32_SIDE, 3) if layout == "NHWC" else (1, 3, P32_SIDE, P32_SIDE)
+    with torch.no_grad():
+        net(torch.zeros(shape))
+    return {n: p.tensor().detach().numpy().copy()
+            for n, p in net.collect_params().items()}
+
+
+def _p32_trainer(arrays, k, device=None, layout="NCHW", opt="sgd",
+                 params=None, **kw):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+    dev = P32_DEV if device is None else device
+    net = from_jax_params(vision.resnet50_v1(layout=layout), arrays,
+                          device=dev)
+    tr = DataParallelTrainer(
+        net, SoftmaxCrossEntropyLoss(), opt,
+        dict(SGD_PARAMS) if params is None else params,
+        mesh=make_mesh((k,), ("data",), [dev] * k), **kw)
+    return net, tr
+
+
+def _p32_images(n, batch, layout="NCHW", seed=0):
+    rng = np.random.RandomState(seed)
+    shape = (batch, P32_SIDE, P32_SIDE, 3) if layout == "NHWC" \
+        else (batch, 3, P32_SIDE, P32_SIDE)
+    pool = [rng.rand(*shape).astype(np.float32) for _ in range(2)]
+    x = np.concatenate([pool[i % 2] for i in range(n)])
+    y = (rng.rand(n * batch) * 1000).astype(np.int64)
+    return x, y
+
+
+def _p32_fit(tr, x, y, batch):
+    """(loss metric, seconds) of one ``fit`` epoch over the arrays."""
+    import torch
+    from mxnet_tpu_torch.io import NDArrayIter
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = tr.fit(NDArrayIter(x, y, batch_size=batch), num_epoch=1,
+               bulk_size=4)
+    torch.cuda.synchronize()
+    return m.get()[1], time.perf_counter() - t0
+
+
+def _p32_ranks(tr, label):
+    """Each rank's optimizer state numel against ``shard`` and the loop of
+    csrc/fused_optimizer.cu its launch takes."""
+    from mxnet_tpu_torch.parallel import zero
+    plan = tr._zero_plan
+    out = []
+    for i in range(plan.k):
+        leaves = tr._zero_leaves(i)
+        w = tr._zero_master[i] if tr._zero_master is not None \
+            else tr._zero_w_shards[i]
+        numel = [int(v.numel()) for v in leaves]
+        if any(n != plan.shard for n in numel) or w.numel() != plan.shard:
+            raise RuntimeError("%s: rank %d holds state %r, want %d each"
+                               % (label, i, numel, plan.shard))
+        # the gradient shard is rank i's view of one reduce-scattered
+        # buffer, i * shard elements in
+        route = zero.shard_route((w,) + tuple(leaves))
+        if (i * plan.shard) % 4:
+            route = "scalar"
+        out.append((i, numel[0], route))
+    print("%s: total %d padded %d shard %d (shard %% 4 = %d); per rank "
+          "(rank, state numel, route): %s"
+          % (label, plan.total, plan.padded, plan.shard, plan.shard % 4, out))
+    return out
+
+
+def _p32_timed(label, tr, x, y, batch, card, counts_of, want):
+    """A warm-up and a timed ``fit`` epoch; the launches of the timed one
+    checked against ``want``."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    nw = P32_WARM * batch
+    _p32_fit(tr, x[:nw], y[:nw], batch)
+    fo.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, secs = _p32_fit(tr, x[nw:], y[nw:], batch)
+    peak = torch.cuda.max_memory_allocated()
+    got = counts_of(fo.launch_counts())
+    if got != want:
+        raise RuntimeError("%s: launches %r, want %r" % (label, got, want))
+    rate = P32_TIMED * batch / secs
+    print("%s: %.1f images/s over %d fit steps of %d (%.3f s); peak memory "
+          "%.2f GiB; mean loss %.4f; launches %r [%s]"
+          % (label, rate, P32_TIMED, batch, secs, peak / 2 ** 30, loss, got,
+             card))
+    if not np.isfinite(loss):
+        raise RuntimeError("%s: loss %r" % (label, loss))
+    return rate, peak
+
+
+def _p32_plain_step(arrays, x, y):
+    """One ZeRO-1 step at K ranks with B1 against the same step with the
+    kernel's plain version on the card (cuDNN deterministic)."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    outs = []
+    real = fo.fused_optimizer_update
+
+    def plain(opt, index, w, g, state, lr, t, inv_scale=1.0, ok=1.0):
+        s = fo._scalars(lr, inv_scale, ok, w.device)
+        nw, nm = fo.fused_sgd_momentum_reference(
+            w, g, state, s, momentum=opt.momentum, wd=opt._get_wd(index),
+            rescale_grad=opt.rescale_grad, clip_gradient=opt.clip_gradient)
+        with torch.no_grad():
+            w.copy_(nw)
+            state.copy_(nm)
+        return w, state
+
+    for use_plain in (False, True):
+        net, tr = _p32_trainer(arrays, P32_K, zero=1)
+        fo.fused_optimizer_update = plain if use_plain else real
+        try:
+            tr.step(x, y)
+            tr.flush()
+        finally:
+            fo.fused_optimizer_update = real
+        outs.append([p.tensor().detach() for p in
+                     net.collect_params().values()])
+        del tr
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    print("phase 32 (a): one ZeRO-1 step, B1 on each shard vs its plain "
+          "version on the card: max |dparam| %.3g (tol %g)"
+          % (err, P32_PLAIN_TOL))
+    if err > P32_PLAIN_TOL:
+        raise RuntimeError("phase 32 (a): B1 vs plain %.3g" % err)
+    return err
+
+
+def _p32_cpu_parity(arrays):
+    """Two ZeRO-1 steps at K ranks, batch 16, on the card and on the CPU
+    (TF32 off), as phase 6 holds the one-rank step: the first-step loss
+    within 1e-4 relative; after the second step (where Xavier at this
+    learning rate turns rounding into chaos) the losses and parameters
+    within ``NOISE_FACTOR`` x the rounding floor, the same CPU run on an
+    input one ulp up."""
+    import torch
+    rng = np.random.RandomState(5)
+    x = rng.rand(P32_PARITY_BATCH, 3, P32_SIDE, P32_SIDE).astype(np.float32)
+    y = rng.randint(0, 1000, P32_PARITY_BATCH)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for name, dev, xx in (
+                ("card", P32_DEV, x), ("cpu", "cpu", x),
+                ("ulp", "cpu", np.nextafter(x, np.float32(np.inf)))):
+            net, tr = _p32_trainer(arrays, P32_K, device=dev, zero=1)
+            res[name] = ([float(tr.step(xx, y)) for _ in range(2)],
+                         [p.tensor().detach().cpu().double() for p in
+                          net.collect_params().values()])
+            del tr
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+    def gaps(a, b):
+        la, pa = res[a]
+        lb, pb = res[b]
+        return ([abs(u - v) / abs(v) for u, v in zip(la, lb)],
+                max(float((u - v).abs().max()) for u, v in zip(pa, pb)))
+
+    (l1, l2), dp = gaps("card", "cpu")
+    (_, f2), fp = gaps("ulp", "cpu")
+    print("phase 32 (a): card vs CPU, ZeRO-1 K=%d batch %d, 2 steps, TF32 "
+          "off: losses %s / %s; first-step relative gap %.3g (tol %g); "
+          "second-step loss gap %.3g and max |dparam| %.3g against the "
+          "rounding floor %.3g / %.3g (allowed %g x floor)"
+          % (P32_K, P32_PARITY_BATCH, res["card"][0], res["cpu"][0], l1,
+             P32_CPU_RTOL, l2, dp, f2, fp, NOISE_FACTOR))
+    if l1 > P32_CPU_RTOL:
+        raise RuntimeError("phase 32 (a): card vs CPU first-step loss gap "
+                           "%.3g" % l1)
+    if l2 > max(NOISE_FACTOR * f2, P32_CPU_RTOL) or \
+            dp > max(NOISE_FACTOR * fp, P32_CPU_RTOL):
+        raise RuntimeError("phase 32 (a): card vs CPU after two steps %.3g "
+                           "/ %.3g, more than %g x the rounding floor "
+                           "%.3g / %.3g" % (l2, dp, NOISE_FACTOR, f2, fp))
+    return l1, l2, dp, f2, fp
+
+
+def _p32_grad_accum(arrays):
+    """grad_accum=2 on both tiers: one step's accumulated gradient against
+    the microbatch gradients folded by hand, bitwise (cuDNN
+    deterministic)."""
+    import torch
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.rand(16, 3, P32_SIDE, P32_SIDE).astype(np.float32)).to(P32_DEV)
+    y = torch.from_numpy(rng.randint(0, 1000, 16)).to(P32_DEV)
+    net = from_jax_params(vision.resnet50_v1(), arrays, device=P32_DEV)
+    params = [p.tensor() for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def grad(xm, ym):
+        net.train(True)
+        loss = loss_fn(net(xm), ym).mean()
+        return torch.cat([g.reshape(-1) for g in
+                          torch.autograd.grad(loss, params)])
+
+    out = {}
+    for zero, k in ((0, 1), (1, 2)):
+        _, tr = _p32_trainer(arrays, k, zero=zero, grad_accum=2,
+                             params={"learning_rate": 0.0})
+        tr.step(x, y)
+        tr.flush()
+        rows = [tr._g_flat[0]] if not zero else list(tr._zero_rows)
+        per = 16 // k
+        for r in range(k):
+            xr, yr = x[r * per:(r + 1) * per], y[r * per:(r + 1) * per]
+            h = per // 2
+            # 0 + g1 is g1: the fold of accumulate_grads, then / 2
+            want = (grad(xr[:h], yr[:h]) + grad(xr[h:], yr[h:])) / 2
+            got = rows[r][:want.numel()]
+            same = bool(torch.equal(got, want))
+            out["zero=%d rank %d" % (zero, r)] = same
+            if not same:
+                raise RuntimeError(
+                    "phase 32 (c): zero=%d rank %d accumulated gradient "
+                    "is not the fold by hand: max |d| %.3g" % (
+                        zero, r, float((got - want).abs().max())))
+        del tr
+    print("phase 32 (c): grad_accum=2, each rank's accumulated gradient "
+          "bitwise the fold of its two half-batch gradients by hand: %s"
+          % out)
+    return out
+
+
+def _p32_checkpoints(arrays, tmp, card):
+    """fit(checkpoint_dir=, checkpoint_every=1) at K=4; restore at K=2 and
+    K=1 (full state bitwise); then two more steps at K=4 from the restore
+    against an uninterrupted run (bitwise under cuDNN deterministic)."""
+    import os
+    import torch
+    from mxnet_tpu_torch.io import NDArrayIter
+    x, y = _p32_images(4, P32_SMALL_BATCH, seed=7)
+    b = P32_SMALL_BATCH
+    _, ref = _p32_trainer(arrays, P32_K, zero=1)
+    ref.fit(NDArrayIter(x, y, batch_size=b), num_epoch=1)
+    _, part = _p32_trainer(arrays, P32_K, zero=1)
+    t0 = time.perf_counter()
+    part.fit(NDArrayIter(x[:2 * b], y[:2 * b], batch_size=b), num_epoch=1,
+             checkpoint_dir=tmp, checkpoint_every=1)
+    t_fit = time.perf_counter() - t0
+    full = [v.cpu() for v in part._zero_leaves()]
+    params = [p.tensor().detach().cpu() for p in
+              part._params_by_name.values()]
+    held = {}
+    for k in (2, 1, 4):
+        _, tk = _p32_trainer(arrays, k, zero=1)
+        t0 = time.perf_counter()
+        cursor = tk.restore_checkpoint(tmp)
+        secs = time.perf_counter() - t0
+        same = (cursor["step"] == 2
+                and all(torch.equal(a, bb.cpu()) for a, bb in
+                        zip(full, tk._zero_leaves()))
+                and all(torch.equal(a, p.tensor().detach().cpu())
+                        for a, p in zip(params,
+                                        tk._params_by_name.values())))
+        held[k] = (same, round(secs, 3))
+        if not same:
+            raise RuntimeError("phase 32 (d): restore at K=%d is not "
+                               "bitwise the K=%d state" % (k, P32_K))
+        if k == P32_K:
+            for i in (2, 3):
+                tk.step(x[i * b:(i + 1) * b], y[i * b:(i + 1) * b])
+            tk.flush()
+            cont = all(torch.equal(a.tensor(), c.tensor()) for a, c in
+                       zip(tk._params_by_name.values(),
+                           ref._params_by_name.values()))
+            if not cont:
+                raise RuntimeError("phase 32 (d): two steps from the "
+                                   "restore are not bitwise the "
+                                   "uninterrupted run's")
+        del tk
+    files = sorted(os.listdir(tmp))
+    mb = sum(os.path.getsize(os.path.join(tmp, f)) for f in files) / 2 ** 20
+    print("phase 32 (d): fit with a sharded checkpoint every step at K=%d "
+          "(%d steps, %.2f s, %d files, %.1f MiB kept); restored at K=2, "
+          "1, 4: full state bitwise %s ((bitwise, restore s) by K); two "
+          "more steps from the K=%d restore bitwise the uninterrupted run "
+          "(cudnn.deterministic=%s) [%s]"
+          % (P32_K, part._step_count, t_fit, len(files), mb, held,
+             P32_K, torch.backends.cudnn.deterministic, card))
+    return held
+
+
+def _p32_lm(card):
+    """The widest TransformerLM over MeshPlan(data=2, sequence=2), zero=1:
+    tokens/s and the B1 and B4-B7 launches; two steps at one layer card
+    vs CPU."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, MeshPlan
+    from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
+    plan = MeshPlan(**P32_LM_PLAN)
+    steps = P32_WARM + P32_TIMED
+    batches = [tuple(torch.from_numpy(a).to(P32_DEV) for a in bb)
+               for bb in _lm_batches(steps, TRAIN_LM_BATCH)]
+    tr = DataParallelTrainer(
+        TransformerLM(TransformerLMConfig(**CFG, attention="ring")), None,
+        "sgd", dict(LM_SGD), mesh_plan=plan, zero=1, device=P32_DEV)
+    pk.reset_launch_counts()
+    fo.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for xb, yb in batches:
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(xb, yb)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    flash, fcount = pk.launch_counts(), fo.launch_counts()
+    d, q = P32_LM_PLAN["data"], P32_LM_PLAN["sequence"]
+    want_flash = steps * CFG["n_layers"] * q * d
+    want = {"fused_sgd_momentum": steps * d}
+    got = {"fused_sgd_momentum": fcount["fused_sgd_momentum"]}
+    for n in FLASH_KERNELS:
+        want[n + "/wgmma"] = want_flash
+        got[n + "/wgmma"] = flash[n + "/wgmma"]
+    ln = fcount["fused_layer_norm"]
+    if got != want or ln < steps * d * (2 * CFG["n_layers"] + 1):
+        raise RuntimeError("phase 32 (e): launches %r (fused_layer_norm "
+                           "%d), want %r" % (got, ln, want))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("phase 32 (e): losses %r" % losses)
+    timed = np.asarray(times[P32_WARM:])
+    tokens = TRAIN_LM_BATCH * CFG["seq_len"]
+    rate = tokens * P32_TIMED / timed.sum()
+    zp = tr._mesh_zero_plan
+    print("phase 32 (e): TransformerLM %s, MeshPlan(data=%d, sequence=%d), "
+          "zero=1 (total %d, shard %d), batch %d x %d: %.1f tokens/s, step "
+          "p50 %.2f ms; peak memory %.2f GiB; losses %s; launches %r, "
+          "fused_layer_norm %d [%s]"
+          % (CFG, d, q, zp.total, zp.shard, TRAIN_LM_BATCH, CFG["seq_len"],
+             rate, np.percentile(timed, 50) * 1e3, peak / 2 ** 30,
+             ["%.4f" % v for v in losses], got, ln, card))
+    del tr
+    small = dict(CFG, n_layers=1)
+    xb, yb = _lm_batches(1, 4, seed=3)[0]
+    res = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in (P32_DEV, "cpu"):
+            t = DataParallelTrainer(
+                TransformerLM(TransformerLMConfig(**small,
+                                                  attention="ring")),
+                None, "sgd", dict(LM_SGD), mesh_plan=plan, zero=1,
+                device=dev)
+            res[dev] = ([float(t.step(xb, yb)) for _ in range(2)],
+                        t.mesh_params())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    dl = max(abs(a - b) for a, b in zip(res[P32_DEV][0], res["cpu"][0]))
+    dp = max(float(np.abs(res[P32_DEV][1][n] - res["cpu"][1][n]).max())
+             for n in res["cpu"][1])
+    print("phase 32 (e): one layer, batch 4, 2 steps card vs CPU: losses %s "
+          "/ %s, max |dloss| %.3g, max |dparam| %.3g (tol %g)"
+          % (res[P32_DEV][0], res["cpu"][0], dl, dp, LM_LOSS_TOL_DEVICE))
+    if dl > LM_LOSS_TOL_DEVICE or dp > LM_LOSS_TOL_DEVICE:
+        raise RuntimeError("phase 32 (e): card vs CPU %.3g / %.3g"
+                           % (dl, dp))
+    return got, ln, rate
+
+
+def _p32_nccl():
+    """A NCCL process group at world size 1 (a file store: no network): a
+    zero=1 MLP step through the process-group placement equals the
+    in-process K=1 step bitwise."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from mxnet_tpu_torch import gluon, initializer
+    from mxnet_tpu_torch.parallel import (DataParallelTrainer,
+                                          data_parallel_mesh, make_mesh)
+    rng = np.random.RandomState(9)
+    x = rng.rand(64, 512).astype(np.float32)
+    y = rng.randint(0, 10, 64)
+
+    def run(mesh):
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(1024, activation="relu"))
+        net.add(gluon.nn.Dense(10))
+        net.initialize(initializer.Xavier(), ctx=P32_DEV,
+                       rng=np.random.RandomState(4))
+        tr = DataParallelTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                 "sgd", dict(SGD_PARAMS), mesh=mesh, zero=1)
+        loss = float(tr.step(x, y))
+        tr.flush()
+        return tr, loss, [p.tensor().detach().clone() for p in
+                          net.collect_params().values()]
+
+    # the rendezvous is a file store, and NCCL's own bootstrap stays on
+    # the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    fd, store = tempfile.mkstemp(prefix="p32_store_")
+    os.close(fd)
+    os.remove(store)
+    dist.init_process_group("nccl" if P32_DEV == "cuda" else "gloo",
+                            init_method="file://" + store, rank=0,
+                            world_size=1)
+    try:
+        tr_pg, l_pg, p_pg = run(data_parallel_mesh())
+        placement = tr_pg._comm.placement
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    _, l_in, p_in = run(make_mesh((1,), ("data",), [P32_DEV]))
+    same = l_pg == l_in and all(torch.equal(a, b) for a, b in
+                                zip(p_pg, p_in))
+    print("phase 32 (f): NCCL process group, world size 1, placement %s: "
+          "zero=1 MLP step loss %.6f vs in-process K=1 %.6f; parameters "
+          "bitwise equal: %s" % (placement, l_pg, l_in, same))
+    if placement != "process_group" or not same:
+        raise RuntimeError("phase 32 (f): process-group step differs from "
+                           "the in-process step")
+
+
+def phase_data_parallel():
+    """Phase 32: in-process data parallelism through
+    ``DataParallelTrainer(mesh=make_mesh((4,), ("data",), [card] * 4),
+    zero=1, grad_accum=)`` and ``fit``: ZeRO-1 ResNet-50 in f32 and bf16
+    channels-last, Adam, grad_accum on both tiers, sharded checkpoints
+    with resize-on-resume, the TransformerLM over MeshPlan(data=2,
+    sequence=2), and a NCCL process group.  Returns the launches of B1,
+    B3 and B4-B7 on the phase's main path."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    t_phase = time.monotonic()
+    card = _p32_card()
+    for m in _hand_counters():
+        m.reset_launch_counts()
+    arrays = _p32_arrays()
+    # (a) f32 NCHW ZeRO-1 at K=4, batch 256, through fit
+    x, y = _p32_images(P32_WARM + P32_TIMED, P32_BATCH)
+    _, tr = _p32_trainer(arrays, P32_K, zero=1)
+    b1 = P32_K * P32_TIMED
+    rate_a, peak_a = _p32_timed(
+        "phase 32 (a) ZeRO-1 f32 NCHW K=%d" % P32_K, tr, x, y, P32_BATCH,
+        card, lambda c: {"fused_sgd_momentum": c["fused_sgd_momentum"]},
+        {"fused_sgd_momentum": b1})
+    launches = {"fused_sgd_momentum": b1}
+    routes = _p32_ranks(tr, "phase 32 (a)")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        xs = torch.from_numpy(x[:P32_BATCH]).to(P32_DEV)
+        ys = torch.from_numpy(y[:P32_BATCH]).to(P32_DEV)
+        plain_err = _p32_plain_step(arrays, xs, ys)
+        del xs, ys
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    del x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = _p32_cpu_parity(arrays)
+    # (b) bf16 channels-last, f32 master shards; one Adam ZeRO-1 step
+    nhwc = _p32_arrays("NHWC")
+    x, y = _p32_images(P32_WARM + P32_TIMED, P32_BATCH, layout="NHWC")
+    _, tr = _p32_trainer(nhwc, P32_K, layout="NHWC", zero=1, dtype="bf16")
+    rate_b, peak_b = _p32_timed(
+        "phase 32 (b) ZeRO-1 bf16 NHWC K=%d" % P32_K, tr, x, y, P32_BATCH,
+        card, lambda c: {"fused_sgd_momentum": c["fused_sgd_momentum"]},
+        {"fused_sgd_momentum": b1})
+    launches["fused_sgd_momentum"] += b1
+    scale, good, skipped = tr.loss_scale_state()
+    _p32_ranks(tr, "phase 32 (b)")
+    print("phase 32 (b): loss scale %.1f, good steps %d, skipped %d; live "
+          "params %s, masters f32 (shard,) per rank"
+          % (scale, good, skipped, tr._zero_flat.dtype))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, tr = _p32_trainer(nhwc, P32_K, layout="NHWC", opt="adam",
+                         params={"learning_rate": 1e-3, "wd": 1e-4},
+                         zero=1, dtype="bf16")
+    fo.reset_launch_counts()
+    loss = float(tr.step(torch.from_numpy(x[:P32_BATCH]).to(P32_DEV),
+                         torch.from_numpy(y[:P32_BATCH]).to(P32_DEV)))
+    tr.flush()
+    b3 = fo.launch_counts()["fused_adam"]
+    if b3 != P32_K or not np.isfinite(loss):
+        raise RuntimeError("phase 32 (b): Adam ZeRO-1 step launched B3 %d "
+                           "times (want %d), loss %r" % (b3, P32_K, loss))
+    launches["fused_adam"] = b3
+    print("phase 32 (b): one Adam ZeRO-1 bf16 step, loss %.4f, fused_adam "
+          "launches %d (one per rank)" % (loss, b3))
+    del tr, x, y, nhwc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) grad_accum and (d) checkpoints, cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="p32_")
+    try:
+        accum = _p32_grad_accum(arrays)
+        held = _p32_checkpoints(arrays, tmp, card)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the TransformerLM over data x sequence, zero=1
+    lm, ln, rate_e = _p32_lm(card)
+    launches["fused_sgd_momentum"] += lm["fused_sgd_momentum"]
+    launches["fused_layer_norm"] = ln
+    for n in FLASH_KERNELS:
+        launches[n] = lm[n + "/wgmma"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f) NCCL at world size 1
+    _p32_nccl()
+    RUNS["phase 32"] = dict(rate_a=rate_a, peak_a=peak_a, rate_b=rate_b,
+                            peak_b=peak_b, routes=routes, plain=plain_err,
+                            parity=parity, accum=accum, held=held,
+                            rate_e=rate_e)
+    print("phase 32: launches on the phase's path %s; %.1f s (the script "
+          "so far %.1f s) [%s]" % (launches, time.monotonic() - t_phase,
+                                   time.monotonic() - T_START, card))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8959,6 +9524,10 @@ def main():
         phase_detection()
         phase_sparse()
         phase_rest_of_ops()
+        launches = phase_data_parallel()
+        for k in opt_kernels + flash_kernels + [kernel]:
+            if k["name"] in launches:
+                k["launches_phase32"] = launches[k["name"]]
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -13,8 +13,11 @@ the card, on the feed's side stream, as in ``DeviceFeedIter``; give
 ``data_desc`` its output's geometry so ``batch_bytes`` counts what stays
 on the card.
 
-``sharding`` (a data-parallel batch layout) is ROADMAP.md queue A, item 6,
-and raises.
+``sharding`` takes a trainer's ``batch_sharding`` (reference
+``io/prefetch.py:30-45``): the batches land on the device of this
+process's ranks (with in-process ranks, the one device they share), so
+``DataParallelTrainer.step`` takes them as they are, and splits the rows
+among its in-process ranks there.
 """
 from __future__ import annotations
 
@@ -33,9 +36,11 @@ class PrefetchToDeviceIter(DeviceFeedIter):
     def __init__(self, base, sharding=None, depth=2, transform=None,
                  data_desc=None, device=None):
         if sharding is not None:
-            raise NotImplementedError(
-                "PrefetchToDeviceIter(sharding=...): a data-parallel batch "
-                "layout is ROADMAP.md queue A, item 6")
+            if device is not None and str(device) != str(sharding.device):
+                raise ValueError("sharding %r lives on %s, not on device=%s"
+                                 % (sharding, sharding.device, device))
+            device = sharding.device
+        self.sharding = sharding
         super().__init__(base, transform=transform, depth=depth,
                          data_desc=data_desc, device=device)
 

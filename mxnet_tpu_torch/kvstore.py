@@ -22,8 +22,8 @@ a dense ``out`` a copy of the whole stored array (never an alias: the
 store updates in place).
 
 One process is one worker (``rank`` 0 of ``num_workers`` 1).  The
-``dist_*`` types raise: distributed data parallel is ROADMAP.md queue A,
-item 6.
+``dist_*`` types raise: the parameter server is ROADMAP.md queue A,
+item 6(b) (in-process data parallelism is ``DataParallelTrainer(mesh=)``).
 """
 from __future__ import annotations
 
@@ -191,8 +191,8 @@ def create(name="local"):
         raise TypeError("name must be a string")
     if name in _DIST_TYPES:
         raise NotImplementedError(
-            "kvstore %r: distributed data parallel is ROADMAP.md queue A, "
-            "item 6" % name)
+            "kvstore %r: the parameter server is ROADMAP.md queue A, "
+            "item 6(b)" % name)
     if name not in _LOCAL_TYPES:
         raise MXNetError("unknown KVStore type %r (known: %s)"
                          % (name, _LOCAL_TYPES + _DIST_TYPES))

@@ -1,27 +1,219 @@
-"""MeshPlan: the ``data × model × sequence × pipe`` declaration.
+"""Meshes and ``MeshPlan``: the port of ``mxnet_tpu/parallel/mesh.py``.
 
-The counterpart of ``MeshPlan`` in ``mxnet_tpu/parallel/mesh.py``.  The
-arithmetic (``size``/``present``/``total``/``axis_sizes``/
-``batch_axes``/``resolve``/``coerce``/``describe``) is the reference's;
-what a plan may hold, and where its ranks live, is narrower:
+**Meshes** (``make_mesh``, ``data_parallel_mesh``, ``replicated``,
+``batch_sharded``, reference ``mesh.py:21-45,194-200``).  A port
+:class:`Mesh` names the device of each rank and how its ranks reach each
+other, which is one of two placements (``parallel/comm.py``):
+
+- **in-process ranks**: every rank names one device and the K ranks run
+  in turn on it, the counterpart of the reference's
+  ``make_mesh((k,), ("data",), devices)`` on one card; a one-card host
+  trains at any K this way (NCCL refuses two ranks on one GPU).
+- **one rank per process** over ``torch.distributed`` (NCCL on cards,
+  gloo on the CPU): ``data_parallel_mesh()`` once a process group is up,
+  or ``make_mesh(..., process_group=True)``; each process holds its rank.
+
+The placement is chosen when the mesh is built and never swapped.
+``PartitionSpec`` and ``NamedSharding`` are the reference's names for a
+layout; here they only declare one (a batch split over ``data``, or a
+parameter replicated).
+
+**``MeshPlan``** (``data × model × sequence × pipe``): the arithmetic
+(``size``/``present``/``total``/``axis_sizes``/``batch_axes``/
+``resolve``/``coerce``/``describe``) is the reference's; what a plan may
+hold, and where its ranks live, is narrower:
 
 - The port runs a plan on **one device**.  The ranks of its ``sequence``
   axis are a leading dimension of size K of the activations — the
   ``vmap(axis_name="sequence")`` spelling of the reference's
   per-replica program: ``ppermute`` is ``torch.roll`` along that
   dimension, ``pmean`` a mean over it, ``axis_index`` an ``arange``.
-  The numbers are those of the reference's plan; no O(T/K) memory per
-  card is claimed.  Spreading the ranks over cards with NCCL is
-  ROADMAP.md queue A, items 6-7.
-- ``data`` therefore resolves to 1; a plan with ``data > 1`` can be
-  declared, but :meth:`MeshPlan.on_one_device` (which the trainer calls)
-  raises, naming item 6 (distributed data parallel).
-- ``model > 1`` raises: the tensor-parallel layers over NCCL are item 7.
+  The ranks of its ``data`` axis run in turn, each on its rows of the
+  batch (``transformer/step.py``).  The numbers are those of the
+  reference's plan; no O(T/K) memory per card is claimed.
+- ``model > 1`` raises: the tensor-parallel layers over NCCL are
+  ROADMAP.md queue A, item 7.
 - ``pipeline > 1`` raises: the 1F1B pipeline is the rest of item 8.
 """
 from __future__ import annotations
 
-__all__ = ["MeshPlan"]
+import numpy as _np
+import torch
+
+__all__ = ["make_mesh", "data_parallel_mesh", "local_device_count",
+           "replicated", "batch_sharded", "MeshPlan", "Mesh",
+           "NamedSharding", "PartitionSpec"]
+
+
+class PartitionSpec(tuple):
+    """A layout per dimension, by mesh axis name (``None``: not split);
+    ``PartitionSpec()`` is replicated (the reference's jax name)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self):
+        return "PartitionSpec%s" % (tuple.__repr__(self),)
+
+
+class NamedSharding:
+    """A mesh and a :class:`PartitionSpec`: where a tensor's parts live."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    @property
+    def device(self):
+        """The device this process puts a tensor of this layout on."""
+        return self.mesh.local_device
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and self.mesh is other.mesh
+                and self.spec == other.spec)
+
+    def __repr__(self):
+        return "NamedSharding(%r, %r)" % (self.mesh, self.spec)
+
+
+class Mesh:
+    """Named axes over ranks, each rank naming its device.
+
+    ``process_group`` False: every rank lives in this process (they must
+    all name one device, and run in turn on it); True: one rank per
+    process over the default ``torch.distributed`` group, this process
+    holding rank ``get_rank()`` on ``devices`` of that rank."""
+
+    def __init__(self, devices, axis_names, process_group=False):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.process_group = bool(process_group)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError("mesh of shape %r needs %d axis names, got %r"
+                             % (self.devices.shape, self.devices.ndim,
+                                self.axis_names))
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self):
+        return int(self.devices.size)
+
+    def axis_size(self, axis):
+        return int(self.shape.get(axis, 1))
+
+    @property
+    def local_device(self):
+        """The device of this process's ranks."""
+        if self.process_group:
+            import torch.distributed as dist
+            return self.devices.flat[dist.get_rank()]
+        return self.devices.flat[0]
+
+    def comm(self, axis="data"):
+        """The collectives over ``axis`` for this mesh's placement
+        (``parallel/comm.py``)."""
+        from . import comm as _comm
+        k = self.axis_size(axis)
+        if self.process_group:
+            return _comm.ProcessGroupComm(k, self.local_device)
+        devs = {str(d) for d in self.devices.flat}
+        if len(devs) != 1:
+            raise ValueError(
+                "the ranks of an in-process mesh run in turn on one device; "
+                "this mesh names %s.  One rank per card is one process per "
+                "card over torch.distributed (data_parallel_mesh() after "
+                "init_process_group); the ranks of a multi-card process are "
+                "ROADMAP.md queue A, item 6(b)" % sorted(devs))
+        return _comm.InProcessComm(k, self.local_device)
+
+    def __repr__(self):
+        return "Mesh(%r, %s%s)" % (self.shape, self.local_device,
+                                   ", process_group" if self.process_group
+                                   else "")
+
+
+def _device_list(devices):
+    from ..base import resolve_device
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            resolve_device(None)   # raises: no CUDA device
+        return [torch.device("cuda", i) for i in range(n)]
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    return [resolve_device(d) for d in devices]
+
+
+def local_device_count():
+    """Cards visible to this process (the reference's local device
+    count)."""
+    return torch.cuda.device_count()
+
+
+def make_mesh(shape=None, axis_names=("data",), devices=None,
+              process_group=False):
+    """Build a :class:`Mesh`.  ``shape`` is a tuple matching
+    ``axis_names``; default: every device on one ``data`` axis.  A list
+    naming one device K times puts K in-process ranks on it.  With
+    ``process_group=True`` the ranks are the processes of the default
+    ``torch.distributed`` group (``devices``: each rank's device; default
+    this process's card, or the CPU under gloo)."""
+    if process_group:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError("make_mesh(process_group=True) needs "
+                               "torch.distributed.init_process_group first")
+        world = dist.get_world_size()
+        if devices is None:
+            if dist.get_backend() == "nccl":
+                devices = [torch.device("cuda", torch.cuda.current_device())
+                           ] * world
+            else:
+                devices = ["cpu"] * world
+        devs = _device_list(devices)
+        if shape is None:
+            shape = (world,) + (1,) * (len(axis_names) - 1)
+        if int(_np.prod(shape)) != world or len(devs) != world:
+            raise ValueError("a process-group mesh has one rank per process: "
+                             "shape %r and %d devices against world size %d"
+                             % (shape, len(devs), world))
+    else:
+        devs = _device_list(devices)
+        if shape is None:
+            shape = (len(devs),) + (1,) * (len(axis_names) - 1)
+    n = int(_np.prod(shape))
+    if n > len(devs):
+        raise ValueError("mesh shape %r needs %d devices, have %d"
+                         % (shape, n, len(devs)))
+    arr = _np.empty(n, dtype=object)
+    for i, d in enumerate(devs[:n]):
+        arr[i] = d
+    return Mesh(arr.reshape(shape), axis_names, process_group=process_group)
+
+
+def data_parallel_mesh(num=None):
+    """All ranks on one ``data`` axis: the world of the process group
+    once one is up (one rank per process), else one rank per card
+    visible to this process (``num`` of them)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return make_mesh(None, ("data",), process_group=True)
+    devices = _device_list(None)
+    if num is not None:
+        devices = devices[:num]
+    return make_mesh((len(devices),), ("data",), devices)
+
+
+def replicated(mesh):
+    return NamedSharding(mesh, PartitionSpec())
+
+
+def batch_sharded(mesh, axis="data"):
+    """Sharding for a batch tensor: leading dim split on ``axis``."""
+    return NamedSharding(mesh, PartitionSpec(axis))
 
 
 class MeshPlan:
@@ -94,12 +286,8 @@ class MeshPlan:
 
     def on_one_device(self):
         """The plan as the port runs it: every rank on one device, so a
-        deferred ``data`` axis resolves to 1; ``data > 1`` raises."""
-        if self.size("data") > 1:
-            raise NotImplementedError(
-                "MeshPlan(data=%d): the port runs a plan's ranks on one "
-                "device; data parallelism over NCCL is ROADMAP.md queue A, "
-                "item 6" % self.data)
+        deferred ``data`` axis resolves to 1; a declared ``data`` axis
+        runs its ranks in turn."""
         return self if self.data is not None else MeshPlan(
             data=1, model=self.model, sequence=self.sequence,
             pipeline=self.pipe)
@@ -129,8 +317,15 @@ class MeshPlan:
 
     def batch_axes(self):
         """The axes a (batch, tokens) batch is sharded over — what the
-        gradient mean covers; ``("sequence",)`` or ``()`` in the port."""
+        gradient mean covers."""
         return tuple(a for a in ("data", "sequence") if self.present(a))
+
+    def batch_spec(self):
+        """``PartitionSpec`` of a ``(batch, tokens)`` batch: rows over
+        ``data``, tokens over ``sequence`` (collapsed axes absent)."""
+        return PartitionSpec("data" if self.present("data") else None,
+                             "sequence" if self.present("sequence")
+                             else None)
 
     def describe(self):
         return {"data": self.size("data"), "model": self.model,

@@ -21,11 +21,10 @@
   ``telemetry/metrics.py``.
 
 ``PRECISION_MASTER_F32`` and ``PRECISION_F32_GRAD_REDUCE`` keep the
-reference's names.  Nothing in the port reads them yet: the first gates
-the ZeRO-1 masters' budget row (ROADMAP.md queue A, item 13), the second
-the data-parallel gradient reduction dtype (item 6); the replicated and
-mesh tiers on one device neither shard masters nor reduce over a data
-axis.
+reference's names.  Nothing in the port reads them: they are the
+reference's mutation seams for its static analysis (ROADMAP.md queue A,
+item 13).  The port's ZeRO-1 tier always keeps the f32 masters as each
+rank's shard and reduces the gradients in f32 (``parallel/zero.py``).
 """
 from __future__ import annotations
 

@@ -30,8 +30,9 @@ import os
 import signal
 import time
 
-__all__ = ["Fault", "ChaosSchedule", "ChaosError", "install", "uninstall",
-           "installed", "maybe_inject", "triggered", "SITES"]
+__all__ = ["Fault", "ChaosSchedule", "ChaosError", "install",
+           "install_from_env", "uninstall", "installed", "maybe_inject",
+           "triggered", "SITES"]
 
 # every probe site shipped in mxnet_tpu_torch/, with its one-line contract
 SITES = {
@@ -39,6 +40,10 @@ SITES = {
     "serving.batch": "count = batch number; delay = runner stall",
     "serving.route": "count = routed-request ordinal; ctx = (model, tier)",
     "serving.swap": "fleet hot swap; ctx = model name",
+    "trainer.step": "count = step number, before dispatch; ctx = trainer",
+    "checkpoint.save": "between the two halves of a snapshot's write",
+    "ckpt.shard_write": "before each shard file is installed; "
+                        "ctx = (step, rank)",
 }
 
 
@@ -142,3 +147,26 @@ def maybe_inject(site, count=None, ctx=None):
                 exc = exc("chaos: injected failure at %s hit %d"
                           % (site, f.at))
             raise exc
+
+
+def install_from_env(var="MXTPU_CHAOS"):
+    """Arm faults from an env spec — the subprocess chaos hook.
+
+    Format: comma-separated ``site:at:action[:arg]`` entries, e.g.
+    ``MXTPU_CHAOS="trainer.step:7:kill"``.  Returns the installed
+    schedule, or None when the var is unset/empty."""
+    spec = os.environ.get(var, "").strip()
+    if not spec:
+        return None
+    faults = []
+    for entry in spec.split(","):
+        parts = entry.strip().split(":")
+        if len(parts) < 3:
+            raise ValueError("bad %s entry %r (want site:at:action[:arg])"
+                             % (var, entry))
+        site, at, action = parts[0], int(parts[1]), parts[2]
+        arg = None
+        if len(parts) > 3 and parts[3]:
+            arg = float(parts[3]) if action == "delay" else parts[3]
+        faults.append(Fault(site, at, action, arg))
+    return install(ChaosSchedule(faults))

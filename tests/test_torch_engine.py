@@ -313,8 +313,8 @@ def test_prefetch_hbm_bound_reported_and_batches_train():
 
 
 def test_device_feed_refusals_and_reset():
-    """``sharding`` (A6) still raises; ``transform`` and ``"roll_over"``
-    are ported (A3): the feed applies the transform to the data alone,
+    """``sharding`` (A6(a)) feeds the trainer's fast path; ``transform``
+    and ``"roll_over"`` are ported (A3): the feed applies the transform to the data alone,
     and ``roll_over`` gives the reference's batches over two epochs."""
     X, y = _data(n=4 * BATCH)
     feed = DeviceFeedIter(NDArrayIter(-X, y, BATCH), transform=abs,
@@ -322,9 +322,19 @@ def test_device_feed_refusals_and_reset():
     got = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in feed]
     np.testing.assert_array_equal(np.concatenate([g[0] for g in got]), X)
     np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), y)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PrefetchToDeviceIter(NDArrayIter(X, y, BATCH), sharding=object(),
-                             device="cpu")
+    # ported by item 6(a): a prefetch on a trainer's batch_sharding puts
+    # the batches where its ranks live, and the step takes them as they
+    # are (its fast path: nothing moved), with the host batches' numbers
+    _, tr = _trainer()
+    _, tr_host = _trainer()
+    pf = PrefetchToDeviceIter(NDArrayIter(X, y, BATCH),
+                              sharding=tr.batch_sharding)
+    assert pf.sharding.spec == ("data",)
+    for b, s in zip(pf, range(0, len(X), BATCH)):
+        assert float(tr.step(b.data[0], b.label[0])) == float(
+            tr_host.step(X[s:s + BATCH], y[s:s + BATCH]))
+    assert tr.put_stats == {"reused": 8, "moved": 0}
+    assert tr_host.put_stats == {"reused": 0, "moved": 8}
     rolls = []
     for it in (NDArrayIter(X[:-3], y[:-3], BATCH,
                            last_batch_handle="roll_over"),

@@ -192,11 +192,11 @@ def _batch(batch=4, seed=1):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
-def _jax_train(k_ranks, attention):
+def _jax_train(k_ranks, attention, data=1, zero=0):
     mx.random.seed(0)
-    plan = JaxPlan(data=1, sequence=k_ranks)
+    plan = JaxPlan(data=data, sequence=k_ranks)
     tr = JaxTrainer(JaxLM(JaxConfig(**CFG, attention=attention)), None, "sgd",
-                    dict(SGD), mesh_plan=plan)
+                    dict(SGD), mesh_plan=plan, zero=zero)
     x, y = _batch()
     losses = [float(tr.step(NDArray(jnp.asarray(x)),
                             NDArray(jnp.asarray(y))).asnumpy())
@@ -266,19 +266,59 @@ def test_mesh_plan_declares_the_reference_arithmetic():
         assert prog.local_shape(name) == jprog.local_shape(name)
 
 
+def _port_train(plan, zero=0, attention="ring"):
+    tr = DataParallelTrainer(
+        TransformerLM(TransformerLMConfig(**CFG, attention=attention)), None,
+        "sgd", dict(SGD), mesh_plan=plan, zero=zero, device="cpu")
+    x, y = _batch()
+    losses = [float(tr.step(x, y)) for _ in range(STEPS)]
+    return tr, losses
+
+
+def _assert_mesh_params(got, want_params):
+    assert list(got) == list(want_params)
+    for name, arr in got.items():
+        np.testing.assert_allclose(arr, want_params[name], rtol=0,
+                                   atol=PARAM_TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("make,item", [
     (lambda: MeshPlan(model=2), "item 7"),
     (lambda: MeshPlan(sequence=2, pipeline=2), "item 8"),
-    (lambda: DataParallelTrainer(TransformerLM(TransformerLMConfig(**CFG)),
-                                 None, "sgd", mesh_plan=MeshPlan(data=2),
-                                 device="cpu"), "item 6"),
-    (lambda: DataParallelTrainer(TransformerLM(TransformerLMConfig(**CFG)),
-                                 None, "sgd", sequence_parallel=2, zero=1,
-                                 device="cpu"), "item 6"),
+    (lambda: (MeshPlan(data=2), 0, (1, 2, 0)), "item 6"),
+    (lambda: (MeshPlan(sequence=2), 1, (2, 1, 1)), "item 6"),
 ], ids=["model", "pipeline", "data", "zero"])
 def test_unported_axes_and_modes_raise(make, item):
+    if item == "item 6":
+        # ported by item 6(a): a data axis of 2 ranks (in turn, each on
+        # its rows), and zero=1 beside the sequence ranks, train and are
+        # held to the reference's plan at the mesh tier's tolerances
+        plan, zero, (seq, data, jzero) = make()
+        want_losses, want_params = _jax_train(seq, "ring", data=data,
+                                              zero=jzero)
+        tr, losses = _port_train(plan, zero=zero)
+        np.testing.assert_allclose(losses, want_losses, rtol=0,
+                                   atol=LOSS_TOL)
+        _assert_mesh_params(tr.mesh_params(), want_params)
+        return
     with pytest.raises(NotImplementedError, match=item):
         make()
+
+
+def test_data_by_sequence_zero1_matches_reference():
+    """``MeshPlan(data=2, sequence=2)`` with ``zero=1``: the data ranks in
+    turn around the leading sequence dimension, each data rank's flat
+    gradient reduce-scattered after the sequence mean, each updating its
+    (shard,) slice; against the reference on 4 virtual devices."""
+    want_losses, want_params = _jax_train(2, "ring", data=2, zero=1)
+    tr, losses = _port_train(MeshPlan(data=2, sequence=2), zero=1)
+    np.testing.assert_allclose(losses, want_losses, rtol=0, atol=LOSS_TOL)
+    _assert_mesh_params(tr.mesh_params(), want_params)
+    zp = tr._mesh_zero_plan
+    assert zp.k == 2 and len(tr._mesh_state_leaves) == 2
+    assert all(tuple(leaf.shape) == (zp.shard,)
+               for leaves in tr._mesh_state_leaves for leaf in leaves)
+    assert tr.batch_sharding.spec == ("data", "sequence")
 
 
 def test_mesh_tier_validates_block_and_batch():
