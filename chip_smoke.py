@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--profile]
 
-Thirty-one phases; any failure exits non-zero and prints no result line.
+Thirty-three phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
-   ``analysis/codegen.py`` emits among them), run each kernel's wrapper on
+   ``analysis/codegen.py`` emits among them, and the 43 variants phase
+   15 builds), run each kernel's wrapper on
    the card at the shapes the serving path gives it plus ragged ones, and
    hold it against its plain torch version (LayerNorm: atol = rtol =
    1e-5, f32 — only the reduction order differs; reruns bitwise).  Time
@@ -431,8 +432,9 @@ Thirty-one phases; any failure exits non-zero and prints no result line.
     (``min(nproc, 16)``: ``ImageRecordIter`` takes ``preprocess_threads``
     as the worker count); the most workers W and the ring depth that fit
     ``P26_SHM_SHARE`` of the free ``/dev/shm`` (W x depth slots of one
-    38.5 MB batch).  (b) ``io.bench.run`` over a ``.rec`` of 3,328
-    records (13 batches of 256) packed from the JPEG fixtures of
+    38.5 MB batch).  (b) ``io.bench.run`` over a ``.rec`` of 1,792
+    records (7 batches of 256; 3,328 until the script neared its time
+    limit) packed from the JPEG fixtures of
     ``tests/data/torch_io/`` (500 x 375), resize 256, crop 224: images/s
     fed to the host at W = 0, 4, 8 ... up to the most that fit, over a
     warm-up and a timed epoch, and the best W; W = 0 and W = best give the same
@@ -609,9 +611,10 @@ Thirty-one phases; any failure exits non-zero and prints no result line.
     kernel: the reference's code there reaches no ``pallas_call``).
     (a) Every name the slice registers (59, each alias through its
     op): the linalg ops at a batch of 32 matrices of 1,024 x 1,024 (the
-    CPU computes the first 8, against which the card's first 8 are held),
+    CPU computes the first 4, against which the card's first 4 are held),
     ``count_sketch`` and the FFTs at compact bilinear pooling's sizes
-    (25,088 x 512 -> 8,192; the CPU computes the FFTs' first 1,568 rows),
+    (25,088 x 512 -> 8,192; the CPU computes the FFTs' first 784 rows,
+    one image's),
     the rest at the reference's op-sweep shapes with a batch of 256; card
     against CPU, forward and gradients, float32
     (TF32 off) and float64: f64 within 1e-10, f32 elementwise within
@@ -643,6 +646,41 @@ Thirty-one phases; any failure exits non-zero and prints no result line.
     the phase.  Phases 7 and 17 re-time a (kernel, head dim) pair whose
     chosen design missed, both designs in turns, and fail only if it
     misses again.
+
+32. **Data parallelism in process** (A6(a)): ZeRO-1 ResNet-50 over 4
+    ranks through ``fit``, the TransformerLM at ``MeshPlan(data=2,
+    sequence=2)``, sharded restores and NCCL at world size 1.
+33. **The parameter server and the launcher** (A6(b), C17).  (a)
+    ``python -m mxnet_tpu_torch.tools.launch -n 2 --launcher local``:
+    two workers train ``resnet50_v1`` (f32, NCHW, 224 x 224, batch 128
+    each) through ``DataParallelTrainer(kvstore="dist_sync")`` on the one
+    card for 8 steps; their trainable parameters are bitwise equal after
+    every step, each launches B1 once a step, and B1 is held to its plain
+    version on the card (1e-7).  A one-process replay of the reference's
+    ``_dist_step`` (two halves, the mean gradient, rank 0's running
+    statistics; it runs beside (b) and (c)) holds every step's loss
+    (relative) and parameters within 1e-4.  Prints
+    images/s, peak memory a worker, the reduction's backend and its ms a
+    step.  (b) ``launch -n 2 -s 1 --ps-state-dir D`` of
+    ``tools/train_imagenet`` with ``--kv-store dist_async`` (ResNet-50,
+    2 batches of 32 fixture records a worker; (b) and (c) run side by
+    side): the server process (a
+    host role, by design) logs each push once (its WAL sequence is the
+    inits, optimizers, incarnations and pushes sent), both workers pull
+    identical weights after the final barrier, and SIGTERM leaves a
+    final snapshot holding them.  (c) ``tools/train_mnist`` (phase
+    27's learnable MNIST-layout files) with ``--kv-store dist_async``
+    under ``launch -n 1 -s 1 --restart-failed 1`` and
+    ``MXTPU_CHAOS=kvstore.server_apply:13:kill`` on the server:
+    the final pulled parameters are byte-identical to an uncrashed run;
+    prints the recovery time and the WAL records replayed.  (d)
+    ``tools/bandwidth``: in-process comm at K = 2 and 4, NCCL at world
+    size 1, gloo at 2 processes (a CUDA buffer through a host copy and
+    handed over directly), kvstore push + pull at 64 MB.  (e) C17 on the
+    card: ``with mx.cpu():`` makes host arrays, ``with mx.gpu(0):`` card
+    arrays, and ``gpu_memory_info(0)`` agrees with
+    ``torch.cuda.mem_get_info``.  The kernels line's B1 record gains
+    ``launches_phase33``.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -878,16 +916,19 @@ def phase_kernels():
     t0 = time.monotonic()
     emitted = {lk.symbol: lk.src for lk in cg.shipped_lowered()}
     emitted.update(_dq_tile_sources())
+    # phase 15's variants too, so every nvcc of the script starts here
+    variants = _gen_variant_sources()
     t1 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ptxas = pool.submit(build.ptxas_report, PTXAS_SOURCES)
-        libs = build.build_all(build.KERNEL_SOURCES, emitted)
+        libs = build.build_all(build.KERNEL_SOURCES,
+                               dict(emitted, **variants))
         report = ptxas.result()
     print("phase 1: lowered the 6 shipped mxgen chains to CUDA in %.2f s; "
-          "built %s in %.2f s (one nvcc each, started together, beside "
-          "ptxas -v of %s)"
-          % (t1 - t0, sorted(libs), time.monotonic() - t1,
-             list(PTXAS_SOURCES)))
+          "built %s and phase 15's %d variants in %.2f s (one nvcc each, "
+          "started together, beside ptxas -v of %s)"
+          % (t1 - t0, sorted(n for n in libs if n not in variants),
+             len(variants), time.monotonic() - t1, list(PTXAS_SOURCES)))
     for source, rows in report.items():
         for r in rows:
             print("phase 1: ptxas %s.cu %s: %s registers, spill stores %s "
@@ -3175,6 +3216,58 @@ def phase_gen_kernels():
     return out
 
 
+def _gen_variant_sources():
+    """``{symbol: CUDA text}`` of every kernel phase 15 builds beyond the
+    shipped six (the seam's mutants, the two sweeps, each plan variant of
+    ``_gen_plan_times``), lowered as phase 15 lowers them: phase 1 builds
+    them in its one parallel ``nvcc`` batch, and phase 15 finds them
+    built (a library is named by the hash of its text)."""
+    from mxnet_tpu_torch.analysis import codegen as cg
+    out = {}
+    chains = {lk.name: lk.chain for lk in cg.shipped_lowered()}
+    cg.MXGEN_LOWER_EXACT = False
+    try:
+        for n, c in chains.items():
+            if "sub" in c.prims:
+                lk = cg.lower_chain(c)
+                out[lk.symbol] = lk.src
+    finally:
+        cg.MXGEN_LOWER_EXACT = True
+    sweep = cg.lower_chain(_sweep_ir())
+    if sweep.src is not None:
+        out[sweep.symbol] = sweep.src
+    for c in cg._ROW_CLUSTERS:
+        lk = cg.lower_chain(_rows_sweep_ir(), "_gen_rows_sweep_c%d" % c,
+                            cluster=c)
+        out[lk.symbol] = lk.src
+    for lk in cg.shipped_lowered():
+        for v in _gen_plan_variants(lk).values():
+            out[v.symbol] = v.src
+    return out
+
+
+def _gen_plan_variants(lk):
+    """``{variant: lowered kernel}`` of one shipped kernel for
+    ``_gen_plan_times``: the group plan, and each cluster size (row
+    plan) or each flat size (flat plan); empty on another plan."""
+    from mxnet_tpu_torch.analysis import codegen as cg
+    if lk.plan not in ("rows", "flat"):
+        return {}
+    vs = {"groups": cg.lower_chain(lk.chain, lk.name + "_groups",
+                                   plan="groups")}
+    if lk.plan == "rows":
+        for c in cg._ROW_CLUSTERS:
+            if lk.layout.fits(c) is None:
+                vs["c%d" % c] = cg.lower_chain(
+                    lk.chain, "%s_c%d" % (lk.name, c), plan="rows",
+                    cluster=c)
+    else:
+        for t, e in cg._FLAT_SIZES:
+            vs["t%d_e%d" % (t, e)] = cg.lower_chain(
+                lk.chain, "%s_t%d_e%d" % (lk.name, t, e), flat=(t, e))
+    return vs
+
+
 def _gen_plan_times(kernels, worst, floor_ms):
     """Each row-plan kernel emitted at every cluster size it takes, and
     each flat-plan kernel at every size of ``codegen._FLAT_SIZES``
@@ -3188,30 +3281,17 @@ def _gen_plan_times(kernels, worst, floor_ms):
     or the group plan than the flat plan.  Returns {kernel name:
     {variant: ms}}."""
     import torch
-    from mxnet_tpu_torch.analysis import codegen as cg
     from mxnet_tpu_torch.ops import build
     from mxnet_tpu_torch.ops import generated_kernels as gen
 
     variants, pinned = {}, {}
     for gk in kernels:
         lk = gk.lowered
-        if lk.plan not in ("rows", "flat"):
+        vs = _gen_plan_variants(lk)
+        if not vs:
             continue
-        vs = {"groups": cg.lower_chain(lk.chain, lk.name + "_groups",
-                                       plan="groups")}
-        if lk.plan == "rows":
-            for c in cg._ROW_CLUSTERS:
-                if lk.layout.fits(c) is None:
-                    vs["c%d" % c] = cg.lower_chain(
-                        lk.chain, "%s_c%d" % (lk.name, c), plan="rows",
-                        cluster=c)
-            pinned[gk.name] = "c%d" % lk.cluster
-        else:
-            for t, e in cg._FLAT_SIZES:
-                vs["t%d_e%d" % (t, e)] = cg.lower_chain(
-                    lk.chain, "%s_t%d_e%d" % (lk.name, t, e), flat=(t, e))
-            pinned[gk.name] = "t%d_e%d" % (lk.threads,
-                                           lk.layout.per_thread)
+        pinned[gk.name] = "c%d" % lk.cluster if lk.plan == "rows" else \
+            "t%d_e%d" % (lk.threads, lk.layout.per_thread)
         variants[gk.name] = vs
     build.build_all((), {v.symbol: v.src for vs in variants.values()
                          for v in vs.values()})
@@ -5252,10 +5332,11 @@ def phase_optimizers():
 
 
 # slice 19: the data pipeline (phase 26).  The .rec holds P26_RECORDS
-# records (13 batches of 256) cycling the 16 JPEG fixtures of
+# records (7 batches of 256, cut from 13 to keep the script inside its
+# time limit) cycling the 16 JPEG fixtures of
 # tests/data/torch_io/ (500 x 375); the main path's recipe is phase 22
 # (c)'s: NHWC bf16 DataParallelTrainer, SGD_PARAMS, engine.bulk(4)
-P26_RECORDS, P26_BATCH, P26_SIDE, P26_RESIZE = 3328, 256, 224, 256
+P26_RECORDS, P26_BATCH, P26_SIDE, P26_RESIZE = 1792, 256, 224, 256
 P26_WARMUP, P26_TIMED, P26_PROFILED = 2, 10, 3
 P26_GLUON_WARMUP, P26_GLUON_TIMED = 1, 3
 P26_DEPTH = 2            # the pipeline's ring: prefetch_buffer slots a worker
@@ -6163,7 +6244,7 @@ def _p27_small(ctx):
     prob.backward()
     out["custom"] = prob.asnumpy()
     out["custom_grad"] = x.grad.asnumpy()
-    out["device"] = str(prob.context)
+    out["device"] = prob.context.type
     return out
 
 
@@ -7998,7 +8079,7 @@ P31_F64_TOL, P31_F32_TOL, P31_FLOOR_FACTOR = 1e-10, 1e-6, 10
 # (a): a batch of 32 matrices of 1,024 x 1,024; the card computes all 32
 # and the CPU the first P31_HELD of them, against which the card's first
 # P31_HELD are held (each matrix's outputs and gradients are its own)
-P31_LINALG, P31_HELD = (32, 1024), 8
+P31_LINALG, P31_HELD = (32, 1024), 4
 # compact bilinear pooling (Gao et al., CVPR 2016): VGG-16 conv5_3's 512
 # channels at 28 x 28 for a batch of 32 (25,088 rows), sketched to 8,192
 P31_CBP = (25088, 512, 8192)
@@ -8204,7 +8285,7 @@ def _p31_cases():
         if c.name.startswith("_linalg_"):
             c.held = P31_HELD
         elif c.name in ("_contrib_fft", "_contrib_ifft"):
-            c.held = rows // 16       # 2 of the batch's 32 images
+            c.held = rows // 32       # 1 of the batch's 32 images
     return cases
 
 
@@ -9440,6 +9521,585 @@ def phase_data_parallel():
     return launches
 
 
+# -- slice 26: the parameter server and the launcher --------------------------
+P33_DEV = "cuda"
+P33_BATCH, P33_STEPS, P33_SIDE = 128, 8, 224   # (a): per worker
+P33_PLAIN_TOL, P33_FIRST_TOL = 1e-7, 1e-4
+P33_ASYNC_BATCH, P33_ASYNC_RECORDS = 32, 64    # (b): 2 batches a worker
+P33_CHAOS = "kvstore.server_apply:13:kill"     # (c)
+P33_BW_MB = 64                                 # (d)
+P33_TIMEOUT = 600
+
+_P33_SYNC_WORKER = """
+import hashlib, json, sys, time
+import numpy as np
+import torch
+from mxnet_tpu_torch import kvstore
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.gluon.utils import from_jax_params
+from mxnet_tpu_torch.ops import fused_optimizer as fo
+from mxnet_tpu_torch.parallel import DataParallelTrainer
+out, arrays, data, dev = sys.argv[1:5]
+steps, batch = int(sys.argv[5]), int(sys.argv[6])
+cuda = dev == "cuda"
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+kv = kvstore.create("dist_sync")
+r = kv.rank
+d = np.load(data)
+net = from_jax_params(vision.resnet50_v1(), dict(np.load(arrays)),
+                      device=dev)
+tr = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                         {"learning_rate": 0.05, "momentum": 0.9,
+                          "wd": 1e-4}, kvstore=kv, device=dev)
+names = [n for n, p in net.collect_params().items() if p.grad_req != "null"]
+exch = []
+exchange = tr._dist_exchange
+
+def timed(loss):
+    sync()
+    t0 = time.perf_counter()
+    got = exchange(loss)
+    sync()
+    exch.append(time.perf_counter() - t0)
+    return got
+tr._dist_exchange = timed
+
+def flat():
+    return torch.cat([net.collect_params()[n].tensor().detach().reshape(-1)
+                      for n in names])
+
+def digest(v):
+    i = v.view(torch.int32).to(torch.int64)
+    return "%d:%d" % (int(i.sum()), int((i * torch.arange(
+        1, i.numel() + 1, device=i.device)).sum()))
+rows = slice(r * batch, (r + 1) * batch)
+xs = [torch.from_numpy(d["x"][i][rows]).to(dev) for i in range(2)]
+ys = [torch.from_numpy(d["y"][s][rows]).to(dev) for s in range(steps)]
+fo.reset_launch_counts()
+if cuda:
+    torch.cuda.reset_peak_memory_stats()
+losses, b1, digests, kept = [], [], [], []
+for s in range(steps):
+    if s == 1:
+        sync()
+        t0 = time.perf_counter()
+    before = fo.launch_counts()["fused_sgd_momentum"]
+    losses.append(float(tr.step(xs[s % 2], ys[s])))
+    b1.append(fo.launch_counts()["fused_sgd_momentum"] - before)
+    v = flat()
+    digests.append(digest(v))
+    if r == 0:
+        kept.append(v)          # a fresh copy on the card: saved below
+sync()
+secs = time.perf_counter() - t0
+for s, v in enumerate(kept):
+    np.save("%s/step_%d.npy" % (out, s), v.cpu().numpy())
+import torch.distributed as dist
+json.dump({"rank": r, "losses": losses, "b1": b1, "digests": digests,
+           "images_s": 2 * batch * (steps - 1) / secs,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                        if cuda else 0.0),
+           "exchange_ms": sorted(exch)[len(exch) // 2] * 1e3,
+           "backend": dist.get_backend(),
+           "rule": kvstore.backend_rule(kv.num_workers)[1],
+           "buckets": len(tr._g_flat)},
+          open("%s/rank%d.json" % (out, r), "w"))
+kv.barrier()
+"""
+
+_P33_ASYNC_WORKER = """
+import hashlib, json, sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.tools import train_imagenet
+out = sys.argv[1]
+mx.random.seed(0)
+np.random.seed(0)
+mod = train_imagenet.main(sys.argv[2:])   # the server rank exits inside
+kv = mod._kvstore
+kv.barrier()
+blob = b"".join(kv._ps_client.pull_array(i).tobytes()
+                for i in range(len(mod._param_names)))
+json.dump({"rank": kv.rank, "pushes": kv._push_step,
+           "keys": len(mod._param_names),
+           "digest": hashlib.sha256(blob).hexdigest()},
+          open("%s/async_%d.json" % (out, kv.rank), "w"))
+kv.barrier()
+kv.close()
+"""
+
+_P33_MNIST_WORKER = """
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.tools import train_mnist
+out = sys.argv[1]
+mx.random.seed(0)
+np.random.seed(0)
+mod = train_mnist.main(sys.argv[2:])      # the server rank exits inside
+kv = mod._kvstore
+with open(out, "wb") as f:
+    f.write(b"".join(kv._ps_client.pull_array(i).tobytes()
+                     for i in range(len(mod._param_names))))
+print("P33C pushes %d failovers %d reconnects %d"
+      % (kv._push_step, kv._ps_client.failovers, kv._ps_client.reconnects))
+kv.close()
+"""
+
+
+def _p33_launch(args, label, timeout=P33_TIMEOUT):
+    """Run ``python -m mxnet_tpu_torch.tools.launch ARGS`` from the
+    repository root in its own session (every rank it starts is stopped
+    with it on a timeout); returns (stdout, stderr)."""
+    import os
+    import signal
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + \
+        os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("MXTPU_CHAOS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch"] + args,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError("%s: the launch ran past %d s" % (label, timeout))
+    if proc.returncode:
+        raise RuntimeError("%s: the launch exited %d:\n%s\n%s"
+                           % (label, proc.returncode, out[-3000:],
+                              err[-3000:]))
+    return out, err
+
+
+def _p33_data(steps, batch, side, seed=33):
+    """Two global batches of seeded images (cycled) and each step's
+    labels: what the workers split and the replay runs."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(2, 2 * batch, 3, side, side).astype(np.float32)
+    y = rng.randint(0, 1000, (steps, 2 * batch)).astype(np.int64)
+    return x, y
+
+
+def _p33_replay(arrays, x, y, steps, batch, dev, each_step):
+    """The reference's ``_dist_step`` over two workers, in one process:
+    each half's mean-loss gradient (BatchNorm on its own batch, and rank
+    0's running statistics: the second half runs on a copy), their sum
+    times 1/2, the fused update (B1).  Calls ``each_step(s, flat
+    parameters on the host)`` after every step; returns (losses, B1's
+    max |error| against its plain version at the first step)."""
+    import torch
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.utils import from_jax_params
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer
+    net = from_jax_params(vision.resnet50_v1(), arrays, device=dev)
+    tr = DataParallelTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(SGD_PARAMS), device=dev)
+    names = [n for n, p in net.collect_params().items()
+             if p.grad_req != "null"]
+    xs = [torch.from_numpy(x[i]).to(dev) for i in range(2)]
+    losses, b1_err = [], None
+    for s in range(steps):
+        xb, yb = xs[s % 2], torch.from_numpy(y[s]).to(dev)
+        if not tr._ready:
+            tr._setup(xb)
+        lr = tr._next_step()
+        net.train(True)
+        halves, ls = [], []
+        for h in (0, 1):
+            rows = slice(h * batch, (h + 1) * batch)
+            saved = [a.detach().clone() for a in tr._aux_tensors] \
+                if h else None
+            for gf in tr._g_flat:
+                gf.zero_()
+            loss = tr._forward_loss(net, xb[rows], yb[rows])
+            loss.backward()
+            ls.append(loss.detach())
+            halves.append([gf.detach().clone() for gf in tr._g_flat])
+            if saved is not None:
+                with torch.no_grad():
+                    for a, v in zip(tr._aux_tensors, saved):
+                        a.copy_(v)
+        with torch.no_grad():
+            for gf, g0, g1 in zip(tr._g_flat, *halves):
+                gf.copy_((g0 + g1) * 0.5)
+        losses.append(float((ls[0] + ls[1]) * 0.5))
+        if s == 0:
+            opt = tr._opt
+            w, g, m = (tr._w_flat[0].detach().clone(),
+                       tr._g_flat[0].detach().clone(),
+                       tr._states[0].detach().clone())
+            pw, pm = fo.fused_sgd_momentum_reference(
+                w, g, m, fo._scalars(lr, 1.0, 1.0, w.device),
+                momentum=opt.momentum, wd=opt._get_wd(0),
+                rescale_grad=opt.rescale_grad,
+                clip_gradient=opt.clip_gradient)
+        tr._apply_groups(lr, tr._step_count)
+        if s == 0:
+            b1_err = max(float((tr._w_flat[0] - pw).abs().max()),
+                         float((tr._states[0] - pm).abs().max()))
+        each_step(s, torch.cat([net.collect_params()[n].tensor().detach()
+                                .reshape(-1) for n in names]).cpu().numpy())
+    net.train(False)
+    return losses, b1_err
+
+
+def _p33_sync_launch(tmp, card, dev=None, steps=P33_STEPS, batch=P33_BATCH,
+                     side=P33_SIDE):
+    """(a)'s launch of two dist_sync workers: bitwise equal after every
+    step and B1 once a step in each; prints their rates.  Returns what
+    :func:`_p33_sync_replay` needs (the phase runs it beside (b) and
+    (c))."""
+    import json
+    import os
+    dev = P33_DEV if dev is None else dev
+    os.makedirs(tmp, exist_ok=True)
+    arrays = _p32_arrays() if side == P32_SIDE else _p33_small_arrays(side)
+    x, y = _p33_data(steps, batch, side)
+    apath, dpath = os.path.join(tmp, "arrays.npz"), os.path.join(
+        tmp, "data.npz")
+    np.savez(apath, **arrays)
+    np.savez(dpath, x=x, y=y)
+    script = os.path.join(tmp, "sync_worker.py")
+    with open(script, "w") as f:
+        f.write(_P33_SYNC_WORKER)
+    t0 = time.monotonic()
+    _, err = _p33_launch(["-n", "2", "--launcher", "local", sys.executable,
+                          script, tmp, apath, dpath, dev, str(steps),
+                          str(batch)], "phase 33 (a)")
+    wall = time.monotonic() - t0
+    res = [json.load(open(os.path.join(tmp, "rank%d.json" % r)))
+           for r in (0, 1)]
+    if res[0]["digests"] != res[1]["digests"]:
+        raise RuntimeError("phase 33 (a): the workers' parameters differ "
+                           "after a step: %r / %r"
+                           % (res[0]["digests"], res[1]["digests"]))
+    # (on the host, as in a dry run, the wrapper runs its plain version
+    # and counts no launch)
+    want_b1 = [1 if dev == "cuda" else 0] * steps
+    for rr in res:
+        if rr["b1"] != want_b1 or rr["buckets"] != 1:
+            raise RuntimeError("phase 33 (a): rank %d launched B1 %r over "
+                               "%d bucket(s) (want once a step)"
+                               % (rr["rank"], rr["b1"], rr["buckets"]))
+    first = np.load(os.path.join(tmp, "step_0.npy"))
+    last = np.load(os.path.join(tmp, "step_%d.npy" % (steps - 1)))
+    if first.tobytes() == last.tobytes():
+        raise RuntimeError("phase 33 (a): the parameters did not move")
+    r0 = res[0]
+    print("phase 33 (a): dist_sync ResNet-50, 2 workers x batch %d on one "
+          "card, %d steps: %.1f images/s (both workers, steps 2-%d), peak "
+          "memory %.2f / %.2f GiB a worker; the reduction over %s (%s), "
+          "%.3f ms a step (median; push + pull of %d floats); parameters "
+          "bitwise equal after every step; B1 once a step in each worker "
+          "(%r / %r); %.1f s for the launch [%s]"
+          % (batch, steps, r0["images_s"], steps, r0["peak_gib"],
+             res[1]["peak_gib"], r0["backend"],
+             r0["rule"], r0["exchange_ms"],
+             first.size + 1, r0["b1"], res[1]["b1"], wall, card), flush=True)
+    if r0["backend"] != "gloo" or "mxnet_tpu_torch.kvstore: rank 0 of 2 " \
+            "over gloo" not in err:
+        raise RuntimeError("phase 33 (a): the rule put two ranks on one "
+                           "card over %r" % r0["backend"])
+    RUNS["phase 33 (a)"] = dict(images_s=r0["images_s"],
+                                exchange_ms=r0["exchange_ms"])
+    return dict(tmp=tmp, dev=dev, steps=steps, batch=batch, arrays=arrays,
+                x=x, y=y, losses=r0["losses"],
+                b1=sum(rr["b1"][i] for rr in res for i in range(steps)))
+
+
+def _p33_sync_replay(run):
+    """(a)'s replay of ``_dist_step`` in this process: every step's loss
+    (relative) and parameters (absolute) within ``P33_FIRST_TOL`` of
+    rank 0's, and B1 vs its plain version within ``P33_PLAIN_TOL``.
+    Returns B1's launches in the workers."""
+    import os
+    import torch
+    steps, got = run["steps"], run["losses"]
+    d_steps = []
+
+    def each_step(s, v):
+        path = os.path.join(run["tmp"], "step_%d.npy" % s)
+        d_steps.append(float(np.abs(np.load(path) - v).max()))
+        os.remove(path)
+    # under torch's default precision flags (the workers')
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        losses, b1_err = _p33_replay(run["arrays"], run["x"], run["y"],
+                                     steps, run["batch"], run["dev"],
+                                     each_step)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    d_loss = [abs(a - b) / abs(b) for a, b in zip(got, losses)]
+    print("phase 33 (a): the one-process replay of _dist_step, every one "
+          "of %d steps: first-step loss %.6f vs %.6f; loss max relative "
+          "difference %.3g, max |dparam| %.3g (tol %g; bitwise at %d of %d "
+          "steps); B1 vs its plain version %.3g (tol %g)"
+          % (steps, got[0], losses[0], max(d_loss), max(d_steps),
+             P33_FIRST_TOL, sum(d == 0 for d in d_steps), steps, b1_err,
+             P33_PLAIN_TOL), flush=True)
+    if len(d_steps) != steps or max(d_loss + d_steps) > P33_FIRST_TOL:
+        raise RuntimeError("phase 33 (a): the workers are off the replay: "
+                           "loss %r, parameters %r (tol %g)"
+                           % (d_loss, d_steps, P33_FIRST_TOL))
+    if b1_err is None or b1_err > P33_PLAIN_TOL:
+        raise RuntimeError("phase 33 (a): B1 vs plain %r" % b1_err)
+    return run["b1"]
+
+
+def _p33_small_arrays(side):
+    """resnet50_v1's seeded weights resolved at a small input (a dry run
+    of the phase on the host)."""
+    import torch
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier(), ctx="cpu",
+                   rng=np.random.RandomState(0))
+    with torch.no_grad():
+        net(torch.zeros(1, 3, side, side))
+    return {n: p.tensor().detach().numpy().copy()
+            for n, p in net.collect_params().items()}
+
+
+def _p33_async(tmp, card, ctx="gpu", batch=P33_ASYNC_BATCH,
+               records=P33_ASYNC_RECORDS, side=P33_SIDE):
+    """(b) train_imagenet over dist_async, a server process beside two
+    workers; the server's WAL accounting and final snapshot."""
+    import json
+    import os
+    from mxnet_tpu_torch.io import bench
+    from mxnet_tpu_torch.resilience import checkpoint as ckpt
+    from mxnet_tpu_torch.resilience.server_state import ServerStateStore
+    os.makedirs(tmp, exist_ok=True)
+    rec, _ = bench.fixture_rec(records, tmp)
+    state = os.path.join(tmp, "ps_state")
+    script = os.path.join(tmp, "async_worker.py")
+    with open(script, "w") as f:
+        f.write(_P33_ASYNC_WORKER)
+    t0 = time.monotonic()
+    _, err = _p33_launch(
+        ["-n", "2", "-s", "1", "--launcher", "local", "--ps-state-dir",
+         state, sys.executable, script, tmp, "--data-train", rec,
+         "--kv-store", "dist_async", "--batch-size", str(batch),
+         "--num-epochs", "1", "--num-examples", str(records),
+         "--image-shape", "3,%d,%d" % (side, side), "--ctx", ctx],
+        "phase 33 (b)")
+    wall = time.monotonic() - t0
+    res = [json.load(open(os.path.join(tmp, "async_%d.json" % r)))
+           for r in (0, 1)]
+    payload, records_after = ServerStateStore(state).recover()
+    snaps = ckpt.list_checkpoints(state)
+    applied = payload["applied"]
+    seq = int(payload["seq"]) + len(records_after)
+    keys = res[0]["keys"]
+    pushes = sum(rr["pushes"] for rr in res)
+    want_seq = keys + 2 + 2 + pushes   # inits, set_optimizer, hellos, pushes
+    import hashlib
+    store = hashlib.sha256(b"".join(
+        ckpt.decode_array(payload["store"][i]).tobytes()
+        for i in range(keys))).hexdigest()
+    banner = [l for l in err.splitlines() if "standalone PS" in l]
+    print("phase 33 (b): train_imagenet --kv-store dist_async, 2 workers x "
+          "%d batches of %d, one server process (a host role by design: %s); "
+          "pushes sent %d / %d, the server's last push_step a rank %r, WAL "
+          "sequence %d (want %d keys + 2 optimizers + 2 incarnations + %d "
+          "pushes = %d); workers' pulled weights equal: %s; the final "
+          "snapshot (seq %d, %d snapshot(s), %d records after it) holds "
+          "them: %s; %.1f s [%s]"
+          % (records // batch, batch, "; ".join(banner)[:200],
+             res[0]["pushes"], res[1]["pushes"],
+             {r: max(m.values()) for r, m in applied.items()}, seq, keys,
+             pushes, want_seq, res[0]["digest"] == res[1]["digest"],
+             int(payload["seq"]), len(snaps), len(records_after),
+             store == res[0]["digest"], wall, card))
+    if res[0]["digest"] != res[1]["digest"] or store != res[0]["digest"]:
+        raise RuntimeError("phase 33 (b): the pulled weights differ")
+    if seq != want_seq or records_after or \
+            {r: max(m.values()) for r, m in applied.items()} != \
+            {rr["rank"]: rr["pushes"] for rr in res}:
+        raise RuntimeError("phase 33 (b): the server's WAL does not count "
+                           "each push once")
+    RUNS["phase 33 (b)"] = dict(pushes=pushes, seq=seq, wall=wall)
+
+
+def _p33_failover(tmp, card, ctx_flag=()):
+    """(c) train_mnist over dist_async with the server SIGKILLed at its
+    13th applied push and respawned by the launcher, against the same run
+    uncrashed."""
+    import concurrent.futures
+    import os
+    import re
+    os.makedirs(tmp, exist_ok=True)
+    script = os.path.join(tmp, "mnist_worker.py")
+    with open(script, "w") as f:
+        f.write(_P33_MNIST_WORKER)
+    # MNIST-layout idx files: MNISTIter shuffles from its fixed seed, so
+    # two runs see the same batches (the synthetic fallback's shuffle is
+    # unseeded, as the reference's)
+    mnist = os.path.join(tmp, "mnist")
+    os.makedirs(mnist)
+    _p27_mnist_files(mnist)
+
+    def fleet(tag):
+        """One launch; (its output, seconds, the pulled bytes)."""
+        out = os.path.join(tmp, tag + ".bin")
+        args = ["-n", "1", "-s", "1", "--launcher", "local",
+                "--restart-failed", "1", "--ps-state-dir",
+                os.path.join(tmp, "state_" + tag), "--env",
+                "MXTPU_PS_RETRIES=12", "--env-server",
+                "MXTPU_PS_SNAPSHOT_EVERY=5"]
+        if tag == "crashed":
+            args += ["--env-server", "MXTPU_CHAOS=" + P33_CHAOS]
+        t0 = time.monotonic()
+        sout, err = _p33_launch(
+            args + [sys.executable, script, out, "--kv-store", "dist_async",
+                    "--num-epochs", "1", "--data-dir", mnist]
+            + list(ctx_flag),
+            "phase 33 (c) " + tag)
+        with open(out, "rb") as f:
+            return sout + err, time.monotonic() - t0, f.read()
+
+    # the two runs are independent fleets (their own ports, state dirs
+    # and files): run them side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {tag: pool.submit(fleet, tag)
+                for tag in ("uncrashed", "crashed")}
+        runs = {tag: f.result() for tag, f in runs.items()}
+    logs = {tag: r[:2] for tag, r in runs.items()}
+    blobs = {tag: r[2] for tag, r in runs.items()}
+    text = logs["crashed"][0]
+    m = re.search(r"generation=2, recovered_wal=(\d+), recovery_s=([0-9.]+)",
+                  text)
+    fo = re.search(r"P33C pushes (\d+) failovers (\d+)", text)
+    same = blobs["crashed"] == blobs["uncrashed"]
+    print("phase 33 (c): train_mnist --kv-store dist_async, server "
+          "SIGKILLed by %s and respawned by --restart-failed 1: %s pushes, "
+          "%s failover(s) seen by the worker; the respawned server replayed "
+          "%s WAL record(s) in %s s; final parameters byte-identical to the "
+          "uncrashed run: %s (%d bytes); %.1f s / %.1f s [%s]"
+          % (P33_CHAOS, fo and fo.group(1), fo and fo.group(2),
+             m and m.group(1), m and m.group(2), same, len(blobs["crashed"]),
+             logs["uncrashed"][1], logs["crashed"][1], card))
+    if m is None or fo is None or int(fo.group(2)) != 1 or \
+            "restarting" not in text:
+        raise RuntimeError("phase 33 (c): no failover happened:\n%s"
+                           % text[-3000:])
+    if not same:
+        raise RuntimeError("phase 33 (c): the crashed run's parameters "
+                           "differ from the uncrashed run's")
+    RUNS["phase 33 (c)"] = dict(replayed=int(m.group(1)),
+                                recovery_s=float(m.group(2)))
+
+
+def _p33_bandwidth(card, device=None, size_mb=P33_BW_MB):
+    """(d) tools/bandwidth on the card."""
+    from mxnet_tpu_torch.tools import bandwidth
+    argv = ["--size-mb", str(size_mb), "--iters", "10"]
+    if device:
+        argv += ["--device", device]
+    recs = bandwidth.main(argv)
+    got = {(r["primitive"], r["route"], r["ranks"]) for r in recs}
+    want = {(p, route, k) for p in ("all_reduce_mean", "all_gather",
+                                    "reduce_scatter_mean")
+            for route, k in (("in_process", 2), ("in_process", 4),
+                             ("nccl" if device is None else "gloo", 1),
+                             ("gloo", 2))}
+    want |= {("push_pull", "dist_sync", 2), ("push_pull", "dist_async", 2)}
+    if device is None:
+        want |= {("all_reduce_sum", "gloo_host_copy", 2),
+                 ("all_reduce_sum", "gloo_cuda_direct", 2)}
+    if not want <= got:
+        raise RuntimeError("phase 33 (d): missing %r" % sorted(want - got))
+    direct = [r for r in recs if r["route"] == "gloo_cuda_direct"]
+    print("phase 33 (d): bandwidth at %g MB: %s; gloo with a CUDA tensor "
+          "handed over directly: %s [%s]"
+          % (size_mb, "; ".join("%s %s K=%d %.3f ms %.2f GB/s"
+                                % (r["primitive"], r["route"], r["ranks"],
+                                   r["ms"], r["gbps"])
+                                for r in recs if "ms" in r),
+             direct[0].get("error", "takes it (%.3f ms)"
+                           % direct[0].get("ms", 0)) if direct else "n/a",
+             card))
+    RUNS["phase 33 (d)"] = recs
+
+
+def _p33_context(card):
+    """(e) C17 on the card."""
+    import torch
+    import mxnet_tpu_torch as mx
+    with mx.cpu():
+        a = mx.nd.zeros((2,))
+    with mx.gpu(0):
+        b = mx.nd.zeros((2,))
+        inner = mx.current_context()
+    free, total = mx.gpu_memory_info(0)
+    tfree, ttotal = torch.cuda.mem_get_info(0)
+    print("phase 33 (e): with mx.cpu(): %s; with mx.gpu(0): %s (current "
+          "%s); gpu_memory_info(0) (%d, %d) vs torch.cuda.mem_get_info "
+          "(%d, %d) [%s]" % (a.context, b.context, inner, free, total, tfree,
+                             ttotal, card))
+    if a.context != mx.cpu() or b.context.type != "cuda" or \
+            inner != mx.gpu(0) or total != ttotal or \
+            abs(free - tfree) > 1 << 28:
+        raise RuntimeError("phase 33 (e): Context scopes or memory info "
+                           "off")
+
+
+def phase_parameter_server():
+    """Phase 33: the parameter server and the launcher (module
+    docstring).  Returns B1's launches over (a)'s workers."""
+    import concurrent.futures
+    import os
+    import shutil
+    import tempfile
+    t_phase = time.monotonic()
+    card = _p32_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p33_")
+    try:
+        run = _p33_sync_launch(os.path.join(tmp, "a"), card)
+        # (b) and (c) are separate fleets on the host (the card barely
+        # used): side by side, their walls overlap, and (a)'s replay (its
+        # checks, no timing) runs here meanwhile
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            parts = [pool.submit(_p33_async, os.path.join(tmp, "b"), card),
+                     pool.submit(_p33_failover, os.path.join(tmp, "c"),
+                                 card)]
+            b1 = _p33_sync_replay(run)
+            for f in parts:
+                f.result()
+        _p33_bandwidth(card)
+        _p33_context(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 33: B1 launched %d times in the dist_sync workers; %.1f s "
+          "(the script so far %.1f s) [%s]"
+          % (b1, time.monotonic() - t_phase, time.monotonic() - T_START,
+             card))
+    return b1
+
+
+def _timed(phase, *args, **kwargs):
+    """Run one phase; print its seconds and the script's so far (flushed,
+    so a cut run shows where its time went)."""
+    t0 = time.monotonic()
+    out = phase(*args, **kwargs)
+    print("chip_smoke: %s %.1f s (the script so far %.1f s)"
+          % (phase.__name__, time.monotonic() - t0,
+             time.monotonic() - T_START), flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9456,78 +10116,82 @@ def main():
                                     torch.cuda.get_device_name(0)))
     t_start = T_START
     try:
-        kernel = phase_kernels()
-        runner, host_params, counts = phase_serve()
+        kernel = _timed(phase_kernels)
+        runner, host_params, counts = _timed(phase_serve)
         kernel["launches"] = counts[kernel["name"]]
-        phase_cpu_parity(runner, host_params)
+        _timed(phase_cpu_parity, runner, host_params)
         del runner
         bucket = _bucket_size()
         print("phase 4: resnet50_v1 has %d trainable parameters (one "
               "f32 bucket)" % bucket)
-        opt_kernels = phase_opt_kernels(bucket)
-        launches = phase_train(bucket, profile="--profile" in sys.argv)
+        opt_kernels = _timed(phase_opt_kernels, bucket)
+        launches = _timed(phase_train, bucket, profile="--profile" in sys.argv)
         for k in opt_kernels:
             k["launches"] = launches[k["name"]]
-        phase_train_parity()
-        flash_kernels = phase_flash_kernels()
-        flash = phase_train_lm(profile="--profile" in sys.argv)
+        _timed(phase_train_parity)
+        flash_kernels = _timed(phase_flash_kernels)
+        flash = _timed(phase_train_lm, profile="--profile" in sys.argv)
         for k in flash_kernels:
             k["launches"] = flash[k["name"]]
             k["launches_by_design"] = {
                 d: flash[k["name"] + "/" + d] for d in ("wgmma", "simt")}
-        phase_train_lm_parity()
-        qmm_kernel = phase_qmm_kernel()
-        qmm_kernel["launches"], model = phase_int8_serve(
-            profile="--profile" in sys.argv)
-        phase_int8_parity(model)
+        _timed(phase_train_lm_parity)
+        qmm_kernel = _timed(phase_qmm_kernel)
+        qmm_kernel["launches"], model = _timed(
+            phase_int8_serve, profile="--profile" in sys.argv)
+        _timed(phase_int8_parity, model)
         del model
-        conv_kernels = phase_conv_kernel(profile="--profile" in sys.argv)
-        launches = phase_conv_path()
+        conv_kernels = _timed(phase_conv_kernel, profile="--profile" in sys.argv)
+        launches = _timed(phase_conv_path)
         for k in conv_kernels:
             k["launches"] = launches[k["name"].split("[")[1][:-1]]
-        gen_kernels = phase_gen_kernels()
-        launches = phase_codegen_bench()
+        gen_kernels = _timed(phase_gen_kernels)
+        launches = _timed(phase_codegen_bench)
         for k in gen_kernels:
             k["launches"] = launches[k["name"]]
-        bf16_kernels = phase_flash_bf16()
-        launches = phase_train_bf16()
+        bf16_kernels = _timed(phase_flash_bf16)
+        launches = _timed(phase_train_bf16)
         for k in opt_kernels:
             if k["name"] in launches:
                 k["launches_bf16"] = launches[k["name"]]
-        flash = phase_train_lm_bf16(profile="--profile" in sys.argv)
+        flash = _timed(phase_train_lm_bf16, profile="--profile" in sys.argv)
         for k in bf16_kernels:
             name = k["name"].split("[")[0]
             k["launches"] = flash[name + "/" + k["design"]]
             k["launches_by_design"] = {
                 d: flash[name + "/" + d] for d in BF16_DESIGNS
                 if name + "/" + d in flash}
-        phase_benches()
-        phase_gluon_train()
-        phase_gluon_parity()
-        launches = phase_nhwc_train(profile="--profile" in sys.argv)
+        _timed(phase_benches)
+        _timed(phase_gluon_train)
+        _timed(phase_gluon_parity)
+        launches = _timed(phase_nhwc_train, profile="--profile" in sys.argv)
         for k in opt_kernels:
             if k["name"] == "fused_sgd_momentum":
                 k["launches_bf16_nhwc"] = launches
-        phase_nhwc_parity()
-        phase_zoo()
-        phase_ops()
-        launches = phase_optimizers()
+        _timed(phase_nhwc_parity)
+        _timed(phase_zoo)
+        _timed(phase_ops)
+        launches = _timed(phase_optimizers)
         for k in opt_kernels:
             if k["name"] in launches:
                 k["launches_phase25"] = launches[k["name"]]
-        launches = phase_data_pipeline()
+        launches = _timed(phase_data_pipeline)
         for k in opt_kernels:
             if k["name"] == "fused_sgd_momentum":
                 k["launches_phase26"] = launches
-        phase_module_train()
-        phase_rnn_ctc()
-        phase_detection()
-        phase_sparse()
-        phase_rest_of_ops()
-        launches = phase_data_parallel()
+        _timed(phase_module_train)
+        _timed(phase_rnn_ctc)
+        _timed(phase_detection)
+        _timed(phase_sparse)
+        _timed(phase_rest_of_ops)
+        launches = _timed(phase_data_parallel)
         for k in opt_kernels + flash_kernels + [kernel]:
             if k["name"] in launches:
                 k["launches_phase32"] = launches[k["name"]]
+        b1 = _timed(phase_parameter_server)
+        for k in opt_kernels:
+            if k["name"] == "fused_sgd_momentum":
+                k["launches_phase33"] = b1
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -56,8 +56,9 @@ The reference's top-level names load on first use: ``mx.nd``,
 ``mx.profiler``, ``mx.lr_scheduler``, ``mx.model``, ``mx.mod``
 (``module``), ``mx.callback``, ``mx.monitor``, ``mx.Monitor``,
 ``mx.operator``, ``mx.rnn``, ``mx.contrib``, ``mx.AttrScope``,
-``mx.MXNetError``, ``mx.cpu()`` and
-``mx.gpu()``.
+``mx.MXNetError``, ``mx.Context``, ``mx.cpu()``, ``mx.gpu()``,
+``mx.cpu_pinned()``, ``mx.current_context()`` and
+``mx.gpu_memory_info()``.
 """
 import importlib
 
@@ -85,7 +86,8 @@ def __getattr__(name):
     if name == "AttrScope":
         from .attribute import AttrScope
         return AttrScope
-    if name in ("cpu", "gpu", "current_context", "num_gpus"):
+    if name in ("Context", "cpu", "gpu", "cpu_pinned", "current_context",
+                "num_gpus", "gpu_memory_info"):
         from . import context
         return getattr(context, name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -24,6 +24,8 @@ import threading
 import numpy as np
 import torch
 
+from .base import as_torch_device
+
 __all__ = ["seed", "next_generator", "get_state", "set_state"]
 
 _lock = threading.Lock()
@@ -34,7 +36,7 @@ _gens = {}
 
 
 def _key(device):
-    dev = torch.device(device)
+    dev = torch.device(as_torch_device(device))
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -2,7 +2,8 @@
 
 The counterpart of ``mxnet_tpu/base.py``.  Only what the port uses is
 here: :class:`MXNetError` and :func:`resolve_device`, the one place that
-decides where an entry point runs.  The rule: an entry point runs on the
+decides where an entry point runs (it takes a ``torch.device``, a string
+or a :class:`~mxnet_tpu_torch.context.Context`).  The rule: an entry point runs on the
 CUDA device unless its caller asks for the CPU by name; with no CUDA
 device present, a default or CUDA request raises instead of quietly
 running on the host.
@@ -11,11 +12,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MXNetError", "resolve_device"]
+__all__ = ["MXNetError", "resolve_device", "as_torch_device"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (reference: python/mxnet/base.py:83)."""
+
+
+def as_torch_device(device):
+    """``device`` with a ``Context`` converted to its ``torch.device`` (not
+    checked against the machine); anything else as it is."""
+    convert = getattr(device, "torch_device", None)
+    return convert() if convert is not None else device
 
 
 def resolve_device(device=None):
@@ -23,8 +31,9 @@ def resolve_device(device=None):
 
     ``None`` means ``cuda`` (the current CUDA device).  ``"cpu"`` (or a
     CPU ``torch.device``) is honoured as asked — the CPU tests use it.
-    A CUDA request with no CUDA device raises :class:`MXNetError`."""
-    dev = torch.device("cuda" if device is None else device)
+    A CUDA request with no CUDA device raises :class:`MXNetError`.  A
+    ``Context`` (``mx.cpu()``, ``mx.gpu(i)``) converts to its device."""
+    dev = torch.device("cuda" if device is None else as_torch_device(device))
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise MXNetError(

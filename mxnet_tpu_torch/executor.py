@@ -31,15 +31,22 @@ under ``torch.no_grad()`` (the serving path).  As in the reference:
   states, as the reference's backward rematerializes it, and so updates
   no moving statistic (a random op there draws anew).
 
-Device lists (a mesh) and ``group2ctx`` are ROADMAP.md queue A, items
-6-7.
+A device list (``ctx=[cpu(0), cpu(1)]``, the reference's data mesh)
+binds its in-process ranks on the one device they name: under GSPMD the
+reference's forward over the whole batch is the same numbers, as the
+port's in-process data ranks (``parallel/mesh.py``) hold.  A list naming
+distinct devices is the ranks of a multi-card process, ROADMAP.md queue
+A, item A6(c).  ``group2ctx`` (``executor.py:125-150``): a ``Context``
+value means replicated, so every group lives on the bound device; a
+``PartitionSpec`` (or tuple) that shards over a ``model`` axis is item
+A7 and raises.
 """
 from __future__ import annotations
 
 import torch
 
-from .base import MXNetError, resolve_device
-from .context import current_context
+from .base import MXNetError, as_torch_device, resolve_device
+from .context import current_device
 from .ndarray import NDArray
 from .ndarray.ndarray import torch_dtype
 from .symbol.symbol import graph_plan
@@ -49,10 +56,41 @@ __all__ = ["Executor"]
 
 def _device_of(ctx):
     if isinstance(ctx, (list, tuple)):
-        raise NotImplementedError(
-            "binding over a device list (a mesh) is ROADMAP.md queue A, "
-            "items 6-7; pass one device")
-    return current_context() if ctx is None else resolve_device(ctx)
+        devs = []
+        for c in ctx:
+            d = torch.device(as_torch_device(c))
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device()
+                                 if torch.cuda.is_available() else 0)
+            if d not in devs:
+                devs.append(d)
+        if len(devs) != 1:
+            raise NotImplementedError(
+                "binding over the distinct devices %s: the ranks of a "
+                "multi-card process are ROADMAP.md queue A, item A6(c); a "
+                "device list naming one device binds its ranks there"
+                % [str(d) for d in devs])
+        return resolve_device(devs[0])
+    return current_device() if ctx is None else resolve_device(ctx)
+
+
+def check_group2ctx(group2ctx):
+    """Refuse the ``group2ctx`` values the port cannot place: a spec that
+    shards a group (item A7).  A ``Context`` (or device) value means
+    replicated, as in the reference, and is resolved to check it."""
+    from .parallel.mesh import PartitionSpec
+    for group, value in (group2ctx or {}).items():
+        if isinstance(value, (list, tuple)) and not isinstance(
+                value, PartitionSpec):
+            value = PartitionSpec(*value)
+        if isinstance(value, PartitionSpec):
+            if any(a is not None for a in value):
+                raise NotImplementedError(
+                    "group2ctx[%r] = %r shards the group over a mesh "
+                    "axis: model-axis sharding is ROADMAP.md queue A, "
+                    "item A7" % (group, value))
+            continue
+        resolve_device(value)
 
 
 def _tensor(x, device, dtype=None):
@@ -116,9 +154,7 @@ class Executor:
     def __init__(self, symbol, ctx=None, args=None, args_grad=None,
                  grad_req="write", aux_states=None, data_names=None,
                  group2ctx=None):
-        if group2ctx:
-            raise NotImplementedError(
-                "group2ctx placement is ROADMAP.md queue A, items 6-7")
+        check_group2ctx(group2ctx)
         self._symbol = symbol
         self._device = _device_of(ctx)
         self._arg_names = symbol.list_arguments()

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ... import ndarray as nd
-from ...context import current_context
+from ...context import current_device
 from ...ndarray import NDArray
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
@@ -35,7 +35,7 @@ def default_batchify_fn(data):
     """Stack samples into a batch on the current context (reference:
     dataloader.py default_batchify_fn)."""
     if isinstance(data[0], NDArray):
-        return nd.stack(*data, axis=0).as_in_context(current_context())
+        return nd.stack(*data, axis=0).as_in_context(current_device())
     if isinstance(data[0], tuple):
         data = zip(*data)
         return [default_batchify_fn(i) for i in data]
@@ -78,7 +78,7 @@ def _to_nd(batch, pin=False):
     context; ``pin``: through a pinned host copy, without blocking."""
     if isinstance(batch, list):
         return [_to_nd(b, pin) for b in batch]
-    dev = current_context()
+    dev = current_device()
     if pin and dev.type == "cuda":
         t = torch.from_numpy(np.ascontiguousarray(batch)).pin_memory()
         return NDArray(t.to(dev, non_blocking=True))

@@ -33,7 +33,7 @@ import torch
 
 from .. import autograd, initializer
 from ..base import MXNetError, resolve_device
-from ..context import current_context
+from ..context import current_device
 from ..ndarray import NDArray
 from ..precision import torch_dtype as _torch_dtype
 
@@ -130,13 +130,13 @@ class Parameter:
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False, rng=None):
-        """Initialize on ``ctx`` (default: :func:`current_context`, CUDA
+        """Initialize on ``ctx`` (default: :func:`current_device`, CUDA
         unless the caller asks for the CPU), drawing from ``rng`` (numpy's
         global RNG when None)."""
         default_init = default_init or initializer.Uniform()
         if self._data is not None and not force_reinit:
             return
-        device = current_context() if ctx is None else ctx
+        device = current_device() if ctx is None else ctx
         if isinstance(device, (list, tuple)):
             device = device[0]
         device = resolve_device(device)
@@ -230,7 +230,7 @@ class Parameter:
     def set_data(self, data, device=None):
         """Write ``data`` (numpy or tensor) into the parameter in place; an
         uninitialized parameter adopts its shape, on ``device`` (default:
-        its deferred-init device, else :func:`current_context`)."""
+        its deferred-init device, else :func:`current_device`)."""
         if isinstance(data, NDArray):
             data = data._data
         if isinstance(data, torch.Tensor):
@@ -241,7 +241,7 @@ class Parameter:
         if self._data is None:
             if device is None:
                 device = self._deferred_init[1] if self._deferred_init \
-                    else current_context()
+                    else current_device()
             self.shape = tuple(t.shape)
             self._init_impl(t.to(resolve_device(device)).clone())
             return

@@ -17,8 +17,19 @@ object, as MXNet's local store does, so both routes take the same
 ``save_states`` / ``load_states`` go through the store on its route.
 (``mxnet_tpu``'s store runs a copy pickled before the first rescale, so
 its kvstore route updates with ``rescale_grad`` 1 and saves no states:
-ROADMAP.md section C.)  In one process ``allreduce_grads`` has nothing
-to sum.
+ROADMAP.md section C.)
+
+Across processes (``kvstore="dist_sync"`` or ``"dist_async"``, under
+``tools/launch.py``), ``step`` first pushes every gradient to the store
+and, off its route, pulls the sum back into the gradient buffer
+(``trainer.py:245``).  There the store holds a copy of each parameter;
+the reference's aliases it, so its push of gradients overwrites the
+parameters (ROADMAP.md section C).  On the kvstore route the one push,
+in the update, runs the store's optimizer (on ``dist_async``, the
+server's copy) and the pull brings the parameter back; the reference's
+``step`` pushes twice there, so its store applies the update twice.
+``update_on_kvstore`` defaults to False, as the reference decides it.
+In one process ``allreduce_grads`` has nothing to sum.
 """
 from __future__ import annotations
 
@@ -79,7 +90,11 @@ class Trainer:
                 self._update_on_kvstore = False
             for i, param in enumerate(self._params):
                 if param.grad_req != "null":
-                    kv.init(i, param.data())
+                    # the kvstore route updates the parameter in place
+                    # through the store; off it the store holds a copy,
+                    # which a push of gradients replaces
+                    kv.init(i, param.data() if self._update_on_kvstore
+                            else param.data().copy())
             if self._update_on_kvstore:
                 kv.set_optimizer(self._optimizer)
             self._kvstore = kv
@@ -95,13 +110,30 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale by ``1 / batch_size``, allreduce, update."""
-        self.update(batch_size, ignore_stale_grad)
-
-    def allreduce_grads(self):
-        """Sum the gradients across workers: one process holds the one
-        copy of each, so there is nothing to sum."""
         if not self._kv_initialized:
             self._init_kvstore()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """Sum the gradients across workers (nothing to sum in one
+        process)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        # on the kvstore route the one push is _update's (the
+        # reference's pushes here too, so its store applies twice)
+        if self._kvstore is None or self._kvstore.num_workers == 1 \
+                or self._update_on_kvstore:
+            return
+        for i, param in enumerate(self._params):
+            if param.grad_req != "null":
+                self._kvstore.push(i, param.grad(), priority=-i)
+                if not self._update_on_kvstore:
+                    self._kvstore.pull(i, param.grad(), priority=-i)
 
     def _on_kvstore(self):
         return self._update_on_kvstore and self._kvstore is not None

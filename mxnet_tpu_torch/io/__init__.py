@@ -28,7 +28,7 @@ import numpy as _np
 import torch
 
 from ..base import resolve_device
-from ..context import current_context
+from ..context import current_device
 from ..ndarray import NDArray, array as _nd_array, sparse
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
@@ -485,7 +485,7 @@ class DeviceFeedIter(DataIter):
         from ..profiler import PipelineStats
         self.base = base
         self.transform = transform
-        self._device = current_context() if device is None \
+        self._device = current_device() if device is None \
             else resolve_device(device)
         self._data_desc = data_desc
         self._depth = max(1, int(depth))

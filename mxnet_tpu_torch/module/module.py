@@ -18,7 +18,12 @@ kvstore through ``model._create_kvstore`` (none for ``"local"`` or
 ``Updater`` per parameter, as the reference's does; an explicit
 ``KVStore`` runs the optimizer itself at push time (MXNet's local
 store; the reference's store runs a pickled copy, ROADMAP.md section C).
-Device lists and ``group2ctxs`` are ROADMAP.md queue A, items 6-7.
+A device list (``context=[ctx, ...]``) binds its in-process ranks on
+the one device it names, and ``group2ctxs`` (a dict, or one per device)
+with ``Context`` values binds every group there, replicated
+(``executor.py``); distinct devices are item A6(c), sharding specs item
+A7.  ``kvstore="dist_*"`` makes the store's push sum (``dist_sync``) or
+apply (``dist_async``, on the server) across processes.
 """
 from __future__ import annotations
 
@@ -48,9 +53,11 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None, group2ctxs=None, compression_params=None):
         super().__init__(logger=logger)
-        if group2ctxs:
-            raise NotImplementedError(
-                "group2ctxs placement is ROADMAP.md queue A, items 6-7")
+        from ..executor import check_group2ctx
+        for g2c in (group2ctxs if isinstance(group2ctxs, (list, tuple))
+                    else [group2ctxs]):
+            check_group2ctx(g2c)
+        self._group2ctxs = group2ctxs
         self._symbol = symbol
         self._data_names = list(data_names) if data_names else []
         self._label_names = list(label_names) if label_names else []
@@ -198,13 +205,13 @@ class Module(BaseModule):
                     src = src._data if isinstance(src, NDArray) \
                         else torch.as_tensor(_np.asarray(src))
                     arr._set_data(src.detach().to(
-                        device=arr.context, dtype=arr._data.dtype,
+                        device=arr._data.device, dtype=arr._data.dtype,
                         copy=True))
                 elif initializer is not None:
                     buf = _np.zeros(arr.shape, _np.float32)
                     initializer(InitDesc(name, attrs.get(name)), buf, rng)
                     arr._set_data(torch.from_numpy(buf).to(
-                        device=arr.context, dtype=arr._data.dtype))
+                        device=arr._data.device, dtype=arr._data.dtype))
                 elif not allow_missing and given is not None \
                         and names is self._param_names:
                     raise MXNetError("missing parameter %r" % name)

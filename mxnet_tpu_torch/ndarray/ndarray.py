@@ -31,7 +31,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, resolve_device
-from ..context import current_context
+from ..context import Context, current_device
 from ..ops import registry as _reg
 
 __all__ = ["NDArray", "array", "empty", "concatenate", "invoke",
@@ -70,7 +70,7 @@ _MONITOR_TAPS = []
 
 
 def _device(ctx):
-    return current_context() if ctx is None else resolve_device(ctx)
+    return current_device() if ctx is None else resolve_device(ctx)
 
 
 def _host(t):
@@ -116,7 +116,9 @@ class NDArray:
 
     @property
     def context(self):
-        return self._data.device
+        """The array's :class:`~mxnet_tpu_torch.context.Context`
+        (``._data.device`` is its ``torch.device``)."""
+        return Context(self._data.device)
 
     ctx = context
 
@@ -170,8 +172,8 @@ class NDArray:
 
     def copyto(self, other):
         if isinstance(other, NDArray):
-            other._set_data(self._data.detach().to(other.context,
-                                                   copy=True))
+            other._set_data(self._data.detach().to(
+                other._data.device, copy=True))
             return other
         return NDArray(self._data.detach().to(_device(other), copy=True))
 
@@ -527,7 +529,7 @@ def invoke(op, args, kwargs, out=None):
     nds = [a for a in inputs if isinstance(a, NDArray)]
     if not inputs and "ctx" in op.fn_params:
         params["ctx"] = _device(params.get("ctx"))
-    device = nds[0]._data.device if nds else current_context()
+    device = nds[0]._data.device if nds else current_device()
     raw = [_tensor(a, device) for a in inputs]
     if op.needs_train:
         params["_train"] = autograd.is_training()

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..context import current_context
+from ..context import current_device
 from ..precision import torch_dtype
 from .registry import register
 
@@ -25,7 +25,7 @@ def ctx_device(ctx):
     from ..base import resolve_device
     if isinstance(ctx, torch.device) and ctx.type == "meta":
         return ctx
-    return current_context() if ctx is None else resolve_device(ctx)
+    return current_device() if ctx is None else resolve_device(ctx)
 
 
 _dev = ctx_device

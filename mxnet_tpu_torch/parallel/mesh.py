@@ -126,7 +126,7 @@ class Mesh:
                 "this mesh names %s.  One rank per card is one process per "
                 "card over torch.distributed (data_parallel_mesh() after "
                 "init_process_group); the ranks of a multi-card process are "
-                "ROADMAP.md queue A, item 6(b)" % sorted(devs))
+                "ROADMAP.md queue A, item A6(c)" % sorted(devs))
         return _comm.InProcessComm(k, self.local_device)
 
     def __repr__(self):

@@ -95,8 +95,21 @@ process over ``torch.distributed``; their collectives are
   loss and the mutated state are averaged over them.
 - ``param_spec_fn`` changes no number with in-process ranks, as GSPMD
   placement changes none in the reference; with a process group a spec
-  that is not replicated raises.  ``kvstore="dist_*"`` (the parameter
-  server) is ROADMAP.md queue A, item 6(b).
+  that is not replicated raises (parameters sharded across processes
+  are ROADMAP.md queue A, item A7).
+- ``kvstore="dist_sync"`` (or a ``dist_sync`` store; ``trainer.py:
+  169-210,430-490,2484-2517``): each process runs the replicated step on
+  its own batch into flat gradient buckets that are views of ONE flat
+  f32 vector, with the loss in its last slot; the vector is pushed to
+  and pulled from the store under one flat key (``dpt<N>::flat``, the
+  sum over the processes), scaled by ``1 / num_workers``, and the
+  update launches B1-B3 once per bucket on each process's device.
+  Trainable parameters stay equal on every process; BatchNorm's running
+  statistics stay each process's own, as the reference's.  A signature
+  round at setup catches trainers built in a different order on some
+  rank (``_validate_flat_key``).  As in the reference, a store with an
+  updater or compression, a ``dist_async`` store, a mesh spanning
+  processes, ``zero=1``, ``grad_accum`` and bf16 are refused with it.
 
 **Checkpoints** (``resilience/checkpoint.py``, reference
 ``:1984-2327``): ``save_checkpoint`` writes the monolithic ``.mxckpt``
@@ -121,7 +134,8 @@ import torch
 
 from .. import engine as _engine
 from .. import precision as _precision
-from ..base import MXNetError, resolve_device
+from ..base import MXNetError, as_torch_device, resolve_device
+from ..ndarray import NDArray
 from ..ops import fused_optimizer as _fused
 from ..resilience import chaos as _chaos
 from .functional import accumulate_grads, functional_optimizer_update
@@ -143,15 +157,6 @@ _ELEMENTWISE_OPTIMIZERS = {
     "AdaDelta", "Ftrl", "Adamax", "Nadam",
 }
 _PER_PARAMETER_OPTIMIZERS = {"LBSGD", "DCASGD"}
-
-
-def _dist_kvstore(kvstore):
-    if kvstore is None:
-        return False
-    kind = kvstore if isinstance(kvstore, str) else getattr(
-        kvstore, "type", "")
-    return str(kind).startswith("dist") or \
-        getattr(kvstore, "num_workers", 1) > 1
 
 
 def _np_dtype_name(t):
@@ -269,21 +274,15 @@ class DataParallelTrainer:
                     "param_spec_fn/input_transform do not apply to the "
                     "mesh tier: the mesh program owns its own sharding "
                     "and feed")
-        if _dist_kvstore(kvstore):
-            raise NotImplementedError(
-                "DataParallelTrainer(kvstore=%r): the parameter-server "
-                "kvstore is not ported yet: ROADMAP.md queue A, item 6(b); "
-                "train data-parallel over mesh= (in-process ranks, or one "
-                "rank per process over torch.distributed)"
-                % (getattr(kvstore, "type", kvstore),))
+        self._kv = self._check_kvstore(kvstore, mesh, zero, grad_accum)
         self.run_id = run_id if run_id is not None else \
             os.environ.get("MXTPU_RUN_ID")
         self._plan = None if plan is None else plan.on_one_device()
         if mesh is not None and device is None:
             device = mesh.local_device
         self._device = resolve_device(device)
-        if mesh is not None and torch.device(mesh.local_device) != \
-                self._device:
+        if mesh is not None and self._device != torch.device(
+                as_torch_device(mesh.local_device)):
             raise ValueError("mesh ranks live on %s but device=%s"
                              % (mesh.local_device, self._device))
         self._block = block
@@ -354,6 +353,124 @@ class DataParallelTrainer:
         self.dispatch_stats = _prof.PipelineStats(name="engine.dispatch")
         _engine.register_flusher(self.flush)
 
+    # distinct flat-gradient key per trainer instance (the same
+    # construction order on every rank, which the collectives require)
+    _KV_UID = 0
+
+    def _check_kvstore(self, kvstore, mesh, zero, grad_accum):
+        """The multi-process store of the split step, or None (one
+        process), with the reference's refusals (``trainer.py:175-270``)."""
+        if kvstore is None:
+            return None
+        from .. import kvstore as kvs
+        if isinstance(kvstore, str):
+            kvstore = kvs.create(kvstore)
+        if kvstore.num_workers <= 1:
+            return None
+        if self._reduced:
+            raise ValueError(
+                "dtype='bf16' is not supported with a multi-process "
+                "kvstore: the flat-key push/pull path reduces gradients "
+                "in f32 without the loss-scale/finite bookkeeping (train "
+                "bf16 in-process, or f32 with the kvstore)")
+        if kvstore.type not in kvs._SYNC_TYPES:
+            raise ValueError(
+                "DataParallelTrainer needs a synchronous kvstore "
+                "(dist_sync/dist_device_sync/tpu_dist), got %r"
+                % kvstore.type)
+        if kvstore.has_updater:
+            raise ValueError(
+                "kvstore has an updater/optimizer set; the trainer "
+                "applies its own optimizer — use a plain dist_sync "
+                "store for gradient aggregation")
+        if kvstore.compression is not None:
+            raise ValueError(
+                "kvstore gradient compression would quantize the "
+                "trainer's fused flat gradient (and the loss scalar "
+                "riding on it) — use an uncompressed store here")
+        if mesh is not None and mesh.process_group:
+            raise ValueError(
+                "with kvstore set the mesh must span only this process's "
+                "ranks (cross-process reduction rides the kvstore, not "
+                "the mesh)")
+        if int(zero or 0):
+            raise ValueError(
+                "zero=1 shards optimizer state over the mesh data axis; "
+                "combining it with a multi-process kvstore is not "
+                "supported (the kvstore path keeps the full flat "
+                "gradient per rank)")
+        if grad_accum is not None and int(grad_accum) > 1:
+            raise ValueError(
+                "grad_accum with a multi-process kvstore is not "
+                "supported: the split-step protocol pushes one flat "
+                "gradient per step")
+        DataParallelTrainer._KV_UID += 1
+        self._kv_prefix = "dpt%d::" % DataParallelTrainer._KV_UID
+        return kvstore
+
+    def _setup_flat_key(self):
+        """Re-point every bucket's gradient (and each parameter's
+        ``.grad``) into one flat f32 vector with a slot for the loss,
+        init the flat key and check it (``trainer.py:430-453``)."""
+        sizes = [gf.numel() for gf in self._g_flat]
+        total = sum(sizes) + 1      # +1: the loss rides along
+        flat = torch.zeros(total, dtype=torch.float32, device=self._device)
+        off = 0
+        for gi, names in enumerate(self._groups):
+            gf = flat[off:off + sizes[gi]]
+            o = 0
+            for n in names:
+                t = self._params_by_name[n].tensor()
+                t.grad = gf[o:o + t.numel()].view(t.shape)
+                o += t.numel()
+            self._g_flat[gi] = gf
+            off += sizes[gi]
+        self._kv_flat = flat
+        self._flat_nd = NDArray(flat, fixed=True)
+        self._flat_sizes = sizes
+        self._flat_key = self._kv_prefix + "flat"
+        self._kv.init(self._flat_key, NDArray(torch.zeros_like(flat)))
+        self._validate_flat_key(total)
+
+    def _validate_flat_key(self, total):
+        """Catch trainers built in a different order on some rank before
+        any gradient mixes (``trainer.py:455-490``): every rank pushes a
+        layout signature in slot 0 and the pulled sum must be
+        ``num_workers * sig`` (sig < 2^16 keeps the sum exact in f32)."""
+        import zlib
+        sig = float(zlib.crc32(repr(
+            (self._flat_key, tuple(self._flat_sizes))).encode())
+            % (1 << 16) + 1)
+        probe = torch.zeros(total, dtype=torch.float32, device=self._device)
+        probe[0] = sig
+        out = NDArray(torch.zeros_like(probe), fixed=True)
+        self._kv.push(self._flat_key, NDArray(probe))
+        self._kv.pull(self._flat_key, out=out)
+        got = float(out._data[0])
+        want = sig * self._kv.num_workers
+        if abs(got - want) > 0.5:
+            raise RuntimeError(
+                "DataParallelTrainer flat-key desync: rank %d pushed "
+                "signature %.0f for key %r sizes %r but the cross-worker "
+                "sum was %.0f (expected %.0f) — trainers were constructed "
+                "in a different order on some rank, which would silently "
+                "sum gradients from different models"
+                % (self._kv.rank, sig, self._flat_key,
+                   tuple(self._flat_sizes), got, want))
+
+    def _dist_exchange(self, loss):
+        """The split step's exchange (``trainer.py:2484-2517``): the local
+        gradients and loss in the flat vector are pushed, their sum over
+        the processes pulled back in place and scaled to the mean;
+        returns the global-batch mean loss."""
+        with torch.no_grad():
+            self._kv_flat[-1] = loss
+        self._kv.push(self._flat_key, self._flat_nd)
+        self._kv.pull(self._flat_key, out=self._flat_nd)
+        with torch.no_grad():
+            self._kv_flat.mul_(1.0 / self._kv.num_workers)
+        return self._kv_flat[-1].clone()
+
     # -- setup -------------------------------------------------------------
     def _setup(self, data):
         block, dev = self._block, self._device
@@ -398,7 +515,7 @@ class DataParallelTrainer:
                 "param_spec_fn placed %s off the replicated layout: one "
                 "rank per process holds every parameter whole; sharded "
                 "parameters across processes are ROADMAP.md queue A, item "
-                "6(b)" % sorted(n for n, sp in specs.items() if sp))
+                "A7" % sorted(n for n, sp in specs.items() if sp))
         self._fused_on = _fused.supports(self._opt) is not None
         self._aux_tensors = [params[n].tensor() for n in self._aux_names]
         if self._zero:
@@ -437,6 +554,8 @@ class DataParallelTrainer:
                 self._opt.wd_mult.setdefault(gi, p0.wd_mult)
         if self._reduced:
             self._init_loss_scale_state()
+        if self._kv is not None:
+            self._setup_flat_key()
         self._ready = True
 
     def _init_loss_scale_state(self):
@@ -723,6 +842,8 @@ class DataParallelTrainer:
                 loss = self._comm.mean([loss])
                 for j, m in muts:
                     self._aux_tensors[j].copy_(self._comm.mean([m]))
+        if self._kv is not None:
+            loss = self._dist_exchange(loss)
         self._apply_groups(lr, self._step_count)
         return loss
 
@@ -1073,6 +1194,8 @@ class DataParallelTrainer:
                         "digest": _ckpt.payload_digest(canon)})
 
     def _process_rank(self):
+        if self._kv is not None:
+            return self._kv.rank
         comm = self._comm
         return 0 if comm is None or comm.placement == "in_process" \
             else comm.rank

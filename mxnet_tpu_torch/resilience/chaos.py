@@ -41,6 +41,11 @@ SITES = {
     "serving.route": "count = routed-request ordinal; ctx = (model, tier)",
     "serving.swap": "fleet hot swap; ctx = model name",
     "trainer.step": "count = step number, before dispatch; ctx = trainer",
+    "kvstore.request": "per parameter-server client RPC; ctx = the "
+                       "message tuple",
+    "kvstore.server_apply": "count = applied-push ordinal on the PS "
+                            "server; ctx = (rank, step, key)",
+    "kvstore.snapshot": "PS server snapshot capture",
     "checkpoint.save": "between the two halves of a snapshot's write",
     "ckpt.shard_write": "before each shard file is installed; "
                         "ctx = (step, rank)",
@@ -80,6 +85,25 @@ class ChaosSchedule:
         self.faults = list(faults)
         self._hits = {}
         self._triggered = []
+
+    @classmethod
+    def seeded(cls, seed, sites, n_faults=3, max_at=50, action="raise",
+               arg=None):
+        """``n_faults`` faults over ``sites`` at hits in [1, max_at], fully
+        determined by ``seed`` (the reference's draw, so both packages
+        give the same schedule for a seed)."""
+        import random as _random
+        rng = _random.Random(int(seed))
+        sites = list(sites)
+        return cls([Fault(sites[rng.randrange(len(sites))],
+                          rng.randint(1, int(max_at)), action, arg)
+                    for _ in range(int(n_faults))])
+
+    def specs(self):
+        return [f.spec() for f in self.faults]
+
+    def hits(self, site):
+        return self._hits.get(site, 0)
 
 
 _active = None  # the installed ChaosSchedule, or None (the fast path)

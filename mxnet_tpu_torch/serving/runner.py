@@ -21,7 +21,7 @@ import threading
 import numpy as _np
 
 from ..base import MXNetError, resolve_device
-from ..context import current_context
+from ..context import current_device
 
 __all__ = ["ModelRunner", "DEFAULT_BUCKETS"]
 
@@ -70,7 +70,7 @@ class ModelRunner:
                 "item 2; pass a bound Module")
         if not model.binded or not model.params_initialized:
             raise MXNetError("ModelRunner needs a bound, initialized Module")
-        self.device = current_context() if device is None \
+        self.device = current_device() if device is None \
             else resolve_device(device)
         if model.context != self.device:
             raise MXNetError("the Module is bound on %s, the runner's device "

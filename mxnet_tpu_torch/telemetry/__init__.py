@@ -3,9 +3,10 @@
 What the serving path needs: the process-wide :func:`registry` that the
 fleet's collector and the ``/metrics`` route read, and
 :func:`fault_event`, which ``resilience/chaos.py`` calls for every fault
-it fires.  The trace contexts, the flight recorder and the performance
-doctor of the JAX package are not ported yet (ROADMAP.md queue A, item
-A12).
+it fires; and ``trace`` (``telemetry/trace.py``), the trace contexts
+the parameter server's wire carries.  The flight recorder, the
+attribution and straggler detection and the performance doctor of the
+JAX package are not ported yet (ROADMAP.md queue A, item A12).
 """
 from __future__ import annotations
 

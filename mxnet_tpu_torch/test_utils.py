@@ -24,6 +24,7 @@ import torch
 
 from . import autograd
 from . import ndarray as nd
+from .base import as_torch_device
 from .context import cpu, current_context, gpu, use
 from .ndarray import NDArray
 
@@ -142,7 +143,7 @@ def check_consistency(fn, inputs, ctx_list=None, rtol=1e-4, atol=1e-5,
     scale).  Returns each leg's list of host arrays."""
     if ctx_list is None:
         ctx_list = [gpu(0), cpu()] if require_distinct else [cpu()]
-    devices = [torch.device(c) for c in ctx_list]
+    devices = [torch.device(as_torch_device(c)) for c in ctx_list]
     results = []
     for dev in devices:
         with use(dev):

@@ -40,6 +40,8 @@ import time
 import numpy as np
 import torch
 
+from ..base import as_torch_device
+
 ALPHA = 1e-3
 # the KS critical value sqrt(-ln(alpha / 2) / 2) at alpha = 0.001
 KS_C = math.sqrt(-math.log(ALPHA / 2) / 2)
@@ -461,7 +463,7 @@ def sampler_checks(device, n=1 << 24, seed=24):
         mxr.seed(seed)
         for label, draw, law in _samplers():
             x = draw(nd, n)._data
-            if x.device.type != torch.device(device).type:
+            if x.device.type != torch.device(as_torch_device(device)).type:
                 bad.append("%s drew on %s" % (label, x.device))
             kind, fn, mean, var = law[:4]
             ok, zm, zv = _moments_ok(x, mean, var)
@@ -526,7 +528,7 @@ def draw_ms(device, n=1 << 24, iters=10):
                         ("normal", lambda t: t.normal_(generator=gen))):
         t = torch.empty(n, device=device)
         fill(t)
-        if torch.device(device).type == "cuda":
+        if torch.device(as_torch_device(device)).type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

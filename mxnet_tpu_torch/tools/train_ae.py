@@ -26,7 +26,7 @@ import argparse
 import numpy as np
 
 from .. import autograd, gluon, init, io, nd
-from ..context import cpu, current_context, gpu, use
+from ..context import cpu, current_device, gpu, use
 
 __all__ = ["DIM", "LATENT", "make_data", "AutoEncoder", "train",
            "parse_args", "main"]
@@ -80,7 +80,7 @@ def train(net, X, epochs, lr=3e-3):
                             {"learning_rate": lr})
     l2 = gluon.loss.L2Loss()
     it = io.NDArrayIter(X, None, 64, shuffle=True)
-    device = current_context()
+    device = current_device()
     mse = None
     for _ in range(epochs):
         it.reset()

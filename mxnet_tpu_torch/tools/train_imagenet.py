@@ -20,14 +20,17 @@ initialization, ``Speedometer`` every 20 batches and, with
 decode worker count (``preprocess_threads``; 0 decodes in-process, as
 the reference's script does).  Runs on the card unless ``--ctx cpu``.
 :func:`main` returns the trained module; ``batch_end_callback`` adds
-callers' callbacks after the ``Speedometer``.
+callers' callbacks after the ``Speedometer``.  Under
+``tools/launch.py`` a ``dist_*`` ``--kv-store`` trains across the
+workers, and the server rank of ``-s 1`` hosts the parameter server.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 
-from .. import callback, initializer, io, lr_scheduler, model, module
+from .. import (callback, initializer, io, kvstore_server, lr_scheduler,
+               model, module)
 from ..context import cpu, gpu
 from .symbols import resnet
 
@@ -58,6 +61,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None, batch_end_callback=None):
+    # a launcher's server rank (DMLC_ROLE=server, ``launch.py -s 1``)
+    # runs the same command: it hosts the parameter server and exits
+    kvstore_server._init_kvstore_server_module()
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.network != "resnet":

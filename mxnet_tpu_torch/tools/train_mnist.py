@@ -12,6 +12,8 @@ uniform images with random labels (3/4 train, 1/4 validation), as the
 reference's script does.  SGD with momentum 0.9, ``Xavier``
 initialization, ``Speedometer`` every 50 batches, a checkpoint per epoch
 with ``--model-prefix``.  Runs on the card unless ``--cpu`` is given.
+Under ``tools/launch.py`` a ``dist_*`` ``--kv-store`` trains across the
+workers, and the server rank of ``-s 1`` hosts the parameter server.
 :func:`main` returns the trained module.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ import os
 
 import numpy as np
 
-from .. import callback, initializer, io, model, module, symbol as sym
+from .. import (callback, initializer, io, kvstore_server, model, module,
+               symbol as sym)
 from ..context import cpu, gpu
 
 __all__ = ["get_mlp", "get_lenet", "get_iters", "main"]
@@ -101,6 +104,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    # a launcher's server rank (DMLC_ROLE=server, ``launch.py -s 1``)
+    # runs the same command: it hosts the parameter server and exits
+    kvstore_server._init_kvstore_server_module()
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     net = get_mlp() if args.network == "mlp" else get_lenet()

@@ -139,8 +139,24 @@ def test_gradient_compression_matches_reference():
 @pytest.mark.parametrize("name", ["dist_sync", "dist_device_sync",
                                   "dist_async", "dist"])
 def test_dist_types_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        kvstore.create(name)
+    """Ported by item 6(b).  Without a launcher's env a dist store is
+    rank 0 of 1 and sums and replaces as the local one does, as the
+    reference's (across processes: tests/test_torch_kvstore_dist.py)."""
+    kv = kvstore.create(name)
+    rkv = jkv.create(name)
+    assert (kv.type, kv.rank, kv.num_workers) == \
+        (rkv.type, rkv.rank, rkv.num_workers)
+    vals = [np.arange(6, dtype=np.float32).reshape(2, 3) * (i + 1)
+            for i in range(3)]
+    got, want = nd.zeros((2, 3), ctx="cpu"), mx.nd.zeros((2, 3))
+    for store, nd_mod, out, ctx in ((kv, nd, got, {"ctx": "cpu"}),
+                                    (rkv, mx.nd, want, {})):
+        store.init("k", nd_mod.zeros((2, 3), **ctx))
+        store.push("k", [nd_mod.array(v, **ctx) for v in vals])
+        store.pull("k", out=out)
+        store.barrier()
+        assert store.get_num_dead_node() == 0
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
 
 
 def test_unknown_types_and_missing_optimizer_raise():

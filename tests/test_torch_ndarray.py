@@ -279,7 +279,7 @@ def test_scalars_copies_and_contexts():
     ta.copyto(other)
     _close(ja, other)
     assert ta.as_in_context("cpu") is ta
-    assert ta.context == torch.device("cpu")
+    assert ta.context.torch_device() == torch.device("cpu")
     ta.wait_to_read()
     nd.waitall()
     # asnumpy is a copy: writing the host array leaves the NDArray alone

@@ -75,9 +75,18 @@ def test_device_rule_cpu_only_when_asked(monkeypatch):
 
 def test_context_maps_to_torch_devices(monkeypatch):
     from mxnet_tpu_torch import context
-    assert context.cpu() == context.cpu(3) == torch.device("cpu")
-    with context.use(context.cpu()):
-        assert context.current_context() == torch.device("cpu")
+    # a Context (C17) maps to its torch.device: cpu(3) to the host's; it
+    # is another Context than cpu(0), as the reference's is, and equals
+    # no torch.device (convert through as_torch_device)
+    from mxnet_tpu_torch.base import as_torch_device
+    assert as_torch_device(context.cpu()) == torch.device("cpu") \
+        == as_torch_device(context.cpu(3))
+    assert context.cpu() != context.cpu(3)
+    assert context.cpu() != torch.device("cpu")
+    with context.use(context.cpu()) as dev:
+        assert dev == torch.device("cpu")
+        assert as_torch_device(context.current_context()) == \
+            torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (context.gpu, context.current_context):
         with pytest.raises(MXNetError, match="no CUDA device"):

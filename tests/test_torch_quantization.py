@@ -592,11 +592,16 @@ def test_unported_surface_names_its_roadmap_item():
     net = tsym.FullyConnected(data, num_hidden=2, name="fc")
     mod = Module(net, label_names=None, context="cpu")
     mod.bind([("data", (1, 4))], for_training=False)
-    with pytest.raises(NotImplementedError, match="items 6-7"):
+    # item 6(b) binds Context groups and a device list of one device;
+    # a sharding group value is item A7, distinct devices item A6(c)
+    from mxnet_tpu_torch.parallel.mesh import PartitionSpec
+    Module(net, label_names=None, context="cpu", group2ctxs={"g": "cpu"})
+    Executor.simple_bind(net, ctx=["cpu", "cpu"], shapes={"data": (1, 4)})
+    with pytest.raises(NotImplementedError, match="A7"):
         Module(net, label_names=None, context="cpu",
-               group2ctxs={"g": "cpu"})
-    with pytest.raises(NotImplementedError, match="items 6-7"):
-        Executor.simple_bind(net, ctx=["cpu", "cpu"],
+               group2ctxs={"g": PartitionSpec("model")})
+    with pytest.raises(NotImplementedError, match="A6\\(c\\)"):
+        Executor.simple_bind(net, ctx=["cpu", "cuda:0"],
                              shapes={"data": (1, 4)})
     with pytest.raises(NotImplementedError, match="item 13"):
         net.cost_report({"data": (1, 4)})

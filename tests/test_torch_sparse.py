@@ -134,7 +134,7 @@ def test_cast_storage_and_todense_match_reference(stype):
     _same_sparse(j, t)
     _same(t.todense(), j.todense())
     _same(t.asnumpy(), dense)
-    assert t.dtype == np.float32 and t.context == torch.device("cpu")
+    assert t.dtype == np.float32 and t.context.torch_device() == torch.device("cpu")
     assert t.size == dense.size and t.ndim == 2
     _same(t.tostype("default"), dense)
     _same_sparse(j, t.tostype(stype))

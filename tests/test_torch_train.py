@@ -248,15 +248,18 @@ def test_trainer_default_device_without_a_card_raises(monkeypatch):
     ("mesh_plan", {"model": 2}, "item 7"),
     ("grad_accum", 2, "item 6"), ("input_transform", abs, "item 3")])
 def test_unported_trainer_tiers_raise(arg, value, item):
-    if arg in ("zero", "grad_accum"):
-        # ported by item 6(a): the tier trains, held to the reference's
-        # same tier on one rank from the same weights (zero=1 over K > 1
-        # ranks is held in tests/test_torch_zero.py).  grad_accum=2 runs
+    if arg in ("zero", "grad_accum", "kvstore"):
+        # ported by items 6(a) and 6(b): the tier trains, held to the
+        # reference's same tier on one rank from the same weights (zero=1
+        # over K > 1 ranks is held in tests/test_torch_zero.py; a
+        # dist_sync store in one process is rank 0 of 1, the plain tier,
+        # in both packages; across processes it is held in
+        # tests/test_torch_kvstore_dist.py).  grad_accum=2 runs
         # BatchNorm over 2-image microbatches, where the reference's
         # backward leaves float64 at the third step (ROADMAP C16, shown by
         # test_reference_bn_backward_leaves_float64_on_two_image_groups):
         # it is held over the first two
-        steps = STEPS if arg == "zero" else 2
+        steps = 2 if arg == "grad_accum" else STEPS
         init, ref_losses, ref_final, ref_prefix = _reference_tier(
             arg, value, 1, steps)
         net, tr = _port_tier(init, arg, value)

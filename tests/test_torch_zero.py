@@ -311,9 +311,31 @@ def test_zero1_rejects_bad_configs():
     with pytest.raises(ValueError, match="grad_accum must be"):
         DataParallelTrainer(net, loss, "sgd", {}, grad_accum=0,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DataParallelTrainer(net, loss, "sgd", {}, kvstore="dist_sync",
-                            device="cpu")
+    # a multi-process store (item 6(b)) refuses what the reference's does
+    from mxnet_tpu_torch import kvstore as kvs
+
+    def store(kind="dist_sync", **set_up):
+        kv = kvs.create(kind)
+        kv._num_workers = 2          # as under a launcher of 2 workers
+        for k, v in set_up.items():
+            getattr(kv, k)(v)
+        return kv
+    for kw, match in (({"zero": 1}, "zero=1"), ({"grad_accum": 2},
+                                                 "grad_accum"),
+                      ({"dtype": "bf16"}, "bf16")):
+        with pytest.raises(ValueError, match=match):
+            DataParallelTrainer(net, loss, "sgd", {}, kvstore=store(),
+                                device="cpu", **kw)
+    for kv, match in ((store("dist_async"), "synchronous"),
+                      (store(set_optimizer="sgd"), "updater"),
+                      (store(set_gradient_compression={"type": "2bit"}),
+                       "compression")):
+        with pytest.raises(ValueError, match=match):
+            DataParallelTrainer(net, loss, "sgd", {}, kvstore=kv,
+                                device="cpu")
+    # one process: the store is rank 0 of 1 and the plain tier trains
+    assert DataParallelTrainer(net, loss, "sgd", {}, kvstore="dist_sync",
+                               device="cpu")._kv is None
     with pytest.raises(ValueError, match="divide by the data axis"):
         _, tr = _port("mlp", 4)
         tr.step(np.zeros((6, 16), np.float32), np.zeros(6, np.int64))
