@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Thirty-three phases; any failure exits non-zero and prints no result line.
+Thirty-five phases; any failure exits non-zero and prints no result line.
 
 1. **Kernels.** Build every CUDA source of the port with ``nvcc`` (one
    process per source, started together — the six mxgen kernels that
@@ -610,8 +610,8 @@ Thirty-three phases; any failure exits non-zero and prints no result line.
 31. **The rest of the op set and contrib/** (A10(d), A10(e); no hand
     kernel: the reference's code there reaches no ``pallas_call``).
     (a) Every name the slice registers (59, each alias through its
-    op): the linalg ops at a batch of 32 matrices of 1,024 x 1,024 (the
-    CPU computes the first 4, against which the card's first 4 are held),
+    op): the linalg ops at a batch of 16 matrices of 1,024 x 1,024 (the
+    CPU computes the first 2, against which the card's first 2 are held),
     ``count_sketch`` and the FFTs at compact bilinear pooling's sizes
     (25,088 x 512 -> 8,192; the CPU computes the FFTs' first 784 rows,
     one image's),
@@ -681,6 +681,35 @@ Thirty-three phases; any failure exits non-zero and prints no result line.
     arrays, and ``gpu_memory_info(0)`` agrees with
     ``torch.cuda.mem_get_info``.  The kernels line's B1 record gains
     ``launches_phase33``.
+34. **Model-axis tensor parallelism** (A7(a)).  (a)
+    ``tools/train_transformer_lm``'s ``train()`` at the documented width
+    over ``MeshPlan(data=2, model=2, sequence=2)``, ring attention,
+    batch 32, 6 steps with ``zero=0`` and then ``zero=1``: tokens/s (and
+    after the first step), peak memory, the loss drop, and the launches
+    a step of B1, B4 and B5-B7, each held equal to its formula (B1 =
+    data x zero, B4 = data x (2 layers + 1), B5-B7 = data x layers x
+    sequence each, on the wgmma design); the two runs' losses agree
+    within 2e-5.  (b) At one layer, two steps of ``{model: 2}`` and
+    ``{data: 2, model: 2, sequence: 2}`` against the collapsed plan on
+    the card (2e-5) and against the CPU (losses 1e-4, parameters 2e-5),
+    and of the latter at ``zero=1`` (B1 4 launches) against its
+    ``zero=0`` run (2e-5) and the CPU; B1 at one data rank's ``(Km *
+    shard,)`` ZeRO-1 length and offsets, B4 at one data rank's ``(Km,
+    Ks, B, T/Ks, d)`` rows and B5-B7 (both designs) at the layout's hop
+    pairings against their plain versions, timed beside plain, the
+    library call and the bound.  (c) ``DecodeProgram(plan=MeshPlan(data=1,
+    model=2))`` behind ``ModelFleet.register_decode`` and ``Server``: 8
+    concurrent ``POST /decode``, every answer equal to the collapsed
+    program's ``reference_decode``; B4 launched.  The kernels line's B1,
+    B4 and B5-B7 records gain ``launches_phase34`` ((a)'s two runs).
+35. **The front-end names** (A1(f)).  (a) A symbolic ResNet-50
+    checkpoint saved by the port (``Module.save_checkpoint``) run as
+    ``gluon.SymbolBlock.imports`` on the card, equal to
+    ``Module.predict`` on the same batch (1e-5).  (b) An FCN-32s style
+    upsampler initialized by ``Mixed([".*upsampling.*", ".*"],
+    [Bilinear(), Xavier()])`` on the card: the deconvolution's weights
+    Bilinear's exactly.  (c) ``tools/op_bench`` over the card, one JSON
+    line an op.
 
 Output: per-phase lines, then a ``{"kernels": [...]}`` JSON line (B4's
 at (1024, 128), ``prev_ms`` the design it replaced in the same turns; the
@@ -4439,8 +4468,8 @@ NHWC_F32_LOGIT_TOL = 1e-5
 NHWC_F32_STEP_TOL = 0.1
 STEP_ULPS = 2
 ZOO_F64_TOL = 1e-9       # the zoo's logits, card against CPU, float64
-ZOO_ITERS, ZOO_WARMUP = 5, 2     # benchmark_score's 20 / 5, cut for time
-ZOO_SWEEP_ROUNDS, ZOO_SWEEP_S = 5, 0.3    # the resnet50_v1 layout sweep
+ZOO_ITERS, ZOO_WARMUP = 3, 1     # benchmark_score's 20 / 5, cut for time
+ZOO_SWEEP_ROUNDS, ZOO_SWEEP_S = 3, 0.3    # the resnet50_v1 layout sweep
 ZOO_INIT_NAMES = ("vgg19_bn", "resnet152_v1", "densenet201")
 ZOO_TRAIN_BATCH = 32
 ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
@@ -8076,10 +8105,11 @@ P31_DEVICE = "cuda"
 # CPU's float32 result against its float64 one) where that is above
 # 1e-6; integer outputs, histogram counts and determinant signs equal
 P31_F64_TOL, P31_F32_TOL, P31_FLOOR_FACTOR = 1e-10, 1e-6, 10
-# (a): a batch of 32 matrices of 1,024 x 1,024; the card computes all 32
+# (a): a batch of 16 matrices of 1,024 x 1,024 (cut from 32 for the
+# script's time limit); the card computes all 16
 # and the CPU the first P31_HELD of them, against which the card's first
 # P31_HELD are held (each matrix's outputs and gradients are its own)
-P31_LINALG, P31_HELD = (32, 1024), 4
+P31_LINALG, P31_HELD = (16, 1024), 2
 # compact bilinear pooling (Gao et al., CVPR 2016): VGG-16 conv5_3's 512
 # channels at 28 x 28 for a batch of 32 (25,088 rows), sketched to 8,192
 P31_CBP = (25088, 512, 8192)
@@ -10089,6 +10119,442 @@ def phase_parameter_server():
     return b1
 
 
+# -- slice 27: model-axis tensor parallelism (A7(a)) and A1(f) ----------------
+P34_PLAN = dict(data=2, model=2, sequence=2)
+P34_STEPS, P34_LR = 6, 0.1
+# one data rank's activations at batch 32 over MeshPlan(data=2, model=2,
+# sequence=2): (Km, Ks, B / Kd, T / Ks, d) — the rows B4 normalizes
+P34_LN_SHAPE = (2, 2, TRAIN_LM_BATCH // 2, CFG["seq_len"] // 2,
+                CFG["d_model"])
+# its flash pairings per layer: every model rank's local heads fold into
+# the batch of one launch, Km * B / Kd * H / Km heads; hop 0 the diagonal
+# of both sequence ranks, hop 1 rank 1 against chunk 0
+P34_FLASH = [(2 * TRAIN_LM_BATCH // 2 * CFG["n_heads"], 512, 512, 16, True),
+             (TRAIN_LM_BATCH // 2 * CFG["n_heads"], 512, 512, 16, False)]
+# TP decode's concurrent requests and their longest prompt (as phase 2's)
+P34_REQUESTS, P34_PROMPT_MAX = 8, 200
+P35_BATCH, P35_SIDE = 8, 224
+
+
+def _p34_args(zero, steps=P34_STEPS, batch=TRAIN_LM_BATCH, layers=None):
+    """``tools/train_transformer_lm``'s flags at the documented width."""
+    import argparse
+    return argparse.Namespace(
+        steps=steps, batch=batch, seq_len=CFG["seq_len"],
+        vocab=CFG["vocab_size"], d_model=CFG["d_model"],
+        heads=CFG["n_heads"], layers=layers or CFG["n_layers"],
+        d_ff=CFG["d_ff"], lr=P34_LR, attention="ring", seed=0,
+        log_every=10 ** 9, chaos="", report=False, device="cuda",
+        zero=zero, **P34_PLAN)
+
+
+def _p34_want(zero):
+    """Launches a step of B1, B4 and B5-B7 over P34_PLAN, by formula."""
+    kd, ks, layers = P34_PLAN["data"], P34_PLAN["sequence"], CFG["n_layers"]
+    want = {"fused_sgd_momentum": kd * zero,
+            "fused_layer_norm": kd * (2 * layers + 1)}
+    for n in FLASH_KERNELS:
+        want[n + "/wgmma"] = kd * layers * ks
+    return want
+
+
+def _p34_train(card):
+    """(a): ``train()`` of ``tools/train_transformer_lm`` at P34_PLAN,
+    zero=0 then zero=1; tokens/s, peak memory, the loss drop and the
+    launches a step against their formulas.  Returns the launches."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    from mxnet_tpu_torch.tools import train_transformer_lm as tool
+    total, losses = {}, {}
+    for zero in (0, 1):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launch_counts()
+        fo.reset_launch_counts()
+        stats = tool.train(_p34_args(zero), logger=lambda *a: None)
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(pk.launch_counts(), **fo.launch_counts())
+        want = _p34_want(zero)
+        got = {k: counts.get(k, 0) for k in want}
+        for k in want:
+            total[k.split("/")[0]] = total.get(k.split("/")[0], 0) + got[k]
+        formula = ("B1 = data x zero = %d; B4 = data x (2 layers + 1) = "
+                   "%d; B5-B7 = data x layers x sequence = %d each"
+                   % (want["fused_sgd_momentum"], want["fused_layer_norm"],
+                      want["flash_dq/wgmma"]))
+        print("phase 34 (a): train_transformer_lm %s, zero=%d, batch %d x "
+              "%d, %d steps: %.1f tokens/s (%.1f after the first step); "
+              "peak memory %.3f GiB; loss %.4f -> %.4f (losses %s); "
+              "launches a step %s (%s) [%s]"
+              % (stats["plan"], zero, TRAIN_LM_BATCH, CFG["seq_len"],
+                 P34_STEPS, stats["tokens_per_sec"],
+                 stats["tokens_per_sec_steady"], peak / 2 ** 30,
+                 stats["head_loss"], stats["final_loss"],
+                 ["%.4f" % v for v in stats["losses"]],
+                 {k: v / P34_STEPS for k, v in got.items()}, formula, card))
+        if got != {k: v * P34_STEPS for k, v in want.items()}:
+            raise RuntimeError("phase 34 (a): zero=%d launches %r, want %r "
+                               "a step" % (zero, got, want))
+        if not np.isfinite(stats["losses"]).all() \
+                or not stats["final_loss"] < stats["head_loss"]:
+            raise RuntimeError("phase 34 (a): losses %r" % stats["losses"])
+        RUNS["phase 34 zero=%d" % zero] = stats["tokens_per_sec_steady"]
+        losses[zero] = stats["losses"]
+    dl = float(np.abs(np.subtract(losses[0], losses[1])).max())
+    print("phase 34 (a): zero=0 vs zero=1 over %d steps: max |dloss| %.3g "
+          "(tol %g)" % (P34_STEPS, dl, LM_LOSS_TOL_SEQ))
+    if dl > LM_LOSS_TOL_SEQ:
+        raise RuntimeError("phase 34 (a): zero=0 and zero=1 losses differ "
+                           "by %.3g" % dl)
+    return total
+
+
+def _p34_parity():
+    """(b): two steps at one layer of {model: 2} and {data: 2, model: 2,
+    sequence: 2} at zero=0, and of the latter at zero=1 (B1 on each data
+    rank's strided (Km, shard) columns), against the collapsed plan and
+    the zero=0 run on the card and against the CPU."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, MeshPlan
+    from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
+    (x, y), = _lm_batches(1, 2, seed=13)
+    runs = {}
+    for key, plan, device, zero in (
+            ("m2_cuda", MeshPlan(model=2), "cuda", 0),
+            ("m2_cpu", MeshPlan(model=2), "cpu", 0),
+            ("d2m2s2_cuda", MeshPlan(**P34_PLAN), "cuda", 0),
+            ("d2m2s2_cpu", MeshPlan(**P34_PLAN), "cpu", 0),
+            ("d2m2s2z1_cuda", MeshPlan(**P34_PLAN), "cuda", 1),
+            ("d2m2s2z1_cpu", MeshPlan(**P34_PLAN), "cpu", 1),
+            ("collapsed_cuda", MeshPlan(), "cuda", 0)):
+        tr = DataParallelTrainer(
+            TransformerLM(TransformerLMConfig(**dict(CFG, n_layers=1),
+                                              attention="ring")), None,
+            "sgd", dict(LM_SGD), mesh_plan=plan, zero=zero, device=device)
+        fo.reset_launch_counts()
+        losses = [float(tr.step(x, y)) for _ in range(2)]
+        b1 = fo.launch_counts()["fused_sgd_momentum"]
+        want = 2 * plan.size("data") * zero if device == "cuda" else 0
+        if not np.isfinite(losses).all() or b1 != want:
+            raise RuntimeError("phase 34 (b) %s: losses %r, B1 launched %d "
+                               "times (want %d)" % (key, losses, b1, want))
+        runs[key] = (losses, tr.mesh_params())
+        del tr
+    torch.cuda.empty_cache()
+    bad = []
+    for a, b, ltol in (("m2_cuda", "collapsed_cuda", LM_LOSS_TOL_SEQ),
+                       ("d2m2s2_cuda", "collapsed_cuda", LM_LOSS_TOL_SEQ),
+                       ("d2m2s2z1_cuda", "d2m2s2_cuda", LM_LOSS_TOL_SEQ),
+                       ("m2_cuda", "m2_cpu", LM_LOSS_TOL_DEVICE),
+                       ("d2m2s2_cuda", "d2m2s2_cpu", LM_LOSS_TOL_DEVICE),
+                       ("d2m2s2z1_cuda", "d2m2s2z1_cpu",
+                        LM_LOSS_TOL_DEVICE)):
+        dl = max(abs(p - q) for p, q in zip(runs[a][0], runs[b][0]))
+        dp = max((float(np.abs(runs[a][1][n] - runs[b][1][n]).max()), n)
+                 for n in runs[a][1])
+        print("phase 34 (b): one layer, batch 2, 2 steps, %s vs %s: max "
+              "|dloss| %.3g (tol %g), max |dparam| %.3g (%s) (tol %g)"
+              % (a, b, dl, ltol, dp[0], dp[1], LM_PARAM_TOL))
+        if dl > ltol or dp[0] > LM_PARAM_TOL:
+            bad.append("%s vs %s: %.3g / %.3g" % (a, b, dl, dp[0]))
+    print("phase 34 (b): losses %s" % {k: ["%.7f" % v for v in r[0]]
+                                       for k, r in runs.items()})
+    if bad:
+        raise RuntimeError("phase 34 (b): %s" % "; ".join(bad))
+
+
+def _p34_b1(card, gen):
+    """(b): B1 at the length ZeRO-1 gives it over P34_PLAN, one data
+    rank's (Km, shard) columns, Km * shard floats, at data rank 0's and
+    data rank 1's offsets into the flat space, against its plain version
+    in every OPT_CASES case; timed beside the plain version, the library
+    call and the bound."""
+    import torch
+    from mxnet_tpu_torch.parallel import MeshPlan
+    from mxnet_tpu_torch.transformer import TransformerLM, TransformerLMConfig
+    from mxnet_tpu_torch.transformer.step import TPZeroPlan
+    plan = MeshPlan(**P34_PLAN)
+    zp = TPZeroPlan(TransformerLM(TransformerLMConfig(
+        **CFG, attention="ring")).mesh_program(plan), plan.size("data"))
+    n = plan.size("model") * zp.shard
+    name = "fused_sgd_momentum"
+    worst = 0.0
+    for offset in sorted({0, n % 4}):
+        base = [_placed(torch.randn(n, device="cuda", generator=gen), offset)
+                for _ in range(4)]
+        for case in OPT_CASES:
+            s = torch.tensor([0.05, case[3], case[4]], device="cuda")
+            want = _opt_plain(name, base, s, case)
+            got = _opt_kernel(name, [_placed(a, offset) for a in base], 0.05,
+                              case)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=OPT_TOL, atol=OPT_TOL)
+                worst = max(worst, float((g - w).abs().max()))
+    w, g, m, v = (torch.randn(n, device="cuda", generator=gen)
+                  for _ in range(4))
+    case = (None, 1e-4, 1.0, torch.tensor(1.0, device="cuda"),
+            torch.tensor(1.0, device="cuda"))
+    lr_t = torch.tensor(0.05, device="cuda")
+    s = torch.tensor([0.05, 1.0, 1.0], device="cuda")
+    # CUDA-graph replays, as phase 4 times B1: at this length one eager
+    # call is shorter than the host's launch cost
+    t = {"kernel": _time_ms(lambda: _opt_kernel(name, (w, g, m, v), lr_t,
+                                                case), iters=20, replays=5),
+         "plain": _time_ms(lambda: _opt_plain(name, (w, g, m, v), s, case),
+                           iters=20, replays=5),
+         "library": _time_ms(_opt_library(name, w, g), iters=20,
+                             replays=5)}
+    per_elem = OPT_KERNELS[name][0]
+    print("phase 34 (b): %s at one data rank's ZeRO-1 shard over %s, (%d,) "
+          "= Km %d x shard %d, offsets %s: max |err| %.3g over %d cases "
+          "(tol %g); device time (CUDA graph) kernel %.5f ms, plain %.5f "
+          "ms, SGD(fused=True) %.5f ms, bound %.5f ms (bytes) [%s]"
+          % (name, P34_PLAN, n, plan.size("model"), zp.shard,
+             sorted({0, n % 4}), worst, len(OPT_CASES), OPT_TOL,
+             t["kernel"], t["plain"], t["library"],
+             per_elem * n / HBM_BYTES_PER_S * 1e3, card))
+
+
+def _p34_kernels(card):
+    """(b): B1 at its ZeRO-1 shard (``_p34_b1``), B4 at one data rank's
+    (Km, Ks, B, T/Ks, d) rows and B5-B7 at the hop pairings of P34_FLASH,
+    each against its plain version, timed beside the plain version, the
+    library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.ops import pallas_kernels as pk
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    _p34_b1(card, gen)
+    x = torch.randn(P34_LN_SHAPE, device="cuda", generator=gen)
+    d = P34_LN_SHAPE[-1]
+    s, b = (torch.randn(d, device="cuda", generator=gen) for _ in "sb")
+    got, want = fo.fused_layer_norm(x, s, b), fo.layer_norm_reference(x, s, b)
+    torch.testing.assert_close(got, want, rtol=LN_TOL, atol=LN_TOL)
+    err = float((got - want).abs().max())
+    t = {"kernel": _event_ms(lambda: fo.fused_layer_norm(x, s, b)),
+         "plain": _event_ms(lambda: fo.layer_norm_reference(x, s, b)),
+         "library": _event_ms(lambda: F.layer_norm(x, (d,), s, b, 1e-5))}
+    nbytes = 4 * (2 * x.numel() + 2 * d)
+    print("phase 34 (b): fused_layer_norm at %s: max |err| %.3g (tol %g); "
+          "kernel %.5f ms, plain %.5f ms, F.layer_norm %.5f ms, bound %.5f "
+          "ms (bytes) [%s]" % (P34_LN_SHAPE, err, LN_TOL, t["kernel"],
+                               t["plain"], t["library"],
+                               nbytes / HBM_BYTES_PER_S * 1e3, card))
+    del x, got, want
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        worst = {}
+        for case in P34_FLASH:
+            _flash_check(case, gen, worst)
+        args = _flash_bwd_args(P34_FLASH, gen)
+        plain = {"flash_forward_with_lse":
+                 lambda a: pk.flash_forward_with_lse_reference(*a[:3], a[6],
+                                                               a[7]),
+                 "flash_dq": lambda a: pk.flash_dq_reference(*a),
+                 "flash_dkv": lambda a: pk.flash_dkv_reference(*a)}
+        for name in FLASH_KERNELS:
+            call = _flash_call(name, "wgmma")
+            ms = sum(_event_ms(lambda a=a: call(a)) for a in args)
+            pms = sum(_event_ms(lambda a=a: plain[name](a), 3) for a in args)
+            bound, by = _flash_tc_bound(name, P34_FLASH)[:2]
+            print("phase 34 (b): %s at %s: max |err| %.3g on the wgmma "
+                  "design; %.5f ms a layer, plain %.5f ms, bound %.5f ms "
+                  "(%s, split TF32) [%s]"
+                  % (name, P34_FLASH, worst[(name, "wgmma")], ms, pms,
+                     bound, by, card))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _p34_decode(card):
+    """(c): the TP decode program behind ModelFleet and Server: every
+    answer equals the collapsed program's ``reference_decode``, and B4
+    launched on the path."""
+    from mxnet_tpu_torch.ops import fused_optimizer as fo
+    from mxnet_tpu_torch.parallel import MeshPlan
+    from mxnet_tpu_torch.serving import DecodeRunner, ModelFleet, Server
+    from mxnet_tpu_torch.transformer import (DecodeProgram,
+                                             TransformerLMConfig,
+                                             from_jax_params)
+    cfg = TransformerLMConfig(**CFG)
+    flat = DecodeProgram(cfg, page_size=PAGE_SIZE)
+    host = flat.program.init_params(0)
+    prog = DecodeProgram(cfg, plan=MeshPlan(data=1, model=2),
+                         page_size=PAGE_SIZE)
+    t0 = time.monotonic()
+    runner = DecodeRunner(prog, from_jax_params(host, "cuda"),
+                          slots=SLOTS, device="cuda")
+    warm = time.monotonic() - t0
+    oracle = DecodeRunner(flat, from_jax_params(host, "cuda"),
+                          slots=SLOTS, warmup=False, device="cuda")
+    rng = np.random.RandomState(34)
+    prompts = [rng.randint(0, CFG["vocab_size"], size=int(n)).tolist()
+               for n in [3, P34_PROMPT_MAX] + list(rng.randint(
+                   3, P34_PROMPT_MAX + 1, P34_REQUESTS - 2))]
+    refs = [oracle.reference_decode(p, MAX_NEW).tolist() for p in prompts]
+    fleet = ModelFleet()
+    fleet.register_decode("tp", runner, max_queue=64)
+    srv = Server(fleet, port=0)
+    host_, port = srv.start()
+    url = "http://%s:%d/decode" % (host_, port)
+    results = [None] * P34_REQUESTS
+
+    def fire(i):
+        results[i] = _post(url, {"prompt": prompts[i], "model": "tp",
+                                 "max_new_tokens": MAX_NEW})
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(P34_REQUESTS)]
+    try:
+        fo.reset_launch_counts()
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        ln = fo.launch_counts()["fused_layer_norm"]
+    finally:
+        srv.drain(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("phase 34 (c): a /decode request did not return")
+    for i, ((code, body), ref) in enumerate(zip(results, refs)):
+        if code != 200 or body["tokens"] != ref:
+            raise RuntimeError("phase 34 (c): request %d: HTTP %d, served "
+                               "%r, collapsed reference %r"
+                               % (i, code, body.get("tokens"), ref))
+    stats = fleet.batcher("tp").stats
+    need = (2 * CFG["n_layers"] + 1) * (stats.prefills_total
+                                        + stats.steps_total)
+    print("phase 34 (c): DecodeProgram(plan=MeshPlan(data=1, model=2)), "
+          "heads_local %d, behind ModelFleet + Server: %d concurrent POST "
+          "/decode x %d tokens all equal the collapsed program's "
+          "reference_decode; warmed in %.2f s; %.1f tokens/s; "
+          "fused_layer_norm %d launches (>= %d) [%s]"
+          % (prog.heads_local, P34_REQUESTS, MAX_NEW, warm,
+             P34_REQUESTS * MAX_NEW / wall, ln, need, card))
+    if ln < need:
+        raise RuntimeError("phase 34 (c): fused_layer_norm launched %d "
+                           "times, want >= %d" % (ln, need))
+
+
+def phase_tensor_parallel():
+    """Phase 34: A7(a), model-axis tensor parallelism (module docstring).
+    Returns the launches of B1, B4 and B5-B7 in (a)."""
+    t_phase = time.monotonic()
+    card = _p32_card()
+    launches = _p34_train(card)
+    _p34_parity()
+    _p34_kernels(card)
+    _p34_decode(card)
+    print("phase 34: %.1f s (the script so far %.1f s) [%s]"
+          % (time.monotonic() - t_phase, time.monotonic() - T_START, card))
+    return launches
+
+
+def _p35_symbol_block(card, tmp):
+    """(a): a symbolic ResNet-50 checkpoint saved by the port, run as a
+    ``gluon.SymbolBlock`` on the card, equal to ``Module.predict``."""
+    import torch
+    from mxnet_tpu_torch import gluon, initializer, io, module, nd
+    from mxnet_tpu_torch.tools.symbols import resnet
+    sym = resnet.get_symbol(1000, 50, "3,%d,%d" % (P35_SIDE, P35_SIDE))
+    shape = (P35_BATCH, 3, P35_SIDE, P35_SIDE)
+    rng = np.random.RandomState(35)
+    x = rng.rand(*shape).astype(np.float32)
+    y = rng.randint(0, 1000, P35_BATCH).astype(np.float32)
+    mod = module.Module(sym, context="cuda")
+    mod.bind([("data", shape)], [("softmax_label", y.shape)],
+             for_training=False)
+    mod.init_params(initializer.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+                    rng=np.random.RandomState(1))
+    prefix = tmp + "/resnet50"
+    mod.save_checkpoint(prefix, 0)
+    want = mod.predict(io.NDArrayIter(x, None, P35_BATCH)).asnumpy()
+    del mod
+    blk = gluon.SymbolBlock.imports(prefix + "-symbol.json",
+                                    ["data", "softmax_label"],
+                                    prefix + "-0000.params", ctx="cuda")
+    got = blk(nd.array(x, ctx="cuda"),
+              nd.array(y, ctx="cuda")).asnumpy()
+    torch.cuda.synchronize()
+    err = float(np.abs(got - want).max())
+    print("phase 35 (a): SymbolBlock.imports of the port's symbolic "
+          "ResNet-50 checkpoint (%d parameters) on the card, batch %d x "
+          "%d^2: max |prob - Module.predict| %.3g (tol %g) [%s]"
+          % (len(blk.collect_params().keys()), P35_BATCH, P35_SIDE, err,
+             PROB_TOL, card))
+    if not np.isfinite(got).all() or err > PROB_TOL:
+        raise RuntimeError("phase 35 (a): SymbolBlock differs from "
+                           "Module.predict by %.3g" % err)
+
+
+def _p35_mixed(card):
+    """(b): an FCN-32s style upsampler (``examples/fcn_xs/train_fcn.py:
+    117-118``) initialized by ``Mixed([...], [Bilinear(), Xavier()])`` on
+    the card: the deconvolution's weights are Bilinear's, exactly."""
+    import torch
+    from mxnet_tpu_torch import gluon, initializer, nd
+    net = gluon.nn.HybridSequential(prefix="fcn32s_")
+    with net.name_scope():
+        net.add(gluon.nn.Conv2D(21, 1, in_channels=512, prefix="score_"))
+        net.add(gluon.nn.Conv2DTranspose(21, 64, strides=32, padding=16,
+                                         in_channels=21, use_bias=False,
+                                         prefix="upsampling_"))
+    net.initialize(initializer.Mixed([".*upsampling.*", ".*"],
+                                     [initializer.Bilinear(),
+                                      initializer.Xavier()]),
+                   ctx="cuda",
+                   rng=torch.Generator("cuda").manual_seed(35))
+    params = net.collect_params()
+    up = params["fcn32s_upsampling_weight"].data().asnumpy()
+    want = np.zeros(up.shape, np.float32)
+    initializer.Bilinear()._init_weight(None, want, None)
+    score = params["fcn32s_score_weight"].data()._data
+    out = net(nd.ones((1, 512, 7, 7), ctx="cuda"))
+    torch.cuda.synchronize()
+    print("phase 35 (b): Mixed([upsampling, .*], [Bilinear(), Xavier()]) "
+          "on the card: upsampling weight %s equal to Bilinear's: %s; score "
+          "weight std %.4g (Xavier's %.4g); 7 x 7 -> %s [%s]"
+          % (up.shape, np.array_equal(up, want),
+             float(score.detach().std()),
+             np.sqrt(3 / ((512 + 21) / 2.0)) / np.sqrt(3),
+             tuple(out.shape), card))
+    if not np.array_equal(up, want) or tuple(out.shape) != (1, 21, 224,
+                                                             224):
+        raise RuntimeError("phase 35 (b): the upsampler's init or shape")
+
+
+def phase_front_end_names():
+    """Phase 35: A1(f), the front-end names (module docstring)."""
+    import shutil
+    import tempfile
+    from mxnet_tpu_torch.tools import op_bench
+    t_phase = time.monotonic()
+    card = _p32_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p35_")
+    try:
+        _p35_symbol_block(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _p35_mixed(card)
+    records, summary = op_bench.main(["--iters", "10", "--device",
+                                      "cuda"],
+                                     emit=lambda l: print("phase 35 (c): "
+                                                          + l))
+    if summary["errors"] or summary["timed"] != len(records):
+        raise RuntimeError("phase 35 (c): op_bench %r" % (summary,))
+    print("phase 35: op_bench timed %d ops on the card; %.1f s (the script "
+          "so far %.1f s) [%s]" % (summary["timed"],
+                                   time.monotonic() - t_phase,
+                                   time.monotonic() - T_START, card))
+
+
 def _timed(phase, *args, **kwargs):
     """Run one phase; print its seconds and the script's so far (flushed,
     so a cut run shows where its time went)."""
@@ -10192,6 +10658,11 @@ def main():
         for k in opt_kernels:
             if k["name"] == "fused_sgd_momentum":
                 k["launches_phase33"] = b1
+        launches = _timed(phase_tensor_parallel)
+        for k in opt_kernels + flash_kernels + [kernel]:
+            if k["name"] in launches:
+                k["launches_phase34"] = launches[k["name"]]
+        _timed(phase_front_end_names)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

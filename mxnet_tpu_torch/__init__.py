@@ -56,7 +56,8 @@ The reference's top-level names load on first use: ``mx.nd``,
 ``mx.profiler``, ``mx.lr_scheduler``, ``mx.model``, ``mx.mod``
 (``module``), ``mx.callback``, ``mx.monitor``, ``mx.Monitor``,
 ``mx.operator``, ``mx.rnn``, ``mx.contrib``, ``mx.AttrScope``,
-``mx.MXNetError``, ``mx.Context``, ``mx.cpu()``, ``mx.gpu()``,
+``mx.MXNetError``, ``mx.NDArray``, ``mx.Symbol``, ``mx.Executor``,
+``mx.Context``, ``mx.cpu()``, ``mx.gpu()``,
 ``mx.cpu_pinned()``, ``mx.current_context()`` and
 ``mx.gpu_memory_info()``.
 """
@@ -83,6 +84,15 @@ def __getattr__(name):
     if name == "MXNetError":
         from .base import MXNetError
         return MXNetError
+    if name == "NDArray":
+        from .ndarray import NDArray
+        return NDArray
+    if name == "Symbol":
+        from .symbol import Symbol
+        return Symbol
+    if name == "Executor":
+        from .executor import Executor
+        return Executor
     if name == "AttrScope":
         from .attribute import AttrScope
         return AttrScope

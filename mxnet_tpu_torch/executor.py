@@ -36,10 +36,22 @@ binds its in-process ranks on the one device they name: under GSPMD the
 reference's forward over the whole batch is the same numbers, as the
 port's in-process data ranks (``parallel/mesh.py``) hold.  A list naming
 distinct devices is the ranks of a multi-card process, ROADMAP.md queue
-A, item A6(c).  ``group2ctx`` (``executor.py:125-150``): a ``Context``
-value means replicated, so every group lives on the bound device; a
-``PartitionSpec`` (or tuple) that shards over a ``model`` axis is item
-A7 and raises.
+A, item A6(c).
+
+``group2ctx`` (``executor.py:37-52,120-150``): a ``Context`` value means
+replicated; a ``PartitionSpec`` (or tuple) shards every argument of its
+``ctx_group`` over the axes of a port :class:`~.parallel.mesh.Mesh`
+bound as ``ctx``.  The groups (``_group_specs``) and each argument's
+group (``_arg_groups``) are recorded, and :meth:`Executor._sharding`
+reads an argument's ``NamedSharding``: the group's spec fitted to the
+argument's shape by :func:`_fit_spec` (an axis kept only where the
+dimension divides), as the reference's GSPMD placement reads.  The
+ranks of an in-process mesh run on its one device, so every array lives
+whole there: placement changes no number, as it changes none under
+GSPMD (the port's in-process ``param_spec_fn`` does the same,
+``parallel/trainer.py``).  Over a process-group mesh a sharding value
+raises: parameters sharded across processes are ROADMAP.md queue A,
+item A7(b).
 """
 from __future__ import annotations
 
@@ -54,7 +66,30 @@ from .symbol.symbol import graph_plan
 __all__ = ["Executor"]
 
 
+def _fit_spec(spec, shape, mesh):
+    """Fit a group's PartitionSpec onto a tensor of ``shape``: keep an axis
+    only where the dimension divides by its size (one group covers
+    tensors of many shapes, as ``ctx_group`` did; reference
+    ``executor.py:37-52``)."""
+    from .parallel.mesh import PartitionSpec
+    sizes = mesh.shape
+    out = []
+    for d, ax in enumerate(tuple(spec)[:len(shape)]):
+        if ax is None:
+            out.append(None)
+            continue
+        total = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            total *= sizes.get(a, 1)
+        out.append(ax if shape[d] % total == 0 else None)
+    return PartitionSpec(*out)
+
+
 def _device_of(ctx):
+    from .parallel.mesh import Mesh
+    if isinstance(ctx, Mesh):
+        ctx = list(ctx.devices.flat) if not ctx.process_group \
+            else ctx.local_device
     if isinstance(ctx, (list, tuple)):
         devs = []
         for c in ctx:
@@ -74,23 +109,30 @@ def _device_of(ctx):
     return current_device() if ctx is None else resolve_device(ctx)
 
 
-def check_group2ctx(group2ctx):
-    """Refuse the ``group2ctx`` values the port cannot place: a spec that
-    shards a group (item A7).  A ``Context`` (or device) value means
-    replicated, as in the reference, and is resolved to check it."""
-    from .parallel.mesh import PartitionSpec
+def check_group2ctx(group2ctx, ctx=None):
+    """The group -> ``PartitionSpec`` map of ``group2ctx`` (reference
+    ``executor.py:125-137``): a spec (or tuple) as given, a ``Context``
+    (or device) value replicated, resolved to check it.  A spec that
+    shards a group over a process-group mesh raises (item A7(b))."""
+    from .parallel.mesh import Mesh, PartitionSpec
+    specs = {}
     for group, value in (group2ctx or {}).items():
         if isinstance(value, (list, tuple)) and not isinstance(
                 value, PartitionSpec):
             value = PartitionSpec(*value)
         if isinstance(value, PartitionSpec):
-            if any(a is not None for a in value):
+            if any(a is not None for a in value) and isinstance(
+                    ctx, Mesh) and ctx.process_group:
                 raise NotImplementedError(
-                    "group2ctx[%r] = %r shards the group over a mesh "
-                    "axis: model-axis sharding is ROADMAP.md queue A, "
-                    "item A7" % (group, value))
+                    "group2ctx[%r] = %r shards the group over a mesh of "
+                    "one rank per process: parameters sharded across "
+                    "processes are ROADMAP.md queue A, item A7(b)"
+                    % (group, value))
+            specs[group] = value
             continue
         resolve_device(value)
+        specs[group] = PartitionSpec()
+    return specs
 
 
 def _tensor(x, device, dtype=None):
@@ -154,9 +196,15 @@ class Executor:
     def __init__(self, symbol, ctx=None, args=None, args_grad=None,
                  grad_req="write", aux_states=None, data_names=None,
                  group2ctx=None):
-        check_group2ctx(group2ctx)
+        from .parallel.mesh import Mesh
+        self._group_specs = check_group2ctx(group2ctx, ctx)
         self._symbol = symbol
         self._device = _device_of(ctx)
+        self._mesh = ctx if isinstance(ctx, Mesh) else None
+        self._arg_groups = {
+            node.name: node.attrs["ctx_group"] for node in symbol._nodes()
+            if node.op is None
+            and node.attrs.get("ctx_group") in self._group_specs}
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self._data_names = list(data_names) if data_names else []
@@ -196,6 +244,25 @@ class Executor:
         self._forwarded = False
         self._jit_cache_keys = set()
 
+    def _sharding(self, name):
+        """The ``NamedSharding`` of argument (or auxiliary state) ``name``
+        over the bound mesh (None without one): its group's spec fitted
+        to its shape, the batch over ``data`` for a data or label
+        argument, else replicated (reference ``executor.py:190-200``)."""
+        from .parallel.mesh import NamedSharding, PartitionSpec
+        if self._mesh is None:
+            return None
+        if name in self._arg_groups:
+            arr = self.arg_dict.get(name, self.aux_dict.get(name))
+            spec = self._group_specs[self._arg_groups[name]]
+            if arr is not None:
+                spec = _fit_spec(spec, tuple(arr.shape), self._mesh)
+            return NamedSharding(self._mesh, spec)
+        if (name in self._data_names or name.endswith("_label")) \
+                and "data" in self._mesh.axis_names:
+            return NamedSharding(self._mesh, PartitionSpec("data"))
+        return NamedSharding(self._mesh, PartitionSpec())
+
     @classmethod
     def simple_bind(cls, symbol, ctx=None, grad_req="write", type_dict=None,
                     shapes=None, data_names=None, group2ctx=None,
@@ -225,9 +292,10 @@ class Executor:
                                              aux_shapes)}
         if data_names is None:
             data_names = [n for n in shapes if n in arg_names]
-        return cls(symbol, device, args=args, grad_req=grad_req,
-                   aux_states=aux, data_names=data_names,
-                   group2ctx=group2ctx)
+        from .parallel.mesh import Mesh
+        return cls(symbol, ctx if isinstance(ctx, Mesh) else device,
+                   args=args, grad_req=grad_req, aux_states=aux,
+                   data_names=data_names, group2ctx=group2ctx)
 
     # ------------------------------------------------------------------
     def _feed(self, kwargs):

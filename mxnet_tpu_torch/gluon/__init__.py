@@ -4,10 +4,12 @@ vision model zoo, ``data`` (datasets, samplers, ``DataLoader``, vision
 transforms), the recurrent layers and cells of ``rnn`` and the weight
 carry-over from the reference (``utils.from_jax_params``)."""
 from . import contrib, data, loss, model_zoo, nn, rnn, utils
-from .block import Block, HybridBlock
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .block import Block, HybridBlock, SymbolBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
+           "ParameterDict",
            "DeferredInitializationError", "Trainer", "contrib", "data", "nn",
            "loss", "model_zoo", "rnn", "utils"]

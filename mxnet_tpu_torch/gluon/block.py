@@ -395,3 +395,75 @@ class HybridBlock(Block):
             if isinstance(child, HybridBlock):
                 keys |= child.jit_cache_keys()
         return keys
+
+
+class SymbolBlock(HybridBlock):
+    """A ``Symbol`` run as a Gluon block (reference ``gluon/block.py:
+    435-449``): every argument of ``outputs`` that is not one of
+    ``inputs`` becomes a parameter of the block under its own name, every
+    auxiliary state a parameter with ``grad_req="null"``, and the forward
+    runs the graph through the executor's ``run_plan`` on the block's
+    tensors (training flag and all, so BatchNorm updates its moving
+    statistics exactly where the block's training flag says).  Shapes
+    the parameters lack are inferred from the first input's at the first
+    forward.  :meth:`imports` builds one from a saved symbol and
+    ``.params`` file, as MXNet's does (the reference's forward calls a
+    helper its ``symbol`` package lacks, ROADMAP.md C19)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from ..symbol import Group
+        from ..symbol.symbol import graph_plan
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 else Group(
+                list(outputs))
+        self._symbol = outputs
+        self._sym_inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+            else [inputs]
+        self._input_names = [i.name for i in self._sym_inputs]
+        self._arg_params = [n for n in outputs.list_arguments()
+                            if n not in self._input_names]
+        self._aux_params = outputs.list_auxiliary_states()
+        for name in self._arg_params + self._aux_params:
+            setattr(self, name, self.params.get(
+                name, allow_deferred_init=True,
+                grad_req="null" if name in self._aux_params else "write"))
+        self._steps, self._heads = graph_plan(outputs)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A block over ``symbol_file`` (``Symbol.save``) with ``input_names``
+        as its inputs and, if given, the ``arg:`` / ``aux:`` arrays of
+        ``param_file`` (``nd.save``, a Module checkpoint) as its
+        parameters, on ``ctx`` (the card unless it names the CPU)."""
+        from .. import ndarray as nd
+        from .. import symbol as sym
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(sym.load(symbol_file),
+                            [sym.var(n) for n in input_names])
+        if param_file is not None:
+            params = block.params
+            for key, arr in nd.load(param_file).items():
+                name = key.split(":", 1)[1] if key.startswith(
+                    ("arg:", "aux:")) else key
+                params[name].set_data(arr, device=ctx)
+        return block
+
+    def infer_param_shapes(self, *args):
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+            **{n: tuple(a.shape) for n, a in zip(self._input_names, args)})
+        shapes = dict(zip(self._symbol.list_arguments(), arg_shapes))
+        shapes.update(zip(self._aux_params, aux_shapes))
+        for name, p in self._reg_params.items():
+            if p._data is None:
+                p.shape = shapes[name]
+
+    def hybrid_forward(self, F, *args, **params):
+        from ..executor import run_plan
+        argd = dict(zip(self._input_names, args))
+        argd.update((n, params[n]) for n in self._arg_params)
+        aux = {n: params[n] for n in self._aux_params}
+        outs = run_plan(self._steps, self._heads, argd, aux,
+                        self._train_flag(), args[0].device)
+        return outs[0] if len(outs) == 1 else list(outs)

@@ -37,7 +37,8 @@ from ..context import current_device
 from ..ndarray import NDArray
 from ..precision import torch_dtype as _torch_dtype
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -267,6 +268,25 @@ class Parameter:
             with torch.no_grad():
                 self._data.data = self._data.data.to(tdt)
             self._data.grad = None
+
+
+class Constant(Parameter):
+    """A parameter that is never updated: ``grad_req="null"``, initialized
+    to ``value`` (reference ``gluon/parameter.py:179-192``)."""
+
+    def __init__(self, name, value):
+        from ..ndarray import NDArray, array
+        if not isinstance(value, NDArray):
+            value = array(value, ctx="cpu")
+        self.value = value
+        host = value.asnumpy()
+
+        class _Init(initializer.Initializer):
+            def _init_weight(self_, _, arr, rng):
+                initializer._set(arr, host)
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_Init())
 
 
 class ParameterDict:

@@ -21,6 +21,8 @@ formulas from the generator its caller passes (``rng=``):
 from __future__ import annotations
 
 import json
+import logging
+import re
 
 import numpy as np
 import torch
@@ -28,7 +30,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "LSTMBias", "FusedRNN",
+           "Constant", "Uniform", "Normal", "Xavier", "MSRAPrelu",
+           "Orthogonal", "Bilinear", "LSTMBias", "FusedRNN", "Mixed", "Load",
            "TorchDraws"]
 
 _REG = {}
@@ -193,6 +196,70 @@ class Xavier(Initializer):
             arr[...] = rng.normal(0, scale, arr.shape)
 
 
+class MSRAPrelu(Xavier):
+    """He's initialization for PReLU slope ``slope``: Gaussian Xavier with
+    magnitude ``2 / (1 + slope**2)`` (reference ``initializer.py:
+    167-172``)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+def _set(arr, value):
+    """Write a host (numpy) or device (tensor) value into ``arr`` (a
+    numpy array, a tensor or an NDArray) in place."""
+    if isinstance(arr, np.ndarray):
+        arr[...] = value if isinstance(value, np.ndarray) \
+            else value.detach().cpu().numpy()
+        return
+    t = arr._data if hasattr(arr, "_data") else arr
+    t.copy_(torch.as_tensor(value).to(t.device, t.dtype))
+
+
+class Orthogonal(Initializer):
+    """A scaled orthonormal basis of the weight's ``(out, prod(rest))``
+    matrix: the SVD of a uniform (or normal) draw (reference
+    ``initializer.py:175-192``); on a ``torch.Generator`` the draw and the
+    SVD run on its device."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr, rng):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        draws = _need_rng(rng, "Orthogonal")
+        if self.rand_type == "uniform":
+            tmp = draws.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = draws.normal(0.0, 1.0, (nout, nin))
+        if isinstance(tmp, torch.Tensor):
+            u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        else:
+            u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        _set(arr, self.scale * q.reshape(tuple(arr.shape)))
+
+
+class Bilinear(Initializer):
+    """The weights that make a ``Deconvolution`` a bilinear upsampler
+    (reference ``initializer.py:195-206``)."""
+
+    def _init_weight(self, _, arr, rng):
+        shape = tuple(arr.shape)
+        weight = np.zeros(shape, dtype=np.float32)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        _set(arr, weight)
+
+
 class LSTMBias(Initializer):
     """Zeros, with the forget gate's quarter (i, f, g, o) at
     ``forget_bias`` (reference: initializer.py LSTMBias)."""
@@ -231,3 +298,63 @@ register(Normal, "gaussian")
 register(Xavier)
 register(LSTMBias)
 register(FusedRNN)
+register(MSRAPrelu)
+register(Orthogonal)
+register(Bilinear)
+
+
+class Mixed(Initializer):
+    """Route parameters to initializers by name regex, tried in order
+    (``".*"`` last gives a default); reference ``initializer.py:
+    235-259``, the FCN-xs example's ``Mixed([...], [Bilinear(),
+    Xavier()])``."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must pair up")
+        self._map = [(re.compile(p), create(i))
+                     for p, i in zip(patterns, initializers)]
+
+    def __call__(self, desc, arr, rng=None):
+        if not isinstance(desc, InitDesc):
+            desc = InitDesc(desc)
+        for prog, init in self._map:
+            if prog.match(desc):
+                init(desc, arr, rng)
+                return
+        raise ValueError(
+            "parameter %r did not match any pattern; add \".*\" as the "
+            "last pattern for a default" % str(desc))
+
+
+class Load:
+    """Initialize from a dict of saved arrays (``arg:`` / ``aux:``
+    prefixes dropped), falling back to ``default_init`` for parameters
+    not in it (reference ``initializer.py:262-293``)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {
+            (k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, desc, arr, rng=None):
+        name = str(desc)
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError(
+                    "shape mismatch for %r: saved %s vs expected %s"
+                    % (name, tuple(src.shape), tuple(arr.shape)))
+            _set(arr, getattr(src, "_data", src))
+            return
+        if self.default_init is None:
+            raise ValueError("no saved value for %r and no default_init"
+                             % name)
+        if self.verbose:
+            logging.getLogger(__name__).info(
+                "Load: %s not found in saved params, using default_init",
+                name)
+        self.default_init(desc, arr, rng)

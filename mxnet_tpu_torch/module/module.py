@@ -20,9 +20,12 @@ kvstore through ``model._create_kvstore`` (none for ``"local"`` or
 store; the reference's store runs a pickled copy, ROADMAP.md section C).
 A device list (``context=[ctx, ...]``) binds its in-process ranks on
 the one device it names, and ``group2ctxs`` (a dict, or one per device)
-with ``Context`` values binds every group there, replicated
-(``executor.py``); distinct devices are item A6(c), sharding specs item
-A7.  ``kvstore="dist_*"`` makes the store's push sum (``dist_sync``) or
+with ``Context`` values binds every group there, replicated; with
+``PartitionSpec`` values over a port ``Mesh`` context each group's
+sharding is recorded, and the arrays live whole on the mesh's one
+device (``executor.py``).  Distinct devices are item A6(c), sharding
+specs over a mesh of one rank per process item A7(b).
+``kvstore="dist_*"`` makes the store's push sum (``dist_sync``) or
 apply (``dist_async``, on the server) across processes.
 """
 from __future__ import annotations
@@ -56,7 +59,7 @@ class Module(BaseModule):
         from ..executor import check_group2ctx
         for g2c in (group2ctxs if isinstance(group2ctxs, (list, tuple))
                     else [group2ctxs]):
-            check_group2ctx(g2c)
+            check_group2ctx(g2c, context)
         self._group2ctxs = group2ctxs
         self._symbol = symbol
         self._data_names = list(data_names) if data_names else []
@@ -133,6 +136,14 @@ class Module(BaseModule):
                 **{d.name: d.shape for d in descs})[1]
         return list(zip(self._output_names, shapes))
 
+    def _group2ctx(self):
+        """The ``group2ctx`` the executor binds: the dict, or the first of
+        a list of one per device (the in-process ranks share one)."""
+        g2c = self._group2ctxs
+        if isinstance(g2c, (list, tuple)):
+            return g2c[0] if g2c else None
+        return g2c
+
     @property
     def context(self):
         """The bound device (None before ``bind``)."""
@@ -163,7 +174,7 @@ class Module(BaseModule):
             type_dict={d.name: d.dtype for d in descs},
             shapes={d.name: d.shape for d in descs},
             data_names=self._data_names + self._label_names
-            + self._state_names)
+            + self._state_names, group2ctx=self._group2ctx())
         if shared_module is not None and shared_module._exec is not None:
             # the parameters and aux states are the other module's arrays
             # (BucketingModule's buckets share them)

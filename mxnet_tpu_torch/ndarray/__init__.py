@@ -10,7 +10,8 @@ and ``nd.contrib`` also the control flow of ``ops/control_flow.py``
 ``nd.Custom`` runs a Python ``CustomOp`` (``operator.py``).
 ``nd.random`` holds the samplers of ``ops/random.py`` under the
 reference's public names (``mxnet_tpu/ndarray/__init__.py:121-183``),
-with ``randn`` and ``seed``; a draw lands on ``ctx`` (the card unless
+with ``randn`` and ``seed`` (also ``nd.randn`` / ``nd.seed``, and
+``nd.linspace`` / ``nd.eye`` over ``_linspace`` / ``_eye``, ``:79-88``); a draw lands on ``ctx`` (the card unless
 the caller asks for the CPU).  ``nd.sparse`` holds the row-sparse and
 CSR arrays (``sparse.py``); ``zeros(stype=)`` makes one."""
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .register import populate as _populate
 from . import sparse
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
-           "concatenate", "invoke", "imperative_invoke", "np_dtype",
+           "linspace", "eye", "randn", "seed", "concatenate", "invoke", "imperative_invoke", "np_dtype",
            "torch_dtype", "waitall", "save", "load", "contrib", "linalg",
            "random", "Custom", "sparse"]
 
@@ -76,6 +77,21 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
         t = torch.repeat_interleave(t, int(repeat))
     return NDArray(t.to(dtype=torch_dtype(dtype or "float32"),
                         device=_device(ctx)))
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):
+    """``num`` evenly spaced values (the ``_linspace`` op)."""
+    return invoke(_reg.get("_linspace"), (), dict(
+        start=start, stop=stop, num=num, endpoint=endpoint,
+        dtype=dtype or "float32", ctx=ctx))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """Ones on the ``k``-th diagonal of an ``N x M`` matrix (the ``_eye``
+    op)."""
+    return invoke(_reg.get("_eye"), (), dict(N=N, M=M, k=k,
+                                             dtype=dtype or "float32",
+                                             ctx=ctx))
 
 
 def Custom(*args, **kwargs):
@@ -167,3 +183,5 @@ def _seed(seed_state, ctx="all"):
 
 random.randn = _randn
 random.seed = _seed
+# the reference binds both at module level too (``:176-183``)
+randn, seed = _randn, _seed

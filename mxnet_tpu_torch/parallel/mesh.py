@@ -23,16 +23,24 @@ parameter replicated).
 ``resolve``/``coerce``/``describe``) is the reference's; what a plan may
 hold, and where its ranks live, is narrower:
 
-- The port runs a plan on **one device**.  The ranks of its ``sequence``
-  axis are a leading dimension of size K of the activations — the
-  ``vmap(axis_name="sequence")`` spelling of the reference's
-  per-replica program: ``ppermute`` is ``torch.roll`` along that
-  dimension, ``pmean`` a mean over it, ``axis_index`` an ``arange``.
-  The ranks of its ``data`` axis run in turn, each on its rows of the
-  batch (``transformer/step.py``).  The numbers are those of the
-  reference's plan; no O(T/K) memory per card is claimed.
-- ``model > 1`` raises: the tensor-parallel layers over NCCL are
-  ROADMAP.md queue A, item 7.
+- The port runs a plan on **one device**.  The ranks of its ``model``
+  and ``sequence`` axes are two leading dimensions of the activations,
+  ``(Km, Ks, B, T/Ks, ...)`` — the ``vmap(axis_name=...)`` spelling of
+  the reference's per-replica program.  Over the sequence dimension
+  ``ppermute`` is ``torch.roll``, ``pmean`` a mean, ``axis_index`` an
+  ``arange``; over the model dimension ``psum`` is a sum broadcast back,
+  ``pmax`` an ``amax``, ``axis_index`` an ``arange`` and a tiled
+  ``all_gather`` a concatenation (``transformer/layers.py``).  The
+  model collectives sit inside each layer (the row-parallel psum after
+  attention and the FFN, the vocab psum and pmax in the loss), so every
+  model rank's partial must exist before the next op: the model ranks
+  cannot run in turn.  The ranks of the ``data`` axis do run in turn,
+  each on its rows of the batch (``transformer/step.py``).  The numbers
+  are those of the reference's plan; no O(T/K) memory, nor a 1/Km share
+  of the parameters, per card is claimed.
+- :meth:`MeshPlan.build_mesh` returns an in-process :class:`Mesh` on one
+  device.  The reference's ``axis_env`` feeds ``jax.make_jaxpr`` and
+  has no counterpart here.
 - ``pipeline > 1`` raises: the 1F1B pipeline is the rest of item 8.
 """
 from __future__ import annotations
@@ -234,10 +242,6 @@ class MeshPlan:
             if v is not None and v < 1:
                 raise ValueError("MeshPlan axis %r must be >= 1, got %r"
                                  % (name, v))
-        if self.model > 1:
-            raise NotImplementedError(
-                "MeshPlan(model=%d): model-axis sharding over NCCL is not "
-                "ported yet (ROADMAP.md queue A, item 7)" % self.model)
         if self.pipe > 1:
             raise NotImplementedError(
                 "MeshPlan(pipeline=%d): the 1F1B pipeline is not ported yet "
@@ -326,6 +330,21 @@ class MeshPlan:
         return PartitionSpec("data" if self.present("data") else None,
                              "sequence" if self.present("sequence")
                              else None)
+
+    def build_mesh(self, devices=None):
+        """An in-process :class:`Mesh` over the plan's collapsed axes, every
+        rank on one device (``devices``: one device, or a list naming
+        it; default the card)."""
+        plan = self.on_one_device()
+        names = plan.axis_names()
+        shape = tuple(plan.size(a) for a in names)
+        devs = _device_list(devices)
+        if len({str(d) for d in devs}) != 1:
+            raise ValueError(
+                "MeshPlan.build_mesh runs every rank on one device; got %s "
+                "(the ranks of a multi-card process are ROADMAP.md queue "
+                "A, item A6(c))" % sorted({str(d) for d in devs}))
+        return make_mesh(shape, names, devs[:1] * plan.total)
 
     def describe(self):
         return {"data": self.size("data"), "model": self.model,

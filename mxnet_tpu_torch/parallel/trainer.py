@@ -96,7 +96,7 @@ process over ``torch.distributed``; their collectives are
 - ``param_spec_fn`` changes no number with in-process ranks, as GSPMD
   placement changes none in the reference; with a process group a spec
   that is not replicated raises (parameters sharded across processes
-  are ROADMAP.md queue A, item A7).
+  are ROADMAP.md queue A, item A7(b)).
 - ``kvstore="dist_sync"`` (or a ``dist_sync`` store; ``trainer.py:
   169-210,430-490,2484-2517``): each process runs the replicated step on
   its own batch into flat gradient buckets that are views of ONE flat
@@ -120,8 +120,17 @@ restores the other's (the RNG state belongs to each package's own
 generator and is not crossed).  ``fit`` (``:2328-2453``) drives the
 prefetch, the run-ahead window, lazy metrics and the checkpoints.
 
-The model-axis and pipeline tiers raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.
+**The mesh tier** (``mesh_plan=``, ``model_parallel=``,
+``sequence_parallel=``; ``trainer.py:780-1180``): a mesh-program block
+(``transformer.TransformerLM``) trains through
+``transformer/step.py`` over ``MeshPlan(data=D, model=Km,
+sequence=Ks)`` on one device — the model and sequence ranks as leading
+dimensions of the activations, the data ranks in turn.  The parameters
+are global tensors (each rank's shard a view), the optimizer state is
+per parameter, or under ``zero=1`` one ``(Km * shard,)`` slice per data
+rank of the reference's ``("model", "data")`` flat layout (B1 / B3
+once per data rank a step).  The pipeline tier raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -228,7 +237,7 @@ class DataParallelTrainer:
     run_id : the training run's identity in every checkpoint's
         provenance (default ``$MXTPU_RUN_ID``).
     mesh_plan / sequence_parallel : the mesh tier (module docstring);
-        ``model_parallel > 1`` raises (item 7).
+        ``model_parallel`` the model axis (Megatron layers).
     dtype : ``None`` / ``"float32"``, or ``"bf16"`` for bfloat16 compute
         over f32 masters (module docstring).
     input_transform : callable(tensor) -> tensor applied to each batch on
@@ -515,7 +524,7 @@ class DataParallelTrainer:
                 "param_spec_fn placed %s off the replicated layout: one "
                 "rank per process holds every parameter whole; sharded "
                 "parameters across processes are ROADMAP.md queue A, item "
-                "A7" % sorted(n for n, sp in specs.items() if sp))
+                "A7(b)" % sorted(n for n, sp in specs.items() if sp))
         self._fused_on = _fused.supports(self._opt) is not None
         self._aux_tensors = [params[n].tensor() for n in self._aux_names]
         if self._zero:
@@ -729,15 +738,9 @@ class DataParallelTrainer:
         path: its transfer is reused, not redone."""
         if self._plan is not None:
             if self._mesh is None:
-                self._mesh = self._plan_mesh()
+                self._mesh = self._plan.build_mesh(self._device)
             return NamedSharding(self._mesh, self._plan.batch_spec())
         return NamedSharding(self._mesh, PartitionSpec(self._data_axis))
-
-    def _plan_mesh(self):
-        plan = self._plan
-        names = plan.axis_names()
-        shape = tuple(plan.size(a) for a in names)
-        return make_mesh(shape, names, [self._device] * plan.total)
 
     def _put_batch(self, v):
         """A batch (tensor, NDArray or numpy) on the step's device, with
@@ -1007,7 +1010,7 @@ class DataParallelTrainer:
         from .comm import InProcessComm
         plan = self._plan
         if self._mesh is None:
-            self._mesh = self._plan_mesh()
+            self._mesh = self._plan.build_mesh(self._device)
         program = self._block.mesh_program(plan)
         self._mesh_program = program
         params = program.init_params()
@@ -1022,12 +1025,15 @@ class DataParallelTrainer:
             zp = _tstep.TPZeroPlan(program, plan.size("data"))
             self._mesh_zero_plan = zp
             leaves_r = []
+            # data rank d owns a (shard,) slice of every model rank's
+            # flat space: (Km * shard,) elements (transformer/step.py)
+            owned = plan.size("model") * zp.shard
             for _ in self._comm.local_ranks:
                 state = opt.create_state_multi_precision(
-                    0, torch.zeros(zp.shard, dtype=torch.float32,
+                    0, torch.zeros(owned, dtype=torch.float32,
                                    device=self._device))
                 for li, leaf in enumerate(_state_leaves(state)):
-                    if tuple(leaf.shape) != (zp.shard,):
+                    if tuple(leaf.shape) != (owned,):
                         raise ValueError(
                             "zero=1 needs flat-shaped optimizer state "
                             "leaves; leaf %d of %s has shape %r"
@@ -1073,6 +1079,18 @@ class DataParallelTrainer:
             compute_dtype=self._dtype if self._reduced else None,
             comm=self._comm)
         self._ready = True
+
+    def _mesh_context_tag(self):
+        """Which mesh axis to name when collective time dominates
+        (``trainer.py:880-901``): the one armed axis of ``model``,
+        ``sequence`` and ``pipe``; with several armed the reference reads
+        its priced schedule (``mesh_report``, ROADMAP.md queue A, item
+        13) and names ``model`` where that fails, as here."""
+        tags = {"model": "tp_model", "sequence": "tp_sequence",
+                "pipe": "pp_pipeline"}
+        armed = [a for a in ("model", "sequence", "pipe")
+                 if self._plan.present(a)]
+        return tags[armed[0]] if len(armed) == 1 else "tp_model"
 
     def _step_mesh_tier(self, x, y):
         """One mesh-tier step: the (B, T) batch cut into each data rank's
@@ -1460,9 +1478,14 @@ class DataParallelTrainer:
 
     # -- mesh-tier checkpointing ---------------------------------------------
     def _mesh_state_vectors(self):
+        """The state leaves in the reference's global layout: per
+        parameter, or under ``zero=1`` each leaf's flat ``(Km * padded,)``
+        vector in ``("model", "data")`` order."""
         if not self._zero:
             return list(self._mesh_state_leaves)
-        return [torch.cat(ls) for ls in zip(*self._mesh_state_leaves)]
+        km, kd = self._plan.size("model"), self._plan.size("data")
+        return [torch.stack(ls).view(kd, km, -1).transpose(0, 1).reshape(-1)
+                for ls in zip(*self._mesh_state_leaves)]
 
     def _save_mesh(self, directory, epoch=None, nbatch=None, keep=3):
         """Monolithic snapshot of the mesh tier (``trainer.py:1143-1170``):
@@ -1513,10 +1536,11 @@ class DataParallelTrainer:
                     payload["mesh_params"][name]))
             vals = [_ckpt.decode_tensor(e).to(self._device) for e in encs]
             if self._zero:
-                k = self._plan.size("data")
+                km, kd = self._plan.size("model"), self._plan.size("data")
                 for li, full in enumerate(vals):
                     for r, leaves in enumerate(self._mesh_state_leaves):
-                        leaves[li].copy_(full.view(k, -1)[r])
+                        leaves[li].copy_(
+                            full.view(km, kd, -1)[:, r].reshape(-1))
             else:
                 for leaf, v in zip(self._mesh_state_leaves, vals):
                     leaf.copy_(v.view(leaf.shape))

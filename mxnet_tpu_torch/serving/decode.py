@@ -216,7 +216,7 @@ class DecodeRunner:
         self._lock = threading.Lock()
         # zeros, never empty: decode reads every page of a table, scratch
         # included, and 0 x NaN from uninitialised memory would be NaN
-        self._ck = torch.zeros(program.cache_shape(n_pages),
+        self._ck = torch.zeros(program.global_cache_shape(n_pages),
                                dtype=torch.float32, device=self.device)
         self._cv = torch.zeros_like(self._ck)
         # the (phase, input shape) signatures dispatched so far — the

@@ -4,8 +4,8 @@ the same registry as ``nd``; ``sym.contrib.<op>`` holds the
 ``_contrib_*`` ops without their prefix, ``sym.linalg.<op>`` the
 ``_linalg_*`` ops, and ``sym.random.<name>`` the ``_random_*`` ops
 without theirs (``mxnet_tpu/symbol/__init__.py:29-53``);
-``zeros`` is the reference's creation helper (``:56-57``), the recurrent
-cells' begin states."""
+``zeros``, ``ones`` and ``arange`` are the reference's creation helpers
+(``:56-64``): ``zeros`` gives the recurrent cells' begin states."""
 from __future__ import annotations
 
 import sys as _sys
@@ -17,7 +17,7 @@ from .symbol import (Symbol, Variable, var, Group, load, load_json,
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "AttrScope", "NameManager", "contrib", "linalg", "random",
-           "zeros"]
+           "zeros", "ones", "arange"]
 
 _reg.load_all()
 
@@ -58,3 +58,16 @@ def zeros(shape, dtype=None, **kwargs):
     return _sym_invoke(_reg.get("_zeros"), "_zeros", (),
                        dict(kwargs, shape=shape, dtype=dtype or "float32"))
 
+
+
+def ones(shape, dtype=None, **kwargs):
+    """A ``_ones`` node."""
+    return _sym_invoke(_reg.get("_ones"), "_ones", (),
+                       dict(kwargs, shape=shape, dtype=dtype or "float32"))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    """An ``_arange`` node."""
+    return _sym_invoke(_reg.get("_arange"), "_arange", (),
+                       dict(kwargs, start=start, stop=stop, step=step,
+                            repeat=repeat, dtype=dtype or "float32"))

@@ -16,8 +16,7 @@ input.  :func:`graph_plan` orders the nodes for the eager executor
 comparison operators, the method sugar (``sym.reshape(...)``) and
 composition by call build the reference's nodes.  The static-analysis
 reports (``lint``, ``cost_report``, ``fusion_report``, ``shard_report``)
-and ``group2ctx`` placement are not ported: they raise, naming their
-ROADMAP.md item.
+are not ported: they raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

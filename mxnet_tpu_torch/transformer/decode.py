@@ -14,14 +14,25 @@ two phases an autoregressive server runs:
   emit full-vocab logits.
 
 **Paged cache layout** (the reference's): one pool per K and V,
-``(n_layers, n_pages, page_size, heads, head_dim)`` float32.  Page 0 is
-the reserved scratch page: idle slots carry all-zero page tables, so
-their writes land there (several slots may write the same scratch row in
-one step; the order is undefined on CUDA and harmless, because nothing
-live reads scratch).  The pools are zero-initialised by the owner: decode
-gathers every page of a table, scratch included, and masked positions
-get probability exactly 0 — but ``0 × NaN`` from uninitialised memory
-would be NaN.
+``(n_layers, n_pages, page_size, heads, head_dim)`` float32 — the
+reference's global pool, :meth:`DecodeProgram.global_cache_shape`.  Page
+0 is the reserved scratch page: idle slots carry all-zero page tables,
+so their writes land there (several slots may write the same scratch row
+in one step; the order is undefined on CUDA and harmless, because
+nothing live reads scratch).  The pools are zero-initialised by the
+owner: decode gathers every page of a table, scratch included, and
+masked positions get probability exactly 0 — but ``0 × NaN`` from
+uninitialised memory would be NaN.
+
+**The model axis** (``plan=MeshPlan(data=1, model=Km)``): the model
+ranks are a leading dimension of the activations, as in training
+(``transformer/model.py``): rank m holds heads ``m*H/Km ..`` and a
+``V/Km`` slice of the vocab, every LayerNorm runs on ``(Km, B, t, d)``,
+and the row-parallel psums complete the partial sums.  Each rank's KV
+pool is its head slice of the global pool (``cache_shape`` is the local
+shape, ``heads_local`` heads), so the pool's layout is the collapsed
+program's; ``_full_logits`` is the concatenation of the ranks' vocab
+slices (the reference's tiled all-gather).
 
 Where JAX donates the pools through a jitted call, the port updates them
 **in place** (index assignment into the tensors passed in) and returns
@@ -33,7 +44,6 @@ through ``layers.layer_norm``, i.e. the fused CUDA kernel on the card.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..parallel.mesh import MeshPlan
 from ..parallel.ring_attention import local_attention
@@ -45,13 +55,31 @@ __all__ = ["DecodeProgram"]
 _NEG_INF = -1e30
 
 
+def _full_logits(logits_local):
+    """The ranks' ``(Km, B, V/Km)`` vocab slices concatenated into the
+    replicated ``(B, V)`` row (the tiled all-gather over ``model``)."""
+    km, b, v_local = logits_local.shape
+    return logits_local.transpose(0, 1).reshape(b, km * v_local)
+
+
+def _global_heads(x):
+    """``(Km, ..., H/Km, e)`` per-rank heads → ``(..., H, e)`` in the
+    global head order (rank m holds heads ``m*H/Km ..``)."""
+    return x.movedim(0, -3).flatten(-3, -2)
+
+
+def _rank_heads(x, km):
+    """The inverse of :func:`_global_heads`."""
+    return x.unflatten(-2, (km, -1)).movedim(-3, 0)
+
+
 class DecodeProgram:
     """One ``(config, plan)`` pair's concrete KV-cached decode program.
 
-    ``plan`` must be collapsed on every axis the port runs (data and
-    sequence are host concerns here, as in the reference, and ``model``
-    is not ported).  ``page_size`` fixes the token-block granularity; the
-    per-sequence page-table width is ``seq_len / page_size``."""
+    ``plan`` may keep only the ``model`` axis: data and sequence are
+    host concerns here, as in the reference.  ``page_size`` fixes the
+    token-block granularity; the per-sequence page-table width is
+    ``seq_len / page_size``."""
 
     def __init__(self, cfg, plan=None, page_size=8, kv_dtype=None):
         if not isinstance(cfg, TransformerLMConfig):
@@ -76,80 +104,85 @@ class DecodeProgram:
         self.program = MeshProgram(cfg, plan)
         self.page_size = int(page_size)
         self.pages_per_seq = cfg.seq_len // self.page_size
-        self.heads_local = cfg.n_heads
+        self.heads_local = cfg.n_heads // plan.size("model")
         self.kv_dtype = "float32"
+        self._rank_cache = None
 
     # -- geometry ----------------------------------------------------------
     def cache_shape(self, n_pages):
-        """K or V pool shape."""
+        """One model rank's K or V pool shape (its heads)."""
         return (self.cfg.n_layers, int(n_pages), self.page_size,
                 self.heads_local, self.cfg.head_dim)
 
+    def global_cache_shape(self, n_pages):
+        """The K or V pool of every model rank: what a runner allocates."""
+        return (self.cfg.n_layers, int(n_pages), self.page_size,
+                self.cfg.n_heads, self.cfg.head_dim)
+
     def bytes_per_page(self):
-        """Bytes one page pins: K+V for ``page_size`` tokens through every
-        layer — the unit the page allocator and fleet admission count."""
+        """Bytes one page pins across all model ranks: K+V for
+        ``page_size`` tokens through every layer — the unit the page
+        allocator and fleet admission count."""
         cfg = self.cfg
         return 2 * cfg.n_layers * self.page_size * cfg.n_heads \
             * cfg.head_dim * 4
 
+    def _rank_params(self, params):
+        """``MeshProgram._rank_params`` of ``params`` and each layer's
+        leaves, kept while the dict holds the same tensors: a decode step
+        is host-bound, and the shards are views, so an in-place update of
+        a parameter shows through.  Built anew under autograd, or where a
+        shard is a copy."""
+        vals = tuple(params.values())
+        c = self._rank_cache
+        if c is not None and c[0] is params and len(c[1]) == len(vals) \
+                and all(a is b for a, b in zip(c[1], vals)):
+            return c[2]
+        prog = self.program
+        p = prog._rank_params(params)
+        out = p, [prog._layer(p, i) for i in range(self.cfg.n_layers)]
+        if not torch.is_grad_enabled() and all(
+                p[n].untyped_storage().data_ptr()
+                == w.untyped_storage().data_ptr() for n, w in params.items()):
+            self._rank_cache = (params, vals, out)
+        return out
+
     # -- the phases ----------------------------------------------------------
-    def _block_tail(self, p, pre, h, o):
-        """Attention-out projection, residual, and the MLP half of a
-        block (shared by both phases)."""
-        plan = self.plan
-        o = torch.einsum("bthe,hed->btd", o, p[pre + "wo"])
-        h = h + L.row_parallel_out(o, plan)
-        m = L.layer_norm(h, p[pre + "ln2_scale"], p[pre + "ln2_bias"])
-        m = L.copy_to_model(m, plan)
-        f = L.column_parallel_dense(m, p[pre + "w1"], p[pre + "b1"])
-        # jax.nn.gelu defaults to the tanh approximation
-        f = F.gelu(f, approximate="tanh")
-        f = f @ p[pre + "w2"]
-        return h + L.row_parallel_out(f, plan, bias=p[pre + "b2"])
-
-    def _qkv(self, p, pre, h):
-        a = L.layer_norm(h, p[pre + "ln1_scale"], p[pre + "ln1_bias"])
-        a = L.copy_to_model(a, self.plan)
-        return tuple(torch.einsum("btd,dhe->bthe", a, p[pre + w])
-                     for w in ("wq", "wk", "wv"))
-
-    def _logits(self, p, h):
-        hf = L.layer_norm(h, p["lnf_scale"], p["lnf_bias"])
-        hf = L.copy_to_model(hf, self.plan)
-        return (hf @ p["w_out"])[:, 0]
-
     def prefill_replica(self, params, cache_k, cache_v, page_table,
                         tokens, lengths):
         """Full causal forward over a ``(B, Tb)`` padded prompt bucket:
         returns ``(logits, cache_k, cache_v)`` with the last *real*
         position's full-vocab next-token logits, every position's K/V
         written into ``page_table``'s pages in place (page-table tails of
-        0 land in scratch).  ``params`` is the name -> tensor dict;
+        0 land in scratch).  ``params`` is the name -> GLOBAL tensor dict;
+        the pools are the global ones (``global_cache_shape``);
         ``page_table`` ``(B, pages_per_seq)``, ``tokens`` ``(B, Tb)`` and
         ``lengths`` ``(B,)`` are int64 tensors on the pools' device."""
-        cfg, plan = self.cfg, self.plan
-        p = params
+        cfg, plan, prog = self.cfg, self.plan, self.program
+        p, layers = self._rank_params(params)
         B, Tb = tokens.shape
         ps = self.page_size
         h = L.vocab_parallel_embedding(p["embed"], tokens, plan)
         h = h + p["pos_embed"][:Tb][None]
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            pre = "l%d_" % i
-            q, k, v = self._qkv(p, pre, h)
-            ks.append(k)
-            vs.append(v)
-            o = local_attention(q, k, v, causal=True)
-            h = self._block_tail(p, pre, h, o)
+            lp = layers[i]
+            q, k, v = prog._qkv(lp, h)
+            ks.append(_global_heads(k))
+            vs.append(_global_heads(v))
+            hl, e = q.shape[-2:]
+            o = local_attention(*(a.reshape(-1, Tb, hl, e)
+                                  for a in (q, k, v)), causal=True)
+            h = prog._block_tail(lp, h, o.view(q.shape))
         # logits of the last real position only: slice the hidden state
         # BEFORE the vocab projection so the bucket tail never pays it
-        last = h[torch.arange(B, device=h.device),
-                 (lengths - 1).clamp(min=0)][:, None]
-        logits = self._logits(p, last)
+        last = h[:, torch.arange(B, device=h.device),
+                 (lengths - 1).clamp(min=0)][:, :, None]
+        logits = _full_logits(prog._logits(p, last)[:, :, 0])
         # bucket position t lands at (page_table[b, t // ps], t % ps)
         npg = Tb // ps
         pages = page_table[:, :npg]
-        shape = (cfg.n_layers, B, npg, ps, self.heads_local, cfg.head_dim)
+        shape = (cfg.n_layers, B, npg, ps, cfg.n_heads, cfg.head_dim)
         cache_k[:, pages] = torch.stack(ks).reshape(shape)
         cache_v[:, pages] = torch.stack(vs).reshape(shape)
         return logits, cache_k, cache_v
@@ -163,8 +196,9 @@ class DecodeProgram:
         gathered pages under a ``position <= length`` mask, and returns
         ``(logits, cache_k, cache_v)``.  Idle slots (zero table, length
         0) compute scratch garbage the host ignores."""
-        cfg, plan = self.cfg, self.plan
-        p = params
+        cfg, plan, prog = self.cfg, self.plan, self.program
+        km = plan.size("model")
+        p, layers = self._rank_params(params)
         ps = self.page_size
         B = tokens.shape[0]
         h = L.vocab_parallel_embedding(p["embed"], tokens[:, None], plan)
@@ -175,20 +209,19 @@ class DecodeProgram:
         seen = kpos[None, :] <= lengths[:, None]          # (B, T_max)
         scale = cfg.head_dim ** -0.5
         for i in range(cfg.n_layers):
-            pre = "l%d_" % i
-            q, k, v = self._qkv(p, pre, h)
-            cache_k[i, page_ids, offs] = k[:, 0]
-            cache_v[i, page_ids, offs] = v[:, 0]
-            kseq = cache_k[i][page_table].reshape(
-                B, -1, self.heads_local, cfg.head_dim)
-            vseq = cache_v[i][page_table].reshape(
-                B, -1, self.heads_local, cfg.head_dim)
-            s = torch.einsum("bqhd,bkhd->bhqk", q, kseq) * scale
-            s = torch.where(seen[:, None, None, :], s, _NEG_INF)
-            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+            lp = layers[i]
+            q, k, v = prog._qkv(lp, h)
+            cache_k[i, page_ids, offs] = _global_heads(k[:, :, 0])
+            cache_v[i, page_ids, offs] = _global_heads(v[:, :, 0])
+            kseq, vseq = (_rank_heads(c[i][page_table].reshape(
+                B, -1, cfg.n_heads, cfg.head_dim), km)
+                for c in (cache_k, cache_v))
+            s = torch.einsum("mbqhd,mbkhd->mbhqk", q, kseq) * scale
+            s = torch.where(seen[None, :, None, None, :], s, _NEG_INF)
+            o = torch.einsum("mbhqk,mbkhd->mbqhd", torch.softmax(s, dim=-1),
                              vseq)
-            h = self._block_tail(p, pre, h, o)
-        return self._logits(p, h), cache_k, cache_v
+            h = prog._block_tail(lp, h, o)
+        return _full_logits(prog._logits(p, h)[:, :, 0]), cache_k, cache_v
 
     def describe(self):
         return {"config": self.cfg.describe(),

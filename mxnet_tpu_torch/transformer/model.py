@@ -2,22 +2,35 @@
 
 :class:`TransformerLMConfig`; :class:`TransformerLM`, the config carrier
 ``DataParallelTrainer(mesh_plan=...)`` trains; and :class:`MeshProgram`:
-parameter names, shapes, the deterministic initializer and the
-per-replica training loss.  ``init_params`` draws from
+parameter names, shapes, partition specs, the deterministic initializer
+and the per-replica training loss.  ``init_params`` draws from
 ``numpy.random.RandomState`` in the reference's exact order
 (``model.py:233-281``), so the same seed gives bitwise-equal arrays in
 both packages.  :func:`from_jax_params` turns the JAX package's
 parameters (numpy arrays in ``MeshProgram`` layout — what its
 ``init_params`` or a decode checkpoint holds) into the port's tensors.
 
-The per-replica program runs every rank of the plan's ``sequence`` axis
-at once, as a leading rank dimension of size K (``parallel/mesh.py``):
-:meth:`MeshProgram.loss_replica` takes ``(K, B, T/K)`` token chunks and
-returns the K per-rank losses.  Positions are global (rank r starts at
-``r * T/K``), and attention crosses ranks through ring or Ulysses
-attention (``parallel/ring_attention.py``).  The ``model`` axis is
-collapsed (item 7) and the stage-stacked ``blk_*`` pipeline layout is
-not ported (item 8): ``MeshPlan`` refuses either axis.
+The per-replica program runs every rank of the plan's ``model`` and
+``sequence`` axes at once, as two leading rank dimensions of the
+activations, ``(Km, Ks, B, T/Ks, ...)`` (``parallel/mesh.py``):
+:meth:`MeshProgram.loss_replica` takes ``(Ks, B, T/Ks)`` token chunks
+and returns the ``(Km, Ks)`` per-rank losses.  Positions are global
+(sequence rank r starts at ``r * T/Ks``), attention crosses sequence
+ranks through ring or Ulysses attention
+(``parallel/ring_attention.py``), and the model ranks meet in the
+collectives of ``layers.py``.
+
+**Parameters stay global tensors** (``init_params``, ``from_jax_params``
+and checkpoints keep the reference's layout).  Each rank's shard is a
+view, :meth:`MeshProgram.rank_view`: a parameter split over ``model`` on
+dim ``i`` by ``partition_spec`` (the reference's table, ``:172-205``)
+is viewed with that dim cut into ``(Km, size/Km)`` and the Km moved to
+the front — ``wq (d, h, e)`` is ``(Km, d, h/Km, e)``, ``wo (h, e, d)``
+``(Km, h/Km, e, d)``, ``w1`` / ``b1`` / ``w2`` split on ``f``,
+``embed`` / ``w_out`` on ``v``; a replicated parameter is read as it is
+by every rank, through ``layers.replicated``.  The stage-stacked
+``blk_*`` pipeline layout is not ported (item 8): ``MeshPlan`` refuses
+the axis.
 """
 from __future__ import annotations
 
@@ -26,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import resolve_device
+from ..parallel.mesh import PartitionSpec
 
 __all__ = ["TransformerLMConfig", "TransformerLM", "MeshProgram",
            "from_jax_params"]
@@ -112,32 +126,60 @@ _LAYER_KINDS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
 
 class MeshProgram:
     """One (config, plan) pair's parameter layout, initializer and
-    per-replica loss, for plans with a ``sequence`` axis of any size and
-    the ``model`` and ``pipe`` axes collapsed."""
+    per-replica loss, for plans with ``model`` and ``sequence`` axes of
+    any size and the ``pipe`` axis collapsed."""
 
     def __init__(self, cfg, plan):
-        if cfg.seq_len % plan.size("sequence"):
+        km, ks = plan.size("model"), plan.size("sequence")
+        if cfg.n_heads % km:
+            raise ValueError("n_heads %d must divide by the model axis %d"
+                             % (cfg.n_heads, km))
+        if cfg.d_ff % km:
+            raise ValueError("d_ff %d must divide by the model axis %d"
+                             % (cfg.d_ff, km))
+        if cfg.vocab_size % km:
+            raise ValueError("vocab_size %d must divide by the model "
+                             "axis %d" % (cfg.vocab_size, km))
+        if cfg.seq_len % ks:
             raise ValueError("seq_len %d must divide by the sequence "
-                             "axis %d" % (cfg.seq_len, plan.size("sequence")))
+                             "axis %d" % (cfg.seq_len, ks))
         self.cfg = cfg
         self.plan = plan
         self.attention_mode = _attention_mode(cfg, plan)
+        model = "model"
         d, h, e, f, v = (cfg.d_model, cfg.n_heads, cfg.head_dim,
                          cfg.d_ff, cfg.vocab_size)
-        layer = [("ln1_scale", (d,)), ("ln1_bias", (d,)),
-                 ("wq", (d, h, e)), ("wk", (d, h, e)), ("wv", (d, h, e)),
-                 ("wo", (h, e, d)),
-                 ("ln2_scale", (d,)), ("ln2_bias", (d,)),
-                 ("w1", (d, f)), ("b1", (f,)), ("w2", (f, d)),
-                 ("b2", (d,))]
-        assert tuple(k for k, _ in layer) == _LAYER_KINDS
-        specs = [("embed", (v, d)), ("pos_embed", (cfg.seq_len, d))]
+        # kind -> (per-layer global shape, the dims split over model),
+        # the reference's table
+        layer = [("ln1_scale", (d,), (None,)),
+                 ("ln1_bias", (d,), (None,)),
+                 ("wq", (d, h, e), (None, model, None)),
+                 ("wk", (d, h, e), (None, model, None)),
+                 ("wv", (d, h, e), (None, model, None)),
+                 ("wo", (h, e, d), (model, None, None)),
+                 ("ln2_scale", (d,), (None,)),
+                 ("ln2_bias", (d,), (None,)),
+                 ("w1", (d, f), (None, model)),
+                 ("b1", (f,), (model,)),
+                 ("w2", (f, d), (model, None)),
+                 ("b2", (d,), (None,))]
+        assert tuple(k for k, _, _ in layer) == _LAYER_KINDS
+        specs = [("embed", (v, d), (model, None)),
+                 ("pos_embed", (cfg.seq_len, d), ())]
         for i in range(cfg.n_layers):
-            specs += [("l%d_%s" % (i, kind), shape) for kind, shape in layer]
-        specs += [("lnf_scale", (d,)), ("lnf_bias", (d,)),
-                  ("w_out", (d, v))]
-        self.param_names = [n for n, _ in specs]
-        self._shapes = dict(specs)
+            specs += [("l%d_%s" % (i, kind), shape, entries)
+                      for kind, shape, entries in layer]
+        specs += [("lnf_scale", (d,), ()), ("lnf_bias", (d,), ()),
+                  ("w_out", (d, v), (None, model))]
+        self.param_names = [n for n, _, _ in specs]
+        self._shapes = {n: s for n, s, _ in specs}
+        # the split dim of each parameter (None: replicated); its spec
+        # names the axis only where the plan keeps it
+        self._split = {n: (p.index(model) if model in p else None)
+                       for n, _, p in specs}
+        keep = plan.present(model)
+        self._specs = {n: PartitionSpec(*(a if keep else None for a in p))
+                       for n, _, p in specs}
 
     @staticmethod
     def _init_leaf(rng, cfg, name, shape):
@@ -157,8 +199,9 @@ class MeshProgram:
                 ).astype(_np.float32)
 
     def init_params(self, seed=None):
-        """Deterministic parameter arrays, name -> float32 ndarray, bitwise
-        equal to the reference's ``init_params`` for the same seed."""
+        """Deterministic GLOBAL parameter arrays, name -> float32 ndarray,
+        bitwise equal to the reference's ``init_params`` for the same
+        seed at any plan."""
         cfg = self.cfg
         rng = _np.random.RandomState(
             cfg.init_seed if seed is None else int(seed))
@@ -175,34 +218,80 @@ class MeshProgram:
         return out
 
     # -- layout -----------------------------------------------------------
+    def partition_spec(self, name):
+        return self._specs[name]
+
     def global_shape(self, name):
         return self._shapes[name]
 
     def local_shape(self, name):
-        """The per-replica shape: every parameter is replicated over the
-        axes the port runs, so it is the global shape."""
-        return self._shapes[name]
+        """One rank's shard shape (the reference's ``local_shape``)."""
+        shape = list(self._shapes[name])
+        dim = self._split[name]
+        if dim is not None:
+            shape[dim] //= self.plan.size("model")
+        return tuple(shape)
 
     def local_batch_shape(self, global_batch):
         """``(batch, tokens)`` of one replica's chunk."""
         return (global_batch // self.plan.size("data"),
                 self.cfg.seq_len // self.plan.size("sequence"))
 
+    def rank_view(self, name, w):
+        """Every model rank's shard of the global ``w``, stacked on a
+        leading rank dimension: a view, ``(Km, *local_shape)``; a
+        replicated parameter is broadcast (no copy)."""
+        km = self.plan.size("model")
+        dim = self._split[name]
+        if dim is None:
+            return w.unsqueeze(0).expand((km,) + tuple(w.shape))
+        shape = tuple(w.shape)
+        return w.reshape(shape[:dim] + (km, shape[dim] // km)
+                         + shape[dim + 1:]).movedim(dim, 0)
+
+    def rank_unview(self, name, stacked):
+        """The inverse of :meth:`rank_view`: the global tensor from the
+        ranks' ``(Km, *local_shape)`` shards (rank 0's copy of a
+        replicated parameter)."""
+        dim = self._split[name]
+        if dim is None:
+            return stacked[0]
+        return stacked.movedim(0, dim).reshape(self._shapes[name])
+
+    def _rank_params(self, p):
+        """What each rank reads, by name: the stacked shards of the split
+        parameters, the replicated ones through ``layers.replicated``."""
+        from . import layers as L
+        return {n: (L.replicated(w, self.plan)
+                    if self._split[n] is None else self.rank_view(n, w))
+                for n, w in p.items()}
+
     # -- the per-replica forward + loss ---------------------------------------
     def _attend(self, q, k, v):
         from ..parallel.ring_attention import (local_attention,
                                                ring_attention,
                                                ulysses_attention)
-        if self.attention_mode == "ring":
-            return ring_attention(q, k, v, self.plan, causal=True)
-        if self.attention_mode == "ulysses":
-            return ulysses_attention(q, k, v, self.plan, causal=True)
-        return local_attention(q[0], k[0], v[0], causal=True)[None]
+        if self.attention_mode in ("ring", "ulysses"):
+            # the model ranks fold into the batch of the (Ks, B, Tl, H/Km,
+            # e) chunks: a ring hop stays ONE launch over Km*B*H/Km heads,
+            # and Ulysses swaps each model rank's local heads (a view at
+            # Km = 1)
+            attend = ring_attention if self.attention_mode == "ring" \
+                else ulysses_attention
+            km, ks, b = q.shape[:3]
+            o = attend(*(a.transpose(0, 1).reshape((ks, km * b)
+                                                   + a.shape[3:])
+                         for a in (q, k, v)), self.plan, causal=True)
+            return o.reshape((ks, km, b) + o.shape[2:]).transpose(0, 1)
+        lead, (t, hl, e) = q.shape[:-3], q.shape[-3:]
+        o = local_attention(*(a.reshape(-1, t, hl, e) for a in (q, k, v)),
+                            causal=True)
+        return o.view(q.shape)
 
     def _embed_in(self, p, x):
-        """Token + position embedding of the ``(K, b, t)`` chunks onto the
-        residual stream, each rank's positions offset by its global
-        start."""
+        """Token + position embedding of the ``(Ks, b, t)`` chunks onto the
+        ``(Km, Ks, b, t, d)`` residual stream, each sequence rank's
+        positions offset by its global start."""
         from . import layers as L
 
         plan, t_local = self.plan, x.shape[-1]
@@ -212,52 +301,76 @@ class MeshProgram:
                              + torch.arange(t_local, device=x.device)]
         return h + pos[:, None].to(h.dtype)
 
-    def _block(self, lp, h):
-        """One transformer block over per-layer param leaves ``lp``."""
+    def _layer(self, p, i):
+        """Layer ``i``'s leaves, kind -> what each rank reads."""
+        return {kind: p["l%d_%s" % (i, kind)] for kind in _LAYER_KINDS}
+
+    def _qkv(self, lp, h):
+        """LayerNorm and the column-parallel Q, K, V projections of the
+        ``(Km, ..., d)`` residual stream: ``(Km, ..., H/Km, e)`` each."""
+        from . import layers as L
+
+        km = h.shape[0]
+        hl, e = lp["wq"].shape[-2:]
+        a = L.layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
+        # Megatron f-op: every replicated activation entering a
+        # column-parallel region needs its cotangent summed back
+        a = L.copy_to_model(a, self.plan)
+        return tuple(L.column_parallel_dense(
+            a, lp[w].reshape(km, -1, hl * e)).view(a.shape[:-1] + (hl, e))
+            for w in ("wq", "wk", "wv"))
+
+    def _block_tail(self, lp, h, o):
+        """The row-parallel attention-out projection, the residual, and
+        the MLP half of a block (shared with ``decode.py``)."""
         from . import layers as L
 
         plan = self.plan
-        a = L.layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
-        a = L.copy_to_model(a, plan)
-        q = torch.einsum("...d,dhe->...he", a, lp["wq"])
-        k = torch.einsum("...d,dhe->...he", a, lp["wk"])
-        v = torch.einsum("...d,dhe->...he", a, lp["wv"])
-        o = self._attend(q, k, v)
-        o = torch.einsum("...he,hed->...d", o, lp["wo"])
+        km, (hl, e) = h.shape[0], o.shape[-2:]
+        o = L.column_parallel_dense(o.reshape(o.shape[:-2] + (hl * e,)),
+                                    lp["wo"].reshape(km, hl * e, -1))
         h = h + L.row_parallel_out(o, plan)
         m = L.layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
         m = L.copy_to_model(m, plan)
         f = L.column_parallel_dense(m, lp["w1"], lp["b1"])
         # jax.nn.gelu defaults to the tanh approximation
         f = F.gelu(f, approximate="tanh")
-        f = f @ lp["w2"]
+        f = L.column_parallel_dense(f, lp["w2"])
         return h + L.row_parallel_out(f, plan, bias=lp["b2"])
 
-    def _head_loss(self, p, h, y):
-        """Final norm + head + each rank's mean token loss, ``(K,)``."""
+    def _block(self, lp, h):
+        """One transformer block over per-layer leaves ``lp``."""
+        return self._block_tail(lp, h, self._attend(*self._qkv(lp, h)))
+
+    def _logits(self, p, h):
+        """Final norm and the vocab-parallel head: ``(Km, ..., V/Km)``."""
         from . import layers as L
 
-        plan = self.plan
         hf = L.layer_norm(h, p["lnf_scale"], p["lnf_bias"])
-        hf = L.copy_to_model(hf, plan)
-        logits = hf @ p["w_out"]
-        return L.vocab_parallel_cross_entropy(logits, y, plan).mean(
-            dim=(-2, -1))
+        hf = L.copy_to_model(hf, self.plan)
+        return L.column_parallel_dense(hf, p["w_out"])
+
+    def _head_loss(self, p, h, y):
+        """Each rank's mean token loss, ``(Km, Ks)``."""
+        from . import layers as L
+        return L.vocab_parallel_cross_entropy(
+            self._logits(p, h), y, self.plan).mean(dim=(-2, -1))
 
     def loss_replica(self, train_vals, x, y, key=None):
-        """Each sequence rank's mean causal-LM loss of its LOCAL token
-        chunk, ``(K,)``.  ``train_vals`` follow ``param_names`` order;
-        ``x``/``y`` are the ``(K, B, T/K)`` token/label chunks (labels
-        already globally shifted by the feeder).  The ring or all-to-all
-        of attention is inside; the mean over ranks (the reference's
-        ``pmean``) is the step's (``transformer/step.py``).  ``key`` is
+        """Each (model, sequence) rank's mean causal-LM loss of its LOCAL
+        token chunk, ``(Km, Ks)`` (the Km entries of a sequence rank are
+        equal: the losses are completed over ``model``).  ``train_vals``
+        are the GLOBAL parameters in ``param_names`` order; ``x``/``y``
+        are the ``(Ks, B, T/Ks)`` token/label chunks (labels already
+        globally shifted by the feeder).  The model collectives, and the
+        ring or all-to-all of attention, are inside; the reduction over
+        ranks is the step's (``transformer/step.py``).  ``key`` is
         unused, as in the reference (no dropout)."""
         cfg = self.cfg
-        p = dict(zip(self.param_names, train_vals))
+        p = self._rank_params(dict(zip(self.param_names, train_vals)))
         h = self._embed_in(p, x)
         for i in range(cfg.n_layers):
-            h = self._block({kind: p["l%d_%s" % (i, kind)]
-                             for kind in _LAYER_KINDS}, h)
+            h = self._block(self._layer(p, i), h)
         return self._head_loss(p, h, y)
 
     def describe(self):

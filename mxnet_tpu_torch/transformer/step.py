@@ -5,16 +5,28 @@
 :class:`~.model.MeshProgram`:
 
 - ``grads_part``: forward and backward of the per-rank losses
-  (``loss_replica``, ``(K,)``) and their mean over the ``sequence``
-  ranks.  That mean is the reference's ``pmean`` of the loss and of every
-  gradient over the batch axes (``:150-151``, ``:166-168``): the
-  parameters are shared by the K ranks of the stacked spelling, so
-  autograd of the mean sums each rank's gradient and divides by K, and
-  the ring backward has already routed the cross-rank cotangents once.
+  (``loss_replica``, ``(Km, Ks)``: a leading dimension per ``model`` and
+  ``sequence`` rank), then the reference's ``pmean`` of the loss and of
+  every gradient over the batch axes (``:150-151``, ``:166-168``).
+  In the reference each replica differentiates its OWN loss, and the
+  losses and gradients are averaged over ``data`` and ``sequence`` only;
+  model-sharded parameters keep their per-shard gradients (``:8-12``).
+  The stacked spelling differentiates ONE scalar: the **sum** over the
+  Km model ranks (the custom backwards of ``layers.py`` route each
+  rank's cotangent to its own shard, so a shard's gradient is its
+  rank's; a mean would scale it by 1/Km) of the **mean** over the Ks
+  sequence ranks (the parameters are shared by the ranks of the stacked
+  spelling, so autograd of the mean sums each rank's gradient and
+  divides by Ks, and the ring backward has already routed the
+  cross-rank cotangents once).  A replicated parameter is read by all
+  Km ranks and would collect Km copies of its gradient;
+  ``layers.replicated`` divides them back, so it comes out equal to one
+  rank's.  The loss reported is model rank 0's (the Km are equal).
 - ``update_part``: the optimizer applied parameter by parameter through
   a caller-supplied ``apply_update`` (the trainer passes the optimizer's
   own rule via ``functional_optimizer_update``), the loop of
-  ``:186-194``.
+  ``:186-194``; on the global parameters, as the optimizer is
+  elementwise.
 
 ``compute_dtype`` (mixed precision, ``:95-150``): the parameters stay
 f32 — they are the masters — and are cast with the batch to the compute
@@ -23,18 +35,24 @@ gradients come back f32 through the cast and the loss is returned f32.
 No loss scaling here, as in the reference: bfloat16 has f32's exponent.
 
 **The data axis** (``MeshPlan(data=D, ...)``): the D data ranks run in
-turn, each on its rows of the batch, beside the sequence ranks (a loop
-over data ranks around the leading sequence dimension, not a second
-leading dimension).  Each data rank's loss and gradients are already
-its sequence mean; the data ranks' are then averaged through the
-collectives of ``parallel/comm.py`` (the reference's ``pmean`` over the
-batch axes, ``:150-168``).
+turn, each on its rows of the batch, around the model and sequence
+dimensions (a loop over data ranks, not a third leading dimension).
+Each data rank's loss and gradients are already its sequence mean; the
+data ranks' are then averaged through the collectives of
+``parallel/comm.py`` (the reference's ``pmean`` over the batch axes,
+``:150-168``).
 
-**ZeRO-1** (``zero=1``, :class:`TPZeroPlan`, ``:40-93,219-255``): after
-the sequence mean, each data rank's flat local gradient is
-reduce-scattered over ``data``; each data rank updates its ``(shard,)``
-slice of the flat parameter space with its own optimizer state, and the
-slices are all-gathered back into the parameters.  A pipelined plan
+**ZeRO-1** (``zero=1``, :class:`TPZeroPlan`, ``:40-93,219-255``): one
+flat local space per model rank (its shards raveled in ``param_names``
+order, padded to the data-axis size), sharded over ``data``: the flat
+axes are ``("model", "data")``, the reference's, so ZeRO checkpoints
+cross between the packages.  After the sequence mean, each data rank's
+``(Km, padded)`` flat gradients are laid out data-major, ``(K, Km,
+shard)`` (a view at Km = 1), and go through the comm's reduce-scatter
+over ``data``; data rank d updates the ``(Km, shard)`` slice it owns
+(one optimizer call on its ``Km * shard`` contiguous elements, with its
+own state), and the comm's all-gather writes the slices back before the
+parameters are unraveled.  A pipelined plan
 (item 8) is not ported and raises.
 """
 from __future__ import annotations
@@ -65,10 +83,41 @@ class TPZeroPlan:
                 "shard": self.shard}
 
 
-def _unflatten(flat, plan):
+def _flatten_ranks(program, vals, plan):
+    """Each model rank's flat local space, ``(Km, padded)`` f32: its
+    shards raveled in ``param_names`` order, zero-padded (the reference's
+    ``_flatten_pad`` on every rank)."""
+    km = program.plan.size("model")
+    parts = [program.rank_view(n, v.detach()).reshape(km, -1).float()
+             for n, v in zip(program.param_names, vals)]
+    pad = plan.padded - plan.total
+    if pad:
+        parts.append(parts[0].new_zeros(km, pad))
+    return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+
+def _data_major(flat, k):
+    """``(Km, padded)`` in ``("model", "data")`` order to the flat
+    ``(K * Km * shard,)`` vector whose K contiguous shards are the data
+    ranks' ``(Km, shard)`` columns (a view at Km = 1)."""
+    km = flat.shape[0]
+    return flat.view(km, k, -1).transpose(0, 1).reshape(-1)
+
+
+def _model_major(flat, k, km):
+    """The inverse of :func:`_data_major`: ``(Km, padded)``."""
+    return flat.view(k, km, -1).transpose(0, 1).reshape(km, -1)
+
+
+def _unflatten_ranks(program, flat, plan):
+    """The inverse of :func:`_flatten_ranks`: the global parameters (views
+    of ``flat`` where the layout allows)."""
+    km = flat.shape[0]
     out, off = [], 0
-    for shape, size in zip(plan.local_shapes, plan.sizes):
-        out.append(flat[off:off + size].view(shape))
+    for name, shape, size in zip(program.param_names, plan.local_shapes,
+                                 plan.sizes):
+        out.append(program.rank_unview(
+            name, flat[:, off:off + size].reshape((km,) + tuple(shape))))
         off += size
     return tuple(out)
 
@@ -89,7 +138,6 @@ def build_parts(program, apply_update, state_leaf_counts, zero=0,
     new_leaves)``; under ``zero=1`` ``state_leaves`` holds one tuple of
     leaves per data rank."""
     from ..parallel.comm import InProcessComm
-    from ..parallel.zero import _flatten_pad
     from ..precision import resolve_dtype
     if zero and zero_plan is None:
         raise ValueError("zero=1 needs a TPZeroPlan")
@@ -106,12 +154,13 @@ def build_parts(program, apply_update, state_leaf_counts, zero=0,
             return v.to(dtype)
         return v
 
+    km = program.plan.size("model")
+
     def _rank(train_vals, x, y, key):
         vals = tuple(_to_compute(w) for w in train_vals)
-        losses = program.loss_replica(vals, _to_compute(x), y, key)
-        loss = losses.float().mean()
-        grads = torch.autograd.grad(loss, tuple(train_vals))
-        return grads, loss.detach()
+        losses = program.loss_replica(vals, _to_compute(x), y, key).float()
+        grads = torch.autograd.grad(losses.sum(0).mean(), tuple(train_vals))
+        return grads, losses[0].mean().detach()
 
     def grads_part(train_vals, xs, ys, key=None):
         per = [_rank(train_vals, x, y, key) for x, y in zip(xs, ys)]
@@ -119,14 +168,18 @@ def build_parts(program, apply_update, state_leaf_counts, zero=0,
             return per[0]
         loss = comm.mean([l for _, l in per])
         if zero:
-            rows = [_flatten_pad(g, zero_plan) for g, _ in per]
+            # data rank d owns columns [d * shard, (d + 1) * shard) of
+            # every model rank's space: its (Km * shard,) shard
+            rows = [_data_major(_flatten_ranks(program, g, zero_plan),
+                                comm.k) for g, _ in per]
             return comm.reduce_scatter_mean(rows), loss
         grads = tuple(comm.mean(list(gs)) for gs in zip(*(g for g, _ in per)))
         return grads, loss
 
     def update_part(train_vals, state_leaves, grads, lr, t):
         if zero:
-            flat_w = _flatten_pad(train_vals, zero_plan)
+            flat_w = _data_major(
+                _flatten_ranks(program, train_vals, zero_plan), comm.k)
             shards = flat_w.view(comm.k, -1)
             new_sh, new_leaves = [], []
             for r, leaves, g_sh in zip(comm.local_ranks, state_leaves,
@@ -136,7 +189,9 @@ def build_parts(program, apply_update, state_leaf_counts, zero=0,
                 new_sh.append(nw)
                 new_leaves.append(tuple(nl))
             comm.all_gather(new_sh, flat_w)
-            return _unflatten(flat_w, zero_plan), new_leaves
+            return _unflatten_ranks(
+                program, _model_major(flat_w, comm.k, km),
+                zero_plan), new_leaves
         new_vals, new_leaves, off = [], [], 0
         for i, (w, g) in enumerate(zip(train_vals, grads)):
             n = state_leaf_counts[i]

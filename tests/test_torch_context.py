@@ -170,13 +170,32 @@ def test_device_list_and_context_groups_train_as_the_reference():
                                    err_msg=k)
 
 
-def test_group2ctx_specs_and_distinct_devices_name_their_items():
-    from mxnet_tpu_torch.parallel.mesh import PartitionSpec
+def test_group2ctx_specs_and_distinct_devices_name_their_items(tmp_path):
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel.mesh import PartitionSpec, make_mesh
     net = _two_group_net(mx)
-    with pytest.raises(NotImplementedError, match="A7"):
-        mx.mod.Module(net, group2ctxs={"g0": PartitionSpec("model")})
-    with pytest.raises(NotImplementedError, match="A7"):
-        net.bind(mx.cpu(), args={}, group2ctx={"g1": (None, "model")})
+    # ported by item A7(a): a sharding spec is recorded, and over an
+    # in-process mesh each argument of the group reads it (held against
+    # the reference in tests/test_torch_tensor_parallel.py)
+    mx.mod.Module(net, group2ctxs={"g0": PartitionSpec("model")})
+    rng = np.random.RandomState(0)
+    args = {n: rng.rand(*shape).astype(np.float32) for n, shape in zip(
+        net.list_arguments(), net.infer_shape(data=(4, 8))[0])}
+    exe = net.bind(make_mesh((2,), ("model",), ["cpu"] * 2), args=args,
+                   group2ctx={"g1": (None, "model")})
+    assert tuple(exe._sharding("fc2_weight").spec) == (None, "model")
+    # over a mesh of one rank per process it is item A7(b)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            init_method="file://" + str(tmp_path / "pg"))
+    try:
+        pg = make_mesh((1,), ("model",), process_group=True)
+        with pytest.raises(NotImplementedError, match="A7\\(b\\)"):
+            mx.mod.Module(net, context=pg,
+                          group2ctxs={"g0": PartitionSpec("model")})
+        with pytest.raises(NotImplementedError, match="A7\\(b\\)"):
+            net.bind(pg, args=args, group2ctx={"g1": (None, "model")})
+    finally:
+        dist.destroy_process_group()
     # a replicated spec is a placement the port keeps
     mx.mod.Module(net, group2ctxs=[{"g0": PartitionSpec()}])
     from mxnet_tpu_torch.executor import _device_of

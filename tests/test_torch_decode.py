@@ -201,8 +201,8 @@ def test_decode_program_rejects_bad_geometry():
         _runner(buckets=(6,), warmup=False)
     with pytest.raises(MXNetError):   # page 0 is scratch: >= 2 pages
         PagePool(1, 8, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshPlan(data=1, model=2)     # NCCL sharding is a later slice
+    with pytest.raises(ValueError, match="n_heads"):
+        DecodeProgram(cfg, plan=MeshPlan(data=1, model=4))  # 2 heads
     with pytest.raises(NotImplementedError, match="int8"):
         DecodeProgram(cfg, kv_dtype="int8")
 

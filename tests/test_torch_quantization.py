@@ -593,13 +593,15 @@ def test_unported_surface_names_its_roadmap_item():
     mod = Module(net, label_names=None, context="cpu")
     mod.bind([("data", (1, 4))], for_training=False)
     # item 6(b) binds Context groups and a device list of one device;
-    # a sharding group value is item A7, distinct devices item A6(c)
+    # item A7(a) records a sharding group value (over a mesh of one rank
+    # per process it is item A7(b), tests/test_torch_context.py),
+    # distinct devices are item A6(c)
     from mxnet_tpu_torch.parallel.mesh import PartitionSpec
     Module(net, label_names=None, context="cpu", group2ctxs={"g": "cpu"})
     Executor.simple_bind(net, ctx=["cpu", "cpu"], shapes={"data": (1, 4)})
-    with pytest.raises(NotImplementedError, match="A7"):
-        Module(net, label_names=None, context="cpu",
-               group2ctxs={"g": PartitionSpec("model")})
+    sharded = Module(net, label_names=None, context="cpu",
+                     group2ctxs={"g": PartitionSpec("model")})
+    assert sharded._group2ctx() == {"g": PartitionSpec("model")}
     with pytest.raises(NotImplementedError, match="A6\\(c\\)"):
         Executor.simple_bind(net, ctx=["cpu", "cuda:0"],
                              shapes={"data": (1, 4)})

@@ -280,6 +280,18 @@ def test_unported_trainer_tiers_raise(arg, value, item):
             losses.append(float(tr.step(batch, y)))
         assert losses[0] == losses[1]
         return
+    if arg == "mesh_plan":
+        # ported by item 7(a): a model axis trains a mesh-program block
+        # (held in tests/test_torch_tensor_parallel.py); a Gluon net
+        # under a plan is refused, as the reference refuses it
+        with pytest.raises(ValueError, match="mesh_program"):
+            JaxTrainer(_make("jax"), jgluon.loss.SoftmaxCrossEntropyLoss(),
+                       "sgd", **{arg: value})
+        with pytest.raises(ValueError, match="mesh_program"):
+            DataParallelTrainer(_make("port"),
+                                gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                                device="cpu", **{arg: value})
+        return
     with pytest.raises(NotImplementedError, match=item):
         DataParallelTrainer(_make("port"),
                             gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",

@@ -192,9 +192,9 @@ def _batch(batch=4, seed=1):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
-def _jax_train(k_ranks, attention, data=1, zero=0):
+def _jax_train(k_ranks, attention, data=1, zero=0, model=1):
     mx.random.seed(0)
-    plan = JaxPlan(data=data, sequence=k_ranks)
+    plan = JaxPlan(data=data, model=model, sequence=k_ranks)
     tr = JaxTrainer(JaxLM(JaxConfig(**CFG, attention=attention)), None, "sgd",
                     dict(SGD), mesh_plan=plan, zero=zero)
     x, y = _batch()
@@ -297,6 +297,16 @@ def test_unported_axes_and_modes_raise(make, item):
         want_losses, want_params = _jax_train(seq, "ring", data=data,
                                               zero=jzero)
         tr, losses = _port_train(plan, zero=zero)
+        np.testing.assert_allclose(losses, want_losses, rtol=0,
+                                   atol=LOSS_TOL)
+        _assert_mesh_params(tr.mesh_params(), want_params)
+        return
+    if item == "item 7":
+        # ported by item 7(a): the model ranks as a leading dimension,
+        # held to the reference's same plan (every other TP plan is held in
+        # tests/test_torch_tensor_parallel.py)
+        want_losses, want_params = _jax_train(1, "ring", model=2)
+        tr, losses = _port_train(make())
         np.testing.assert_allclose(losses, want_losses, rtol=0,
                                    atol=LOSS_TOL)
         _assert_mesh_params(tr.mesh_params(), want_params)
